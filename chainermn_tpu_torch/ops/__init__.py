@@ -1,0 +1,31 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+Every wrapper takes its plain version for a CPU tensor and launches its
+CUDA kernel for a CUDA tensor (or raises); each counts its launches in a
+plain integer attribute, ``<wrapper>.launches``.
+"""
+
+from .decode_attention import decode_attend, decode_attend_plain
+from .flash_attention import flash_attention, flash_attention_plain
+from .kv_cache import cache_append, cache_append_plain
+
+KERNEL_WRAPPERS = {
+    "flash_fwd": flash_attention,
+    "decode_attend": decode_attend,
+    "cache_append": cache_append,
+}
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches}`` since the last reset."""
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = ["cache_append", "cache_append_plain", "decode_attend",
+           "decode_attend_plain", "flash_attention", "flash_attention_plain",
+           "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]

@@ -1,0 +1,271 @@
+"""Serving API: submit → handle, one engine iteration per ``step``, metrics.
+
+Counterpart of ``chainermn_tpu/serving/frontend.py``.
+:class:`ServingEngine` glues the scheduler, the slot pool and the decode
+engine into the loop a service runs::
+
+    eng = ServingEngine(params, head_dim=64, n_slots=8, max_total=1024)
+    h = eng.submit([3, 1, 4], max_new_tokens=16)
+    eng.run()
+    print(h.tokens, h.status, h.ttft_ms)
+
+Each ``step()`` expires overdue queued work, admits (prefills) up to the
+interleaving bound, runs ONE decode tick over the pool, streams the new
+tokens and evicts finished sequences, so requests join and leave between
+ticks (continuous batching).  ``metrics()`` reports the JAX engine's
+``serving/*`` keys that this slice has.  Not in this slice: prefix cache,
+host spill, flight recorder, tracer, SLO tracking, the background driver
+thread, prefill length buckets, trace ids, sampling and GQA models.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from .._device import resolve_device
+from ..convert import tree_map
+from ..observability.slo import ReservoirSample
+from ..parallel.decode import _kv_heads
+from .cache_pool import CachePool
+from .engine import DecodeEngine
+from .scheduler import AdmissionError, Request, Scheduler
+
+# latency samples kept per percentile (the JAX engine's default)
+_STATS_CAPACITY = 1024
+
+
+class RequestHandle:
+    """Caller's view of one submitted request."""
+
+    def __init__(self, req: Request):
+        self._req = req
+
+    @property
+    def id(self) -> int:
+        return self._req.id
+
+    @property
+    def status(self) -> str:
+        return self._req.status
+
+    @property
+    def finish_reason(self) -> Optional[str]:
+        return self._req.finish_reason
+
+    @property
+    def tokens(self) -> List[int]:
+        return list(self._req.tokens)
+
+    @property
+    def timestamps(self) -> Dict[str, float]:
+        return dict(self._req.timestamps)
+
+    @property
+    def ttft_ms(self) -> Optional[float]:
+        ts = self._req.timestamps
+        if "submitted" in ts and "first_token" in ts:
+            return (ts["first_token"] - ts["submitted"]) * 1e3
+        return None
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the request finishes; True iff it did."""
+        return self._req.done_event.wait(timeout)
+
+
+class ServingEngine:
+    """Continuous-batching greedy inference over a slot-managed KV pool.
+
+    ``params``: ``init_tp_transformer_lm`` tensors (moved to ``device``).
+    ``max_total`` bounds each slot's sequence (prompt + generated); a
+    request that cannot fit is rejected at submit (``AdmissionError``,
+    reason ``too_long``), as is any submit while the bounded queue is full
+    (``queue_full``).
+    """
+
+    def __init__(self, params, *, head_dim: int, n_slots: int = 4,
+                 max_total: int = 128, queue_capacity: int = 16,
+                 max_prefills_per_tick: int = 1, device="cuda"):
+        dev = resolve_device(device)
+        n_kv = _kv_heads(params, head_dim)
+        n_heads = params["embed"].shape[1] // head_dim
+        if n_kv != n_heads:
+            raise NotImplementedError(
+                f"GQA serving (n_kv_heads {n_kv} < n_heads {n_heads}) is not "
+                f"ported yet")
+        params = tree_map(params, lambda t: t.to(dev))
+        self.pool = CachePool(n_slots, max_total, len(params["blocks"]),
+                              n_kv * head_dim, params["embed"].dtype, dev)
+        self.engine = DecodeEngine(params, self.pool, head_dim=head_dim)
+        self.scheduler = Scheduler(
+            queue_capacity, max_total,
+            max_prefills_per_tick=max_prefills_per_tick,
+            max_positions=self.engine.max_positions)
+        self._running: Dict[int, Request] = {}   # slot -> request
+        self._lock = threading.Lock()            # guards _running + stats
+        self._closed = False
+        self._ttft_ms = ReservoirSample(_STATS_CAPACITY)
+        self._tok_lat_ms = ReservoirSample(_STATS_CAPACITY)
+        # wall between consecutive tick starts while work is active: the
+        # inter-token latency a decoding request sees (a prefill between
+        # ticks inflates it)
+        self._tick_gap_ms = ReservoirSample(_STATS_CAPACITY)
+        self._last_tick_start: Optional[float] = None
+        self._tokens_emitted = 0
+        self._ticks = 0
+        self._occupancy_sum = 0.0
+        self._rejected = 0
+        self._t0 = time.monotonic()
+
+    # ---- submission ----
+    def submit(self, prompt, max_new_tokens: int, *,
+               eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               on_token: Optional[Callable[[int, int], None]] = None,
+               temperature: float = 0.0) -> RequestHandle:
+        """Enqueue a generation request; raises :class:`AdmissionError`
+        (with ``.reason``) when the queue is full or it can never fit.
+        ``on_token(token, request_id)`` streams each emitted token;
+        ``deadline_s`` is relative to now."""
+        if self._closed:
+            raise RuntimeError("ServingEngine is closed")
+        if float(temperature) > 0.0:
+            raise NotImplementedError(
+                "sampling (temperature > 0) is not ported yet")
+        now = time.monotonic()
+        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        req = Request(prompt, max_new_tokens, eos_id=eos_id,
+                      deadline_t=(now + deadline_s
+                                  if deadline_s is not None else None),
+                      on_token=on_token)
+        try:
+            self.scheduler.submit(req, now)
+        except AdmissionError:
+            with self._lock:
+                self._rejected += 1
+            raise
+        return RequestHandle(req)
+
+    # ---- the engine iteration ----
+    def step(self) -> Dict[str, float]:
+        """ONE engine iteration: expire → admit/prefill → tick → evict."""
+        now = time.monotonic()
+        self.scheduler.expire_queued(now)
+        for req in self.scheduler.admissions(self.pool.free_count, now):
+            slot = self.pool.acquire()
+            req.slot = slot
+            req.status = "running"
+            req.timestamps["prefill_start"] = time.monotonic()
+            try:
+                first = self.engine.prefill_into_slot(req.prompt, slot)
+            except BaseException:
+                # never die holding a slot: the failed request is finished
+                # with reason "error" and its slot freed before re-raising
+                req.finish("error", time.monotonic())
+                self.pool.release(slot)
+                raise
+            self._emit(req, first, time.monotonic())
+            with self._lock:
+                self._running[slot] = req
+            self._maybe_evict(req, time.monotonic())
+
+        with self._lock:
+            active = dict(self._running)
+        if active:
+            tokens = np.zeros(self.pool.n_slots, np.int32)
+            for slot, req in active.items():
+                tokens[slot] = req.tokens[-1]
+            t_tick = time.monotonic()
+            with self._lock:
+                if self._last_tick_start is not None:
+                    self._tick_gap_ms.add(
+                        (t_tick - self._last_tick_start) * 1e3)
+                self._last_tick_start = t_tick
+            nxt = self.engine.tick(tokens)
+            now = time.monotonic()
+            dt_ms = (now - t_tick) * 1e3
+            for slot, req in active.items():
+                self._emit(req, int(nxt[slot]), now)
+                self._tok_lat_ms.add(dt_ms / len(active))
+                self._maybe_evict(req, now)
+        else:
+            # an idle step breaks the tick cadence
+            with self._lock:
+                self._last_tick_start = None
+
+        with self._lock:
+            self._ticks += 1
+            self._occupancy_sum += self.pool.busy_count / self.pool.n_slots
+            return {
+                "queue_depth": float(self.scheduler.queue_depth),
+                "active_slots": float(self.pool.busy_count),
+                "tokens_emitted": float(self._tokens_emitted),
+            }
+
+    def _emit(self, req: Request, token: int, now: float) -> None:
+        req.tokens.append(int(token))
+        if "first_token" not in req.timestamps:
+            req.timestamps["first_token"] = now
+            with self._lock:
+                self._ttft_ms.add((now - req.timestamps["submitted"]) * 1e3)
+        with self._lock:
+            self._tokens_emitted += 1
+        if req.on_token is not None:
+            req.on_token(int(token), req.id)
+
+    def _maybe_evict(self, req: Request, now: float) -> None:
+        reason = self.scheduler.eviction_reason(req, now)
+        if reason is None:
+            return
+        slot = req.slot
+        req.finish(reason, now)
+        with self._lock:
+            self._running.pop(slot, None)
+        self.pool.release(slot)
+
+    # ---- driving ----
+    def run(self, steps_budget: Optional[int] = None) -> int:
+        """Drive ``step()`` until the engine is idle (queue empty, no active
+        slots) or ``steps_budget`` iterations elapse; returns the number of
+        iterations run."""
+        n = 0
+        while steps_budget is None or n < steps_budget:
+            if self.scheduler.queue_depth == 0 and self.pool.busy_count == 0:
+                break
+            self.step()
+            n += 1
+        return n
+
+    def close(self) -> None:
+        """Retire the engine: further submits raise and the pool's device
+        buffers are dropped."""
+        self._closed = True
+        self.pool.caches = []
+
+    # ---- metrics ----
+    def metrics(self) -> Dict[str, float]:
+        """Host-side serving summary under the JAX engine's keys."""
+        with self._lock:
+            el = max(time.monotonic() - self._t0, 1e-9)
+            out = {
+                "serving/tokens_per_sec": self._tokens_emitted / el,
+                "serving/tokens_total": float(self._tokens_emitted),
+                "serving/ticks": float(self._ticks),
+                "serving/queue_depth": float(self.scheduler.queue_depth),
+                "serving/active_slots": float(self.pool.busy_count),
+                "serving/rejected_total": float(self._rejected),
+                "serving/slot_occupancy_pct": 100.0 * (
+                    self._occupancy_sum / self._ticks if self._ticks
+                    else 0.0),
+            }
+            for name, res in (("ttft", self._ttft_ms),
+                              ("token_latency", self._tok_lat_ms),
+                              ("tick_gap", self._tick_gap_ms)):
+                p50 = res.percentile(50)
+                if p50 is not None:
+                    out[f"serving/{name}_p50_ms"] = p50
+                    out[f"serving/{name}_p99_ms"] = res.percentile(99)
+        return out

@@ -1,0 +1,546 @@
+#!/usr/bin/env python3
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving on one card.
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each named on its own output line; any failure exits non-zero
+and prints no result line:
+
+1. ``device``  — the card (nvidia-smi name and power limit), torch and
+   CUDA versions; ``build`` — every kernel compiled from ``csrc/`` in
+   parallel (one nvcc per source), with each kernel's ptxas report.
+2. ``kernels`` — each kernel against its plain PyTorch version on the
+   card, at the slice's shapes, in bf16 (atol = rtol = 2e-2: bf16 keeps 8
+   mantissa bits) and fp32 (atol = rtol = 1e-4: the kernel sums in another
+   order); the bf16 main-path shapes are also timed (CUDA events, L2
+   flushed before each launch) beside the plain version, one PyTorch
+   library call, and the bound (bytes / 3.35 TB/s or FLOPs / peak,
+   whichever is larger).
+3. ``parity``  — fp32, full width (d 1024, 8 layers, 16 heads, vocab
+   32768), and a small RoPE model (d 256, 4 heads, 2 layers): 4 staggered
+   requests through the port's ServingEngine on the card and on the CPU
+   with the same weights; tokens must be equal, or
+   differ only where the CPU's logits of the two tokens are within 1e-3
+   (a near-tie, after which that request's comparison stops).  TF32 is
+   off for the whole run (matmul and cuDNN).
+4. ``serving`` — bf16, full width: 16 staggered requests (prompt 512, 64
+   new tokens) through an 8-slot, max_total 1024 ServingEngine; every
+   request must finish ``done`` and every kernel must have launched.  The
+   launch counts are zeroed just before this run and read just after.
+   Then ``lm_generate`` at B 8, prompt 512, 64 new tokens.
+5. One ``{"kernels": [...]}`` line, the card line, then the result line
+   ``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+FULL = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8)
+HEAD_DIM = FULL["d_model"] // FULL["n_heads"]
+KERNEL_INFO = {
+    "flash_fwd": ("chainermn_tpu_torch/csrc/flash_fwd.cu",
+                  "chainermn_tpu/ops/flash_attention.py:226"),
+    "decode_attend": ("chainermn_tpu_torch/csrc/decode_attention.cu",
+                      "chainermn_tpu/ops/decode_attention.py:181"),
+    "cache_append": ("chainermn_tpu_torch/csrc/kv_cache.cu",
+                     "chainermn_tpu/ops/kv_cache.py:198"),
+}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+class Smoke:
+    def __init__(self, torch):
+        self.torch = torch
+        self.failed = []
+        self.kernel_rows = {}      # name -> timing/err row of the main shape
+        self.launches = {}
+
+    def phase(self, name, fn):
+        t0 = time.monotonic()
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 — report every phase
+            self.failed.append(name)
+            print(f"FAIL phase {name}: {e!r}", flush=True)
+            traceback.print_exc()
+            return
+        print(f"PASS phase {name} ({time.monotonic() - t0:.1f} s)", flush=True)
+
+    # ---- timing ----
+    def time_ms(self, fn, iters=20):
+        """Median device time of ``fn`` with L2 flushed before each launch.
+        The flush writes 256 MB (~80 us of device time), long enough for
+        the host to enqueue the start event and ``fn``'s launches behind
+        it, so the measured window holds device work, not host enqueue."""
+        torch = self.torch
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(iters):
+            flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        times.sort()
+        return times[len(times) // 2]
+
+    def compare(self, name, got, want, dtype_name, **info):
+        tol = TOL[dtype_name]
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        bad = int((err > tol + tol * want.abs()).sum())
+        finite = bool(self.torch.isfinite(got).all().item())
+        row = dict(check=name, dtype=dtype_name, max_abs_err=float(err.max()),
+                   atol=tol, rtol=tol, bad=bad, finite=finite, **info)
+        emit(row)
+        if bad or not finite:
+            raise AssertionError(f"{name} [{dtype_name}] out of tolerance: "
+                                 f"{bad} elements, max err {row['max_abs_err']}")
+        return row["max_abs_err"]
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device(smoke):
+    torch = smoke.torch
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    smoke.card = out.stdout.strip().splitlines()[0] if out.stdout else "unknown"
+    print(smoke.card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}",
+          flush=True)
+
+
+def phase_build(smoke):
+    from chainermn_tpu_torch.ops import _build
+
+    t0 = time.monotonic()
+    report = _build.build()
+    emit({"check": "build", "seconds": round(time.monotonic() - t0, 2),
+          "per_source_s": {k: round(v["seconds"], 2) for k, v in report.items()}})
+    for name, rep in report.items():
+        for line in rep["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+        _build.library(name)
+
+
+def _flash_bound(b, s, h, d, causal, elem, dtype_name):
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops = 4.0 * b * h * d * pairs
+    nbytes = 4.0 * b * s * h * d * elem + 4.0 * b * h * s
+    return _bound(nbytes, flops, dtype_name)
+
+
+def _bound(nbytes, flops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash(smoke):
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.ops import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = [  # (B, S, H, H_kv, D, causal, timed)
+        (8, 512, 16, 16, 64, True, True),     # lm_generate prefill
+        (1, 512, 16, 16, 64, True, False),    # serving prefill
+        (2, 77, 16, 16, 64, True, False),     # ragged tail
+        (2, 77, 16, 16, 64, False, False),    # non-causal
+        (2, 512, 16, 8, 64, True, False),     # group 2
+        (2, 200, 4, 4, 128, True, False),     # head_dim 128
+        (1, 1, 4, 4, 64, True, False),        # one token
+        (3, 33, 6, 2, 128, False, False),     # tail inside a tile, group 3
+        (1, 1000, 2, 2, 64, False, False),    # long, non-causal
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for b, s, h, hkv, d, causal, timed in cases:
+            q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+            k = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dtype)
+            v = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dtype)
+            out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+            ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            shape = dict(B=b, S=s, H=h, H_kv=hkv, D=d, causal=causal)
+            err = smoke.compare("flash_fwd.out", out, ref, dn, **shape)
+            smoke.compare("flash_fwd.lse", lse, ref_lse, dn, **shape)
+            if not (timed and dtype == torch.bfloat16):
+                continue
+            ms = smoke.time_ms(lambda: flash_attention(q, k, v, causal=True))
+            plain = smoke.time_ms(
+                lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            bound, by = _flash_bound(b, s, h, d, True, q.element_size(), dn)
+            smoke.kernel_rows["flash_fwd"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib, shape=shape, dtype=dn)
+            emit(dict(check="flash_fwd.time", max_abs_err=err, atol=TOL[dn],
+                      kernel_ms=ms, plain_ms=plain, library_ms=lib,
+                      bound_ms=bound, bound_by=by, **shape))
+
+
+def check_decode(smoke):
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.ops import decode_attend, decode_attend_plain
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, s = 8, 1024
+    edge_pos = torch.tensor([0, 1, 100, 511, 777, 1022, 1023, 5000],
+                            dtype=torch.int32, device="cuda")
+    # the serving run's positions: prompts of 512 plus up to 64 new tokens
+    serve_pos = torch.randint(512, 576, (b,), generator=g, device="cuda",
+                              dtype=torch.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for bs, ss, h, hd, pos in ((3, 7, 2, 128, [0, 3, 100]),
+                                   (1, 1, 4, 64, [0])):   # tiny caches
+            q = torch.randn(bs, h * hd, generator=g, device="cuda").to(dtype)
+            kc, vc = (torch.randn(bs, ss, h * hd, generator=g,
+                                  device="cuda").to(dtype) for _ in range(2))
+            pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            smoke.compare(
+                "decode_attend",
+                decode_attend(q, kc, vc, pos, n_heads=h, head_dim=hd),
+                decode_attend_plain(q, kc, vc, pos, n_heads=h, head_dim=hd),
+                dn, B=bs, S=ss, H=h, hd=hd, pos="small")
+        for h, hd in ((16, 64), (8, 128)):
+            d = h * hd
+            q = torch.randn(b, d, generator=g, device="cuda").to(dtype)
+            kc = torch.randn(b, s, d, generator=g, device="cuda").to(dtype)
+            vc = torch.randn(b, s, d, generator=g, device="cuda").to(dtype)
+            for label, pos in (("edge", edge_pos), ("scalar", 300),
+                               ("serve", serve_pos)):
+                out = decode_attend(q, kc, vc, pos, n_heads=h, head_dim=hd)
+                ref = decode_attend_plain(q, kc, vc, pos, n_heads=h,
+                                          head_dim=hd)
+                torch.cuda.synchronize()
+                shape = dict(B=b, S=s, H=h, hd=hd, pos=label)
+                err = smoke.compare("decode_attend", out, ref, dn, **shape)
+                if not (label == "serve" and hd == 64
+                        and dtype == torch.bfloat16):
+                    continue
+                ms = smoke.time_ms(lambda: decode_attend(
+                    q, kc, vc, pos, n_heads=h, head_dim=hd))
+                plain = smoke.time_ms(lambda: decode_attend_plain(
+                    q, kc, vc, pos, n_heads=h, head_dim=hd), iters=5)
+                qt = q.view(b, h, 1, hd)
+                kt = kc.view(b, s, h, hd).transpose(1, 2)
+                vt = vc.view(b, s, h, hd).transpose(1, 2)
+                mask = (torch.arange(s, device="cuda")[None, :]
+                        <= pos.long()[:, None])[:, None, None, :]
+                lib = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask))
+                n_read = float((pos.long().clamp(max=s - 1) + 1).sum())
+                elem = q.element_size()
+                nbytes = 2 * b * d * elem + 2 * n_read * d * elem + 4 * b
+                bound, by = _bound(nbytes, 4.0 * n_read * d, dn)
+                smoke.kernel_rows["decode_attend"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=by, library_ms=lib, shape=shape, dtype=dn)
+                emit(dict(check="decode_attend.time", max_abs_err=err,
+                          atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bound, bound_by=by,
+                          **shape))
+
+
+def check_append(smoke):
+    torch = smoke.torch
+    from chainermn_tpu_torch.ops import cache_append, cache_append_plain
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tick_pos = torch.tensor([0, 5, 511, 1023, 1024, 2000, 700, 64],
+                            dtype=torch.int32, device="cuda")
+    cases = [  # (label, B, S, W, rows, pos)
+        ("tick", 8, 1024, 1024, 1, tick_pos),
+        ("tick_scalar", 8, 1024, 1024, 1, 1500),
+        ("prefill_slab", 1, 512, 1024, 512, 0),
+        ("rows4_clamped", 8, 64, 1024, 4, torch.tensor(
+            [0, 3, 60, 61, 62, 100, 7, 59], dtype=torch.int32,
+            device="cuda")),
+        ("odd_width", 3, 10, 1001, 3, torch.tensor(
+            [0, 8, 50], dtype=torch.int32, device="cuda")),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for label, b, s, w, rows, pos in cases:
+            kc = torch.randn(b, s, w, generator=g, device="cuda").to(dtype)
+            vc = torch.randn(b, s, w, generator=g, device="cuda").to(dtype)
+            kn = torch.randn(b, rows, w, generator=g, device="cuda").to(dtype)
+            vn = torch.randn(b, rows, w, generator=g, device="cuda").to(dtype)
+            k1, v1 = kc.clone(), vc.clone()
+            k2, v2 = kc.clone(), vc.clone()
+            cache_append(k1, v1, kn, vn, pos)
+            cache_append_plain(k2, v2, kn, vn, pos)
+            torch.cuda.synchronize()
+            shape = dict(B=b, S=s, W=w, rows=rows, pos=label)
+            err = max(smoke.compare("cache_append.k", k1, k2, dn, **shape),
+                      smoke.compare("cache_append.v", v1, v2, dn, **shape))
+            if err != 0.0:
+                raise AssertionError(f"cache_append is a copy, err {err}")
+            if not (label == "tick" and dtype == torch.bfloat16):
+                continue
+            ms = smoke.time_ms(lambda: cache_append(k1, v1, kn, vn, pos))
+            plain = smoke.time_ms(
+                lambda: cache_append_plain(k2, v2, kn, vn, pos), iters=5)
+            bi = torch.arange(b, device="cuda")
+            pl = pos.long().clamp(0, s - rows)
+
+            def library():
+                k2.index_put_((bi, pl), kn[:, 0])
+                v2.index_put_((bi, pl), vn[:, 0])
+
+            lib = smoke.time_ms(library)
+            nbytes = 2 * 2 * b * rows * w * kc.element_size() + 4 * b
+            bound, by = _bound(nbytes, 0.0, dn)
+            smoke.kernel_rows["cache_append"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib, shape=shape, dtype=dn)
+            emit(dict(check="cache_append.time", max_abs_err=err,
+                      atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
+                      library_ms=lib, bound_ms=bound, bound_by=by, **shape))
+
+
+def phase_kernels(smoke):
+    check_flash(smoke)
+    check_decode(smoke)
+    check_append(smoke)
+
+
+def _init_full(torch, device, dtype, max_len):
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+
+    return init_tp_transformer_lm(torch.Generator().manual_seed(0),
+                                  max_len=max_len, dtype=dtype, device=device,
+                                  **FULL)
+
+
+def _drive(eng, prompts, max_new, first_wave, stagger_every):
+    """Submit ``first_wave`` requests, then one more every
+    ``stagger_every`` steps, and run until every request is finished."""
+    handles = [eng.submit(p, max_new) for p in prompts[:first_wave]]
+    steps = 0
+    while len(handles) < len(prompts) or eng.scheduler.queue_depth \
+            or eng.pool.busy_count:
+        eng.step()
+        steps += 1
+        if len(handles) < len(prompts) and steps % stagger_every == 0:
+            handles.append(eng.submit(prompts[len(handles)], max_new))
+    return handles, steps
+
+
+def phase_parity(smoke):
+    """fp32 card-vs-CPU token parity: the full-width learned-position model
+    (the slice's model) and a small RoPE model (the per-row rotation)."""
+    torch = smoke.torch
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+
+    s_p, max_new = 128, 16
+    full = _init_full(torch, "cpu", torch.float32, s_p + max_new)
+    _parity_case(smoke, "full_width_learned", full, HEAD_DIM, s_p, max_new)
+    rope = init_tp_transformer_lm(torch.Generator().manual_seed(1), 512, 256,
+                                  4, 2, pos_impl="rope", device="cpu")
+    _parity_case(smoke, "small_rope", rope, 64, s_p, max_new)
+
+
+def _parity_case(smoke, label, params_cpu, head_dim, s_p, max_new):
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.parallel.decode import lm_prefill
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    n_req = 4
+    vocab = params_cpu["embed"].shape[0]
+    prompts = np.random.RandomState(5).randint(
+        0, vocab, (n_req, s_p)).astype(np.int32)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(params_cpu, head_dim=head_dim, n_slots=4,
+                            max_total=s_p + max_new, queue_capacity=8,
+                            device=dev)
+        handles, _ = _drive(eng, list(prompts), max_new, 2, 2)
+        results[dev] = [h.tokens for h in handles]
+        if not all(h.status == "done" for h in handles):
+            raise AssertionError(f"{label} {dev}: not every request done")
+        eng.close()
+    near_ties, equal = 0, 0
+    for i, (a, c) in enumerate(zip(results["cuda"], results["cpu"])):
+        if a == c:
+            equal += 1
+            continue
+        t = next(j for j in range(max_new) if a[j] != c[j])
+        ctx = np.concatenate([prompts[i], np.asarray(c[:t], np.int32)])
+        with torch.inference_mode():
+            h, _ = lm_prefill(params_cpu,
+                              torch.tensor(ctx[None], dtype=torch.long),
+                              len(ctx), head_dim=head_dim)
+            logits = h[0, -1].float() @ params_cpu["embed"].float().t()
+        gap = abs(float(logits[a[t]]) - float(logits[c[t]]))
+        emit({"check": "parity.mismatch", "model": label, "request": i,
+              "step": t, "card_token": a[t], "cpu_token": c[t],
+              "cpu_logit_gap": gap})
+        if gap >= 1e-3:
+            raise AssertionError(f"{label} request {i} step {t}: tokens "
+                                 f"{a[t]} vs {c[t]} with CPU logit gap "
+                                 f"{gap} >= 1e-3")
+        near_ties += 1
+    emit({"check": "parity", "model": label, "requests": n_req,
+          "equal": equal, "near_ties": near_ties, "dtype": "float32"})
+
+
+def phase_serving(smoke):
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.parallel import make_lm_generator
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    n_req, s_p, max_new, max_total = 16, 512, 64, 1024
+    params = _init_full(torch, "cuda", torch.bfloat16, max_total)
+    prompts = np.random.RandomState(6).randint(
+        0, FULL["vocab"], (n_req, s_p)).astype(np.int32)
+    eng = ServingEngine(params, head_dim=HEAD_DIM, n_slots=8,
+                        max_total=max_total, queue_capacity=16, device="cuda")
+    prefill_ms, tick_ms = [], []
+
+    def timed(fn, sink):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)          # ends in a device-to-host read
+            sink.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    eng.engine.prefill_into_slot = timed(eng.engine.prefill_into_slot,
+                                         prefill_ms)
+    eng.engine.tick = timed(eng.engine.tick, tick_ms)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles, steps = _drive(eng, list(prompts), max_new, 8, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    smoke.launches = ops.launch_counts()
+    done = sum(h.status == "done" for h in handles)
+    m = eng.metrics()
+    tick_sorted = sorted(tick_ms)
+    n_tok = sum(len(h.tokens) for h in handles)
+    emit({"check": "serving", "dtype": "bfloat16", "requests": n_req,
+          "done": done, "steps": steps, "wall_s": wall, "tokens": n_tok,
+          "tokens_per_s": n_tok / wall, "ms_per_token": wall * 1e3 / n_tok,
+          "prefill_ms_mean": sum(prefill_ms) / len(prefill_ms),
+          "prefill_ms_p50": sorted(prefill_ms)[len(prefill_ms) // 2],
+          "tick_ms_p50": tick_sorted[len(tick_sorted) // 2],
+          "tick_ms_p99": tick_sorted[min(len(tick_sorted) - 1,
+                                         int(0.99 * len(tick_sorted)))],
+          "ticks": len(tick_ms), "launches": smoke.launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "metrics": m})
+    eng.close()
+    if done != n_req:
+        raise AssertionError(f"{done}/{n_req} requests finished done")
+    missing = [k for k, n in smoke.launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    for h in handles:
+        if len(h.tokens) != max_new or not all(
+                0 <= t < FULL["vocab"] for t in h.tokens):
+            raise AssertionError(f"request {h.id}: bad tokens {h.tokens[:8]}")
+
+    gen = make_lm_generator(head_dim=HEAD_DIM, max_new_tokens=max_new)
+    batch = np.random.RandomState(7).randint(
+        0, FULL["vocab"], (8, s_p)).astype(np.int32)
+    gen(params, batch[:, :16])  # warm-up
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = gen(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if tuple(toks.shape) != (8, max_new):
+        raise AssertionError(f"lm_generate shape {tuple(toks.shape)}")
+    emit({"check": "lm_generate", "dtype": "bfloat16", "B": 8, "prompt": s_p,
+          "new_tokens": max_new, "wall_s": wall,
+          "tokens_per_s": 8 * max_new / wall,
+          "ms_per_token_step": wall * 1e3 / max_new,
+          "launches": ops.launch_counts()})
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL phase device: torch.cuda.is_available() is False",
+              flush=True)
+        return 1
+    try:
+        import chainermn_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"FAIL phase device: the chainermn_tpu_torch package is not "
+              f"importable from here: {e!r}", flush=True)
+        return 1
+
+    # fp32 comparisons (kernel checks, parity) must not run in TF32, which
+    # keeps ~3 decimal digits: both matmul and cuDNN TF32 are off for the run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = Smoke(torch)
+    smoke.card = "unknown"
+    smoke.phase("device", lambda: phase_device(smoke))
+    smoke.phase("build", lambda: phase_build(smoke))
+    if "build" not in smoke.failed:
+        for name, fn in (("kernels", phase_kernels), ("parity", phase_parity),
+                         ("serving", phase_serving)):
+            smoke.phase(name, lambda fn=fn: fn(smoke))
+    kernels = []
+    for name, (source, replaces) in KERNEL_INFO.items():
+        row = smoke.kernel_rows.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": smoke.launches.get(name, 0),
+            "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
+            "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
+            "bound_by": row.get("bound_by"),
+            "library_ms": row.get("library_ms")})
+    if smoke.failed:
+        print(f"FAILED phases: {smoke.failed}", flush=True)
+        return 1
+    emit({"kernels": kernels})
+    print(smoke.card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

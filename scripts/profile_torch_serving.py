@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Where the time of a chainermn_tpu_torch serving tick and prefill goes, on one card.
+
+Builds the full-width decode-bench LM (d 1024, 8 layers, 16 heads, vocab
+32768, bf16, learned positions) from a seed, prefills 8 slots of a
+1024-position pool with 512-token prompts, and profiles ``--ticks`` decode
+ticks and one prefill with ``torch.profiler``.  Prints JSON lines: per
+phase the host wall per call, the device busy time (union of kernel,
+memcpy and memset intervals), the device idle share, the kernel count per
+call, and the device time by kernel name (top entries); then the card's
+name and power limit.  The Chrome traces go to ``--out-dir``.
+
+    python3 scripts/profile_torch_serving.py --ticks 20
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _busy_union(intervals):
+    total, end = 0.0, -1.0
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def _summarise(trace_path, wall_s, calls, name):
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy_us = _busy_union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    by_name = defaultdict(float)
+    for e in dev:
+        by_name[e["name"][:80]] += e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "phase": name, "calls": calls,
+        "host_wall_ms_per_call": wall_s * 1e3 / calls,
+        "device_busy_ms_per_call": busy_us / 1e3 / calls,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+        "device_ops_per_call": len(dev) / calls,
+        "top_device_ms_per_call": {k: v / 1e3 / calls for k, v in top},
+    }
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--ticks", type=int, default=20)
+    parser.add_argument("--out-dir", default="chiprun_out")
+    args = parser.parse_args(argv)
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(args.out_dir, exist_ok=True)
+    params = init_tp_transformer_lm(
+        torch.Generator().manual_seed(0), 32768, 1024, 16, 8, max_len=1024,
+        dtype=torch.bfloat16, device="cuda")
+    eng = ServingEngine(params, head_dim=64, n_slots=8, max_total=1024,
+                        device="cuda")
+    prompts = np.random.RandomState(0).randint(0, 32768, (9, 512))
+    de = eng.engine
+    last = np.zeros(8, np.int32)
+    for slot in range(8):
+        eng.pool.acquire()
+        last[slot] = de.prefill_into_slot(prompts[slot], slot)
+    for _ in range(5):                                   # warm-up
+        last = de.tick(last)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.ticks):
+            last = de.tick(last)                         # ends in a D2H read
+        wall = time.perf_counter() - t0
+    tick_trace = os.path.join(args.out_dir, "profile_tick.json")
+    prof.export_chrome_trace(tick_trace)
+    print(json.dumps(_summarise(tick_trace, wall, args.ticks, "tick")),
+          flush=True)
+
+    eng.pool.release(0)
+    eng.pool.acquire()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        de.prefill_into_slot(prompts[8], 0)              # ends in a D2H read
+        wall = time.perf_counter() - t0
+    pf_trace = os.path.join(args.out_dir, "profile_prefill.json")
+    prof.export_chrome_trace(pf_trace)
+    print(json.dumps(_summarise(pf_trace, wall, 1, "prefill")), flush=True)
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(out.stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
