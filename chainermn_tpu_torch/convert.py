@@ -4,6 +4,7 @@
 ``jax.tree_util.tree_map(np.asarray, init_tp_transformer_lm(...))`` gives
 (numpy's ``bfloat16`` from ``ml_dtypes`` included) and returns the same
 structure of torch tensors, so both packages compute the same function.
+:func:`to_numpy` goes back to fp32 numpy arrays.
 :func:`save_npz` / :func:`load_npz` store the structure under flat keys
 such as ``blocks.0.attn.wqkv`` (``serve.py --params``).  Neither needs
 JAX: a JAX-side caller converts with ``np.asarray`` first.
@@ -48,6 +49,12 @@ def from_jax(tree, device="cuda", dtype=None) -> Dict[str, Any]:
         return t.to(device=dev, dtype=dtype or t.dtype)
 
     return tree_map(tree, conv)
+
+
+def to_numpy(params) -> Dict[str, Any]:
+    """Torch param tree → the same structure of fp32 numpy arrays on the
+    host (detached), for comparing with the JAX package's params."""
+    return tree_map(params, lambda t: t.detach().float().cpu().numpy())
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, Any]:

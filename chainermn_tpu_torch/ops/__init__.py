@@ -6,13 +6,22 @@ plain integer attribute, ``<wrapper>.launches``.
 """
 
 from .decode_attention import decode_attend, decode_attend_plain
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              flash_attention_bwd_plain, flash_attention_plain,
+                              resolve_attn_impl)
+from .fused_ce import (ce_dh, ce_dh_plain, ce_dtable, ce_dtable_plain,
+                       ce_grads, ce_grads_plain, ce_stats, ce_stats_plain,
+                       fused_cross_entropy)
 from .kv_cache import cache_append, cache_append_plain
 
 KERNEL_WRAPPERS = {
     "flash_fwd": flash_attention,
+    "flash_bwd": flash_attention_bwd,
     "decode_attend": decode_attend,
     "cache_append": cache_append,
+    "ce_stats": ce_stats,
+    "ce_dh": ce_dh,
+    "ce_dtable": ce_dtable,
 }
 
 
@@ -26,6 +35,11 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["cache_append", "cache_append_plain", "decode_attend",
-           "decode_attend_plain", "flash_attention", "flash_attention_plain",
-           "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
+__all__ = ["cache_append", "cache_append_plain", "ce_dh", "ce_dh_plain",
+           "ce_dtable", "ce_dtable_plain", "ce_grads", "ce_grads_plain",
+           "ce_stats", "ce_stats_plain",
+           "decode_attend", "decode_attend_plain", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_plain", "fused_cross_entropy",
+           "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts",
+           "resolve_attn_impl"]

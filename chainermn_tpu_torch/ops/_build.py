@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-SOURCES = ("flash_fwd", "decode_attention", "kv_cache")
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "kv_cache",
+           "fused_ce")
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -33,8 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_fwd": {"flash_fwd": ([_P] * 5 + [_I] * 7 + [_F, _P], _I)},
+    "flash_bwd": {"flash_bwd": ([_P] * 9 + [_I] * 7 + [_F, _P], _I)},
     "decode_attention": {"decode_attend": ([_P] * 5 + [_I] * 6 + [_F, _P], _I)},
     "kv_cache": {"cache_append": ([_P] * 5 + [_I] * 5 + [_P], _I)},
+    "fused_ce": {fn: ([_P] * 7 + [_I] * 5 + [_P], _I)
+                 for fn in ("ce_stats", "ce_dh", "ce_dtable")},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,16 +1,24 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention, forward and backward: hand-written Hopper kernels and their plain versions.
 
 Counterpart of ``chainermn_tpu/ops/flash_attention.py :: flash_attention``
-(forward only; the fused backward comes with the training slice).  Layout
-``(B, S, H, D)`` as in JAX; ``k``/``v`` may carry ``H_kv`` heads with
-``H % H_kv == 0`` (GQA: ``H / H_kv`` consecutive q heads share one KV head).
+with its custom VJP.  Layout ``(B, S, H, D)`` as in JAX; ``k``/``v`` may
+carry ``H_kv`` heads with ``H % H_kv == 0`` (GQA: ``H / H_kv`` consecutive
+q heads share one KV head).
 
-:func:`flash_attention` runs the CUDA kernel (``csrc/flash_fwd.cu``) on a
-CUDA tensor and :func:`flash_attention_plain` on a CPU tensor.  The plain
-version materialises the ``(B, H, S, S)`` scores and applies the JAX
-kernel's masking rules in one tile: finite ``-1e30`` sentinel, ``p``
-zeroed where masked, ``l`` floored at ``1e-37``, ``p`` rounded to ``v``'s
-dtype before the PV product (fp32 accumulation).
+:func:`flash_attention` is a ``torch.autograd.Function``.  On a CUDA tensor
+its forward is ``csrc/flash_fwd.cu`` and its backward ``csrc/flash_bwd.cu``;
+on a CPU tensor they are :func:`flash_attention_plain` and
+:func:`flash_attention_bwd_plain`.  Both plain versions materialise the
+``(B, H, S, S)`` scores and apply the JAX kernels' rules in one tile:
+
+* forward: finite ``-1e30`` sentinel, ``p`` zeroed where masked, ``l``
+  floored at ``1e-37``, ``p`` rounded to ``v``'s dtype before the PV
+  product (fp32 accumulation);
+* backward (``_bwd_blockwise``'s math): ``p = exp(s − lse)``, ``p`` rounded
+  to ``do``'s dtype before ``dv``; ``ds = p·(dp − delta)·scale`` rounded to
+  ``q``'s dtype before ``dk`` and to ``k``'s before ``dq``; GQA grads folded
+  over the head group in fp32.  ``delta = rowsum(do·out) − dlse``, where
+  ``dlse`` is the cotangent of the LSE output (``return_lse=True``).
 """
 
 from __future__ import annotations
@@ -21,6 +29,26 @@ from . import _build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
+
+
+def resolve_attn_impl(attn_impl: str, seq_len: int, head_dim: int,
+                      device) -> str:
+    """Resolve ``'auto'``: ``'flash'`` on a CUDA device for ``seq_len >=
+    128`` and a head_dim the kernels take, ``'xla'`` (the materialising
+    path) otherwise.  An explicit ``'flash'`` on a CUDA device with a
+    head_dim the kernels do not take raises; explicit names otherwise pass
+    through."""
+    cuda = torch.device(device).type == "cuda"
+    if attn_impl == "auto":
+        return ("flash" if cuda and seq_len >= 128
+                and head_dim in KERNEL_HEAD_DIMS else "xla")
+    if attn_impl not in ("flash", "xla"):
+        raise ValueError(
+            f"attn_impl must be 'auto', 'xla' or 'flash', got {attn_impl!r}")
+    if attn_impl == "flash" and cuda and head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attn_impl='flash' on {device}: the kernels take "
+                         f"head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+    return attn_impl
 
 
 def _check(q, k, v):
@@ -38,6 +66,10 @@ def _check(q, k, v):
     return h // h_kv
 
 
+def _causal_mask(s, device):
+    return torch.ones(s, s, dtype=torch.bool, device=device).tril()
+
+
 def flash_attention_plain(q, k, v, causal: bool = False):
     """Plain PyTorch attention with the kernel's semantics: returns
     ``(out (B, S, H, D) in q's dtype, lse (B, H, S) fp32)``."""
@@ -50,7 +82,7 @@ def flash_attention_plain(q, k, v, causal: bool = False):
     scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     mask = None
     if causal:
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        mask = _causal_mask(s, q.device)
         scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(-1, keepdim=True)
     p = torch.exp(scores - m)
@@ -62,19 +94,63 @@ def flash_attention_plain(q, k, v, causal: bool = False):
     return out.transpose(1, 2).to(q.dtype).contiguous(), lse
 
 
+def _delta(out, do, dlse):
+    """``rowsum(do·out) − dlse`` as ``(B, H, S)`` fp32 (JAX computes it
+    outside its kernel too)."""
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal: bool = False,
+                              dlse=None):
+    """Plain PyTorch backward with the fused kernel's rounding: returns
+    ``(dq, dk, dv)`` in the dtypes of ``q, k, v``."""
+    group = _check(q, k, v)
+    b, s, h, d = q.shape
+    scale = 1.0 / (d ** 0.5)
+    delta = _delta(out, do, dlse)                          # (B, H, S)
+    qh, doh = q.transpose(1, 2), do.transpose(1, 2)        # (B, H, S, D)
+    kh = k.transpose(1, 2).repeat_interleave(group, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(group, dim=1)
+    sc = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    p = torch.exp(sc - lse.float()[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_mask(s, q.device), 0.0)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), doh.float())
+    dp = torch.matmul(doh.float(), vh.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(ds.to(k.dtype).float(), kh.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qh.float())
+
+    def fold(x):                                     # (B, H, S, D) fp32
+        return x.reshape(b, h // group, group, s, d).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype).contiguous(),
+            fold(dk).to(k.dtype).contiguous(),
+            fold(dv).to(v.dtype).contiguous())
+
+
+def _check_cuda(what, *ts):
+    q = ts[0]
+    d = q.shape[-1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the {what} kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    if any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"the {what} kernel takes q/k/v (and do) of one "
+                         f"dtype, got {[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"the {what} kernel needs contiguous inputs")
+    if any(t.device != q.device for t in ts):
+        raise ValueError("q, k, v (and do) must be on one device")
+    return _build.dtype_code(q.dtype)
+
+
 def _flash_fwd_cuda(q, k, v, causal: bool, group: int):
     b, s, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"the flash kernel takes q/k/v of one dtype, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    code = _build.dtype_code(q.dtype)
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the flash kernel needs contiguous q, k and v")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must be on one device")
+    code = _check_cuda("flash", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_fwd")
@@ -87,19 +163,69 @@ def _flash_fwd_cuda(q, k, v, causal: bool, group: int):
     return out, lse
 
 
-def flash_attention(q, k, v, causal: bool = False, return_lse: bool = False):
-    """Attention forward over ``(B, S, H, D)``: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor.  Returns ``out`` in q's
-    dtype, plus ``lse (B, H, S)`` fp32 when ``return_lse``."""
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
+                        dlse=None):
+    """``(dq, dk, dv)``: the CUDA kernel (``csrc/flash_bwd.cu``) for CUDA
+    tensors, :func:`flash_attention_bwd_plain` for CPU tensors."""
     group = _check(q, k, v)
     if q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, causal)
-    elif q.is_cuda:
-        out, lse = _flash_fwd_cuda(q, k, v, causal, group)
-    else:
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, dlse)
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, got "
                          f"{q.device}")
+    b, s, h, d = q.shape
+    do = do.contiguous()
+    code = _check_cuda("flash backward", q, k, v, do)
+    lse = lse.float().contiguous()
+    delta = _delta(out, do, dlse)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    lib = _build.library("flash_bwd")
+    err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        b, s, h, group, d, code, int(bool(causal)),
+                        1.0 / (d ** 0.5), _build.stream_handle(q))
+    _build.check(err, "flash_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel (or plain version) with the fused backward as its
+    gradient; ``lse`` is a differentiable output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        group = _check(q, k, v)
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal)
+        elif q.is_cuda:
+            out, lse = _flash_fwd_cuda(q, k, v, causal, group)
+        else:
+            raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                         dlse)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = False, return_lse: bool = False):
+    """Attention over ``(B, S, H, D)``, differentiable: the CUDA kernels for
+    CUDA tensors, the plain versions for CPU tensors.  Returns ``out`` in
+    q's dtype, plus ``lse (B, H, S)`` fp32 when ``return_lse``."""
+    out, lse = _FlashAttention.apply(q, k, v, causal)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

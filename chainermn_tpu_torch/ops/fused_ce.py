@@ -1,0 +1,230 @@
+"""Fused softmax cross-entropy over a large vocabulary: hand-written Hopper kernels and their plain versions.
+
+Counterpart of ``chainermn_tpu/ops/fused_ce.py``: :func:`ce_stats`,
+:func:`ce_grads` and the differentiable :func:`fused_cross_entropy`.  With
+``s = h @ table.T`` (fp32 sums):
+
+* ``ce_stats(h (T, D), table (V, D), targets (T,))`` → ``(m, l, picked)``,
+  each ``(T,)`` fp32: row max, sum of ``exp(s − m)``, and the target
+  column's logit (a target outside ``[0, V)`` picks nothing);
+* ``ce_grads(h, table, targets, lse, dnll)`` → ``(dh, dtable)`` with
+  ``ds = (exp(s − lse) − onehot)·dnll`` rounded to the other operand's
+  dtype before each product, fp32 sums, ``dh`` in h's dtype and
+  ``dtable`` in the table's.
+
+On a CUDA tensor the wrappers launch ``csrc/fused_ce.cu`` (``ce_stats``,
+``ce_dh``, ``ce_dtable``), which never write a logits tile to memory; on a
+CPU tensor they take the plain versions, which materialise the ``(T, V)``
+logits as JAX's ``_stats_xla`` / ``_grads_xla`` do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+_TILE = 64              # the kernels' logits tile, both axes
+_TARGET_BLOCKS = 528    # ~4 resident blocks on each of the H100's 132 SMs
+
+
+def _check(h, table, targets):
+    if h.dim() != 2 or table.dim() != 2 or h.shape[1] != table.shape[1]:
+        raise ValueError(f"fused CE wants h (T, D) and table (V, D), got "
+                         f"{tuple(h.shape)} and {tuple(table.shape)}")
+    if tuple(targets.shape) != (h.shape[0],):
+        raise ValueError(f"targets {tuple(targets.shape)} do not match "
+                         f"h {tuple(h.shape)}")
+
+
+def _logits(h, table):
+    return torch.matmul(h.float(), table.float().t())      # (T, V) fp32
+
+
+def _onehot(targets, v, device):
+    return targets.long()[:, None] == torch.arange(v, device=device)[None, :]
+
+
+def ce_stats_plain(h, table, targets):
+    """``_stats_xla``: materialised logits, then max, sum-exp and pick."""
+    _check(h, table, targets)
+    logits = _logits(h, table)
+    m = logits.amax(-1)
+    l = torch.exp(logits - m[:, None]).sum(-1)
+    onehot = _onehot(targets, table.shape[0], h.device)
+    p = torch.where(onehot, logits, torch.zeros((), device=h.device)).sum(-1)
+    return m, l, p
+
+
+def _ds_plain(h, table, targets, lse, dnll):
+    """``(exp(s − lse) − onehot)·dnll`` in fp32, materialised ``(T, V)``."""
+    _check(h, table, targets)
+    logits = _logits(h, table)
+    onehot = _onehot(targets, table.shape[0], h.device).float()
+    return (torch.exp(logits - lse.float()[:, None]) - onehot) \
+        * dnll.float()[:, None]
+
+
+def _dh_from(ds, h, table):
+    return torch.matmul(ds.to(table.dtype).float(), table.float()).to(h.dtype)
+
+
+def _dtable_from(ds, h, table):
+    return torch.matmul(ds.to(h.dtype).float().t(),
+                        h.float()).to(table.dtype)
+
+
+def ce_dh_plain(h, table, targets, lse, dnll):
+    """``dh`` alone, as ``_grads_xla`` computes it."""
+    return _dh_from(_ds_plain(h, table, targets, lse, dnll), h, table)
+
+
+def ce_dtable_plain(h, table, targets, lse, dnll):
+    """``dtable`` alone, as ``_grads_xla`` computes it."""
+    return _dtable_from(_ds_plain(h, table, targets, lse, dnll), h, table)
+
+
+def ce_grads_plain(h, table, targets, lse, dnll):
+    """``_grads_xla``: materialised ``ds``, then the two products."""
+    ds = _ds_plain(h, table, targets, lse, dnll)
+    return _dh_from(ds, h, table), _dtable_from(ds, h, table)
+
+
+def _tiles_per_split(n_blocks: int, n_tiles: int) -> int:
+    """Tiles each block walks along the split axis, so that about
+    ``_TARGET_BLOCKS`` blocks run and every split is non-empty."""
+    want = max(1, min(n_tiles, -(-_TARGET_BLOCKS // n_blocks)))
+    return -(-n_tiles // want)
+
+
+def _cuda_args(h, table, targets):
+    _check(h, table, targets)
+    if table.dtype != h.dtype:
+        raise ValueError(f"the fused CE kernels take h and table of one "
+                         f"dtype, got {h.dtype}, {table.dtype}")
+    code = _build.dtype_code(h.dtype)
+    if not (h.is_contiguous() and table.is_contiguous()):
+        raise ValueError("the fused CE kernels need contiguous h and table")
+    if not (h.device == table.device == targets.device):
+        raise ValueError("h, table and targets must be on one device")
+    return code, targets.to(torch.int32).contiguous()
+
+
+def _cuda_rows(x, device):
+    return x.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _ce_stats_cuda(h, table, targets):
+    code, tgt = _cuda_args(h, table, targets)
+    t, d = h.shape
+    v = table.shape[0]
+    n_t, n_v = -(-t // _TILE), -(-v // _TILE)
+    per = _tiles_per_split(n_t, n_v)
+    n_split = -(-n_v // per)
+    out = torch.empty((3, t), dtype=torch.float32, device=h.device)
+    work = torch.empty((3, n_split, t), dtype=torch.float32, device=h.device)
+    err = _build.library("fused_ce").ce_stats(
+        h.data_ptr(), table.data_ptr(), tgt.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), work.data_ptr(), t, v, d, per,
+        code, _build.stream_handle(h))
+    _build.check(err, "ce_stats")
+    ce_stats.launches += 1
+    return out[0], out[1], out[2]
+
+
+def _ce_grad_cuda(fn_name, h, table, targets, lse, dnll):
+    code, tgt = _cuda_args(h, table, targets)
+    t, d = h.shape
+    v = table.shape[0]
+    n_t, n_v = -(-t // _TILE), -(-v // _TILE)
+    if fn_name == "ce_dh":           # blocks over T, V split
+        per = _tiles_per_split(n_t, n_v)
+        rows, n_split, out = t, -(-n_v // per), torch.empty_like(h)
+    else:                            # blocks over V, T split
+        per = _tiles_per_split(n_v, n_t)
+        rows, n_split, out = v, -(-n_t // per), torch.empty_like(table)
+    work = torch.empty((n_split, rows, d), dtype=torch.float32,
+                       device=h.device)
+    ls, dn = _cuda_rows(lse, h.device), _cuda_rows(dnll, h.device)
+    err = getattr(_build.library("fused_ce"), fn_name)(
+        h.data_ptr(), table.data_ptr(), tgt.data_ptr(), ls.data_ptr(),
+        dn.data_ptr(), out.data_ptr(), work.data_ptr(), t, v, d, per, code,
+        _build.stream_handle(h))
+    _build.check(err, fn_name)
+    return out
+
+
+def _is_cuda(h, what):
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, got {h.device}")
+    return h.device.type == "cuda"
+
+
+def ce_dh(h, table, targets, lse, dnll):
+    """``dh (T, D)`` in h's dtype: the ``ce_dh`` kernel on CUDA, the plain
+    version on the CPU."""
+    if not _is_cuda(h, "ce_dh"):
+        return ce_dh_plain(h, table, targets, lse, dnll)
+    out = _ce_grad_cuda("ce_dh", h, table, targets, lse, dnll)
+    ce_dh.launches += 1
+    return out
+
+
+def ce_dtable(h, table, targets, lse, dnll):
+    """``dtable (V, D)`` in the table's dtype: the ``ce_dtable`` kernel on
+    CUDA, the plain version on the CPU."""
+    if not _is_cuda(h, "ce_dtable"):
+        return ce_dtable_plain(h, table, targets, lse, dnll)
+    out = _ce_grad_cuda("ce_dtable", h, table, targets, lse, dnll)
+    ce_dtable.launches += 1
+    return out
+
+
+def ce_stats(h, table, targets):
+    """``(m, l, picked)``, each ``(T,)`` fp32, without materialising the
+    logits on CUDA.  Not differentiable: use :func:`fused_cross_entropy`."""
+    if _is_cuda(h, "ce_stats"):
+        return _ce_stats_cuda(h, table, targets)
+    return ce_stats_plain(h, table, targets)
+
+
+def ce_grads(h, table, targets, lse, dnll):
+    """``(dh, dtable)`` for the per-row NLL cotangent ``dnll (T,)`` given
+    the (possibly globally combined) ``lse (T,)``."""
+    if _is_cuda(h, "ce_grads"):
+        return (ce_dh(h, table, targets, lse, dnll),
+                ce_dtable(h, table, targets, lse, dnll))
+    return ce_grads_plain(h, table, targets, lse, dnll)
+
+
+def _local_combine(m, l, picked):
+    """One vocabulary shard holds the whole row: ``(lse, picked)``."""
+    return m + torch.log(l), picked
+
+
+class _FusedCrossEntropy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, table, targets, combine):
+        lse, picked = combine(*ce_stats(h, table, targets))
+        ctx.save_for_backward(h, table, targets, lse)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, dnll):
+        h, table, targets, lse = ctx.saved_tensors
+        dh, dtable = ce_grads(h, table, targets, lse, dnll)
+        return dh, dtable, None, None
+
+
+def fused_cross_entropy(h, table, targets, combine=_local_combine):
+    """Per-row NLL ``(T,)`` of ``softmax(h @ table.T)`` at ``targets``,
+    differentiable in ``h`` and ``table``.  ``combine(m, l, picked)`` turns
+    this shard's stats into the row's ``(lse, picked)``; the default is the
+    single-shard form, and ``parallel.transformer.vocab_parallel_logits_loss``
+    passes the vocab-parallel one.  The backward starts from that ``lse``."""
+    return _FusedCrossEntropy.apply(h, table, targets, combine)
+
+
+ce_stats.launches = 0
+ce_dh.launches = 0
+ce_dtable.launches = 0

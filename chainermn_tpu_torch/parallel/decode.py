@@ -25,9 +25,8 @@ import torch
 from ..ops.decode_attention import decode_attend
 from ..ops.flash_attention import flash_attention
 from ..ops.kv_cache import cache_append
-from .tensor_parallel import (matmul_f32, row_parallel_dense, tp_mlp,
-                              vocab_parallel_embedding)
-from .transformer import _layer_norm, _project_qkv, apply_rope
+from .tensor_parallel import matmul_f32, vocab_parallel_embedding
+from .transformer import _layer_norm, attention_with, block_with
 
 
 def _check_greedy(temperature: float) -> None:
@@ -66,19 +65,6 @@ def _decoder_core(params, head_dim: int):
             x = x + (pe if positions.dim() == 2 else pe[None])
         return x
 
-    def block_with(x, blk, positions, attend):
-        n, s_q = x.shape[0], x.shape[1]
-        h = _layer_norm(x, blk["ln1_scale"], blk["ln1_bias"])
-        q, k, v = _project_qkv(h, blk["attn"], head_dim)
-        if rope:
-            q = apply_rope(q, positions)
-            k = apply_rope(k, positions)
-        ctx, extras = attend(q, k, v)
-        ctx = ctx.reshape(n, s_q, -1)
-        x = x + row_parallel_dense(ctx, blk["attn"]["wo"], blk["attn"]["bo"])
-        h = _layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
-        return (x + tp_mlp(h, blk["mlp"]),) + extras
-
     def attn_block(x, blk, k_cache, v_cache, positions, write_at, q_valid):
         """x (N, S, D) → block output; the caches are written IN PLACE at
         ``write_at`` (a Python int, or an int32 ``(N,)`` tensor for the
@@ -108,7 +94,8 @@ def _decoder_core(params, head_dim: int):
                                 q_valid, n_heads=hkv, head_dim=head_dim)
             return ctx.reshape(n, 1, hl, head_dim).to(x.dtype), (k_cache, v_cache)
 
-        return block_with(x, blk, positions, attend)
+        return block_with(x, blk, lambda h: attention_with(
+            h, blk["attn"], head_dim, attend, positions if rope else None))
 
     return embed, attn_block, block_with, rope
 

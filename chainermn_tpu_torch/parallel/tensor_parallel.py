@@ -22,6 +22,12 @@ def psum(x):
     return x
 
 
+def pmax(x):
+    """The model-axis max (the vocab-parallel loss's stable shift).
+    Identity at world 1."""
+    return x
+
+
 def matmul_f32(x, w):
     """``x @ w`` accumulated and returned in fp32 (JAX's
     ``preferred_element_type=float32``)."""

@@ -1,8 +1,11 @@
 #!/usr/bin/env python
-"""CLI: continuous-batching serving of a seeded random-init LM.
+"""CLI: train the toy LM, then serve it with continuous batching.
 
-The serving half of ``python -m chainermn_tpu.serve`` with the same flags:
-stand up a :class:`chainermn_tpu_torch.serving.ServingEngine` and push a
+``python -m chainermn_tpu.serve``'s single-engine path with the same flags:
+train the LM on the arithmetic-progression corpus (``--train-steps``,
+default 60, Adam at ``--lr`` on ``--seq-len`` tokens; the loss goes to
+stderr every 30 steps), then stand up a
+:class:`chainermn_tpu_torch.serving.ServingEngine` and push a
 STAGGERED request schedule through it (the first wave fills the slot pool,
 later requests arrive every ``--stagger-every`` engine steps while it is
 still decoding).  Prompts come from the same arithmetic-progression corpus
@@ -10,8 +13,8 @@ as the JAX CLI.  Prints one ``chainermn_tpu.serve.v1`` summary JSON line
 on stdout (per-request outcomes + the serving metrics).
 
 The model is random-init from ``--seed`` (or loaded with ``--params`` from
-a ``convert.save_npz`` file); the toy-LM training of the JAX CLI comes with
-the training slice, so ``--train-steps`` must be 0.
+a ``convert.save_npz`` file) before training; ``--train-steps 0`` serves
+it untrained.
 
 Run:  python -m chainermn_tpu_torch.serve --device cuda
       python -m chainermn_tpu_torch.serve --device cuda --dtype bfloat16 \\
@@ -37,6 +40,35 @@ def make_corpus(rng, n, seq_len, vocab):
             ).astype("int32")
 
 
+def train(params, args, head_dim, vocab):
+    """The JAX CLI's recipe at world 1: Adam at ``args.lr``, batches of 8
+    corpus sequences of ``args.seq_len + 1`` tokens from
+    ``RandomState(0)``.  Returns the trained params, detached."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from chainermn_tpu_torch.convert import tree_map
+    from chainermn_tpu_torch.parallel import (make_hybrid_shard_map_step,
+                                              param_leaves,
+                                              tp_transformer_lm_loss)
+
+    optimizer = torch.optim.Adam(param_leaves(params), lr=args.lr)
+    step = make_hybrid_shard_map_step(
+        partial(tp_transformer_lm_loss, head_dim=head_dim), optimizer,
+        params)
+    rng = np.random.RandomState(0)
+    device = params["embed"].device
+    for i in range(args.train_steps):
+        tokens = make_corpus(rng, 8, args.seq_len, vocab)
+        loss = step(params, (torch.as_tensor(tokens, device=device),))
+        if i % 30 == 0 or i == args.train_steps - 1:
+            print(f"train step {i:3d}  loss {float(loss):.4f}",
+                  file=sys.stderr)
+    return tree_map(params, lambda t: t.detach())
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="chainermn_tpu_torch serving demo: continuous-batching "
@@ -53,11 +85,12 @@ def main(argv=None):
     parser.add_argument("--d-model", type=int, default=32)
     parser.add_argument("--n-heads", type=int, default=4)
     parser.add_argument("--n-layers", type=int, default=2)
+    parser.add_argument("--seq-len", type=int, default=24)
     parser.add_argument("--pos-impl", default="learned",
                         choices=["learned", "rope"])
-    parser.add_argument("--train-steps", type=int, default=0,
-                        help="toy-LM training steps before serving (not "
-                             "ported yet: must be 0)")
+    parser.add_argument("--train-steps", type=int, default=60,
+                        help="toy-LM training steps before serving")
+    parser.add_argument("--lr", type=float, default=1e-2)
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random init")
     parser.add_argument("--n-slots", type=int, default=4)
@@ -75,9 +108,6 @@ def main(argv=None):
                         help="hard cap on engine iterations (the run exits "
                              "cleanly with whatever finished)")
     args = parser.parse_args(argv)
-    if args.train_steps != 0:
-        raise SystemExit("--train-steps: training is not ported yet; serve "
-                         "a random init (--train-steps 0) or --params FILE")
 
     import numpy as np
     import torch
@@ -95,10 +125,12 @@ def main(argv=None):
         params = init_tp_transformer_lm(
             torch.Generator().manual_seed(args.seed), args.vocab,
             args.d_model, args.n_heads, args.n_layers,
-            max_len=max_total,
+            max_len=max(max_total, args.seq_len),
             dtype=dtype, pos_impl=args.pos_impl, device=args.device)
     head_dim = params["embed"].shape[1] // args.n_heads
     vocab = params["embed"].shape[0]
+    if args.train_steps > 0:
+        params = train(params, args, head_dim, vocab)
     eng = ServingEngine(params, head_dim=head_dim, n_slots=args.n_slots,
                         max_total=max_total,
                         queue_capacity=args.queue_capacity,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving and training on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -12,12 +12,17 @@ and prints no result line:
    CUDA versions; ``build`` — every kernel compiled from ``csrc/`` in
    parallel (one nvcc per source), with each kernel's ptxas report.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
-   card, at the slice's shapes, in bf16 (atol = rtol = 2e-2: bf16 keeps 8
-   mantissa bits) and fp32 (atol = rtol = 1e-4: the kernel sums in another
-   order); the bf16 main-path shapes are also timed (CUDA events, L2
-   flushed before each launch) beside the plain version, one PyTorch
-   library call, and the bound (bytes / 3.35 TB/s or FLOPs / peak,
-   whichever is larger).
+   card, at the main paths' shapes and edge shapes, in bf16 (atol = rtol =
+   2e-2: bf16 keeps 8 mantissa bits) and fp32 (atol = rtol = 1e-4: the
+   kernel sums in another order); the bf16 main-path shapes are also
+   timed (CUDA events, L2 flushed before each launch) beside the plain
+   version, one PyTorch library call, and the bound (bytes / 3.35 TB/s or
+   FLOPs / peak, whichever is larger).  The training kernels: the flash
+   backward (B 8, S 1024, H 8, hd 128, causal; hd 64, group 2, a ragged S
+   of 77, the LSE cotangent) and the three fused cross-entropy kernels (T
+   8192, V 32768, D 1024; ragged T and V, targets out of range).  The CE
+   gradients are small numbers, so their largest error must also stay
+   within the tolerance times their largest entry.
 3. ``parity``  — fp32, full width (d 1024, 8 layers, 16 heads, vocab
    32768), and a small RoPE model (d 256, 4 heads, 2 layers): 4 staggered
    requests through the port's ServingEngine on the card and on the CPU
@@ -27,11 +32,30 @@ and prints no result line:
    off for the whole run (matmul and cuDNN).
 4. ``serving`` — bf16, full width: 16 staggered requests (prompt 512, 64
    new tokens) through an 8-slot, max_total 1024 ServingEngine; every
-   request must finish ``done`` and every kernel must have launched.  The
+   request must finish ``done`` and every serving kernel (flash forward,
+   decode attention, append) must have launched.  The
    launch counts are zeroed just before this run and read just after.
    Then ``lm_generate`` at B 8, prompt 512, 64 new tokens.
-5. One ``{"kernels": [...]}`` line, the card line, then the result line
-   ``{"ok": true, "device": {...}}``.
+5. ``train-parity`` — fp32, d 1024, 2 layers, 8 heads, vocab 32768, S 256,
+   B 2, flash attention and the fused CE, TF32 off: the gradient of every
+   parameter at the initial weights, card against CPU, to a relative norm
+   of 1e-4 (an SGD step of 1e-2 moves the tied embedding by less than
+   the parameter tolerance, so the gradients are held directly); then
+   two SGD steps on the card and on the CPU from the same weights, losses
+   to rtol 1e-4 and parameters to atol 1e-4.
+6. ``train`` — bf16, the full width of ``bench.py``'s
+   ``bench_transformer_lm`` (d 1024, 8 layers, 8 heads of 128, vocab
+   32768, S 1024, B 8, learned positions, SGD 1e-2, flash attention) with
+   ``ce_impl="fused"``: 2 warm-up steps, then 10 timed steps, each
+   synchronised (step ms p50/p99, tokens/s, analytic MFU against 989
+   TFLOP/s, peak memory, every loss).  Losses must be finite and fall, and
+   the launch counts, zeroed just before the timed steps and read just
+   after, must show 8 flash forward and 8 flash backward launches and one
+   of each CE kernel per step.  Then 3 steps with ``ce_impl="auto"`` from
+   the same initial weights: the first loss within 2e-2 of the fused one.
+7. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+   runs: serving and the timed training steps), the card line, then the
+   result line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -45,13 +69,24 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 FULL = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8)
 HEAD_DIM = FULL["d_model"] // FULL["n_heads"]
+# bench.py :: bench_transformer_lm's defaults
+TRAIN = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8)
+TRAIN_SEQ, TRAIN_BATCH = 1024, 8
 KERNEL_INFO = {
     "flash_fwd": ("chainermn_tpu_torch/csrc/flash_fwd.cu",
                   "chainermn_tpu/ops/flash_attention.py:226"),
+    "flash_bwd": ("chainermn_tpu_torch/csrc/flash_bwd.cu",
+                  "chainermn_tpu/ops/flash_attention.py:426"),
     "decode_attend": ("chainermn_tpu_torch/csrc/decode_attention.cu",
                       "chainermn_tpu/ops/decode_attention.py:181"),
     "cache_append": ("chainermn_tpu_torch/csrc/kv_cache.cu",
                      "chainermn_tpu/ops/kv_cache.py:198"),
+    "ce_stats": ("chainermn_tpu_torch/csrc/fused_ce.cu",
+                 "chainermn_tpu/ops/fused_ce.py:210"),
+    "ce_dh": ("chainermn_tpu_torch/csrc/fused_ce.cu",
+              "chainermn_tpu/ops/fused_ce.py:254"),
+    "ce_dtable": ("chainermn_tpu_torch/csrc/fused_ce.cu",
+                  "chainermn_tpu/ops/fused_ce.py:273"),
 }
 
 
@@ -64,7 +99,11 @@ class Smoke:
         self.torch = torch
         self.failed = []
         self.kernel_rows = {}      # name -> timing/err row of the main shape
-        self.launches = {}
+        self.launches = {}         # name -> launches summed over main paths
+
+    def add_launches(self, counts):
+        for name, n in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + n
 
     def phase(self, name, fn):
         t0 = time.monotonic()
@@ -100,19 +139,28 @@ class Smoke:
         times.sort()
         return times[len(times) // 2]
 
-    def compare(self, name, got, want, dtype_name, **info):
+    def compare(self, name, got, want, dtype_name, scaled=False, **info):
+        """Elementwise ``|got - want| <= tol + tol·|want|``.  With
+        ``scaled``, also ``max |got - want| <= tol · max |want|``: for
+        outputs whose entries sit far below ``tol``, where the elementwise
+        test alone would pass zeros."""
         tol = TOL[dtype_name]
         got, want = got.float(), want.float()
         err = (got - want).abs()
         bad = int((err > tol + tol * want.abs()).sum())
         finite = bool(self.torch.isfinite(got).all().item())
-        row = dict(check=name, dtype=dtype_name, max_abs_err=float(err.max()),
+        max_err, max_ref = float(err.max()), float(want.abs().max())
+        row = dict(check=name, dtype=dtype_name, max_abs_err=max_err,
                    atol=tol, rtol=tol, bad=bad, finite=finite, **info)
+        if scaled:
+            row.update(max_abs_ref=max_ref, err_over_max_ref=max_err / max_ref)
+            bad += int(max_err > tol * max_ref)
         emit(row)
         if bad or not finite:
             raise AssertionError(f"{name} [{dtype_name}] out of tolerance: "
-                                 f"{bad} elements, max err {row['max_abs_err']}")
-        return row["max_abs_err"]
+                                 f"{bad} failures, max err {max_err}, "
+                                 f"max |ref| {max_ref}")
+        return max_err
 
 
 # ---------------------------------------------------------------------------
@@ -326,10 +374,180 @@ def check_append(smoke):
                       library_ms=lib, bound_ms=bound, bound_by=by, **shape))
 
 
+def _flash_bwd_bound(b, s, h, h_kv, d, causal, elem, dtype_name):
+    """Five (S x S x d) products over the causal half; q, o, do, dq at H
+    heads and k, v, dk, dv at H_kv moved once, plus lse and delta."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops = 5 * 2.0 * b * h * d * pairs
+    nbytes = (4 * b * s * h * d + 4 * b * s * h_kv * d) * elem + 8.0 * b * h * s
+    return _bound(nbytes, flops, dtype_name)
+
+
+def check_flash_bwd(smoke):
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                                         flash_attention_bwd_plain,
+                                         flash_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    # through autograd: the output carries a grad_fn and its backward is
+    # the kernel
+    qkv = [torch.randn(2, 64, 4, 128, generator=g, device="cuda")
+           for _ in range(3)]
+    leaves = [x.clone().requires_grad_() for x in qkv]
+    out = flash_attention(*leaves, causal=True)
+    before = flash_attention_bwd.launches
+    got = torch.autograd.grad(out, leaves, torch.ones_like(out))
+    if out.grad_fn is None or flash_attention_bwd.launches != before + 1:
+        raise AssertionError("flash_attention on CUDA is not differentiated "
+                             "by the backward kernel")
+    o_ref, lse_ref = flash_attention_plain(*qkv, causal=True)
+    ref = flash_attention_bwd_plain(*qkv, o_ref, lse_ref,
+                                    torch.ones_like(o_ref), True)
+    for n, x, r in zip("qkv", got, ref):
+        smoke.compare(f"flash_attention.grad.d{n}", x, r, "float32",
+                      B=2, S=64, H=4, D=128, causal=True)
+    cases = [  # (B, S, H, H_kv, D, causal, dlse, timed)
+        (8, 1024, 8, 8, 128, True, False, True),   # the training step
+        (2, 256, 8, 8, 64, True, False, False),    # head_dim 64
+        (2, 256, 8, 4, 128, True, False, False),   # group 2
+        (2, 77, 4, 4, 128, True, False, False),    # ragged tail
+        (3, 77, 6, 2, 64, False, False, False),    # ragged, group 3
+        (2, 128, 4, 4, 128, False, True, False),   # LSE cotangent
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for b, s, h, hkv, d, causal, with_dlse, timed in cases:
+            q, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            dlse = (torch.randn(b, h, s, generator=g, device="cuda")
+                    if with_dlse else None)
+            out, lse = flash_attention_plain(q, k, v, causal)
+            got = flash_attention_bwd(q, k, v, out, lse, do, causal, dlse)
+            ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                            dlse)
+            torch.cuda.synchronize()
+            shape = dict(B=b, S=s, H=h, H_kv=hkv, D=d, causal=causal,
+                         dlse=with_dlse)
+            err = max(smoke.compare(f"flash_bwd.d{n}", x, r, dn, **shape)
+                      for n, x, r in zip("qkv", got, ref))
+            del ref
+            if not (timed and dtype == torch.bfloat16):
+                continue
+            ms = smoke.time_ms(lambda: flash_attention_bwd(
+                q, k, v, out, lse, do, causal))
+            plain = smoke.time_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal), iters=5)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            dot = do.transpose(1, 2).contiguous()
+            lib = smoke.time_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True))
+            bound, by = _flash_bwd_bound(b, s, h, hkv, d, causal,
+                                         q.element_size(), dn)
+            smoke.kernel_rows["flash_bwd"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib, shape=shape, dtype=dn)
+            emit(dict(check="flash_bwd.time", max_abs_err=err, atol=TOL[dn],
+                      kernel_ms=ms, plain_ms=plain,
+                      library_ms=lib, library="SDPA backward",
+                      bound_ms=bound, bound_by=by, **shape))
+
+
+def _ce_bounds(t, v, d, elem, dtype_name):
+    """(bound_ms, bound_by) per CE kernel: h and the table read once, the
+    (T,) rows in, the outputs out; 2·T·V·D FLOP for the logits and as many
+    again for each gradient product."""
+    ins = (t * d + v * d) * elem + 4.0 * t
+    return {
+        "ce_stats": _bound(ins + 12.0 * t, 2.0 * t * v * d, dtype_name),
+        "ce_dh": _bound(ins + 8.0 * t + t * d * elem, 4.0 * t * v * d,
+                        dtype_name),
+        "ce_dtable": _bound(ins + 8.0 * t + v * d * elem, 4.0 * t * v * d,
+                            dtype_name),
+    }
+
+
+def check_ce(smoke):
+    torch = smoke.torch
+    from chainermn_tpu_torch.ops import (ce_dh, ce_dh_plain, ce_dtable,
+                                         ce_dtable_plain, ce_grads_plain,
+                                         ce_stats, ce_stats_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = [  # (T, V, D, timed)
+        (TRAIN_BATCH * TRAIN_SEQ, TRAIN["vocab"], TRAIN["d_model"], True),
+        (77, 301, 96, False),          # ragged T, V and D tiles
+        (512, 32768, 1024, False),     # the train-parity shape
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for t, v, d, timed in cases:
+            h = torch.randn(t, d, generator=g, device="cuda").to(dtype)
+            tab = (torch.randn(v, d, generator=g, device="cuda")
+                   * (2.0 / d) ** 0.5 * 4).to(dtype)
+            tgt = torch.randint(0, v, (t,), generator=g, device="cuda")
+            tgt[:3] = torch.tensor([-1, v, v + 100])     # pick nothing
+            dnll = torch.rand(t, generator=g, device="cuda")
+            shape = dict(T=t, V=v, D=d)
+            got = ce_stats(h, tab, tgt)
+            ref = ce_stats_plain(h, tab, tgt)
+            torch.cuda.synchronize()
+            errs = {"ce_stats": max(
+                smoke.compare(f"ce_stats.{n}", x, r, dn, **shape)
+                for n, x, r in zip(("m", "l", "picked"), got, ref))}
+            lse = ref[0] + torch.log(ref[1])
+            dh_ref, dt_ref = ce_grads_plain(h, tab, tgt, lse, dnll)
+            errs["ce_dh"] = smoke.compare(
+                "ce_dh", ce_dh(h, tab, tgt, lse, dnll), dh_ref, dn,
+                scaled=True, **shape)
+            errs["ce_dtable"] = smoke.compare(
+                "ce_dtable", ce_dtable(h, tab, tgt, lse, dnll), dt_ref, dn,
+                scaled=True, **shape)
+            del dh_ref, dt_ref
+            if not (timed and dtype == torch.bfloat16):
+                continue
+            kernels = {
+                "ce_stats": (lambda: ce_stats(h, tab, tgt),
+                             lambda: ce_stats_plain(h, tab, tgt),
+                             lambda: torch.logsumexp(
+                                 torch.matmul(h, tab.t()).float(), -1)),
+                "ce_dh": (lambda: ce_dh(h, tab, tgt, lse, dnll),
+                          lambda: ce_dh_plain(h, tab, tgt, lse, dnll),
+                          lambda: torch.matmul(torch.softmax(
+                              torch.matmul(h, tab.t()), -1), tab)),
+                "ce_dtable": (lambda: ce_dtable(h, tab, tgt, lse, dnll),
+                              lambda: ce_dtable_plain(h, tab, tgt, lse,
+                                                      dnll),
+                              lambda: torch.matmul(torch.softmax(
+                                  torch.matmul(h, tab.t()), -1).t(), h)),
+            }
+            bounds = _ce_bounds(t, v, d, h.element_size(), dn)
+            for name, (kern, plain_fn, lib_fn) in kernels.items():
+                ms = smoke.time_ms(kern, iters=10)
+                plain = smoke.time_ms(plain_fn, iters=3)
+                lib = smoke.time_ms(lib_fn, iters=10)
+                bound, by = bounds[name]
+                smoke.kernel_rows[name] = dict(
+                    max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                    bound_ms=bound, bound_by=by, library_ms=lib, shape=shape,
+                    dtype=dn)
+                emit(dict(check=f"{name}.time", max_abs_err=errs[name],
+                          atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bound, bound_by=by,
+                          **shape))
+
+
 def phase_kernels(smoke):
     check_flash(smoke)
     check_decode(smoke)
     check_append(smoke)
+    check_flash_bwd(smoke)
+    check_ce(smoke)
 
 
 def _init_full(torch, device, dtype, max_len):
@@ -448,7 +666,8 @@ def phase_serving(smoke):
     handles, steps = _drive(eng, list(prompts), max_new, 8, 2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    smoke.launches = ops.launch_counts()
+    launches = ops.launch_counts()
+    smoke.add_launches(launches)
     done = sum(h.status == "done" for h in handles)
     m = eng.metrics()
     tick_sorted = sorted(tick_ms)
@@ -461,15 +680,16 @@ def phase_serving(smoke):
           "tick_ms_p50": tick_sorted[len(tick_sorted) // 2],
           "tick_ms_p99": tick_sorted[min(len(tick_sorted) - 1,
                                          int(0.99 * len(tick_sorted)))],
-          "ticks": len(tick_ms), "launches": smoke.launches,
+          "ticks": len(tick_ms), "launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
           "metrics": m})
     eng.close()
     if done != n_req:
         raise AssertionError(f"{done}/{n_req} requests finished done")
-    missing = [k for k, n in smoke.launches.items() if n == 0]
+    missing = [k for k in ("flash_fwd", "decode_attend", "cache_append")
+               if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
     for h in handles:
         if len(h.tokens) != max_new or not all(
@@ -493,6 +713,159 @@ def phase_serving(smoke):
           "tokens_per_s": 8 * max_new / wall,
           "ms_per_token_step": wall * 1e3 / max_new,
           "launches": ops.launch_counts()})
+
+
+def _tree_to(torch, params, device):
+    from chainermn_tpu_torch.convert import tree_map
+
+    return tree_map(params, lambda t: t.detach().to(device).clone())
+
+
+def _make_step(torch, params, head_dim, ce_impl, lr=1e-2):
+    """The training step the smoke drives: SGD through
+    ``make_hybrid_shard_map_step`` with flash attention, updating
+    ``params`` in place."""
+    from functools import partial
+
+    from chainermn_tpu_torch.parallel import (make_hybrid_shard_map_step,
+                                              param_leaves,
+                                              tp_transformer_lm_loss)
+
+    return make_hybrid_shard_map_step(
+        partial(tp_transformer_lm_loss, head_dim=head_dim, attn_impl="flash",
+                ce_impl=ce_impl),
+        torch.optim.SGD(param_leaves(params), lr=lr), params)
+
+
+def _train_run(torch, step, params, steps, tokens):
+    """``steps`` calls of ``step``; returns (losses, per-step ms), each
+    step ended by the device-to-host read of its loss and a synchronise."""
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, (tokens,))))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def phase_train_parity(smoke):
+    """fp32, card vs CPU: two SGD steps from the same weights."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.convert import flatten
+    from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
+                                              tp_transformer_lm_loss)
+
+    seq, batch = 256, 2
+    cfg = dict(TRAIN, n_layers=2)
+    head_dim = cfg["d_model"] // cfg["n_heads"]
+    cpu = init_tp_transformer_lm(torch.Generator().manual_seed(3),
+                                 max_len=seq, device="cpu", **cfg)
+    tokens = np.random.RandomState(8).randint(
+        0, cfg["vocab"], (batch, seq + 1))
+    runs, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        params = _tree_to(torch, cpu, dev)
+        batch_t = (torch.as_tensor(tokens, device=dev),)
+        flat = flatten(params)
+        for leaf in flat.values():
+            leaf.requires_grad_(True)
+        loss = tp_transformer_lm_loss(params, batch_t, head_dim=head_dim,
+                                      attn_impl="flash", ce_impl="fused")
+        grads[dev] = {k: g.detach().cpu() for k, g in zip(
+            flat, torch.autograd.grad(loss, list(flat.values())))}
+        del loss
+        step = _make_step(torch, params, head_dim, "fused")
+        losses = [float(step(params, batch_t)) for _ in range(2)]
+        runs[dev] = (losses, {k: v.detach().float().cpu()
+                              for k, v in flat.items()})
+    (lc, pc), (lh, ph) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    worst = max(float((pc[k] - ph[k]).abs().max()) for k in ph)
+    grad_rel = {k: float((grads["cuda"][k] - g).norm()
+                         / g.norm().clamp_min(1e-30))
+                for k, g in grads["cpu"].items()}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    emit({"check": "train_parity", "dtype": "float32", "card_losses": lc,
+          "cpu_losses": lh, "loss_max_rel_err": rel,
+          "param_max_abs_err": worst, "rtol": 1e-4, "atol": 1e-4,
+          "grad_max_rel_norm_err": grad_rel[worst_grad],
+          "grad_worst_param": worst_grad,
+          "embed_grad_rel_norm_err": grad_rel["embed"], **cfg,
+          "S": seq, "B": batch})
+    if rel > 1e-4 or worst > 1e-4 or grad_rel[worst_grad] > 1e-4:
+        raise AssertionError(f"train parity: loss rel err {rel}, param "
+                             f"abs err {worst}, grad rel norm err "
+                             f"{grad_rel[worst_grad]} ({worst_grad})")
+
+
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def phase_train(smoke):
+    """bf16 at full width: the fused-CE path (2 warm-up + 10 timed steps),
+    then 3 ``ce_impl="auto"`` steps from the same initial weights."""
+    import math
+
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.convert import flatten
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+
+    head_dim = TRAIN["d_model"] // TRAIN["n_heads"]
+    params = init_tp_transformer_lm(torch.Generator().manual_seed(0),
+                                    max_len=TRAIN_SEQ, dtype=torch.bfloat16,
+                                    device="cuda", **TRAIN)
+    initial = _tree_to(torch, params, "cuda")
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(
+        0, TRAIN["vocab"], (TRAIN_BATCH, TRAIN_SEQ + 1)), device="cuda")
+    n_params = sum(t.numel() for t in flatten(params).values())
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6.0 * n_params
+             + 12.0 * TRAIN["n_layers"] * TRAIN["d_model"] * TRAIN_SEQ) * toks
+    step = _make_step(torch, params, head_dim, "fused")
+    warm, _ = _train_run(torch, step, params, 2, tokens)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, ms = _train_run(torch, step, params, 10, tokens)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.add_launches(launches)
+    p50 = _percentile(ms, 0.5)
+    emit({"check": "train", "dtype": "bfloat16", "ce_impl": "fused",
+          **TRAIN, "S": TRAIN_SEQ, "B": TRAIN_BATCH, "n_params": n_params,
+          "warmup_losses": warm, "losses": losses, "step_ms": ms,
+          "step_ms_p50": p50, "step_ms_p99": _percentile(ms, 0.99),
+          "tokens_per_s": toks / (p50 / 1e3),
+          "mfu_analytic": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
+          "peak_mem_gb": peak, "launches": launches})
+    every = warm + losses
+    if not all(math.isfinite(x) for x in every) or not every[-1] < every[0]:
+        raise AssertionError(f"train losses not finite and falling: {every}")
+    n_layers, n = TRAIN["n_layers"], len(losses)
+    want = {"flash_fwd": n_layers * n, "flash_bwd": n_layers * n,
+            "ce_stats": n, "ce_dh": n, "ce_dtable": n}
+    wrong = {k: (launches[k], w) for k, w in want.items() if launches[k] != w}
+    if wrong:
+        raise AssertionError(f"training launches (got, want): {wrong}")
+    del step, params
+
+    ops.reset_launch_counts()
+    auto, auto_ms = _train_run(torch, _make_step(torch, initial, head_dim,
+                                                 "auto"), initial, 3, tokens)
+    rel = abs(auto[0] - every[0]) / abs(every[0])
+    emit({"check": "train", "dtype": "bfloat16", "ce_impl": "auto",
+          "losses": auto, "step_ms": auto_ms,
+          "first_loss_rel_err_vs_fused": rel, "rtol": 2e-2,
+          "launches": ops.launch_counts()})
+    if rel > 2e-2:
+        raise AssertionError(f"auto vs fused first loss: rel err {rel}")
 
 
 def main():
@@ -519,7 +892,9 @@ def main():
     smoke.phase("build", lambda: phase_build(smoke))
     if "build" not in smoke.failed:
         for name, fn in (("kernels", phase_kernels), ("parity", phase_parity),
-                         ("serving", phase_serving)):
+                         ("serving", phase_serving),
+                         ("train-parity", phase_train_parity),
+                         ("train", phase_train)):
             smoke.phase(name, lambda fn=fn: fn(smoke))
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -5,8 +5,9 @@ interpret mode, or the XLA paths the JAX package itself runs off-TPU) and
 through ``chainermn_tpu_torch.ops``, whose wrappers take their plain
 PyTorch versions for CPU tensors.  Tolerances: fp32 atol 1e-5 (the plain
 flash version is one tile where the kernel is online over tiles, so sums
-differ in order only); bf16 atol/rtol 2e-2 (8 mantissa bits); the append
-is a copy and must be exact.
+differ in order only; gradients 2e-5, since they chain three such
+products); bf16 atol/rtol 2e-2 (8 mantissa bits); the append is a copy and
+must be exact.
 """
 
 import jax
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from chainermn_tpu.ops.decode_attention import decode_attend as jax_decode_attend
+from chainermn_tpu.ops import fused_ce as jax_ce
 from chainermn_tpu.ops.flash_attention import flash_attention as jax_flash
 from chainermn_tpu.ops.kv_cache import cache_append as jax_cache_append
 from chainermn_tpu_torch import ops
@@ -65,6 +67,69 @@ def test_flash_forward_matches_jax(causal, seq, group, dtype_name):
     # without return_lse only the output comes back
     only = ops.flash_attention(qt, kt, vt, causal=causal)
     assert torch.equal(only, out_t)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("seq", [40, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_matches_jax(causal, seq, group, dtype_name):
+    """dq, dk, dv through the port's autograd Function (plain backward on
+    the CPU) vs ``jax.vjp`` of the JAX flash attention with the fused
+    Pallas backward in interpret mode."""
+    rng = np.random.RandomState(100 + seq + 10 * group + int(causal))
+    b, h, d = 2, 4, 8
+    arrays = [rng.randn(b, seq, h, d), rng.randn(b, seq, h // group, d),
+              rng.randn(b, seq, h // group, d), rng.randn(b, seq, h, d)]
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (
+        _both(x.astype(np.float32), dtype_name) for x in arrays)
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, causal=causal, interpret=True, backward="pallas"), qj, kj, vj)
+    want = vjp(doj)
+    leaves = [x.requires_grad_() for x in (qt, kt, vt)]
+    out = ops.flash_attention(*leaves, causal=causal)
+    assert out.grad_fn is not None
+    before = ops.flash_attention_bwd.launches
+    got = torch.autograd.grad(out, leaves, dot)
+    assert ops.flash_attention_bwd.launches == before   # CPU: plain version
+    tol = 2e-5 if dtype_name == "float32" else None
+    for name, g, w, x in zip("qkv", got, want, leaves):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        _close(g, w, dtype_name, atol=tol) if tol is None else \
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol,
+                                       rtol=tol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_lse_cotangent_matches_jax(causal):
+    """``return_lse=True``: the LSE cotangent folds into delta."""
+    rng = np.random.RandomState(7 + int(causal))
+    b, s, h, d = 2, 48, 4, 8
+    q, k, v, do = (rng.randn(b, s, h if i in (0, 3) else 2, d).astype(
+        np.float32) for i in range(4))
+    dlse = rng.randn(b, h, s).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, causal=causal, interpret=True, backward="pallas",
+        return_lse=True), *map(jnp.asarray, (q, k, v)))
+    want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out, lse = ops.flash_attention(*leaves, causal=causal, return_lse=True)
+    # the lse alone carries a gradient too
+    only = torch.autograd.grad(lse.sum(), leaves[0], retain_graph=True)[0]
+    assert torch.isfinite(only).all() and only.abs().sum() > 0
+    got = torch.autograd.grad((out, lse), leaves,
+                              (torch.tensor(do), torch.tensor(dlse)))
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=2e-5, err_msg=f"d{name}")
+
+
+def test_resolve_attn_impl():
+    assert ops.resolve_attn_impl("auto", 1024, 128, "cpu") == "xla"
+    assert ops.resolve_attn_impl("flash", 16, 8, "cpu") == "flash"
+    assert ops.resolve_attn_impl("xla", 1024, 128, "cpu") == "xla"
+    with pytest.raises(ValueError, match="attn_impl"):
+        ops.resolve_attn_impl("pallas", 16, 8, "cpu")
 
 
 def test_flash_rejects_bad_gqa():
@@ -194,8 +259,105 @@ def test_append_rejects_other_axes():
                          torch.zeros(2, 1, 8), 0, axis=2)
 
 
+# ---------------------------------------------------------------------------
+# fused cross-entropy
+# ---------------------------------------------------------------------------
+
+CE_T, CE_D, CE_V = 64, 32, 256
+
+
+def _ce_inputs(seed, dtype_name, t=CE_T, v=CE_V):
+    rng = np.random.RandomState(seed)
+    h = rng.randn(t, CE_D).astype(np.float32)
+    tab = rng.randn(v, CE_D).astype(np.float32) * 0.5
+    tgt = rng.randint(0, v, (t,)).astype(np.int32)
+    tgt[:3] = [-1, v, v + 7]                       # out of range: pick nothing
+    (hj, ht), (tj, tt) = _both(h, dtype_name), _both(tab, dtype_name)
+    return hj, ht, tj, tt, jnp.asarray(tgt), torch.tensor(tgt)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_ce_stats_matches_pallas(dtype_name):
+    hj, ht, tj, tt, gj, gt = _ce_inputs(0, dtype_name)
+    want = jax_ce.ce_stats(hj, tj, gj, 16, 64, interpret=True)
+    got = ops.ce_stats(ht, tt, gt)
+    for name, g, w in zip(("m", "l", "picked"), got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == (CE_T,), name
+        _close(g, w, "float32", atol=1e-4 if dtype_name == "float32" else 2e-2)
+    assert float(got[2][0]) == 0.0 and float(got[2][1]) == 0.0
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_ce_grads_match_pallas(dtype_name):
+    hj, ht, tj, tt, gj, gt = _ce_inputs(1, dtype_name)
+    m, l, _ = ops.ce_stats(ht, tt, gt)
+    lse = (m + torch.log(l)).numpy()         # the softmax's own LSE: p <= 1
+    dnll = np.random.RandomState(2).rand(CE_T).astype(np.float32)
+    want = jax_ce.ce_grads(hj, tj, gj, jnp.asarray(lse), jnp.asarray(dnll),
+                           16, 64, interpret=True)
+    args = (ht, tt, gt, torch.tensor(lse), torch.tensor(dnll))
+    got = ops.ce_grads(*args)
+    for name, g, w, x in zip(("dh", "dtable"), got, want, (ht, tt)):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        _close(g, w, dtype_name, atol=1e-5 if dtype_name == "float32" else None)
+    # the one-output wrappers (the ce_dh / ce_dtable kernels' plain versions)
+    torch.testing.assert_close(ops.ce_dh(*args), got[0], atol=0, rtol=0)
+    torch.testing.assert_close(ops.ce_dtable(*args), got[1], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_fused_cross_entropy_grads_match_pallas(dtype_name):
+    """Loss and both gradients through the autograd Function vs
+    ``jax.vjp`` of the Pallas ``fused_cross_entropy`` (interpret mode)."""
+    hj, ht, tj, tt, gj, gt = _ce_inputs(3, dtype_name)
+    ct = np.random.RandomState(4).rand(CE_T).astype(np.float32)
+    nll_j, vjp = jax.vjp(lambda h, t: jax_ce.fused_cross_entropy(
+        h, t, gj, 16, 64, True), hj, tj)
+    dh_j, dt_j = vjp(jnp.asarray(ct))
+    leaves = [x.requires_grad_() for x in (ht, tt)]
+    nll = ops.fused_cross_entropy(*leaves, gt)
+    _close(nll.detach(), nll_j, "float32",
+           atol=1e-4 if dtype_name == "float32" else 5e-2)
+    dh, dt = torch.autograd.grad(nll, leaves, torch.tensor(ct))
+    _close(dh, dh_j, dtype_name, atol=1e-5 if dtype_name == "float32" else None)
+    _close(dt, dt_j, dtype_name, atol=1e-5 if dtype_name == "float32" else None)
+
+
+def test_fused_ce_ragged_shapes_match_plain_math():
+    """T and V that are not multiples of any tile: the plain version is
+    the materialised log-softmax."""
+    hj, ht, tj, tt, gj, gt = _ce_inputs(5, "float32", t=37, v=77)
+    nll = ops.fused_cross_entropy(ht, tt, gt)
+    logits = ht @ tt.t()
+    lse = torch.logsumexp(logits, -1)
+    ok = (gt >= 0) & (gt < 77)
+    pick = torch.where(ok, logits.gather(1, gt.long().clamp(0, 76)[:, None])[:, 0],
+                       torch.zeros(()))
+    torch.testing.assert_close(nll, lse - pick, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_cross_entropy_takes_the_vocab_parallel_combine():
+    """The loss path's combine (``pmax``/``psum`` legs, identities at
+    world 1) gives the single-shard NLL and gradients exactly."""
+    from chainermn_tpu_torch.parallel.transformer import _vp_combine
+
+    _, ht, _, tt, _, gt = _ce_inputs(6, "float32")
+    runs = []
+    for combine in ({}, {"combine": _vp_combine}):
+        leaves = [x.detach().clone().requires_grad_() for x in (ht, tt)]
+        nll = ops.fused_cross_entropy(*leaves, gt, **combine)
+        runs.append((nll.detach(), *torch.autograd.grad(nll.sum(), leaves)))
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
 def test_launch_counters_reset():
     ops.flash_attention.launches = 5
+    ops.ce_dtable.launches = 2
     assert ops.launch_counts()["flash_fwd"] == 5
+    assert ops.launch_counts()["ce_dtable"] == 2
+    assert set(ops.launch_counts()) == {
+        "flash_fwd", "flash_bwd", "decode_attend", "cache_append",
+        "ce_stats", "ce_dh", "ce_dtable"}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}

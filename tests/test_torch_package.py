@@ -27,7 +27,8 @@ from chainermn_tpu_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serving.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serving.py",
+    ROOT / "scripts" / "profile_torch_train.py"]
 
 
 def _imported_modules(path):
@@ -94,12 +95,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from chainermn_tpu_torch.serve import main
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--requests", "1"])
+    from chainermn_tpu_torch.train_transformer import main as train_main
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_main(["--steps", "1"])
 
 
-def test_cli_rejects_training_until_ported():
+def test_cli_trains_then_serves(capsys):
+    """``serve --train-steps 60`` (the default): the JAX CLI's recipe
+    trains the toy LM, the loss falls, and the trained model serves."""
     from chainermn_tpu_torch.serve import main
-    with pytest.raises(SystemExit, match="train"):
-        main(["--device", "cpu", "--train-steps", "5"])
+    assert main(["--device", "cpu", "--train-steps", "60",
+                 "--requests", "4"]) == 0
+    out, err = capsys.readouterr()
+    losses = [float(line.split()[-1]) for line in err.splitlines()
+              if line.startswith("train step")]
+    assert len(losses) == 3 and losses[-1] < 0.5 * losses[0]
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert [r["status"] for r in summary["requests"]] == ["done"] * 4
+    assert summary["mean_continuation_accuracy"] > 0.5
+
+
+def test_train_transformer_cli(capsys):
+    from chainermn_tpu_torch.train_transformer import main
+    assert main(["--device", "cpu", "--steps", "20", "--attn-impl", "flash",
+                 "--ce-impl", "fused"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    first = float(lines[1].split()[2])
+    last = float(lines[-1].split()[-1])
+    assert lines[1].startswith("initial loss") and "step 20" in lines[2]
+    assert last < first
 
 
 def test_cli_summary_in_process(capsys):
