@@ -5,7 +5,9 @@ CUDA kernel for a CUDA tensor (or raises); each counts its launches in a
 plain integer attribute, ``<wrapper>.launches``.
 """
 
-from .decode_attention import decode_attend, decode_attend_plain
+from .decode_attention import (beam_attend_parts, beam_attend_parts_plain,
+                               decode_attend, decode_attend_gqa,
+                               decode_attend_plain, merge_attend_parts)
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_bwd_plain, flash_attention_plain,
                               resolve_attn_impl)
@@ -22,6 +24,7 @@ KERNEL_WRAPPERS = {
     "ce_stats": ce_stats,
     "ce_dh": ce_dh,
     "ce_dtable": ce_dtable,
+    "beam_attend": beam_attend_parts,
 }
 
 
@@ -35,11 +38,13 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["cache_append", "cache_append_plain", "ce_dh", "ce_dh_plain",
+__all__ = ["beam_attend_parts", "beam_attend_parts_plain",
+           "cache_append", "cache_append_plain", "ce_dh", "ce_dh_plain",
            "ce_dtable", "ce_dtable_plain", "ce_grads", "ce_grads_plain",
            "ce_stats", "ce_stats_plain",
-           "decode_attend", "decode_attend_plain", "flash_attention",
+           "decode_attend", "decode_attend_gqa", "decode_attend_plain",
+           "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_plain", "fused_cross_entropy",
-           "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts",
-           "resolve_attn_impl"]
+           "KERNEL_WRAPPERS", "launch_counts", "merge_attend_parts",
+           "reset_launch_counts", "resolve_attn_impl"]

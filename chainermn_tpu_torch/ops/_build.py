@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "kv_cache",
-           "fused_ce")
+           "fused_ce", "beam_attention")
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures: (argtypes, restype) per exported function
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     "flash_fwd": {"flash_fwd": ([_P] * 5 + [_I] * 7 + [_F, _P], _I)},
     "flash_bwd": {"flash_bwd": ([_P] * 9 + [_I] * 7 + [_F, _P], _I)},
@@ -39,6 +40,8 @@ SIGNATURES = {
     "kv_cache": {"cache_append": ([_P] * 5 + [_I] * 5 + [_P], _I)},
     "fused_ce": {fn: ([_P] * 7 + [_I] * 5 + [_P], _I)
                  for fn in ("ce_stats", "ce_dh", "ce_dtable")},
+    "beam_attention": {"beam_attend": ([_P] * 8 + [_I] * 8 + [_L, _F, _P],
+                                       _I)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

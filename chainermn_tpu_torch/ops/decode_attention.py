@@ -14,8 +14,16 @@ Positions must be >= 0.
 
 :func:`decode_attend` runs ``csrc/decode_attention.cu`` on a CUDA tensor
 and :func:`decode_attend_plain` (einsum, mask, softmax in fp32) on a CPU
-tensor.  GQA decode (``decode_attend_gqa``, the beam kernel) is a later
-slice.
+tensor.
+
+The beam kernel (``chainermn_tpu/ops/decode_attention.py ::
+_beam_kernel``) is :func:`beam_attend_parts`: ``R`` query rows per cache
+row (the beams of one prompt, or the ``g`` query heads that share a KV
+head) over one cache segment, returned unnormalised as ``(acc, m, l)``
+for :func:`merge_attend_parts`, the flash combine.  It runs
+``csrc/beam_attention.cu`` on a CUDA tensor and
+:func:`beam_attend_parts_plain` on a CPU tensor.  :func:`decode_attend_gqa`
+is GQA decode through it.
 """
 
 from __future__ import annotations
@@ -101,3 +109,181 @@ def decode_attend(q, kc, vc, pos, n_heads: int, head_dim: int):
 
 
 decode_attend.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the beam kernel: several query rows per cache row, unnormalised parts
+# ---------------------------------------------------------------------------
+
+BEAM_MAX_ROWS = 16      # query rows per cache row the kernel takes
+_MODES = {"none": 0, "amask": 1, "pos": 2}
+
+
+def _beam_check(q, kc, vc, amask, beams: int, n_heads: int, head_dim: int):
+    if kc.dim() != 3 or vc.shape != kc.shape:
+        raise ValueError(f"beam_attend_parts wants flat (B, S, H·hd) cache "
+                         f"segments, got {tuple(kc.shape)}, {tuple(vc.shape)}")
+    b, s, d = kc.shape
+    if d != n_heads * head_dim or tuple(q.shape) != (b * beams, d):
+        raise ValueError(f"q {tuple(q.shape)} / segment {tuple(kc.shape)} do "
+                         f"not match beams={beams} x n_heads={n_heads} x "
+                         f"head_dim={head_dim}")
+    if amask is not None and tuple(amask.shape) != (b, beams, s):
+        raise ValueError(f"amask {tuple(amask.shape)} != ({b}, {beams}, {s})")
+
+
+def _mode(amask, pos) -> str:
+    return "amask" if amask is not None else (
+        "none" if pos is None else "pos")
+
+
+def beam_attend_parts_plain(q, kc, vc, amask=None, pos=None, *, beams: int,
+                            n_heads: int, head_dim: int):
+    """Einsum, mask and the segment's ``(acc, m, l)``, all in fp32."""
+    _beam_check(q, kc, vc, amask, beams, n_heads, head_dim)
+    b, s, d = kc.shape
+    q4 = q.float().reshape(b, beams, n_heads, head_dim)
+    k4 = kc.float().reshape(b, s, n_heads, head_dim)
+    v4 = vc.float().reshape(b, s, n_heads, head_dim)
+    scores = torch.einsum("brhd,bshd->brhs", q4, k4) * (1.0 / head_dim ** 0.5)
+    mode = _mode(amask, pos)
+    if mode == "amask":
+        valid = (amask.float() > 0.5)[:, :, None, :]
+        scores = scores.masked_fill(~valid, NEG_INF)
+    elif mode == "pos":
+        p_vec = _pos_vector(pos, b, kc.device)
+        valid = torch.arange(s, device=kc.device)[None, :] <= p_vec[:, None]
+        scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    m = scores.amax(-1)
+    p = torch.exp(scores - m[..., None])
+    acc = torch.einsum("brhs,bshd->brhd", p, v4)
+    return (acc.reshape(b * beams, d), m.reshape(b * beams, n_heads),
+            p.sum(-1).reshape(b * beams, n_heads))
+
+
+def _beam_attend_cuda(q, kc, vc, amask, pos, beams: int, n_heads: int,
+                      head_dim: int):
+    b, s, d = kc.shape
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the beam kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {head_dim}")
+    if not 1 <= beams <= BEAM_MAX_ROWS:
+        raise ValueError(f"the beam kernel takes 1..{BEAM_MAX_ROWS} query rows "
+                         f"per cache row, got {beams}")
+    if kc.dtype != q.dtype or vc.dtype != q.dtype:
+        raise ValueError(f"the beam kernel takes q and the segment in one "
+                         f"dtype, got {q.dtype}, {kc.dtype}, {vc.dtype}")
+    # the segment may be a window of a longer cache (a batch stride of
+    # its own); rows and lanes must be dense, and K and V laid out alike
+    if kc.stride(2) != 1 or kc.stride(1) != d or vc.stride() != kc.stride():
+        raise ValueError(f"the beam kernel needs (B, S, D) segments with "
+                         f"dense rows and one layout, got strides "
+                         f"{kc.stride()} and {vc.stride()}")
+    if not q.is_contiguous():
+        raise ValueError("the beam kernel needs a contiguous q")
+    if not (q.device == kc.device == vc.device):
+        raise ValueError("q and the segment must be on one device")
+    code = _build.dtype_code(q.dtype)
+    mode = _mode(amask, pos)
+    mask_ptr, pos_ptr, pos_scalar = None, None, 0
+    if mode == "amask":
+        if amask.dtype not in (torch.bool, torch.int8):
+            amask = amask > 0.5
+        if amask.device != kc.device:
+            raise ValueError("amask must be on the segment's device")
+        amask = amask.contiguous()
+        mask_ptr = amask.data_ptr()
+    elif mode == "pos":
+        pos_ptr, pos_scalar = _build.pos_argument(pos, b, kc.device)
+    acc = torch.empty((b * beams, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b * beams, n_heads), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    lib = _build.library("beam_attention")
+    err = lib.beam_attend(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), mask_ptr,
+                          pos_ptr, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                          pos_scalar, _MODES[mode], b, s, n_heads, beams,
+                          head_dim, code, kc.stride(0),
+                          1.0 / (head_dim ** 0.5), _build.stream_handle(q))
+    _build.check(err, "beam_attend")
+    beam_attend_parts.launches += 1
+    return acc, m, l
+
+
+def beam_attend_parts(q, kc, vc, amask=None, pos=None, *, beams: int,
+                      n_heads: int, head_dim: int):
+    """One cache SEGMENT of beam attention, unnormalised.
+
+    ``q (B·beams, H·hd)``: rows ``[b·beams, (b+1)·beams)`` attend row ``b``
+    of the segment ``kc/vc (B, S, H·hd)`` (any batch stride: a window of a
+    longer cache is read in place).  Mask modes: ``amask (B, beams, S)``,
+    any 0/1 dtype, valid where > 0.5; ``pos`` (a Python int or an int32
+    ``(B,)`` tensor), valid where the index <= pos; neither, every
+    position valid.  Returns fp32 ``(acc (B·beams, D), m (B·beams, H),
+    l (B·beams, H))``.  A masked score is the finite ``-1e30``, as in
+    JAX: a row with no valid position yields junk that
+    :func:`merge_attend_parts` cannot tell from data, so every row needs
+    a valid position in some segment."""
+    _beam_check(q, kc, vc, amask, beams, n_heads, head_dim)
+    if kc.device.type == "cpu":
+        return beam_attend_parts_plain(q, kc, vc, amask, pos, beams=beams,
+                                       n_heads=n_heads, head_dim=head_dim)
+    if kc.is_cuda:
+        return _beam_attend_cuda(q, kc, vc, amask, pos, beams, n_heads,
+                                 head_dim)
+    raise ValueError(f"beam_attend_parts runs on cuda or cpu, got {kc.device}")
+
+
+beam_attend_parts.launches = 0
+
+
+def merge_attend_parts(parts, n_heads: int, head_dim: int, dtype):
+    """Flash combine of ``(acc, m, l)`` segments into the normalised
+    context ``(N, H·hd)`` in ``dtype``; an exact-zero denominator gives 0
+    (JAX's ``den > 0`` guard)."""
+    n = parts[0][0].shape[0]
+    m = parts[0][1]
+    for _, m_i, _ in parts[1:]:
+        m = torch.maximum(m, m_i)
+    l_tot = acc_tot = None
+    for acc, m_i, l_i in parts:
+        # per-head weights broadcast over the head's lanes in a view
+        a = torch.exp(m_i - m)
+        l_a, acc_a = l_i * a, acc.reshape(n, n_heads, head_dim) * a[..., None]
+        l_tot = l_a if l_tot is None else l_tot + l_a
+        acc_tot = acc_a if acc_tot is None else acc_tot + acc_a
+    den = l_tot[..., None]
+    ctx = torch.where(den > 0, acc_tot / den.clamp_min(1e-30), 0.0)
+    return ctx.reshape(n, n_heads * head_dim).to(dtype)
+
+
+def gqa_rows(q, n_kv_heads: int, g: int, head_dim: int):
+    """Head-major ``(N, Hq·hd)`` queries to group-major rows ``(N·g,
+    Hkv·hd)``: q-head ``h`` uses KV head ``h // g``, and row ``n·g + j``
+    holds query group ``j`` of row ``n``."""
+    n = q.shape[0]
+    return q.reshape(n, n_kv_heads, g, head_dim).transpose(1, 2).reshape(
+        n * g, n_kv_heads * head_dim)
+
+
+def gqa_unrows(ctx, n_kv_heads: int, g: int, head_dim: int):
+    """The inverse of :func:`gqa_rows`: ``(N·g, Hkv·hd)`` to ``(N, Hq·hd)``."""
+    n = ctx.shape[0] // g
+    return ctx.reshape(n, g, n_kv_heads, head_dim).transpose(1, 2).reshape(
+        n, n_kv_heads * g * head_dim)
+
+
+def decode_attend_gqa(q, kc, vc, pos, *, n_q_heads: int, n_kv_heads: int,
+                      head_dim: int):
+    """GQA decode tick: ``q (B, Hq·hd)`` head-major against the
+    shared-KV-head caches ``kc/vc (B, S, Hkv·hd)``, positions past ``pos``
+    (int or int32 ``(B,)``) masked.  The ``g`` query groups of a batch row
+    are the beam kernel's rows of that cache row, so the cache is read
+    once.  Returns ``ctx (B, Hq·hd)`` in q's dtype."""
+    g = n_q_heads // n_kv_heads
+    if n_q_heads % n_kv_heads or g < 1:
+        raise ValueError(f"bad head ratio {n_q_heads}/{n_kv_heads}")
+    part = beam_attend_parts(gqa_rows(q, n_kv_heads, g, head_dim), kc, vc,
+                             None, pos, beams=g, n_heads=n_kv_heads,
+                             head_dim=head_dim)
+    ctx = merge_attend_parts([part], n_kv_heads, head_dim, q.dtype)
+    return gqa_unrows(ctx, n_kv_heads, g, head_dim)

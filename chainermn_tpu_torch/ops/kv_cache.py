@@ -74,10 +74,13 @@ def _cache_append_cuda(kc, vc, k_new, v_new, pos, rows: int):
     return kc, vc
 
 
-def cache_append(kc, vc, k_new, v_new, pos, axis: int = 1):
+def cache_append(kc, vc, k_new, v_new, pos, axis: int = 1,
+                 pos_aligned: bool = False):
     """Write the new rows at ``pos`` (clamped) in place; returns
     ``(kc, vc)``.  The CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor."""
+    a CPU tensor.  ``pos_aligned`` is JAX's promise that ``pos`` is a
+    multiple of the row count; the kernel writes any clamped position, so
+    it changes nothing here."""
     rows = _check(kc, vc, k_new, v_new, axis)
     if kc.device.type == "cpu":
         return cache_append_plain(kc, vc, k_new, v_new, pos, axis)

@@ -1,7 +1,7 @@
 """Model layers, the training step and decoding (TP = 1 on one card)."""
 
-from .decode import (lm_decode_tick, lm_generate, lm_prefill,
-                     make_lm_generator)
+from .decode import (lm_decode_tick, lm_generate, lm_generate_beam,
+                     lm_prefill, make_lm_beam_generator, make_lm_generator)
 from .hybrid import make_hybrid_shard_map_step, param_leaves
 from .tensor_parallel import (column_parallel_dense, row_parallel_dense,
                               tp_mlp, vocab_parallel_embedding)
@@ -10,8 +10,9 @@ from .transformer import (apply_rope, init_tp_transformer_lm, tp_attention,
                           vocab_parallel_logits_loss)
 
 __all__ = ["apply_rope", "column_parallel_dense", "init_tp_transformer_lm",
-           "lm_decode_tick", "lm_generate", "lm_prefill",
-           "make_hybrid_shard_map_step", "make_lm_generator", "param_leaves",
+           "lm_decode_tick", "lm_generate", "lm_generate_beam", "lm_prefill",
+           "make_hybrid_shard_map_step", "make_lm_beam_generator",
+           "make_lm_generator", "param_leaves",
            "row_parallel_dense", "tp_attention", "tp_block", "tp_mlp",
            "tp_transformer_lm_loss", "vocab_parallel_embedding",
            "vocab_parallel_logits_loss"]

@@ -1,39 +1,40 @@
 """Autoregressive decoding with a KV cache for the transformer LM.
 
-Counterpart of ``chainermn_tpu/parallel/decode.py``, greedy path: prefill
-(the full prompt through the stack, caches written by the append kernel,
-causal attention by the flash kernel) and the per-tick step (one token per
-row, its K/V appended at the row's position, decode attention over the
-row's own prefix).  ``lm_generate`` drives the same two steps in a plain
-Python loop where JAX runs one ``lax.scan``.
+Counterpart of ``chainermn_tpu/parallel/decode.py``: prefill (the full
+prompt through the stack, caches written by the append kernel, causal
+attention by the flash kernel), the per-tick step (one token per row, its
+K/V appended at the row's position, decode attention over the row's own
+prefix: the decode kernel, or the beam kernel for GQA), greedy or sampled
+next-token choice, and beam search.  ``lm_generate`` and the beam search
+drive the ticks in a plain Python loop where JAX runs ``lax.scan``.
 
 The cache layout is the JAX package's flat ``(B, total, H_kv·head_dim)``.
 The port runs on one card (TP = 1): the psum sites of the TP layers are
-identities (``tensor_parallel.psum``) and the greedy pick's ``(pmax,
-pmin)`` pair is :func:`_pmax` / :func:`_pmin` at world 1.
+identities (``tensor_parallel.psum``), and so are the vocab-parallel
+collectives of the token choice (:func:`_pmax`, :func:`_pmin`,
+:func:`_psum`, :func:`_all_gather` at world 1).
 
-Not in this slice: sampling (``temperature > 0`` raises: JAX's threefry
-Gumbel noise cannot be reproduced), the chunked fill (``s_q > 1`` at a
-nonzero write position raises), GQA decode and beam search.
+Sampling draws JAX's threefry Gumbel noise bit for bit (``prng.py``), so a
+sampled generation is held token-exact against JAX like a greedy one.  Not
+in this slice: the chunked fill (``s_q > 1`` at a nonzero write position
+raises).
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
-from ..ops.decode_attention import decode_attend
+from .. import prng
+from ..ops.decode_attention import (beam_attend_parts, decode_attend,
+                                    decode_attend_gqa, gqa_rows, gqa_unrows,
+                                    merge_attend_parts)
 from ..ops.flash_attention import flash_attention
 from ..ops.kv_cache import cache_append
 from .tensor_parallel import matmul_f32, vocab_parallel_embedding
 from .transformer import _layer_norm, attention_with, block_with
-
-
-def _check_greedy(temperature: float) -> None:
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampling (temperature > 0) is not ported yet: JAX's threefry "
-            "Gumbel noise cannot be reproduced bit for bit")
 
 
 def _pmax(x):
@@ -43,6 +44,17 @@ def _pmax(x):
 
 def _pmin(x):
     """Cross-shard min of the greedy pick's winners.  Identity at world 1."""
+    return x
+
+
+def _psum(x):
+    """Cross-shard sum of the beam's logsumexp.  Identity at world 1."""
+    return x
+
+
+def _all_gather(x):
+    """The beam's per-shard top-K candidates gathered along the last axis.
+    Identity at world 1."""
     return x
 
 
@@ -87,11 +99,16 @@ def _decoder_core(params, head_dim: int):
                 ctx = flash_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=True)
                 return ctx.to(x.dtype), (k_cache, v_cache)
-            if hl != hkv:
-                raise NotImplementedError(
-                    "GQA decode (n_kv_heads < n_heads) is not ported yet")
-            ctx = decode_attend(q.reshape(n, hl * head_dim), k_cache, v_cache,
-                                q_valid, n_heads=hkv, head_dim=head_dim)
+            if hl == hkv:
+                ctx = decode_attend(q.reshape(n, hl * head_dim), k_cache,
+                                    v_cache, q_valid, n_heads=hkv,
+                                    head_dim=head_dim)
+            else:
+                # GQA: the g query heads of a KV head are the beam
+                # kernel's rows of the cache row
+                ctx = decode_attend_gqa(q.reshape(n, hl * head_dim), k_cache,
+                                        v_cache, q_valid, n_q_heads=hl,
+                                        n_kv_heads=hkv, head_dim=head_dim)
             return ctx.reshape(n, 1, hl, head_dim).to(x.dtype), (k_cache, v_cache)
 
         return block_with(x, blk, lambda h: attention_with(
@@ -132,24 +149,67 @@ def _prefill(params, embed, attn_block, prompt, total: int, head_dim: int):
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]), caches
 
 
+def _pick(local_best, local_idx):
+    """The global argmax of per-shard ``(best, index)`` pairs: ``pmax``
+    of the values, then ``pmin`` over the winners' indices, so an exact
+    tie goes to the lowest index (world 1: the local index)."""
+    winner = local_best == _pmax(local_best)
+    return _pmin(torch.where(winner, local_idx,
+                             torch.full_like(local_idx, 2 ** 30))
+                 ).to(torch.int32)
+
+
 def _greedy_token(table, h_last):
     """Greedy next token from ``h_last (N, D)`` against the embedding
     table, logits in fp32; ties go to the lowest index (``torch.argmax``
     returns the first maximum, as JAX's argmax does)."""
     logits = matmul_f32(h_last, table.t())
-    best = _pmax(logits.max(-1).values)
-    idx = logits.argmax(-1)
-    winner = logits.gather(1, idx[:, None])[:, 0] == best
-    return _pmin(torch.where(winner, idx, torch.full_like(idx, 2 ** 30))
-                 ).to(torch.int32)
+    return _pick(logits.max(-1).values, logits.argmax(-1))
 
 
-def _next_token(table, h_last, temps=None):
-    """The serving tick's selection step, greedy only in this slice:
-    ``temps`` (per-row temperatures) must all be ``<= 0``."""
-    if temps is not None:
-        _check_greedy(float(np.max(temps)))
-    return _greedy_token(table, h_last)
+def _gumbel_rows(keys, step_pos, vocab: int, device):
+    """Per-row Gumbel noise ``(N, V)``: row ``n`` draws ``uniform(fold_in(
+    fold_in(keys[n], step_pos[n]), 0), (1, V), minval=1e-20)`` (the axis
+    index 0 folded in last, as JAX does at any TP width), the draw of
+    ``lm_generate``'s B = 1 sampler at that position."""
+    sp = torch.as_tensor(step_pos, device=device).to(torch.int64)
+    k = prng.fold_in(prng.fold_in(prng.as_key(keys, device), sp), 0)
+    return prng.gumbel(k, (1, vocab))[:, 0]
+
+
+def _next_token(table, h_last, keys=None, temps=None, step_pos=None):
+    """Per-row greedy-or-sampled next token from ``h_last (N, D)``, the
+    serving engine's selection step (JAX's ``_next_token``).
+
+    ``keys (N, 2)`` holds each row's request key (numpy uint32 or an int64
+    tensor), ``temps (N,)`` its temperature (``<= 0``: greedy; numpy or a
+    tensor) and ``step_pos (N,)`` the position being generated.  A sampled
+    row takes the argmax of ``logits / T + gumbel`` with the noise of
+    :func:`_gumbel_rows`, so a request sampled through the serving pool is
+    token-exact against ``lm_generate(rng=key)`` at B = 1; a greedy row is
+    bit-identical to :func:`_greedy_token`.  With no sampled row (or no
+    ``temps``) nothing is drawn, as JAX's ``lax.cond`` skips the draw."""
+    logits = matmul_f32(h_last, table.t())
+    best, idx = logits.max(-1).values, logits.argmax(-1)
+    if temps is not None and not isinstance(temps, torch.Tensor):
+        temps = torch.from_numpy(np.asarray(temps, np.float32))
+    if temps is None or not bool((temps > 0.0).any()):
+        return _pick(best, idx)
+    t = temps.to(device=logits.device, dtype=torch.float32)
+    sample = t > 0.0
+    gum = _gumbel_rows(keys, step_pos, logits.shape[1], logits.device)
+    scored = logits / torch.where(sample, t, torch.ones_like(t))[:, None] + gum
+    best = torch.where(sample, scored.max(-1).values, best)
+    idx = torch.where(sample, scored.argmax(-1), idx)
+    return _pick(best, idx)
+
+
+def _check_rng(temperature: float, rng) -> None:
+    if temperature > 0.0 and rng is None:
+        raise ValueError(
+            "temperature > 0 samples tokens and needs an explicit rng: pass "
+            "a key (prng.PRNGKey(...), or a JAX key as numpy); a silent "
+            "default key would draw identical token sequences every call")
 
 
 def lm_prefill(params, prompt, total: int, *, head_dim: int):
@@ -182,36 +242,283 @@ def lm_decode_tick(params, tokens, caches, pos, *, head_dim: int):
     return h[:, -1], new_caches
 
 
-def lm_generate(params, prompt, *, head_dim: int, max_new_tokens: int,
-                temperature: float = 0.0):
-    """Greedy generation of ``max_new_tokens`` from ``prompt (B, S_p)``
-    (int tensor on the params' device): prefill, then one tick per new
-    token.  Returns ``(B, max_new_tokens) int32``."""
-    _check_greedy(temperature)
+def lm_generate(params, prompt, rng=None, *, head_dim: int,
+                max_new_tokens: int, temperature: float = 0.0):
+    """Generate ``max_new_tokens`` from ``prompt (B, S_p)`` (int tensor on
+    the params' device), greedily or, with ``temperature > 0``, sampled
+    with the key ``rng`` (required then: ``ValueError`` without it):
+    prefill, then one tick per new token.  The sampler draws ONE ``(B, V)``
+    uniform per step from ``fold_in(fold_in(rng, step_pos), 0)``, JAX's
+    closed-batch layout (counters ``b·V + v``).  Returns ``(B,
+    max_new_tokens) int32``."""
+    _check_rng(temperature, rng)
     b, s_p = prompt.shape
     total = s_p + max_new_tokens
+    table = params["embed"]
+    key = None if temperature <= 0.0 else prng.as_key(rng, table.device)
+    temp = torch.tensor(temperature, dtype=torch.float32, device=table.device)
+
+    def logits_next(h_last, step_pos: int):
+        if key is None:
+            return _greedy_token(table, h_last)
+        logits = matmul_f32(h_last, table.t())
+        k = prng.fold_in(prng.fold_in(key, step_pos), 0)
+        scored = logits / temp + prng.gumbel(k, tuple(logits.shape))
+        return _pick(scored.max(-1).values, scored.argmax(-1))
+
     h, caches = lm_prefill(params, prompt, total, head_dim=head_dim)
-    token = _greedy_token(params["embed"], h[:, -1])
+    token = logits_next(h[:, -1], s_p)
     out = [token]
     for i in range(1, max_new_tokens):
         h_last, caches = lm_decode_tick(params, token, caches, s_p + i - 1,
                                         head_dim=head_dim)
-        token = _greedy_token(params["embed"], h_last)
+        token = logits_next(h_last, s_p + i)
         out.append(token)
     return torch.stack(out, dim=1)
 
 
+def _prompt_on(params, prompt):
+    return torch.as_tensor(np.asarray(prompt, np.int64),
+                           device=params["embed"].device)
+
+
 def make_lm_generator(*, head_dim: int, max_new_tokens: int,
                       temperature: float = 0.0):
-    """``fn(params, prompt) -> (B, max_new) int32`` tokens; the prompt
-    (numpy or tensor) goes to the params' device."""
-    _check_greedy(temperature)
+    """``fn(params, prompt[, rng]) -> (B, max_new) int32`` tokens; the
+    prompt (numpy or tensor) goes to the params' device.  With
+    ``temperature > 0`` the ``rng`` key is required (``ValueError``)."""
+
+    def apply(params, prompt, rng=None):
+        _check_rng(temperature, rng)
+        with torch.inference_mode():
+            return lm_generate(params, _prompt_on(params, prompt), rng,
+                               head_dim=head_dim,
+                               max_new_tokens=max_new_tokens,
+                               temperature=temperature)
+
+    return apply
+
+
+# ---------------------------------------------------------------------------
+# beam search
+# ---------------------------------------------------------------------------
+
+def _top_k(x, k: int):
+    """``jax.lax.top_k`` along the last axis: the ``k`` largest, equal
+    values in index order (a stable descending sort; ``torch.topk`` does
+    not promise that order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _shard_logprobs(table, h_last):
+    """``(N, D)`` → log-probs ``(N, V)`` normalised across the vocab
+    shards (``pmax``/``psum`` logsumexp), and the shard's first id."""
+    logits = matmul_f32(h_last, table.t())
+    m = _pmax(logits.max(-1).values)
+    z = _psum(torch.exp(logits - m[:, None]).sum(-1))
+    return logits - (m + torch.log(z))[:, None], 0
+
+
+def _global_topk(table, h_last, k: int):
+    """``(N, D)`` → ``(values (N, K), ids (N, K))``: the shard's top-K,
+    gathered over the shards, and the top-K of those."""
+    logp, start = _shard_logprobs(table, h_last)
+    v_loc, i_loc = _top_k(logp, k)
+    gv, gi = _all_gather(v_loc), _all_gather(i_loc + start)
+    v, pos = _top_k(gv, k)
+    return v, gi.gather(1, pos)
+
+
+def _merge_candidates(global_topk, h, scores, toks_buf, i: int, b: int,
+                      k: int):
+    """The beam bookkeeping both cache strategies share: top-K of the K·K
+    candidate continuations, then the token history reordered by the
+    winning parents.  Returns ``(tokens, scores, toks_buf, parent)``."""
+    v_k, i_k = global_topk(h[:, -1])                             # (B·K, K)
+    cand = scores[:, :, None] + v_k.reshape(b, k, k)
+    scores, pos_flat = _top_k(cand.reshape(b, k * k), k)         # (B, K)
+    parent = pos_flat // k
+    tokens = i_k.reshape(b, k * k).gather(1, pos_flat).to(torch.int32)
+    toks_buf = toks_buf.gather(1, parent[:, :, None].expand_as(toks_buf))
+    toks_buf[:, :, i] = tokens
+    return tokens, scores, toks_buf, parent
+
+
+def _reorder(cache, parent, b: int, k: int):
+    """The physical path's cache gather: beam row ``(b, s)`` takes the
+    cache of its parent ``(b, parent[b, s])`` (a copy of the whole cache)."""
+    rows = torch.arange(b, device=cache.device)[:, None]
+    return cache.view(b, k, *cache.shape[1:])[rows, parent].reshape(
+        cache.shape)
+
+
+def lm_generate_beam(params, prompt, *, head_dim: int, max_new_tokens: int,
+                     beam_size: int, lazy_reorder: bool = True,
+                     attend_impl: str = "auto"):
+    """Beam search with the KV cache: the highest-cumulative-log-prob
+    continuation of each prompt among ``beam_size`` beams, fixed length.
+    Returns ``(B, max_new_tokens) int32``, the best beam.
+
+    ``lazy_reorder=True`` never moves a cache: the prompt's K/V is computed
+    once at batch B and shared by every beam, each beam slot appends to
+    its own time-major generated cache, and a ``(B, K, max_new)`` ancestry
+    table (reordered by the parents instead of the caches) masks which
+    slot wrote each past position of each beam.  ``lazy_reorder=False``
+    gathers the ``(B·K, total)`` caches by parent every tick (the test
+    oracle).  ``attend_impl``: ``"auto"`` and ``"kernel"`` attend through
+    :func:`beam_attend_parts` (the beam kernel on a CUDA tensor, its plain
+    version on a CPU tensor); ``"einsum"`` is the joint-softmax oracle."""
+    if attend_impl not in ("auto", "kernel", "einsum"):
+        raise ValueError(f"attend_impl must be auto|kernel|einsum, "
+                         f"got {attend_impl!r}")
+    b, s_p = prompt.shape
+    k = beam_size
+    total = s_p + max_new_tokens
+    embed, attn_block, _, rope = _decoder_core(params, head_dim)
+    _check_length(params, total, rope)
+    topk = partial(_global_topk, params["embed"], k=k)
+    if lazy_reorder:
+        return _beam_lazy(params, prompt, embed, attn_block, topk,
+                          head_dim=head_dim, max_new_tokens=max_new_tokens,
+                          beam_size=k, rope=rope,
+                          use_kernel=attend_impl != "einsum")
+
+    h, caches = _prefill(params, embed, attn_block, prompt, total, head_dim)
+    caches = [(kc.repeat_interleave(k, 0), vc.repeat_interleave(k, 0))
+              for kc, vc in caches]
+    scores, tokens = topk(h[:, -1])
+    tokens = tokens.to(torch.int32)
+    toks_buf = torch.zeros((b, k, max_new_tokens), dtype=torch.int32,
+                           device=prompt.device)
+    toks_buf[:, :, 0] = tokens
+    for i in range(1, max_new_tokens):
+        pos = s_p + i - 1
+        positions = torch.tensor([pos], device=prompt.device)
+        x = embed(tokens.reshape(b * k)[:, None], positions)
+        new_caches = []
+        for blk, (kc, vc) in zip(params["blocks"], caches):
+            x, kc, vc = attn_block(x, blk, kc, vc, positions, pos, pos)
+            new_caches.append((kc, vc))
+        h = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+        tokens, scores, toks_buf, parent = _merge_candidates(
+            topk, h, scores, toks_buf, i, b, k)
+        caches = [(_reorder(kc, parent, b, k), _reorder(vc, parent, b, k))
+                  for kc, vc in new_caches]
+    # the top-K keeps the beams sorted by score: beam 0 is the best
+    return toks_buf[:, 0].to(torch.int32)
+
+
+def _beam_lazy(params, prompt, embed, attn_block, topk, *, head_dim: int,
+               max_new_tokens: int, beam_size: int, rope: bool,
+               use_kernel: bool):
+    """The ancestry-indexed beam body (see :func:`lm_generate_beam`)."""
+    b, s_p = prompt.shape
+    k = beam_size
+    dev = prompt.device
+    n_kv = _kv_heads(params, head_dim)
+    # prefill at batch B into caches of the prompt's length: they are never
+    # extended, generated tokens live in the per-slot caches
+    h, pcaches = _prefill(params, embed, attn_block, prompt, s_p, head_dim)
+    scores, tokens = topk(h[:, -1])
+    tokens = tokens.to(torch.int32)
+    toks_buf = torch.zeros((b, k, max_new_tokens), dtype=torch.int32,
+                           device=dev)
+    toks_buf[:, :, 0] = tokens
+    # TIME-MAJOR flat generated caches: row t·k + slot; the rows written so
+    # far are the prefix [0, i·k), read in place through a window view
+    gen = [(torch.zeros((b, max_new_tokens * k, n_kv * head_dim),
+                        dtype=pk.dtype, device=dev),
+            torch.zeros((b, max_new_tokens * k, n_kv * head_dim),
+                        dtype=pv.dtype, device=dev)) for pk, pv in pcaches]
+    anc = torch.zeros((b, k, max_new_tokens), dtype=torch.int64, device=dev)
+    slot_ids = torch.arange(k, device=dev)
+    g = params["embed"].shape[1] // head_dim // n_kv
+
+    def attend_with(i, pk, pv, gk, gv, amask, amask_rows):
+        def attend(q, kk, vv):
+            # this tick's K/V of all k slots: rows [(i-1)·k, i·k), one append
+            cache_append(gk, gv, kk.reshape(b, k, n_kv * head_dim),
+                         vv.reshape(b, k, n_kv * head_dim), (i - 1) * k,
+                         pos_aligned=True)
+            hl = q.shape[2]
+            gk_w, gv_w = gk[:, :i * k], gv[:, :i * k]
+            if use_kernel:
+                # one pass over each segment (shared prompt; ancestry-masked
+                # slots), merged by the flash combine
+                qf = gqa_rows(q.reshape(b * k, hl * head_dim), n_kv, g,
+                              head_dim)
+                kw = dict(beams=k * g, n_heads=n_kv, head_dim=head_dim)
+                ctx = merge_attend_parts(
+                    [beam_attend_parts(qf, pk, pv, **kw),
+                     beam_attend_parts(qf, gk_w, gv_w, amask_rows, **kw)],
+                    n_kv, head_dim, q.dtype)
+                ctx = gqa_unrows(ctx, n_kv, g, head_dim)
+                return ctx.reshape(b * k, 1, hl, head_dim), ()
+            return _lazy_einsum(q, pk, pv, gk_w, gv_w, amask, b, k, n_kv, g,
+                                head_dim), ()
+        return attend
+
+    for i in range(1, max_new_tokens):
+        pos = s_p + i - 1
+        positions = torch.tensor([pos], device=dev)
+        anc[:, :, i - 1] = slot_ids      # position i-1: each slot wrote it
+        # ancestry over the live window t < i, in (b, beam, t, slot) order
+        # to match the generated rows t·k + slot
+        amask = anc[:, :, :i, None] == slot_ids
+        amask_rows = amask.reshape(b, k, i * k)
+        if g > 1:        # the g query heads of a beam share its mask row
+            amask_rows = amask_rows.repeat_interleave(g, dim=1)
+        x = embed(tokens.reshape(b * k)[:, None], positions)
+        for blk, (pk, pv), (gk, gv) in zip(params["blocks"], pcaches, gen):
+            attend = attend_with(i, pk, pv, gk, gv, amask, amask_rows)
+            x = block_with(x, blk, lambda hh, a=blk["attn"], f=attend:
+                           attention_with(hh, a, head_dim, f,
+                                          positions if rope else None))[0]
+        h = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+        tokens, scores, toks_buf, parent = _merge_candidates(
+            topk, h, scores, toks_buf, i, b, k)
+        # the parents reorder only the ancestry table, never the caches
+        anc = anc.gather(1, parent[:, :, None].expand_as(anc))
+    return toks_buf[:, 0].to(torch.int32)
+
+
+def _lazy_einsum(q, pk, pv, gk_w, gv_w, amask, b, k, n_kv, g, head_dim):
+    """The lazy tick's joint-softmax attention (JAX's einsum fallback):
+    prompt scores against the shared cache, generated scores against every
+    slot with the ancestry mask, one softmax over both, ``p`` rounded to
+    the caches' dtype before the value products."""
+    t = amask.shape[2]
+    s_p = pk.shape[1]
+    scale = head_dim ** 0.5
+    q6 = q.float().reshape(b, k, n_kv, g, head_dim)
+    pk4 = pk.float().reshape(b, s_p, n_kv, head_dim)
+    pv4 = pv.float().reshape(b, s_p, n_kv, head_dim)
+    gk5 = gk_w.float().reshape(b, t, k, n_kv, head_dim)
+    gv5 = gv_w.float().reshape(b, t, k, n_kv, head_dim)
+    sp = torch.einsum("bshgd,bthd->bshgt", q6, pk4) / scale
+    sg = torch.einsum("bshgd,btlhd->bshgtl", q6, gk5) / scale
+    sg = sg.masked_fill(~amask[:, :, None, None], -1e30)
+    p = torch.softmax(torch.cat([sp, sg.reshape(b, k, n_kv, g, t * k)], -1),
+                      dim=-1)
+    p_p = p[..., :s_p].to(pv.dtype).float()
+    p_g = p[..., s_p:].reshape(sg.shape).to(gv_w.dtype).float()
+    ctx = (torch.einsum("bshgt,bthd->bshgd", p_p, pv4)
+           + torch.einsum("bshgtl,btlhd->bshgd", p_g, gv5))
+    return ctx.to(q.dtype).reshape(b * k, 1, n_kv * g, head_dim)
+
+
+def make_lm_beam_generator(*, head_dim: int, max_new_tokens: int,
+                           beam_size: int, lazy_reorder: bool = True,
+                           attend_impl: str = "auto"):
+    """``fn(params, prompt) -> (B, max_new) int32``: the best beam of
+    :func:`lm_generate_beam`; the prompt goes to the params' device."""
 
     def apply(params, prompt):
-        p = torch.as_tensor(np.asarray(prompt, np.int64),
-                            device=params["embed"].device)
         with torch.inference_mode():
-            return lm_generate(params, p, head_dim=head_dim,
-                               max_new_tokens=max_new_tokens)
+            return lm_generate_beam(
+                params, _prompt_on(params, prompt), head_dim=head_dim,
+                max_new_tokens=max_new_tokens, beam_size=beam_size,
+                lazy_reorder=lazy_reorder, attend_impl=attend_impl)
 
     return apply

@@ -14,7 +14,10 @@ on stdout (per-request outcomes + the serving metrics).
 
 The model is random-init from ``--seed`` (or loaded with ``--params`` from
 a ``convert.save_npz`` file) before training; ``--train-steps 0`` serves
-it untrained.
+it untrained.  ``--kv-heads`` makes it a GQA model.  ``--temperature T``
+samples every request at ``T``, request ``i`` with the key
+``fold_in(PRNGKey(seed + 1), i)`` (the JAX CLI's keys, so both CLIs draw
+the same noise).
 
 Run:  python -m chainermn_tpu_torch.serve --device cuda
       python -m chainermn_tpu_torch.serve --device cuda --dtype bfloat16 \\
@@ -85,6 +88,8 @@ def main(argv=None):
     parser.add_argument("--d-model", type=int, default=32)
     parser.add_argument("--n-heads", type=int, default=4)
     parser.add_argument("--n-layers", type=int, default=2)
+    parser.add_argument("--kv-heads", type=int, default=None,
+                        help="KV heads (GQA); default: one per query head")
     parser.add_argument("--seq-len", type=int, default=24)
     parser.add_argument("--pos-impl", default="learned",
                         choices=["learned", "rope"])
@@ -104,6 +109,10 @@ def main(argv=None):
     parser.add_argument("--stagger-every", type=int, default=2,
                         help="submit one later-wave request every N engine "
                              "steps after the first wave")
+    parser.add_argument("--temperature", type=float, default=0.0,
+                        help="per-request sampling temperature (0 = greedy); "
+                             "request i samples with fold_in(PRNGKey(seed + "
+                             "1), i)")
     parser.add_argument("--steps-budget", type=int, default=None,
                         help="hard cap on engine iterations (the run exits "
                              "cleanly with whatever finished)")
@@ -112,6 +121,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from chainermn_tpu_torch import prng
     from chainermn_tpu_torch.convert import load_npz
     from chainermn_tpu_torch.parallel import init_tp_transformer_lm
     from chainermn_tpu_torch.serving import AdmissionError, ServingEngine
@@ -125,8 +135,9 @@ def main(argv=None):
         params = init_tp_transformer_lm(
             torch.Generator().manual_seed(args.seed), args.vocab,
             args.d_model, args.n_heads, args.n_layers,
-            max_len=max(max_total, args.seq_len),
-            dtype=dtype, pos_impl=args.pos_impl, device=args.device)
+            max_len=max(max_total, args.seq_len), dtype=dtype,
+            n_kv_heads=args.kv_heads, pos_impl=args.pos_impl,
+            device=args.device)
     head_dim = params["embed"].shape[1] // args.n_heads
     vocab = params["embed"].shape[0]
     if args.train_steps > 0:
@@ -142,10 +153,17 @@ def main(argv=None):
     want = test[:, args.prompt_len: args.prompt_len + args.max_new_tokens]
 
     handles, rejected = {}, {}
+    sample_kw = {}
+    if args.temperature > 0:
+        base_key = prng.PRNGKey(args.seed + 1)
+        sample_kw = {i: {"temperature": args.temperature,
+                         "rng": prng.fold_in(base_key, i)}
+                     for i in range(args.requests)}
 
     def submit(i):
         try:
-            handles[i] = eng.submit(prompts[i], args.max_new_tokens)
+            handles[i] = eng.submit(prompts[i], args.max_new_tokens,
+                                    **sample_kw.get(i, {}))
         except AdmissionError as e:
             rejected[i] = e.to_dict()
             print(f"request {i} rejected: {e}", file=sys.stderr)

@@ -5,11 +5,17 @@ generator runs prefill and all ticks in one call; this engine splits the
 same numerics into two steps driven from the host, so requests join and
 leave between ticks:
 
-* **prefill_into_slot** — full-prompt forward (``lm_prefill``), greedy
-  first token from the last real prompt position, and a copy of the
-  prompt's K/V slab into the slot's rows of the pool.
+* **prefill_into_slot** — full-prompt forward (``lm_prefill``), the first
+  token (greedy, or sampled with the request's key salted by the prompt
+  length) from the last prompt position, and a copy of the prompt's K/V
+  slab into the slot's rows of the pool.
 * **tick** — one token for EVERY slot (``lm_decode_tick`` with the
-  per-row position vector + the greedy pick), K/V appended per row.
+  per-row position vector + ``_next_token``, each slot greedy or sampled
+  with its own key salted by the position it generates), K/V appended per
+  row.
+
+The salts are ``lm_generate``'s, so a sampled request is token-exact
+against ``lm_generate(rng=key)`` at B = 1.
 
 The JAX engine is functional: each program returns new pool caches.  This
 one updates the pool's tensors IN PLACE (the append kernel writes into
@@ -41,10 +47,12 @@ class DecodeEngine:
         self.prefill_calls = 0
         self.tick_calls = 0
 
-    def prefill_into_slot(self, prompt_tokens, slot: int) -> int:
+    def prefill_into_slot(self, prompt_tokens, slot: int, rng=None,
+                          temperature: float = 0.0) -> int:
         """Prefill ``prompt_tokens (S,)`` into ``slot``: writes the K/V slab
         into the pool's caches, sets ``pool.pos[slot]`` and returns the first
-        generated token (greedy)."""
+        generated token (position ``S``: greedy, or sampled with ``rng`` at
+        ``temperature > 0``)."""
         prompt = np.asarray(prompt_tokens, np.int64).reshape(1, -1)
         s_p = prompt.shape[1]
         if s_p > self.pool.max_total:
@@ -55,7 +63,10 @@ class DecodeEngine:
             h, slabs = lm_prefill(self._params,
                                   torch.tensor(prompt, device=self.device),
                                   s_p, head_dim=self.head_dim)
-            tok = _next_token(self._params["embed"], h[:, -1])
+            keys = None if rng is None else np.asarray(rng, np.uint32)[None]
+            tok = _next_token(self._params["embed"], h[:, -1], keys,
+                              np.array([temperature], np.float32),
+                              torch.tensor([s_p], device=self.device))
             for (kc, vc), (ks, vs) in zip(self.pool.caches, slabs):
                 kc[slot, :s_p].copy_(ks[0])
                 vc[slot, :s_p].copy_(vs[0])
@@ -63,10 +74,13 @@ class DecodeEngine:
         self.pool.pos[slot] = s_p
         return first
 
-    def tick(self, last_tokens: np.ndarray) -> np.ndarray:
+    def tick(self, last_tokens: np.ndarray, keys=None,
+             temps=None) -> np.ndarray:
         """One decode tick for ALL slots: consume ``last_tokens (n_slots,)``
         at the pool's per-slot positions, append K/V in place, advance every
-        position, and return the next token per slot."""
+        position, and return the next token per slot.  ``keys (n_slots,
+        2)`` and ``temps (n_slots,)`` are the slots' sampling operands
+        (``None``, or temperatures <= 0: greedy)."""
         self.tick_calls += 1
         # torch.tensor copies the host arrays before returning, so the
         # position update below cannot race the device's read of them
@@ -77,7 +91,9 @@ class DecodeEngine:
         with torch.inference_mode():
             h_last, _ = lm_decode_tick(self._params, tokens, self.pool.caches,
                                        pos, head_dim=self.head_dim)
-            nxt = _next_token(self._params["embed"], h_last)
+            # the consumed token sits at row pos; the next is position pos+1
+            nxt = _next_token(self._params["embed"], h_last, keys, temps,
+                              pos + 1)
             out = nxt.cpu().numpy()
         self.pool.pos = self.pool.pos + 1
         return out

@@ -13,9 +13,11 @@ Each ``step()`` expires overdue queued work, admits (prefills) up to the
 interleaving bound, runs ONE decode tick over the pool, streams the new
 tokens and evicts finished sequences, so requests join and leave between
 ticks (continuous batching).  ``metrics()`` reports the JAX engine's
-``serving/*`` keys that this slice has.  Not in this slice: prefix cache,
-host spill, flight recorder, tracer, SLO tracking, the background driver
-thread, prefill length buckets, trace ids, sampling and GQA models.
+``serving/*`` keys that this slice has.  Requests are greedy, or sampled
+with their own key (``temperature`` and ``rng`` at submit); GQA models
+serve like any other.  Not in this slice: prefix cache, host spill,
+flight recorder, tracer, SLO tracking, the background thread that steps
+the engine (``start``/``stop``), prefill length buckets and trace ids.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ class RequestHandle:
 
 
 class ServingEngine:
-    """Continuous-batching greedy inference over a slot-managed KV pool.
+    """Continuous-batching inference over a slot-managed KV pool.
 
     ``params``: ``init_tp_transformer_lm`` tensors (moved to ``device``).
     ``max_total`` bounds each slot's sequence (prompt + generated); a
@@ -91,11 +93,6 @@ class ServingEngine:
                  max_prefills_per_tick: int = 1, device="cuda"):
         dev = resolve_device(device)
         n_kv = _kv_heads(params, head_dim)
-        n_heads = params["embed"].shape[1] // head_dim
-        if n_kv != n_heads:
-            raise NotImplementedError(
-                f"GQA serving (n_kv_heads {n_kv} < n_heads {n_heads}) is not "
-                f"ported yet")
         params = tree_map(params, lambda t: t.to(dev))
         self.pool = CachePool(n_slots, max_total, len(params["blocks"]),
                               n_kv * head_dim, params["embed"].dtype, dev)
@@ -105,6 +102,10 @@ class ServingEngine:
             max_prefills_per_tick=max_prefills_per_tick,
             max_positions=self.engine.max_positions)
         self._running: Dict[int, Request] = {}   # slot -> request
+        # per-slot sampling operands: each slot's request key and
+        # temperature ride every tick; greedy and free slots carry zeros
+        self._slot_keys = np.zeros((n_slots, 2), np.uint32)
+        self._slot_temps = np.zeros(n_slots, np.float32)
         self._lock = threading.Lock()            # guards _running + stats
         self._closed = False
         self._ttft_ms = ReservoirSample(_STATS_CAPACITY)
@@ -125,22 +126,29 @@ class ServingEngine:
                eos_id: Optional[int] = None,
                deadline_s: Optional[float] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
-               temperature: float = 0.0) -> RequestHandle:
+               temperature: float = 0.0, rng=None) -> RequestHandle:
         """Enqueue a generation request; raises :class:`AdmissionError`
         (with ``.reason``) when the queue is full or it can never fit.
         ``on_token(token, request_id)`` streams each emitted token;
-        ``deadline_s`` is relative to now."""
+        ``deadline_s`` is relative to now.  ``temperature > 0`` samples the
+        request's tokens and needs its key ``rng`` (``ValueError``
+        otherwise: a silent default key would draw identical sequences)."""
         if self._closed:
             raise RuntimeError("ServingEngine is closed")
-        if float(temperature) > 0.0:
-            raise NotImplementedError(
-                "sampling (temperature > 0) is not ported yet")
+        temperature = float(temperature)
+        if temperature > 0.0 and rng is None:
+            raise ValueError(
+                "temperature > 0 samples tokens and needs an explicit rng "
+                "key (prng.PRNGKey(...)): a silent default key would make "
+                "every sampled request draw identical token sequences")
         now = time.monotonic()
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         req = Request(prompt, max_new_tokens, eos_id=eos_id,
                       deadline_t=(now + deadline_s
                                   if deadline_s is not None else None),
-                      on_token=on_token)
+                      on_token=on_token, temperature=temperature,
+                      rng=(None if rng is None
+                           else np.asarray(rng).astype(np.uint32).reshape(2)))
         try:
             self.scheduler.submit(req, now)
         except AdmissionError:
@@ -159,12 +167,17 @@ class ServingEngine:
             req.slot = slot
             req.status = "running"
             req.timestamps["prefill_start"] = time.monotonic()
+            self._slot_keys[slot] = (req.rng if req.rng is not None
+                                     else np.zeros(2, np.uint32))
+            self._slot_temps[slot] = req.temperature
             try:
-                first = self.engine.prefill_into_slot(req.prompt, slot)
+                first = self.engine.prefill_into_slot(
+                    req.prompt, slot, req.rng, req.temperature)
             except BaseException:
                 # never die holding a slot: the failed request is finished
                 # with reason "error" and its slot freed before re-raising
                 req.finish("error", time.monotonic())
+                self._slot_temps[slot] = 0.0
                 self.pool.release(slot)
                 raise
             self._emit(req, first, time.monotonic())
@@ -184,7 +197,7 @@ class ServingEngine:
                     self._tick_gap_ms.add(
                         (t_tick - self._last_tick_start) * 1e3)
                 self._last_tick_start = t_tick
-            nxt = self.engine.tick(tokens)
+            nxt = self.engine.tick(tokens, self._slot_keys, self._slot_temps)
             now = time.monotonic()
             dt_ms = (now - t_tick) * 1e3
             for slot, req in active.items():
@@ -224,6 +237,8 @@ class ServingEngine:
         req.finish(reason, now)
         with self._lock:
             self._running.pop(slot, None)
+        # a free slot keeps ticking: its discarded row goes back to greedy
+        self._slot_temps[slot] = 0.0
         self.pool.release(slot)
 
     # ---- driving ----

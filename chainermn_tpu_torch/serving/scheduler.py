@@ -2,7 +2,7 @@
 
 A copy of ``chainermn_tpu/serving/scheduler.py`` (pure host Python),
 trimmed to what this slice serves: no prefix-cache suffix feeding, no
-sampling operands, no tenancy, no trace ids, no requeue/drain for fleets.
+tenancy, no trace ids, no requeue/drain for fleets.
 
 * **Bounded FIFO queue with backpressure.**  ``submit`` raises
   :class:`AdmissionError` with a machine-readable ``reason`` when the
@@ -40,14 +40,16 @@ class AdmissionError(Exception):
 class Request:
     """One generation request's host-side state.  ``timestamps`` records
     ``submitted`` → ``prefill_start`` → ``first_token`` → ``finished``
-    (monotonic seconds)."""
+    (monotonic seconds).  ``temperature > 0`` samples its tokens with the
+    key ``rng`` (uint32 ``(2,)``); greedy requests carry neither."""
 
     _ids = itertools.count()
 
     def __init__(self, prompt, max_new_tokens: int,
                  eos_id: Optional[int] = None,
                  deadline_t: Optional[float] = None,
-                 on_token: Optional[Callable] = None):
+                 on_token: Optional[Callable] = None,
+                 temperature: float = 0.0, rng=None):
         self.id = next(Request._ids)
         self.prompt = prompt
         self.prompt_len = len(prompt)
@@ -55,6 +57,8 @@ class Request:
         self.eos_id = eos_id
         self.deadline_t = deadline_t      # absolute monotonic, or None
         self.on_token = on_token
+        self.temperature = float(temperature)
+        self.rng = rng
         self.tokens: List[int] = []       # generated tokens, in order
         self.status = "queued"            # queued|running|done|evicted
         self.finish_reason: Optional[str] = None

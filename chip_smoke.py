@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving and training on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search and training on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -22,28 +22,51 @@ and prints no result line:
    of 77, the LSE cotangent) and the three fused cross-entropy kernels (T
    8192, V 32768, D 1024; ragged T and V, targets out of range).  The CE
    gradients are small numbers, so their largest error must also stay
-   within the tolerance times their largest entry.
+   within the tolerance times their largest entry.  The beam kernel
+   (``beam_attend_parts``: acc, m and l): beam 4's two segments at full
+   width (the (8, 512, 1024) prompt, mode none; the (8, 2048, 1024)
+   generated window as a strided view, mode amask, one valid slot per
+   (b, beam, t)), the GQA tick (B 8, 4 KV heads of 64, g 4, S 1024, pos
+   scalar, per-row and at the edges), hd 128, S 1, a ragged S of 77 and
+   8 or 16 rows per cache row; the three timed shapes beside
+   ``scaled_dot_product_attention`` (the rows as the query length, a
+   boolean mask; ``enable_gqa`` for GQA).
 3. ``parity``  — fp32, full width (d 1024, 8 layers, 16 heads, vocab
    32768), and a small RoPE model (d 256, 4 heads, 2 layers): 4 staggered
    requests through the port's ServingEngine on the card and on the CPU
    with the same weights; tokens must be equal, or
    differ only where the CPU's logits of the two tokens are within 1e-3
-   (a near-tie, after which that request's comparison stops).  TF32 is
-   off for the whole run (matmul and cuDNN).
+   (a near-tie, after which that request's comparison stops).  The same
+   for the full-width GQA model (4 KV heads) with requests 1 and 3
+   sampled at temperature 0.7 (for a sampled row the near-tie is in the
+   CPU's ``logits / T + gumbel``), and beam 4, lazy and physical, at
+   prompt 128 and 16 new tokens (the best beams equal, or their CPU
+   log-probabilities within 1e-3).  TF32 is off for the whole run
+   (matmul and cuDNN).
 4. ``serving`` — bf16, full width: 16 staggered requests (prompt 512, 64
    new tokens) through an 8-slot, max_total 1024 ServingEngine; every
    request must finish ``done`` and every serving kernel (flash forward,
    decode attention, append) must have launched.  The
    launch counts are zeroed just before this run and read just after.
    Then ``lm_generate`` at B 8, prompt 512, 64 new tokens.
-5. ``train-parity`` — fp32, d 1024, 2 layers, 8 heads, vocab 32768, S 256,
+5. ``beam`` — bf16, ``bench.py :: bench_decode``'s full width: beam 4,
+   lazy reorder, B 8, prompt 512, 512 new tokens (tokens/s, ms per token,
+   peak memory), beside the prefill alone and the greedy ``lm_generate``
+   of the same size.  Launch counts zeroed just before the beam run and
+   read just after must be 2 x 8 x 511 beam-kernel launches, 8 x 511 + 8
+   appends and 8 flash forwards.
+6. ``serving-gqa`` — bf16, the GQA model (4 KV heads): the serving run
+   of phase 4 with the odd half of the requests sampled at temperature
+   0.7; every request ``done``, the beam kernel launched 8 times on every
+   tick and the decode kernel never.
+7. ``train-parity`` — fp32, d 1024, 2 layers, 8 heads, vocab 32768, S 256,
    B 2, flash attention and the fused CE, TF32 off: the gradient of every
    parameter at the initial weights, card against CPU, to a relative norm
    of 1e-4 (an SGD step of 1e-2 moves the tied embedding by less than
    the parameter tolerance, so the gradients are held directly); then
    two SGD steps on the card and on the CPU from the same weights, losses
    to rtol 1e-4 and parameters to atol 1e-4.
-6. ``train`` — bf16, the full width of ``bench.py``'s
+8. ``train`` — bf16, the full width of ``bench.py``'s
    ``bench_transformer_lm`` (d 1024, 8 layers, 8 heads of 128, vocab
    32768, S 1024, B 8, learned positions, SGD 1e-2, flash attention) with
    ``ce_impl="fused"``: 2 warm-up steps, then 10 timed steps, each
@@ -53,9 +76,10 @@ and prints no result line:
    after, must show 8 flash forward and 8 flash backward launches and one
    of each CE kernel per step.  Then 3 steps with ``ce_impl="auto"`` from
    the same initial weights: the first loss within 2e-2 of the fused one.
-7. One ``{"kernels": [...]}`` line (launches summed over the main paths'
-   runs: serving and the timed training steps), the card line, then the
-   result line ``{"ok": true, "device": {...}}``.
+9. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+   runs: the two serving runs, the beam run and the timed training
+   steps), the card line, then the result line ``{"ok": true, "device":
+   {...}}``.
 """
 
 import json
@@ -69,6 +93,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 FULL = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8)
 HEAD_DIM = FULL["d_model"] // FULL["n_heads"]
+GQA_KV_HEADS = 4            # the GQA configuration: g = 4 query heads per KV head
+BEAM = dict(batch=8, prompt=512, new=512, beam_size=4)   # bench.py bench_decode
 # bench.py :: bench_transformer_lm's defaults
 TRAIN = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8)
 TRAIN_SEQ, TRAIN_BATCH = 1024, 8
@@ -87,6 +113,8 @@ KERNEL_INFO = {
               "chainermn_tpu/ops/fused_ce.py:254"),
     "ce_dtable": ("chainermn_tpu_torch/csrc/fused_ce.cu",
                   "chainermn_tpu/ops/fused_ce.py:273"),
+    "beam_attend": ("chainermn_tpu_torch/csrc/beam_attention.cu",
+                    "chainermn_tpu/ops/decode_attention.py:324"),
 }
 
 
@@ -542,39 +570,163 @@ def check_ce(smoke):
                           **shape))
 
 
+def _beam_bound(b, r, d, n_read, mode, elem, dtype_name, h):
+    """q read once, K and V of every position read once, the mask bytes,
+    fp32 (acc, m, l) written; 2·R·D FLOP per position for the scores and
+    as many for the values."""
+    nbytes = (b * r * d * elem + 2.0 * n_read * d * elem
+              + (r * n_read if mode == "amask" else 0.0)
+              + 4.0 * b * r * (d + 2 * h))
+    return _bound(nbytes, 4.0 * r * n_read * d, dtype_name)
+
+
+def check_beam(smoke):
+    """``beam_attend_parts`` against its plain version: the beam-4 tick's
+    two segments at full width (the shared prompt, mode none; the
+    generated window, a strided view of the slot caches, mode amask with
+    one valid slot per (b, beam, t)), the GQA tick (B 8, 4 KV heads of
+    64, g 4, S 1024, pos scalar / per-row / edge), hd 128, S 1, a ragged
+    S and 8 or 16 rows per cache row."""
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.ops import beam_attend_parts, beam_attend_parts_plain
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def one_slot_mask(b, k, t_len):
+        """Exactly one valid slot per (b, beam, t), rows t·k + slot."""
+        slot = torch.randint(0, k, (b, k, t_len), generator=g, device="cuda")
+        m = torch.zeros(b, k, t_len, k, dtype=torch.int8, device="cuda")
+        m.scatter_(3, slot[..., None], 1)
+        return m.reshape(b, k, t_len * k)
+
+    edge = torch.tensor([0, 1, 100, 511, 777, 1022, 1023, 5000],
+                        dtype=torch.int32, device="cuda")
+    serve = torch.randint(512, 576, (8,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    cases = [  # (label, B, S, H, hd, R, mode, pos, window, timed)
+        ("beam_prompt", 8, 512, 16, 64, 4, "none", None, False, True),
+        ("beam_window", 8, 2048, 16, 64, 4, "amask", None, True, True),
+        ("gqa_scalar", 8, 1024, 4, 64, 4, "pos", 700, False, False),
+        ("gqa_serve", 8, 1024, 4, 64, 4, "pos", serve, False, True),
+        ("gqa_edge", 8, 1024, 4, 64, 4, "pos", edge, False, False),
+        ("hd128", 2, 300, 8, 128, 4, "amask", None, True, False),
+        ("s1", 3, 1, 4, 64, 2, "none", None, False, False),
+        ("ragged", 2, 77, 4, 64, 3, "pos", torch.tensor(
+            [10, 76], dtype=torch.int32, device="cuda"), False, False),
+        ("rows8", 2, 96, 2, 128, 8, "amask", None, False, False),
+        ("rows16", 2, 100, 2, 64, 16, "amask", None, True, False),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for label, b, s, h, hd, r, mode, pos, window, timed in cases:
+            d = h * hd
+            q = torch.randn(b * r, d, generator=g, device="cuda").to(dtype)
+            rows = s + 64 if window else s
+            kfull, vfull = (torch.randn(b, rows, d, generator=g,
+                                        device="cuda").to(dtype)
+                            for _ in range(2))
+            kc, vc = kfull[:, :s], vfull[:, :s]    # strided when window
+            amask = None
+            if mode == "amask":
+                if r == 4 and s % 4 == 0:
+                    amask = one_slot_mask(b, 4, s // 4)
+                else:
+                    amask = (torch.rand(b, r, s, generator=g, device="cuda")
+                             > 0.5).to(torch.int8)
+                    amask[:, :, 0] = 1
+            kw = dict(beams=r, n_heads=h, head_dim=hd)
+            args = (q, kc, vc, amask, pos if mode == "pos" else None)
+            got = beam_attend_parts(*args, **kw)
+            ref = beam_attend_parts_plain(*args, **kw)
+            torch.cuda.synchronize()
+            shape = dict(B=b, S=s, H=h, hd=hd, R=r, mode=mode, case=label,
+                         strided=not kc.is_contiguous())
+            err = max(smoke.compare(f"beam_attend.{n}", x, y, dn, **shape)
+                      for n, x, y in zip(("acc", "m", "l"), got, ref))
+            if not (timed and dtype == torch.bfloat16):
+                continue
+            ms = smoke.time_ms(lambda: beam_attend_parts(*args, **kw))
+            plain = smoke.time_ms(lambda: beam_attend_parts_plain(*args, **kw),
+                                  iters=5)
+            if mode == "pos":      # GQA: q heads grouped onto KV heads
+                qt = q.view(b, r, h, hd).transpose(1, 2).reshape(
+                    b, h * r, 1, hd)
+                mask = (torch.arange(s, device="cuda")[None, :]
+                        <= pos.long()[:, None])[:, None, None, :]
+                n_read = float((pos.long().clamp(max=s - 1) + 1).sum())
+                lib_kw = dict(attn_mask=mask, enable_gqa=True)
+            else:                  # the beam rows as the query length
+                qt = q.view(b, r, h, hd).transpose(1, 2)
+                mask = None if amask is None else (amask > 0)[:, None]
+                n_read = float(b * s)
+                lib_kw = dict(attn_mask=mask)
+            kt = kc.view(b, s, h, hd).transpose(1, 2)
+            vt = vc.view(b, s, h, hd).transpose(1, 2)
+            lib = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, **lib_kw))
+            bound, by = _beam_bound(b, r, d, n_read, mode, q.element_size(),
+                                    dn, h)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                       bound_by=by, library_ms=lib, shape=shape, dtype=dn)
+            if label == "beam_window":
+                smoke.kernel_rows["beam_attend"] = row
+            emit(dict(check="beam_attend.time", max_abs_err=err,
+                      atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
+                      library_ms=lib, library="SDPA", bound_ms=bound,
+                      bound_by=by, **shape))
+
+
 def phase_kernels(smoke):
     check_flash(smoke)
     check_decode(smoke)
     check_append(smoke)
     check_flash_bwd(smoke)
     check_ce(smoke)
+    check_beam(smoke)
 
 
-def _init_full(torch, device, dtype, max_len):
+def _init_full(torch, device, dtype, max_len, n_kv_heads=None):
     from chainermn_tpu_torch.parallel import init_tp_transformer_lm
 
     return init_tp_transformer_lm(torch.Generator().manual_seed(0),
                                   max_len=max_len, dtype=dtype, device=device,
-                                  **FULL)
+                                  n_kv_heads=n_kv_heads, **FULL)
 
 
-def _drive(eng, prompts, max_new, first_wave, stagger_every):
+def _drive(eng, prompts, max_new, first_wave, stagger_every, sample=None):
     """Submit ``first_wave`` requests, then one more every
-    ``stagger_every`` steps, and run until every request is finished."""
-    handles = [eng.submit(p, max_new) for p in prompts[:first_wave]]
+    ``stagger_every`` steps, and run until every request is finished.
+    ``sample[i]`` holds request ``i``'s ``temperature``/``rng`` keywords."""
+    def submit(i):
+        return eng.submit(prompts[i], max_new, **(sample or {}).get(i, {}))
+
+    handles = [submit(i) for i in range(first_wave)]
     steps = 0
     while len(handles) < len(prompts) or eng.scheduler.queue_depth \
             or eng.pool.busy_count:
         eng.step()
         steps += 1
         if len(handles) < len(prompts) and steps % stagger_every == 0:
-            handles.append(eng.submit(prompts[len(handles)], max_new))
+            handles.append(submit(len(handles)))
     return handles, steps
+
+
+def _half_sampled(n, seed, temperature=0.7):
+    """Sampling keywords for the odd requests of ``n``: request ``i`` at
+    ``temperature`` with the key ``fold_in(PRNGKey(seed), i)``."""
+    from chainermn_tpu_torch import prng
+
+    return {i: {"temperature": temperature,
+                "rng": prng.fold_in(prng.PRNGKey(seed), i)}
+            for i in range(1, n, 2)}
 
 
 def phase_parity(smoke):
     """fp32 card-vs-CPU token parity: the full-width learned-position model
-    (the slice's model) and a small RoPE model (the per-row rotation)."""
+    (the slice's model) and a small RoPE model (the per-row rotation)
+    through the serving engine; the full-width GQA model (4 KV heads) with
+    half its requests sampled; beam-4, lazy and physical, at full width."""
     torch = smoke.torch
     from chainermn_tpu_torch.parallel import init_tp_transformer_lm
 
@@ -584,13 +736,42 @@ def phase_parity(smoke):
     rope = init_tp_transformer_lm(torch.Generator().manual_seed(1), 512, 256,
                                   4, 2, pos_impl="rope", device="cpu")
     _parity_case(smoke, "small_rope", rope, 64, s_p, max_new)
+    for lazy in (True, False):
+        _beam_parity(smoke, full, s_p, max_new, lazy)
+    del full
+    gqa = _init_full(torch, "cpu", torch.float32, s_p + max_new,
+                     n_kv_heads=GQA_KV_HEADS)
+    _parity_case(smoke, "full_width_gqa_sampled", gqa, HEAD_DIM, s_p,
+                 max_new, sample=_half_sampled(4, 7))
 
 
-def _parity_case(smoke, label, params_cpu, head_dim, s_p, max_new):
+def _cpu_choice_values(params_cpu, head_dim, prompt, tokens, t, kw):
+    """The CPU's values behind token ``t`` of a request: its logits, or
+    for a sampled request the scored values ``logits / T + gumbel`` with
+    the noise of that position."""
+    import numpy as np
+    import torch
+
+    from chainermn_tpu_torch import prng
+    from chainermn_tpu_torch.parallel.decode import lm_prefill
+
+    ctx = np.concatenate([prompt, np.asarray(tokens[:t], np.int32)])
+    with torch.inference_mode():
+        h, _ = lm_prefill(params_cpu, torch.tensor(ctx[None], dtype=torch.long),
+                          len(ctx), head_dim=head_dim)
+        logits = h[0, -1].float() @ params_cpu["embed"].float().t()
+    if not kw:
+        return logits
+    key = prng.fold_in(prng.fold_in(kw["rng"], len(ctx)), 0)
+    temp = torch.tensor(kw["temperature"], dtype=torch.float32)
+    return logits / temp + prng.gumbel(key, (1, logits.shape[0]))[0]
+
+
+def _parity_case(smoke, label, params_cpu, head_dim, s_p, max_new,
+                 sample=None):
     import numpy as np
 
     torch = smoke.torch
-    from chainermn_tpu_torch.parallel.decode import lm_prefill
     from chainermn_tpu_torch.serving import ServingEngine
 
     n_req = 4
@@ -602,7 +783,7 @@ def _parity_case(smoke, label, params_cpu, head_dim, s_p, max_new):
         eng = ServingEngine(params_cpu, head_dim=head_dim, n_slots=4,
                             max_total=s_p + max_new, queue_capacity=8,
                             device=dev)
-        handles, _ = _drive(eng, list(prompts), max_new, 2, 2)
+        handles, _ = _drive(eng, list(prompts), max_new, 2, 2, sample)
         results[dev] = [h.tokens for h in handles]
         if not all(h.status == "done" for h in handles):
             raise AssertionError(f"{label} {dev}: not every request done")
@@ -613,39 +794,93 @@ def _parity_case(smoke, label, params_cpu, head_dim, s_p, max_new):
             equal += 1
             continue
         t = next(j for j in range(max_new) if a[j] != c[j])
-        ctx = np.concatenate([prompts[i], np.asarray(c[:t], np.int32)])
-        with torch.inference_mode():
-            h, _ = lm_prefill(params_cpu,
-                              torch.tensor(ctx[None], dtype=torch.long),
-                              len(ctx), head_dim=head_dim)
-            logits = h[0, -1].float() @ params_cpu["embed"].float().t()
-        gap = abs(float(logits[a[t]]) - float(logits[c[t]]))
+        kw = (sample or {}).get(i)
+        vals = _cpu_choice_values(params_cpu, head_dim, prompts[i], c, t, kw)
+        gap = abs(float(vals[a[t]]) - float(vals[c[t]]))
         emit({"check": "parity.mismatch", "model": label, "request": i,
-              "step": t, "card_token": a[t], "cpu_token": c[t],
-              "cpu_logit_gap": gap})
+              "sampled": kw is not None, "step": t, "card_token": a[t],
+              "cpu_token": c[t], "cpu_value_gap": gap})
         if gap >= 1e-3:
             raise AssertionError(f"{label} request {i} step {t}: tokens "
-                                 f"{a[t]} vs {c[t]} with CPU logit gap "
-                                 f"{gap} >= 1e-3")
+                                 f"{a[t]} vs {c[t]} with CPU gap {gap} "
+                                 f">= 1e-3")
         near_ties += 1
     emit({"check": "parity", "model": label, "requests": n_req,
-          "equal": equal, "near_ties": near_ties, "dtype": "float32"})
+          "sampled": sorted(sample or {}), "equal": equal,
+          "near_ties": near_ties, "dtype": "float32"})
 
 
-def phase_serving(smoke):
+def _seq_logprob(torch, params_cpu, head_dim, prompt, toks):
+    """The CPU's cumulative log-probability of ``toks`` after ``prompt``."""
+    import numpy as np
+
+    from chainermn_tpu_torch.parallel.decode import lm_prefill
+
+    full = np.concatenate([prompt, np.asarray(toks, np.int32)])
+    with torch.inference_mode():
+        h, _ = lm_prefill(params_cpu, torch.tensor(full[None], dtype=torch.long),
+                          len(full), head_dim=head_dim)
+        logits = h[0, len(prompt) - 1:-1].float() @ \
+            params_cpu["embed"].float().t()
+        logp = torch.log_softmax(logits, -1)
+    return float(logp.gather(1, torch.tensor(toks, dtype=torch.long)[:, None]
+                             ).sum())
+
+
+def _beam_parity(smoke, params_cpu, s_p, max_new, lazy):
+    """Beam-4 at full width, card vs CPU: the best beams equal, or the
+    card's scores within 1e-3 of the CPU's best under the CPU's model."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.convert import tree_map
+    from chainermn_tpu_torch.parallel import make_lm_beam_generator
+
+    prompts = np.random.RandomState(10).randint(
+        0, FULL["vocab"], (2, s_p)).astype(np.int32)
+    gen = make_lm_beam_generator(head_dim=HEAD_DIM, max_new_tokens=max_new,
+                                 beam_size=4, lazy_reorder=lazy)
+    card = gen(tree_map(params_cpu, lambda t: t.to("cuda")), prompts).cpu()
+    cpu = gen(params_cpu, prompts)
+    label = "beam4_lazy" if lazy else "beam4_physical"
+    near_ties = 0
+    for i in range(prompts.shape[0]):
+        a, c = card[i].tolist(), cpu[i].tolist()
+        if a == c:
+            continue
+        la, lc = (_seq_logprob(torch, params_cpu, HEAD_DIM, prompts[i], x)
+                  for x in (a, c))
+        emit({"check": "parity.mismatch", "model": label, "row": i,
+              "card_logprob": la, "cpu_logprob": lc})
+        if abs(la - lc) >= 1e-3:
+            raise AssertionError(f"{label} row {i}: card beam log-prob {la} "
+                                 f"vs CPU {lc}")
+        near_ties += 1
+    emit({"check": "parity", "model": label, "rows": prompts.shape[0],
+          "equal": prompts.shape[0] - near_ties, "near_ties": near_ties,
+          "new_tokens": max_new, "prompt": s_p, "dtype": "float32"})
+
+
+SERVE = dict(requests=16, prompt=512, new=64, max_total=1024, slots=8)
+
+
+def _serve_run(smoke, label, params, seed, sample=None):
+    """16 staggered requests (prompt 512, 64 new) through an 8-slot
+    ServingEngine on the card, launch counts zeroed just before and read
+    just after; every request must finish ``done`` with 64 tokens in the
+    vocabulary.  Emits the run's line and returns ``(launches, ticks)``."""
     import numpy as np
 
     torch = smoke.torch
     from chainermn_tpu_torch import ops
-    from chainermn_tpu_torch.parallel import make_lm_generator
     from chainermn_tpu_torch.serving import ServingEngine
 
-    n_req, s_p, max_new, max_total = 16, 512, 64, 1024
-    params = _init_full(torch, "cuda", torch.bfloat16, max_total)
-    prompts = np.random.RandomState(6).randint(
+    n_req, s_p, max_new = SERVE["requests"], SERVE["prompt"], SERVE["new"]
+    prompts = np.random.RandomState(seed).randint(
         0, FULL["vocab"], (n_req, s_p)).astype(np.int32)
-    eng = ServingEngine(params, head_dim=HEAD_DIM, n_slots=8,
-                        max_total=max_total, queue_capacity=16, device="cuda")
+    eng = ServingEngine(params, head_dim=HEAD_DIM, n_slots=SERVE["slots"],
+                        max_total=SERVE["max_total"], queue_capacity=n_req,
+                        device="cuda")
     prefill_ms, tick_ms = [], []
 
     def timed(fn, sink):
@@ -663,38 +898,52 @@ def phase_serving(smoke):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    handles, steps = _drive(eng, list(prompts), max_new, 8, 2)
+    handles, steps = _drive(eng, list(prompts), max_new, SERVE["slots"], 2,
+                           sample)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     smoke.add_launches(launches)
     done = sum(h.status == "done" for h in handles)
     m = eng.metrics()
-    tick_sorted = sorted(tick_ms)
     n_tok = sum(len(h.tokens) for h in handles)
-    emit({"check": "serving", "dtype": "bfloat16", "requests": n_req,
-          "done": done, "steps": steps, "wall_s": wall, "tokens": n_tok,
-          "tokens_per_s": n_tok / wall, "ms_per_token": wall * 1e3 / n_tok,
+    emit({"check": label, "dtype": "bfloat16", "requests": n_req,
+          "sampled": sorted(sample or {}), "done": done, "steps": steps,
+          "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+          "ms_per_token": wall * 1e3 / n_tok,
           "prefill_ms_mean": sum(prefill_ms) / len(prefill_ms),
-          "prefill_ms_p50": sorted(prefill_ms)[len(prefill_ms) // 2],
-          "tick_ms_p50": tick_sorted[len(tick_sorted) // 2],
-          "tick_ms_p99": tick_sorted[min(len(tick_sorted) - 1,
-                                         int(0.99 * len(tick_sorted)))],
+          "prefill_ms_p50": _percentile(prefill_ms, 0.5),
+          "tick_ms_p50": _percentile(tick_ms, 0.5),
+          "tick_ms_p99": _percentile(tick_ms, 0.99),
           "ticks": len(tick_ms), "launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
           "metrics": m})
     eng.close()
     if done != n_req:
-        raise AssertionError(f"{done}/{n_req} requests finished done")
+        raise AssertionError(f"{label}: {done}/{n_req} requests finished done")
+    for h in handles:
+        if len(h.tokens) != max_new or not all(
+                0 <= t < FULL["vocab"] for t in h.tokens):
+            raise AssertionError(f"{label} request {h.id}: bad tokens "
+                                 f"{h.tokens[:8]}")
+    return launches, len(tick_ms)
+
+
+def phase_serving(smoke):
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.parallel import make_lm_generator
+
+    s_p, max_new = SERVE["prompt"], SERVE["new"]
+    params = _init_full(torch, "cuda", torch.bfloat16, SERVE["max_total"])
+    launches, _ = _serve_run(smoke, "serving", params, 6)
     missing = [k for k in ("flash_fwd", "decode_attend", "cache_append")
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
-    for h in handles:
-        if len(h.tokens) != max_new or not all(
-                0 <= t < FULL["vocab"] for t in h.tokens):
-            raise AssertionError(f"request {h.id}: bad tokens {h.tokens[:8]}")
 
     gen = make_lm_generator(head_dim=HEAD_DIM, max_new_tokens=max_new)
     batch = np.random.RandomState(7).randint(
@@ -713,6 +962,88 @@ def phase_serving(smoke):
           "tokens_per_s": 8 * max_new / wall,
           "ms_per_token_step": wall * 1e3 / max_new,
           "launches": ops.launch_counts()})
+
+
+def phase_beam(smoke):
+    """bf16 at ``bench_decode``'s full width: beam 4 with the lazy reorder
+    (B 8, prompt 512, 512 new tokens), and beside it the prefill alone and
+    the greedy ``lm_generate`` of the same size, for ``bench_decode``'s
+    decode rates (a run's wall less the prefill's, per new token)."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.parallel import (make_lm_beam_generator,
+                                              make_lm_generator)
+
+    b, s_p, new, k = (BEAM[x] for x in ("batch", "prompt", "new",
+                                        "beam_size"))
+    n_layers = FULL["n_layers"]
+    params = _init_full(torch, "cuda", torch.bfloat16, s_p + new)
+    prompt = np.random.RandomState(0).randint(
+        0, FULL["vocab"], (b, s_p)).astype(np.int32)
+    make_lm_beam_generator(head_dim=HEAD_DIM, max_new_tokens=4, beam_size=k)(
+        params, prompt[:, :16])   # warm-up
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(params, prompt)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, prefill_s = run(make_lm_generator(head_dim=HEAD_DIM, max_new_tokens=1))
+    greedy, greedy_s = run(make_lm_generator(head_dim=HEAD_DIM,
+                                             max_new_tokens=new))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    toks, beam_s = run(make_lm_beam_generator(
+        head_dim=HEAD_DIM, max_new_tokens=new, beam_size=k,
+        lazy_reorder=True))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.add_launches(launches)
+    greedy_dec, beam_dec = greedy_s - prefill_s, beam_s - prefill_s
+    emit({"check": "beam", "dtype": "bfloat16", **BEAM, **FULL,
+          "lazy_reorder": True, "prefill_ms": prefill_s * 1e3,
+          "beam_wall_s": beam_s, "greedy_wall_s": greedy_s,
+          "beam4_tokens_per_s": b * new / beam_dec,
+          "beam4_ms_per_token": beam_dec * 1e3 / new,
+          "greedy_tokens_per_s": b * new / greedy_dec,
+          "greedy_ms_per_token": greedy_dec * 1e3 / new,
+          "beam_over_greedy_tokens_per_s": greedy_dec / beam_dec,
+          "peak_mem_gb": peak, "launches": launches,
+          "best_beam_equals_greedy_rows": int(
+              (toks.cpu() == greedy.cpu()).all(1).sum())})
+    if tuple(toks.shape) != (b, new) or not bool(
+            ((toks >= 0) & (toks < FULL["vocab"])).all()):
+        raise AssertionError(f"beam tokens: shape {tuple(toks.shape)} or "
+                             f"out of the vocabulary")
+    # per tick: two segments per layer through the beam kernel, one append
+    # per layer; the prefill appends once per layer and runs flash forward
+    want = {"beam_attend": 2 * n_layers * (new - 1),
+            "cache_append": n_layers * (new - 1) + n_layers,
+            "flash_fwd": n_layers, "decode_attend": 0}
+    wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    if wrong:
+        raise AssertionError(f"beam launches (got, want): {wrong}")
+
+
+def phase_serving_gqa(smoke):
+    """bf16, the GQA model (4 KV heads, g 4): 16 requests through the
+    ServingEngine, the odd half sampled at temperature 0.7; the beam
+    kernel must run every layer of every tick."""
+    torch = smoke.torch
+
+    params = _init_full(torch, "cuda", torch.bfloat16, SERVE["max_total"],
+                        n_kv_heads=GQA_KV_HEADS)
+    launches, ticks = _serve_run(smoke, "serving_gqa", params, 11,
+                                 _half_sampled(SERVE["requests"], 12))
+    want = {"beam_attend": FULL["n_layers"] * ticks, "decode_attend": 0}
+    wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    if wrong or not launches["cache_append"] or not launches["flash_fwd"]:
+        raise AssertionError(f"GQA serving launches (got, want): {wrong}; "
+                             f"{launches}")
 
 
 def _tree_to(torch, params, device):
@@ -892,7 +1223,8 @@ def main():
     smoke.phase("build", lambda: phase_build(smoke))
     if "build" not in smoke.failed:
         for name, fn in (("kernels", phase_kernels), ("parity", phase_parity),
-                         ("serving", phase_serving),
+                         ("serving", phase_serving), ("beam", phase_beam),
+                         ("serving-gqa", phase_serving_gqa),
                          ("train-parity", phase_train_parity),
                          ("train", phase_train)):
             smoke.phase(name, lambda fn=fn: fn(smoke))

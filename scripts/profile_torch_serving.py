@@ -9,8 +9,15 @@ phase the host wall per call, the device busy time (union of kernel,
 memcpy and memset intervals), the device idle share, the kernel count per
 call, and the device time by kernel name (top entries); then the card's
 name and power limit.  The Chrome traces go to ``--out-dir``.
+``--kv-heads 4`` profiles the GQA model (the tick runs the beam kernel),
+``--temperature T`` samples every slot at ``T``, and ``--beam-new N``
+adds a whole beam-4 generation (B 8, prompt 512, ``N`` new tokens, lazy
+reorder; its per-call figures are per generated step, the prefill
+included).
 
     python3 scripts/profile_torch_serving.py --ticks 20
+    python3 scripts/profile_torch_serving.py --kv-heads 4 --temperature 0.7 \
+        --beam-new 64
 """
 
 import argparse
@@ -58,13 +65,21 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ticks", type=int, default=20)
     parser.add_argument("--out-dir", default="chiprun_out")
+    parser.add_argument("--kv-heads", type=int, default=None)
+    parser.add_argument("--temperature", type=float, default=0.0)
+    parser.add_argument("--beam-new", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=0,
+                        help="weights and prompts; slot i samples with "
+                             "fold_in(PRNGKey(seed + 1), i)")
     args = parser.parse_args(argv)
 
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+    from chainermn_tpu_torch import prng
+    from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
+                                              make_lm_beam_generator)
     from chainermn_tpu_torch.serving import ServingEngine
 
     if not torch.cuda.is_available():
@@ -72,25 +87,29 @@ def main(argv=None):
         return 1
     os.makedirs(args.out_dir, exist_ok=True)
     params = init_tp_transformer_lm(
-        torch.Generator().manual_seed(0), 32768, 1024, 16, 8, max_len=1024,
-        dtype=torch.bfloat16, device="cuda")
+        torch.Generator().manual_seed(args.seed), 32768, 1024, 16, 8, max_len=1024,
+        dtype=torch.bfloat16, n_kv_heads=args.kv_heads, device="cuda")
     eng = ServingEngine(params, head_dim=64, n_slots=8, max_total=1024,
                         device="cuda")
-    prompts = np.random.RandomState(0).randint(0, 32768, (9, 512))
+    prompts = np.random.RandomState(args.seed).randint(0, 32768, (9, 512))
     de = eng.engine
+    base_key = prng.PRNGKey(args.seed + 1)
+    keys = np.stack([prng.fold_in(base_key, i) for i in range(8)])
+    temps = np.full(8, args.temperature, np.float32)
     last = np.zeros(8, np.int32)
     for slot in range(8):
         eng.pool.acquire()
-        last[slot] = de.prefill_into_slot(prompts[slot], slot)
+        last[slot] = de.prefill_into_slot(prompts[slot], slot, keys[slot],
+                                          args.temperature)
     for _ in range(5):                                   # warm-up
-        last = de.tick(last)
+        last = de.tick(last, keys, temps)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.ticks):
-            last = de.tick(last)                         # ends in a D2H read
+            last = de.tick(last, keys, temps)            # ends in a D2H read
         wall = time.perf_counter() - t0
     tick_trace = os.path.join(args.out_dir, "profile_tick.json")
     prof.export_chrome_trace(tick_trace)
@@ -107,6 +126,21 @@ def main(argv=None):
     pf_trace = os.path.join(args.out_dir, "profile_prefill.json")
     prof.export_chrome_trace(pf_trace)
     print(json.dumps(_summarise(pf_trace, wall, 1, "prefill")), flush=True)
+
+    if args.beam_new > 0:
+        eng.close()
+        beam = make_lm_beam_generator(head_dim=64, max_new_tokens=args.beam_new,
+                                      beam_size=4)
+        beam(params, prompts[:8, :16])                   # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            beam(params, prompts[:8]).cpu()
+            wall = time.perf_counter() - t0
+        bm_trace = os.path.join(args.out_dir, "profile_beam.json")
+        prof.export_chrome_trace(bm_trace)
+        print(json.dumps(_summarise(bm_trace, wall, args.beam_new, "beam4")),
+              flush=True)
 
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

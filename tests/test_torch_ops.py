@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chainermn_tpu.ops import decode_attention as jax_da
 from chainermn_tpu.ops.decode_attention import decode_attend as jax_decode_attend
 from chainermn_tpu.ops import fused_ce as jax_ce
 from chainermn_tpu.ops.flash_attention import flash_attention as jax_flash
@@ -202,6 +203,171 @@ def test_decode_int_pos_broadcasts_like_vector():
 
 
 # ---------------------------------------------------------------------------
+# beam attention (the beam kernel), its merge and GQA decode
+# ---------------------------------------------------------------------------
+
+BH, BHD, BS = 4, 16, 24
+
+
+def _beam_inputs(seed, beams, s=BS, h=BH):
+    rng = np.random.RandomState(seed)
+    d = h * BHD
+    q = rng.randn(2 * beams, d).astype(np.float32)
+    kc, vc = (rng.randn(2, s, d).astype(np.float32) for _ in range(2))
+    amask = (rng.rand(2, beams, s) > 0.4).astype(np.int8)
+    amask[:, :, 0] = 1             # every row keeps a valid position
+    return q, kc, vc, amask
+
+
+def _close_parts(got, want, dtype_name):
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        assert g.dtype == torch.float32, name
+        tol = 1e-5 if dtype_name == "float32" else 2e-2
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol,
+                                   rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("beams", [2, 4])
+@pytest.mark.parametrize("mode", ["none", "amask", "pos"])
+def test_beam_attend_parts_matches_pallas(mode, beams, dtype_name):
+    """``(acc, m, l)`` of one segment vs the Pallas beam kernel in
+    interpret mode, in each mask mode."""
+    q, kc, vc, amask = _beam_inputs(beams, beams)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(x, dtype_name) for x in (q, kc, vc))
+    kw = dict(beams=beams, n_heads=BH, head_dim=BHD)
+    jm, tm, pos = None, None, None
+    if mode == "amask":
+        jm, tm = jnp.asarray(amask), torch.tensor(amask)
+    if mode == "pos":
+        pos = 13
+    want = jax_da.beam_attend_parts(qj, kj, vj, jm, pos, block_s=8,
+                                    interpret=True, **kw)
+    before = ops.beam_attend_parts.launches
+    got = ops.beam_attend_parts(qt, kt, vt, tm, pos, **kw)
+    assert ops.beam_attend_parts.launches == before   # CPU: plain version
+    _close_parts(got, want, dtype_name)
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int8,
+                                        torch.float32])
+def test_beam_amask_any_01_dtype(mask_dtype):
+    q, kc, vc, amask = (torch.tensor(x) for x in _beam_inputs(5, 3))
+    kw = dict(beams=3, n_heads=BH, head_dim=BHD)
+    ref = ops.beam_attend_parts(q, kc, vc, amask, **kw)
+    got = ops.beam_attend_parts(q, kc, vc, amask.to(mask_dtype), **kw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_beam_two_segment_merge_matches_jax(dtype_name):
+    """The lazy beam tick's attention: prompt segment (mode none) and the
+    ancestry-masked generated segment, merged by the flash combine."""
+    q, pk, pv, _ = _beam_inputs(7, 3, s=32)
+    _, gk, gv, amask = _beam_inputs(8, 3, s=24)
+    (qj, qt), (pkj, pkt), (pvj, pvt), (gkj, gkt), (gvj, gvt) = (
+        _both(x, dtype_name) for x in (q, pk, pv, gk, gv))
+    kw = dict(beams=3, n_heads=BH, head_dim=BHD)
+    want = jax_da.merge_attend_parts(
+        [jax_da.beam_attend_parts(qj, pkj, pvj, block_s=16, interpret=True,
+                                  **kw),
+         jax_da.beam_attend_parts(qj, gkj, gvj, jnp.asarray(amask),
+                                  block_s=8, interpret=True, **kw)],
+        n_heads=BH, head_dim=BHD, dtype=DTYPES[dtype_name][0])
+    got = ops.merge_attend_parts(
+        [ops.beam_attend_parts(qt, pkt, pvt, **kw),
+         ops.beam_attend_parts(qt, gkt, gvt, torch.tensor(amask), **kw)],
+        BH, BHD, qt.dtype)
+    assert got.dtype == qt.dtype
+    _close(got, want, dtype_name)
+
+
+def test_merge_zero_denominator_gives_zero():
+    acc = torch.zeros(2, BH * BHD)
+    m = torch.full((2, BH), -1e30)
+    out = ops.merge_attend_parts([(acc, m, torch.zeros(2, BH))], BH, BHD,
+                                 torch.float32)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_beam_segment_window_is_read_in_place():
+    """A live-prefix window of a longer cache (a strided view, as the lazy
+    beam reads its generated slots) gives what a contiguous copy gives."""
+    q, kc, vc, amask = (torch.tensor(x) for x in _beam_inputs(9, 4, s=40))
+    kw = dict(beams=4, n_heads=BH, head_dim=BHD)
+    win_k, win_v, win_m = kc[:, :24], vc[:, :24], amask[:, :, :24]
+    assert not win_k.is_contiguous()
+    got = ops.beam_attend_parts(q, win_k, win_v, win_m, **kw)
+    ref = ops.beam_attend_parts(q, win_k.contiguous(), win_v.contiguous(),
+                                win_m.contiguous(), **kw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [2, 4])
+@pytest.mark.parametrize("pos", [0, 21, 63, 90])
+def test_decode_attend_gqa_matches_pallas(pos, g, dtype_name):
+    rng = np.random.RandomState(pos + g)
+    hkv, s = 2, 64
+    q = rng.randn(2, hkv * g * BHD).astype(np.float32)
+    kc, vc = (rng.randn(2, s, hkv * BHD).astype(np.float32) for _ in range(2))
+    (qj, qt), (kj, kt), (vj, vt) = (_both(x, dtype_name) for x in (q, kc, vc))
+    kw = dict(n_q_heads=hkv * g, n_kv_heads=hkv, head_dim=BHD)
+    want = jax_da.decode_attend_gqa(qj, kj, vj, pos, block_s=16,
+                                    interpret=True, **kw)
+    got = ops.decode_attend_gqa(qt, kt, vt, pos, **kw)
+    assert got.dtype == qt.dtype and tuple(got.shape) == q.shape
+    _close(got, want, dtype_name)
+
+
+def _jax_per_row_gqa(q, kc, vc, pos, hkv, g):
+    """The serving tick's per-row einsum attention of
+    chainermn_tpu/parallel/decode.py for a GQA cache (s_q = 1), on jnp."""
+    n, total = kc.shape[0], kc.shape[1]
+    kc4 = kc.reshape(n, total, hkv, BHD)
+    vc4 = vc.reshape(n, total, hkv, BHD)
+    valid = (pos[:, None] + 1)[:, None, None, :, None]
+    q5 = q.reshape(n, 1, hkv, g, BHD)
+    s = jnp.einsum("bqhgd,bkhd->bhgqk", q5, kc4,
+                   preferred_element_type=jnp.float32) / (BHD ** 0.5)
+    mask = jnp.arange(total)[None, None, None, None, :] < valid
+    p = jax.nn.softmax(jnp.where(mask, s, -1e30), axis=-1)
+    ctx = jnp.einsum("bhgqk,bkhd->bqhgd", p, vc4,
+                     preferred_element_type=jnp.float32)
+    return ctx.reshape(n, hkv * g * BHD)
+
+
+@pytest.mark.parametrize("pos", [[0, 30], [63, 5], [17, 200]])
+def test_decode_attend_gqa_per_row_pos_matches_einsum_tick(pos):
+    rng = np.random.RandomState(sum(pos))
+    hkv, g, s = 2, 4, 64
+    q = rng.randn(2, hkv * g * BHD).astype(np.float32)
+    kc, vc = (rng.randn(2, s, hkv * BHD).astype(np.float32) for _ in range(2))
+    want = _jax_per_row_gqa(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                            jnp.asarray(pos, jnp.int32), hkv, g)
+    got = ops.decode_attend_gqa(torch.tensor(q), torch.tensor(kc),
+                                torch.tensor(vc),
+                                torch.tensor(pos, dtype=torch.int32),
+                                n_q_heads=hkv * g, n_kv_heads=hkv,
+                                head_dim=BHD)
+    _close(got, want, "float32")
+
+
+def test_beam_rejects_bad_shapes():
+    q, kc, vc, amask = (torch.tensor(x) for x in _beam_inputs(1, 2))
+    with pytest.raises(ValueError, match="beams"):
+        ops.beam_attend_parts(q, kc, vc, beams=3, n_heads=BH, head_dim=BHD)
+    with pytest.raises(ValueError, match="amask"):
+        ops.beam_attend_parts(q, kc, vc, amask[:, :1], beams=2, n_heads=BH,
+                              head_dim=BHD)
+    with pytest.raises(ValueError, match="ratio"):
+        ops.decode_attend_gqa(torch.zeros(2, 48), kc, vc, 3, n_q_heads=3,
+                              n_kv_heads=2, head_dim=BHD)
+
+
+# ---------------------------------------------------------------------------
 # KV-cache append
 # ---------------------------------------------------------------------------
 
@@ -354,10 +520,12 @@ def test_fused_cross_entropy_takes_the_vocab_parallel_combine():
 def test_launch_counters_reset():
     ops.flash_attention.launches = 5
     ops.ce_dtable.launches = 2
+    ops.beam_attend_parts.launches = 3
     assert ops.launch_counts()["flash_fwd"] == 5
     assert ops.launch_counts()["ce_dtable"] == 2
+    assert ops.launch_counts()["beam_attend"] == 3
     assert set(ops.launch_counts()) == {
         "flash_fwd", "flash_bwd", "decode_attend", "cache_append",
-        "ce_stats", "ce_dh", "ce_dtable"}
+        "ce_stats", "ce_dh", "ce_dtable", "beam_attend"}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}

@@ -135,6 +135,23 @@ def test_cli_summary_in_process(capsys):
     assert summary["metrics"]["serving/tokens_total"] == 5 * 8
 
 
+def test_cli_serves_gqa_sampled(capsys):
+    """``--kv-heads`` and ``--temperature``: request ``i`` samples with
+    ``fold_in(PRNGKey(seed + 1), i)``, so a rerun draws the same tokens."""
+    from chainermn_tpu_torch.serve import main
+
+    argv = ["--device", "cpu", "--train-steps", "0", "--requests", "3",
+            "--kv-heads", "2", "--temperature", "0.8"]
+    runs = []
+    for _ in range(2):
+        assert main(argv) == 0
+        summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert [r["status"] for r in summary["requests"]] == ["done"] * 3
+        runs.append([(r["n_tokens"], r["continuation_accuracy"])
+                     for r in summary["requests"]])
+    assert runs[0] == runs[1]
+
+
 def test_from_jax_keeps_structure_values_and_bf16():
     import jax.numpy as jnp
 

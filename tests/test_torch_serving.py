@@ -4,9 +4,12 @@ The acceptance gate: the JAX ``ServingEngine`` (size-1 model mesh, no
 prefix cache, no spill) and the port's ``ServingEngine(device="cpu")``
 serve the same staggered 8-request schedule on a 4-slot pool with the same
 weights (converted by ``chainermn_tpu_torch.convert``); every request's
-tokens must be equal.  Also: the port's copies of the scheduler and slot
-allocator keep the JAX package's policy invariants, and the engine's
-metrics, rejections and unported paths behave as documented.
+tokens must be equal.  GQA requests and sampled requests through the
+port's engine are token-exact against JAX's ``lm_generate`` (sampled: at
+B = 1 with the request's key, JAX's own oracle for its serving pool).
+Also: the port's copies of the scheduler and slot allocator keep the JAX
+package's policy invariants, and the engine's metrics and rejections
+behave as documented.
 """
 
 import random
@@ -18,6 +21,7 @@ import torch
 
 import chainermn_tpu as mn
 from chainermn_tpu.parallel import init_tp_transformer_lm as jax_init
+from chainermn_tpu.parallel import make_lm_generator as jax_generator
 from chainermn_tpu.serving import ServingEngine as JaxServingEngine
 from chainermn_tpu_torch.convert import from_jax
 from chainermn_tpu_torch.serving import (AdmissionError, Request, Scheduler,
@@ -110,11 +114,14 @@ def test_rejections_and_unported_paths():
         eng.submit([1, 2], 2)
     assert e.value.reason == "queue_full"
     assert eng.metrics()["serving/rejected_total"] == 2.0
-    with pytest.raises(NotImplementedError, match="sampling"):
+    # sampling needs the request's key (the lm_generate rng contract)
+    with pytest.raises(ValueError, match="rng"):
         eng.submit([1, 2], 2, temperature=0.8)
+    # a GQA model serves: its pool holds the KV heads only
     _, gqa = _params("learned", n_kv_heads=2)
-    with pytest.raises(NotImplementedError, match="GQA"):
-        ServingEngine(gqa, head_dim=HEAD_DIM, device="cpu")
+    geng = ServingEngine(gqa, head_dim=HEAD_DIM, n_slots=2, max_total=16,
+                         device="cpu")
+    assert tuple(geng.pool.caches[0][0].shape) == (2, 16, 2 * HEAD_DIM)
 
 
 def test_deadline_expires_queued_request():
@@ -126,6 +133,66 @@ def test_deadline_expires_queued_request():
     eng.run()
     assert busy.status == "done"
     assert late.status == "evicted" and late.finish_reason == "deadline"
+
+
+def _mesh():
+    return mn.make_nd_mesh(("model",), (1,), jax.devices()[:1])
+
+
+def _jax_oracle(jp, prompt, max_new, temperature=0.0, key=None):
+    gen = jax_generator(_mesh(), "model", head_dim=HEAD_DIM,
+                        max_new_tokens=max_new, temperature=temperature)
+    args = (jp, np.asarray(prompt, np.int32)[None])
+    if key is not None:
+        args += (key,)
+    return np.asarray(gen(*args))[0].tolist()
+
+
+@pytest.mark.parametrize("pos_impl,n_kv_heads", [("learned", 2),
+                                                 ("rope", 1)])
+def test_gqa_serving_token_exact_vs_jax_lm_generate(pos_impl, n_kv_heads):
+    jp, tp = _params(pos_impl, seed=6, n_kv_heads=n_kv_heads)
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, VOCAB, 5 + i).astype(np.int32)
+               for i in range(5)]
+    max_new = [7, 3, 5, 6, 4]
+    eng = ServingEngine(tp, head_dim=HEAD_DIM, n_slots=3, max_total=24,
+                        max_prefills_per_tick=2, device="cpu")
+    handles = [eng.submit(p, n) for p, n in zip(prompts, max_new)]
+    eng.run(steps_budget=200)
+    for h, p, n in zip(handles, prompts, max_new):
+        assert h.status == "done"
+        assert h.tokens == _jax_oracle(jp, p, n), h.id
+
+
+def test_sampled_serving_token_exact_vs_jax_lm_generate():
+    """Sampled and greedy requests share the pool; each sampled request is
+    token-exact against JAX's ``lm_generate(rng=key)`` at B = 1 (its
+    first token salted by the prompt length, each tick's by the position
+    it generates)."""
+    jp, tp = _params("learned", seed=8, n_kv_heads=2)
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, VOCAB, 5).astype(np.int32) for _ in range(4)]
+    keys = [jax.random.fold_in(jax.random.PRNGKey(5), i) for i in range(4)]
+    temps = [0.7, 0.0, 1.1, 0.7]
+    eng = ServingEngine(tp, head_dim=HEAD_DIM, n_slots=3, max_total=24,
+                        device="cpu")
+    handles = [eng.submit(p, 8, temperature=t,
+                          rng=np.asarray(k) if t > 0 else None)
+               for p, t, k in zip(prompts, temps, keys)]
+    eng.run(steps_budget=200)
+    for h, p, t, k in zip(handles, prompts, temps, keys):
+        assert h.status == "done"
+        want = _jax_oracle(jp, p, 8, t, k if t > 0 else None)
+        assert h.tokens == want, (h.id, h.tokens, want)
+    # two requests, same prompt and temperature, different keys
+    a = eng.submit(prompts[0], 8, temperature=0.7,
+                   rng=np.asarray(jax.random.PRNGKey(1)))
+    b = eng.submit(prompts[0], 8, temperature=0.7,
+                   rng=np.asarray(jax.random.PRNGKey(2)))
+    eng.run()
+    assert a.tokens != b.tokens
+    assert (eng._slot_temps == 0).all()     # freed slots tick greedy
 
 
 # ---------------------------------------------------------------------------
