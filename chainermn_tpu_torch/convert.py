@@ -125,3 +125,73 @@ def load_npz(path: str, device="cuda", dtype=None) -> Dict[str, Any]:
                              else t.dtype)
             flat[key] = t.to(device=dev, dtype=want)
     return unflatten(flat)
+
+
+def _flat_items(tree, prefix=""):
+    """``{"a.b.c": leaf}`` of a nested mapping (dict or flax FrozenDict)."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        out.update(_flat_items(v, key) if hasattr(v, "items") else {key: v})
+    return out
+
+
+def _nest(flat):
+    root: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        node = root
+        *parts, last = key.split(".")
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return root
+
+
+def _dense(key):
+    """The ``Dense`` (in, out) kernels; torch's ``Linear`` holds (out, in)."""
+    return key.rsplit(".", 2)[-2].startswith("Dense_") and (
+        key.endswith(".kernel") or key.endswith(".weight"))
+
+
+def resnet_from_jax(variables, model):
+    """Load flax ``{"params", "batch_stats"}`` (arrays as numpy) into the
+    port's :class:`~chainermn_tpu_torch.models.resnet.ResNet` in place and
+    return it.  Conv kernels stay HWIO, ``Dense`` kernels (in, out) become
+    ``Linear`` weights (out, in), BatchNorm ``scale``/``bias`` go to the
+    parameters and ``mean``/``var`` to the buffers.  Every tensor of the
+    module must be covered, and every array must find its tensor."""
+    targets = dict(model.named_parameters())
+    targets.update(model.named_buffers())
+    src = _flat_items(variables["params"])
+    src.update(_flat_items(variables.get("batch_stats", {})))
+    missing = set(targets) - {k.replace(".kernel", ".weight") if _dense(k)
+                              else k for k in src}
+    if missing:
+        raise KeyError(f"no JAX array for {sorted(missing)}")
+    with torch.no_grad():
+        for key, a in src.items():
+            t = _to_tensor(a)
+            if _dense(key):
+                key, t = key.replace(".kernel", ".weight"), t.t()
+            if key not in targets:
+                raise KeyError(f"the module has no tensor for JAX's {key}")
+            dst = targets[key]
+            if tuple(dst.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: JAX shape {tuple(t.shape)}, module "
+                                 f"shape {tuple(dst.shape)}")
+            dst.copy_(t.to(dst.dtype))
+    return model
+
+
+def resnet_to_numpy(model) -> Dict[str, Any]:
+    """The module as flax's ``{"params": ..., "batch_stats": ...}`` of fp32
+    numpy arrays (``Linear`` weights back to (in, out) kernels), for
+    comparing with the JAX package key by key."""
+    def host(t, key):
+        a = t.detach().float().cpu().numpy()
+        return (key.replace(".weight", ".kernel"), a.T) if _dense(key) \
+            else (key, a)
+
+    params = dict(host(t, k) for k, t in model.named_parameters())
+    stats = dict(host(t, k) for k, t in model.named_buffers())
+    return {"params": _nest(params), "batch_stats": _nest(stats)}

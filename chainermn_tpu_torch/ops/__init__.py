@@ -5,6 +5,8 @@ CUDA kernel for a CUDA tensor (or raises); each counts its launches in a
 plain integer attribute, ``<wrapper>.launches``.
 """
 
+from .conv_backward import (conv2d, conv3x3_dgrad, conv3x3_dgrad_plain,
+                            conv3x3_wgrad, conv3x3_wgrad_plain)
 from .decode_attention import (beam_attend_parts, beam_attend_parts_plain,
                                decode_attend, decode_attend_gqa,
                                decode_attend_plain, merge_attend_parts)
@@ -25,6 +27,8 @@ KERNEL_WRAPPERS = {
     "ce_dh": ce_dh,
     "ce_dtable": ce_dtable,
     "beam_attend": beam_attend_parts,
+    "conv_wgrad": conv3x3_wgrad,
+    "conv_dgrad": conv3x3_dgrad,
 }
 
 
@@ -41,7 +45,8 @@ def reset_launch_counts() -> None:
 __all__ = ["beam_attend_parts", "beam_attend_parts_plain",
            "cache_append", "cache_append_plain", "ce_dh", "ce_dh_plain",
            "ce_dtable", "ce_dtable_plain", "ce_grads", "ce_grads_plain",
-           "ce_stats", "ce_stats_plain",
+           "ce_stats", "ce_stats_plain", "conv2d", "conv3x3_dgrad",
+           "conv3x3_dgrad_plain", "conv3x3_wgrad", "conv3x3_wgrad_plain",
            "decode_attend", "decode_attend_gqa", "decode_attend_plain",
            "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",

@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "kv_cache",
-           "fused_ce", "beam_attention")
+           "fused_ce", "beam_attention", "conv_backward")
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -42,6 +42,8 @@ SIGNATURES = {
                  for fn in ("ce_stats", "ce_dh", "ce_dtable")},
     "beam_attention": {"beam_attend": ([_P] * 8 + [_I] * 8 + [_L, _F, _P],
                                        _I)},
+    "conv_backward": {"conv_dgrad": ([_P] * 3 + [_I] * 7 + [_P], _I),
+                      "conv_wgrad": ([_P] * 4 + [_I] * 9 + [_P], _I)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

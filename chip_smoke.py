@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search and training on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ResNet training on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -30,7 +30,13 @@ and prints no result line:
    scalar, per-row and at the edges), hd 128, S 1, a ragged S of 77 and
    8 or 16 rows per cache row; the three timed shapes beside
    ``scaled_dot_product_attention`` (the rows as the query length, a
-   boolean mask; ``enable_gqa`` for GQA).
+   boolean mask; ``enable_gqa`` for GQA).  The conv backward kernels
+   (``conv3x3_wgrad``, ``conv3x3_dgrad``): ResNet-50's three eligible 3x3
+   shapes at batch 128 (56² x 64, 28² x 128, 14² x 256), the 1x1 at 56² x
+   64 → 256, a ragged 7 x 5 plane, a 196-row plane, n = 1 and channel
+   counts that are not multiples of 8, the bf16 error also within tol x
+   max |ref|; the three 3x3 shapes timed beside cuDNN's
+   ``convolution_backward`` asked for dW alone or dX alone.
 3. ``parity``  — fp32, full width (d 1024, 8 layers, 16 heads, vocab
    32768), and a small RoPE model (d 256, 4 heads, 2 layers): 4 staggered
    requests through the port's ServingEngine on the card and on the CPU
@@ -76,10 +82,31 @@ and prints no result line:
    after, must show 8 flash forward and 8 flash backward launches and one
    of each CE kernel per step.  Then 3 steps with ``ce_impl="auto"`` from
    the same initial weights: the first loss within 2e-2 of the fused one.
-9. One ``{"kernels": [...]}`` line (launches summed over the main paths'
-   runs: the two serving runs, the beam run and the timed training
-   steps), the card line, then the result line ``{"ok": true, "device":
-   {...}}``.
+9. ``resnet-parity`` — fp32, TF32 off: ResNet-50 at image 112 (stages 1-2
+   eligible for the conv kernels at 28² and 14²; the stride-2 and 7 x 7
+   convs take cuDNN's backward), batch 4, ``conv_impl="pallas"``, card
+   against CPU from the same random weights: the loss to rtol 1e-4, every
+   gradient to a relative norm of 1e-4 (6 launches of each conv kernel
+   per backward on the card), then two ``make_flax_train_step`` steps
+   (SGD 0.1, momentum 0.9, wd 1e-4, world 1; NCCL on the card, gloo on
+   the CPU): losses rtol 1e-4, parameters and running statistics atol
+   1e-4.
+10. ``resnet-train`` — bf16, ``bench.py``'s headline (ResNet-50, image
+   224, batch 128, 1,000 classes, SGD 0.1 / momentum 0.9 / wd 1e-4
+   through the multi-node optimizer) via ``train_imagenet.build_step`` at
+   world 1 over a one-rank NCCL group, ``conv_impl="pallas"``: 2 warm-up
+   and 10 timed steps, each synchronised (step ms p50/p99, images/s,
+   analytic MFU by ``bench.py:3106``'s 3 x 4.1e9 FLOP per image over 989
+   TFLOP/s, peak memory, every loss).  Losses must be finite and the
+   launch counts, zeroed just before the timed steps and read just after,
+   exactly 11 ``conv_wgrad`` and 11 ``conv_dgrad`` per step.  Then the
+   same with ``conv_impl="xla"`` (cuDNN's backward) from the same
+   weights: no conv-kernel launch, the first loss within 2e-2 of the
+   pallas run's, the step times side by side.
+11. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+   runs: the two serving runs, the beam run, the timed LM training steps
+   and the timed pallas ResNet steps), the card line, then the result
+   line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -98,6 +125,10 @@ BEAM = dict(batch=8, prompt=512, new=512, beam_size=4)   # bench.py bench_decode
 # bench.py :: bench_transformer_lm's defaults
 TRAIN = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8)
 TRAIN_SEQ, TRAIN_BATCH = 1024, 8
+# bench.py's headline: ResNet-50, image 224, batch 128 per card, 1,000 classes
+RESNET = dict(arch="resnet50", image=224, batch=128, classes=1000)
+RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9          # bench.py:3106, training ~3x fwd
+RESNET_CONV_LAUNCHES = 11   # eligible 3x3 convs per step at 224 (3 + 3 + 5)
 KERNEL_INFO = {
     "flash_fwd": ("chainermn_tpu_torch/csrc/flash_fwd.cu",
                   "chainermn_tpu/ops/flash_attention.py:226"),
@@ -115,6 +146,10 @@ KERNEL_INFO = {
                   "chainermn_tpu/ops/fused_ce.py:273"),
     "beam_attend": ("chainermn_tpu_torch/csrc/beam_attention.cu",
                     "chainermn_tpu/ops/decode_attention.py:324"),
+    "conv_wgrad": ("chainermn_tpu_torch/csrc/conv_backward.cu",
+                   "chainermn_tpu/ops/conv_backward.py:243"),
+    "conv_dgrad": ("chainermn_tpu_torch/csrc/conv_backward.cu",
+                   "chainermn_tpu/ops/conv_backward.py:320"),
 }
 
 
@@ -677,6 +712,101 @@ def check_beam(smoke):
                       bound_by=by, **shape))
 
 
+def _conv_bounds(n, h, w, ci, co, k, elem, dtype_name):
+    """(bound_ms, bound_by) of wgrad and dgrad: 2·N·H·W·k²·Ci·Co FLOP each;
+    wgrad reads x and dy once and writes dW, dgrad reads dy and W once and
+    writes dX."""
+    flops = 2.0 * n * h * w * k * k * ci * co
+    pix = n * h * w
+    return {
+        "conv_wgrad": _bound((pix * (ci + co) + k * k * ci * co) * elem,
+                             flops, dtype_name),
+        "conv_dgrad": _bound((pix * (co + ci) + k * k * ci * co) * elem,
+                             flops, dtype_name),
+    }
+
+
+def check_conv(smoke):
+    """``conv3x3_wgrad`` / ``conv3x3_dgrad`` against their plain versions:
+    ResNet-50's three eligible 3x3 shapes at batch 128, the 1x1 at 56² x
+    64 → 256, a ragged 7 x 5 plane, a 196-row plane, n = 1 and channel
+    counts that are not multiples of 8.  Inputs are scaled so that the
+    outputs are O(1), as a training step's gradients are small.  The
+    three 3x3 shapes are timed in bf16 beside the plain version and
+    cuDNN's ``convolution_backward`` asked for dW alone or dX alone."""
+    torch = smoke.torch
+    from chainermn_tpu_torch.ops import (conv3x3_dgrad, conv3x3_dgrad_plain,
+                                         conv3x3_wgrad, conv3x3_wgrad_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    cases = [  # (N, H, W, Ci, Co, k, timed)
+        (128, 56, 56, 64, 64, 3, True),
+        (128, 28, 28, 128, 128, 3, True),
+        (128, 14, 14, 256, 256, 3, True),
+        (128, 56, 56, 64, 256, 1, False),
+        (2, 7, 5, 8, 8, 3, False),
+        (4, 14, 14, 64, 64, 3, False),
+        (1, 28, 28, 128, 128, 3, False),
+        (3, 9, 11, 12, 20, 3, False),
+        (2, 15, 13, 36, 44, 1, False),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for n, h, w, ci, co, k, timed in cases:
+            x = torch.randn(n, h, w, ci, generator=g, device="cuda").to(dtype)
+            dy = (torch.randn(n, h, w, co, generator=g, device="cuda")
+                  / (n * h * w) ** 0.5).to(dtype)
+            wt = (torch.randn(k, k, ci, co, generator=g, device="cuda")
+                  / (k * k * co) ** 0.5).to(dtype)
+            dys = (dy.float() * (n * h * w) ** 0.5).to(dtype)  # O(1) for dgrad
+            shape = dict(N=n, H=h, W=w, Ci=ci, Co=co, k=k)
+            errs = {
+                "conv_wgrad": smoke.compare(
+                    "conv_wgrad", conv3x3_wgrad(x, dy, 1, ksize=k),
+                    conv3x3_wgrad_plain(x, dy, 1, k), dn, scaled=True,
+                    **shape),
+                "conv_dgrad": smoke.compare(
+                    "conv_dgrad", conv3x3_dgrad(dys, wt, x.shape),
+                    conv3x3_dgrad_plain(dys, wt, x.shape), dn, scaled=True,
+                    **shape),
+            }
+            if not (timed and dtype == torch.bfloat16):
+                continue
+            pad = (k - 1) // 2
+            xn, dyn = x.permute(0, 3, 1, 2), dys.permute(0, 3, 1, 2)
+            wn = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def cudnn(mask):
+                return lambda: torch.ops.aten.convolution_backward(
+                    dyn, xn, wn, None, [1, 1], [pad, pad], [1, 1], False,
+                    [0, 0], 1, mask)
+
+            kernels = {
+                "conv_wgrad": (lambda: conv3x3_wgrad(x, dys, 1, ksize=k),
+                               lambda: conv3x3_wgrad_plain(x, dys, 1, k),
+                               cudnn([False, True, False])),
+                "conv_dgrad": (lambda: conv3x3_dgrad(dys, wt, x.shape),
+                               lambda: conv3x3_dgrad_plain(dys, wt, x.shape),
+                               cudnn([True, False, False])),
+            }
+            bounds = _conv_bounds(n, h, w, ci, co, k, x.element_size(), dn)
+            for name, (kern, plain_fn, lib_fn) in kernels.items():
+                ms = smoke.time_ms(kern)
+                plain = smoke.time_ms(plain_fn, iters=5)
+                lib = smoke.time_ms(lib_fn)
+                bound, by = bounds[name]
+                row = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                           bound_ms=bound, bound_by=by, library_ms=lib,
+                           shape=shape, dtype=dn)
+                if h == 56:
+                    smoke.kernel_rows[name] = row
+                emit(dict(check=f"{name}.time", max_abs_err=errs[name],
+                          atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
+                          library_ms=lib, library="cuDNN convolution_backward",
+                          bound_ms=bound, bound_by=by, **shape))
+
+
 def phase_kernels(smoke):
     check_flash(smoke)
     check_decode(smoke)
@@ -684,6 +814,7 @@ def phase_kernels(smoke):
     check_flash_bwd(smoke)
     check_ce(smoke)
     check_beam(smoke)
+    check_conv(smoke)
 
 
 def _init_full(torch, device, dtype, max_len, n_kv_heads=None):
@@ -1199,6 +1330,169 @@ def phase_train(smoke):
         raise AssertionError(f"auto vs fused first loss: rel err {rel}")
 
 
+def phase_resnet_parity(smoke):
+    """fp32 (TF32 off), card vs CPU from the same weights: ResNet-50 at image
+    112 (stages 1-2 eligible at 28² and 14², the stride-2 and 7x7 convs
+    fall back), batch 4, ``conv_impl="pallas"``: the loss and every
+    gradient, then two ``make_flax_train_step`` steps (SGD 0.1, momentum
+    0.9, wd 1e-4) at world 1, the card's group over NCCL and the CPU's
+    over gloo.  The weights are the random init: each block's last
+    BatchNorm scale starts at 0, so the first backward gives the conv
+    kernels zero gradients and the second step's runs them on live ones.
+    (Scales redrawn to open every branch make this 50-layer ReLU network
+    chaotic in fp32: a 1e-7 relative change of the input moves the CPU's
+    own gradients by ~0.25% in norm, as ReLUs and max-pool windows flip,
+    so no card could be held to 1e-4 there.)"""
+    torch = smoke.torch
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.models import ARCHS, cross_entropy_loss
+    from chainermn_tpu_torch.ops import conv3x3_dgrad, conv3x3_wgrad
+    from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+    from chainermn_tpu_torch.train import make_flax_train_step, shard_batch
+    from chainermn_tpu_torch.train_imagenet import synthetic_batch
+
+    image, batch = 112, 4
+    comms = {dev: create_communicator("xla", device=dev)   # the card's first
+             for dev in ("cuda", "cpu")}
+    ref = ARCHS["resnet50"](dtype=torch.float32, conv_impl="pallas", seed=3,
+                            device="cpu")
+    weights = {k: v.clone() for k, v in ref.state_dict().items()}
+    x, y = synthetic_batch(batch, image, seed=5)
+    runs, grads = {}, {}
+    for dev, comm in comms.items():
+        model = ARCHS["resnet50"](dtype=torch.float32, conv_impl="pallas",
+                                  device=dev)
+        model.load_state_dict(weights)
+        names = [n for n, _ in model.named_parameters()]
+        model.train()
+        before = (conv3x3_wgrad.launches, conv3x3_dgrad.launches)
+        loss = cross_entropy_loss(model(torch.from_numpy(x).to(dev)),
+                                  torch.from_numpy(y).to(dev))
+        grads[dev] = {n: g.detach().cpu() for n, g in zip(
+            names, torch.autograd.grad(loss, list(model.parameters())))}
+        launched = (conv3x3_wgrad.launches - before[0],
+                    conv3x3_dgrad.launches - before[1])
+        if dev == "cuda" and launched != (6, 6):
+            raise AssertionError(f"the card's backward launched (wgrad, "
+                                 f"dgrad) {launched}, want (6, 6)")
+        model.load_state_dict(weights)
+        opt = create_multi_node_optimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9,
+                            weight_decay=1e-4), comm)
+        step = make_flax_train_step(
+            model, lambda logits, b: (cross_entropy_loss(logits, b[1]), {}),
+            opt, mesh=comm.mesh)
+        b = shard_batch((x, y), comm.device, comm.mesh)
+        losses = [float(step(model, b)[0]) for _ in range(2)]
+        runs[dev] = (float(loss.detach()), losses,
+                     {k: v.detach().float().cpu()
+                      for k, v in model.state_dict().items()})
+    (l0c, lc, pc), (l0h, lh, ph) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip([l0c] + lc, [l0h] + lh))
+    worst = max(ph, key=lambda k: float((pc[k] - ph[k]).abs().max()))
+    worst_err = float((pc[worst] - ph[worst]).abs().max())
+    grad_rel = {k: float((grads["cuda"][k] - g).norm()
+                         / g.norm().clamp_min(1e-30))
+                for k, g in grads["cpu"].items()}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    emit({"check": "resnet_parity", "dtype": "float32", "arch": "resnet50",
+          "image": image, "B": batch, "card_losses": [l0c] + lc,
+          "cpu_losses": [l0h] + lh, "loss_max_rel_err": rel,
+          "state_max_abs_err": worst_err, "state_worst": worst,
+          "grad_max_rel_norm_err": grad_rel[worst_grad],
+          "grad_worst_param": worst_grad, "rtol": 1e-4, "atol": 1e-4,
+          "conv_launches_per_backward": 6})
+    if rel > 1e-4 or worst_err > 1e-4 or grad_rel[worst_grad] > 1e-4:
+        raise AssertionError(f"resnet parity: loss rel err {rel}, state abs "
+                             f"err {worst_err} ({worst}), grad rel norm err "
+                             f"{grad_rel[worst_grad]} ({worst_grad})")
+
+
+def _resnet_run(torch, step, model, batch, steps):
+    """``steps`` synchronised steps: (losses, per-step ms)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)[0]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def phase_resnet_train(smoke):
+    """bf16, ``bench.py``'s headline through the port's entry points
+    (``train_imagenet.build_step``: create_communicator → ResNet-50 →
+    create_multi_node_optimizer → make_flax_train_step, world 1 over a
+    one-rank NCCL group), ``conv_impl="pallas"``: 2 warm-up and 10 timed
+    steps; then the same with ``conv_impl="xla"`` (cuDNN's backward) from
+    the same weights as the yardstick."""
+    import math
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.train import shard_batch
+    from chainermn_tpu_torch.train_imagenet import build_step, synthetic_batch
+
+    image, per_card = RESNET["image"], RESNET["batch"]
+    flops = RESNET_FLOPS_PER_IMAGE * (image / 224.0) ** 2 * per_card
+    rows, weights = {}, None
+    for impl in ("pallas", "xla"):
+        step, model, comm = build_step(RESNET["arch"], image, conv_impl=impl,
+                                       num_classes=RESNET["classes"])
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        batch = shard_batch(synthetic_batch(per_card * comm.size, image,
+                                            RESNET["classes"]),
+                            comm.device, comm.mesh)
+        ops.reset_launch_counts()
+        warm, _ = _resnet_run(torch, step, model, batch, 2)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, ms = _resnet_run(torch, step, model, batch, 10)
+        launches = ops.launch_counts()
+        p50 = _percentile(ms, 0.5)
+        rows[impl] = {
+            "check": "resnet_train", "dtype": "bfloat16", "conv_impl": impl,
+            **RESNET, "world": comm.size,
+            "n_params": sum(p.numel() for p in model.parameters()),
+            "warmup_losses": warm, "losses": losses, "step_ms": ms,
+            "step_ms_p50": p50, "step_ms_p99": _percentile(ms, 0.99),
+            "images_per_s": per_card / (p50 / 1e3),
+            "mfu_analytic": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches}
+        if impl == "pallas":
+            smoke.add_launches(launches)
+        del step, model, batch
+        torch.cuda.empty_cache()
+    pal, xla = rows["pallas"], rows["xla"]
+    first = abs(xla["warmup_losses"][0] - pal["warmup_losses"][0]) \
+        / abs(pal["warmup_losses"][0])
+    xla.update(first_loss_rel_err_vs_pallas=first, rtol=2e-2,
+               step_ms_p50_pallas_minus_xla=pal["step_ms_p50"]
+               - xla["step_ms_p50"],
+               images_per_s_pallas_over_xla=pal["images_per_s"]
+               / xla["images_per_s"])
+    emit(pal)
+    emit(xla)
+    every = pal["warmup_losses"] + pal["losses"] + xla["warmup_losses"] \
+        + xla["losses"]
+    if not all(math.isfinite(v) for v in every):
+        raise AssertionError(f"resnet losses not finite: {every}")
+    n = len(pal["losses"])
+    want = {"conv_wgrad": RESNET_CONV_LAUNCHES * n,
+            "conv_dgrad": RESNET_CONV_LAUNCHES * n}
+    wrong = {k: (pal["launches"][k], w) for k, w in want.items()
+             if pal["launches"][k] != w}
+    wrong.update({f"xla {k}": (xla["launches"][k], 0) for k in want
+                  if xla["launches"][k] != 0})
+    if wrong:
+        raise AssertionError(f"resnet conv launches (got, want): {wrong}")
+    if first > 2e-2:
+        raise AssertionError(f"xla vs pallas first loss: rel err {first}")
+
+
 def main():
     import torch
 
@@ -1226,7 +1520,9 @@ def main():
                          ("serving", phase_serving), ("beam", phase_beam),
                          ("serving-gqa", phase_serving_gqa),
                          ("train-parity", phase_train_parity),
-                         ("train", phase_train)):
+                         ("train", phase_train),
+                         ("resnet-parity", phase_resnet_parity),
+                         ("resnet-train", phase_resnet_train)):
             smoke.phase(name, lambda fn=fn: fn(smoke))
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1238,6 +1534,8 @@ def main():
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms")})
+    if torch.distributed.is_initialized():     # the ResNet phases' group
+        torch.distributed.destroy_process_group()
     if smoke.failed:
         print(f"FAILED phases: {smoke.failed}", flush=True)
         return 1

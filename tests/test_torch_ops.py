@@ -521,11 +521,14 @@ def test_launch_counters_reset():
     ops.flash_attention.launches = 5
     ops.ce_dtable.launches = 2
     ops.beam_attend_parts.launches = 3
+    ops.conv3x3_wgrad.launches = 4
     assert ops.launch_counts()["flash_fwd"] == 5
     assert ops.launch_counts()["ce_dtable"] == 2
     assert ops.launch_counts()["beam_attend"] == 3
+    assert ops.launch_counts()["conv_wgrad"] == 4
     assert set(ops.launch_counts()) == {
         "flash_fwd", "flash_bwd", "decode_attend", "cache_append",
-        "ce_stats", "ce_dh", "ce_dtable", "beam_attend"}
+        "ce_stats", "ce_dh", "ce_dtable", "beam_attend", "conv_wgrad",
+        "conv_dgrad"}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}

@@ -28,7 +28,9 @@ from chainermn_tpu_torch.serving import ServingEngine
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serving.py",
-    ROOT / "scripts" / "profile_torch_train.py"]
+    ROOT / "scripts" / "profile_torch_train.py",
+    ROOT / "scripts" / "profile_torch_resnet.py",
+    ROOT / "tests" / "_torch_dp_worker.py"]
 
 
 def _imported_modules(path):
@@ -98,6 +100,57 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from chainermn_tpu_torch.train_transformer import main as train_main
     with pytest.raises(RuntimeError, match="cuda"):
         train_main(["--steps", "1"])
+
+
+def test_dp_entry_points_default_to_cuda_and_raise_without_it():
+    _no_card()
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.models import ARCHS
+    from chainermn_tpu_torch.train_imagenet import main as imagenet_main
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_communicator()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ARCHS["resnet18"]()
+    with pytest.raises(RuntimeError, match="cuda"):
+        imagenet_main(["--arch", "resnet18", "--steps", "1"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "nf_resnet50"], ["--arch", "vit_s16"], ["--fsdp"],
+    ["--norm", "stalebn"], ["--optimizer", "lars"], ["--agc", "0.01"],
+    ["--allreduce-grad-dtype", "int8"]])
+def test_imagenet_cli_refuses_unported_paths(argv, capsys):
+    from chainermn_tpu_torch.train_imagenet import main
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu", *argv])
+    assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_imagenet_cli_trains_from_a_data_dir_without_jax(tmp_path):
+    """``train_imagenet`` on the CPU: writes the synthetic records to
+    ``--data-dir``, trains ResNet-18 with the pallas conv backward over a
+    one-rank gloo group and prints the loss and throughput; ``jax`` stays
+    out of ``sys.modules``."""
+    code = (
+        "import sys, json\n"
+        "from chainermn_tpu_torch.train_imagenet import main\n"
+        "main(['--device', 'cpu', '--arch', 'resnet18', '--image-size', "
+        "'32', '--batchsize', '4', '--steps', '2', '--dataset-size', '16', "
+        "'--num-classes', '10', '--conv-impl', 'pallas', '--data-dir', "
+        f"{str(tmp_path / 'data')!r}])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'chainermn_tpu'))\n"
+        "print(json.dumps({'bad': bad}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("resnet18  cards=1  global_batch=4")
+    assert lines[1].startswith("materialized 16 records")
+    assert lines[-3].startswith("loss ") and "throughput:" in lines[-2]
+    assert json.loads(lines[-1]) == {"bad": []}
+    assert (tmp_path / "data" / "meta.json").exists()
 
 
 def test_cli_trains_then_serves(capsys):
