@@ -9,36 +9,89 @@
 //              logit (a target outside [0, V) picks nothing);
 //   ce_dh:     dh = ds @ table,   ds = (exp(s - lse) - onehot) * dnll,
 //              ds rounded to table's dtype;
-//   ce_dtable: dtable = ds^T @ h, ds rounded to h's dtype;
+//   ce_dtable: dtable = ds^T @ h, ds rounded to h's dtype.
 //
-// each recomputing its 64 x 64 logits tiles in registers: a logits tile
-// never goes to global memory.  Ragged T, V and D are masked here.
+// Bound on this card: at the training shape (T 8192, V 32768, D 1024, bf16)
+// ce_stats does 2*T*V*D = 5.5e11 FLOP (0.56 ms on the bf16 tensor cores),
+// ce_dh and ce_dtable 4*T*V*D each (the logits again, then the product;
+// 1.11 ms), and the pair as ce_grads shares the logits: 6*T*V*D (1.67 ms).
+// Their traffic is ~100 MB: all of them are bound by operations.
 //
-// Bound on this card: at the training shape (T 8192, V 32768, D 1024,
-// bf16) ce_stats does 2*T*V*D = 5.5e11 FLOP (0.56 ms on the bf16 tensor
-// cores) against ~84 MB of traffic, and ce_dh / ce_dtable twice that: all
-// three are bound by operations.  This first version does its products on
-// the CUDA cores in fp32 (67 TFLOP/s peak, so >= 8 ms for ce_stats), with a
-// classic shared-memory SGEMM tile: a block of 256 threads owns a 64 x 64
-// logits tile, each thread a 4 x 4 micro-tile, and the D axis streams
-// through shared memory 16 deep.  The TPU kernels carry their sums across
-// a sequential grid axis in VMEM; blocks on Hopper run in no order, so:
+// bf16 gradients (ce_grads, the training path): one warp-specialised GEMM
+// on the tensor cores with three epilogues.  The TPU kernels keep a (256, D)
+// fp32 accumulator in VMEM across a sequential V (or T) axis: 1 MB at D
+// 1024.  On Hopper a block has at most 227 KB of shared memory and an SM
+// 256 KB of registers, so no block can hold a full-D accumulator of even 64
+// rows (256 KB).  Instead ds itself is made, one chunk of Vc vocabulary
+// columns at a time, rounded to bf16 (the rounding JAX applies before both
+// products, fused_ce.py:108 and _grads_xla): Vc is chosen so that the chunk
+// (T x Vc bf16) is at most 32 MiB and stays in the 50 MB L2 between the
+// launch that writes it and those that read it (Vc 2048 at T 8192).  Per
+// chunk, in order on one stream:
+//
+//   1. ds pass   s = h @ table[v0:v0+Vc]^T (M T, N Vc, K D; both operands
+//                K-major).  Epilogue in registers: ds = (exp(s - lse) -
+//                [v == target]) * dnll, rounded to bf16 and stored 16 bytes
+//                a thread (a transpose over the four threads of a quad)
+//                into the chunk workspace; the logits never leave
+//                registers.  TMA fills rows and columns outside the tensors
+//                with zeros, and a zero logit is no zero gradient (exp(-lse)
+//                != 0), so columns past the chunk's end are written as 0
+//                explicitly and rows past T do not exist in the workspace
+//                (TMA reads them back as 0).
+//   2. dh        acc = ds_chunk @ table[v0:v0+Vc] (M T, N D, K Vc; B is
+//                N-major: the descriptor's transpose bit).  Epilogue: written
+//                to a T x D fp32 accumulator on the first chunk, added on the
+//                middle ones (red.global.add: no load comes back to the SM),
+//                read, added and rounded once to bf16 into dh on the last
+//                (straight to dh when there is one chunk).  Each element
+//                takes one add per launch and the chunks run in a fixed
+//                order: deterministic.
+//   3. dtable    dtable[v0:v0+Vc] = ds_chunk^T @ h (M Vc, N D, K T; A is
+//                M-major and B N-major: both transpose bits, read straight
+//                from the row-major workspace and h).  Each chunk owns its
+//                rows, so they are written once in bf16.
+//
+// The GEMM: a block of 384 threads owns a 128 x BN tile (BN 256 for the ds
+// pass and dh, 128 for dtable, whose M is only Vc).  Warpgroup 0 is the
+// producer: one thread keeps a ring of 4 (BN 256) or 6 (BN 128) stages of
+// 64-deep bf16 tiles filled by TMA (128-byte swizzle, tensor maps made on
+// the host by cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, passed
+// as __grid_constant__), each stage released by an mbarrier pair.
+// Warpgroups 1 and 2 each own 64 rows and run wgmma.mma_async m64nBNk16
+// with fp32 accumulators in registers; setmaxnreg moves registers from the
+// producer (40) to them (232).  TMA needs 16-byte row strides: D % 8 == 0.
+//
+// ptxas (sm_90a, CUDA 12.9): the three GEMM instantiations take 168
+// registers a thread (the launch bound, 65,536 / 384), no spill and no
+// stack; setmaxnreg then gives each consumer thread 232 and each producer
+// thread 40.  Dynamic shared memory: 197,696 bytes for BN 256 (4 stages of
+// 48 KB) and 197,728 for BN 128 (6 of 32 KB), with a 1 KB alignment pad and
+// the mbarriers: one block per SM.  The fp32 kernels: ce_dh 128 registers,
+// ce_dtable 127, 44 KB of static shared memory each; ce_stats 64 and 9 KB
+// (bf16: 12 bytes spilled).
+//
+// fp32 keeps the first, CUDA-core kernels: wgmma has no fp32 mode and the
+// fp32 checks must not run in TF32.  A block of 256 threads owns a 64 x 64
+// logits tile (a 4 x 4 micro-tile per thread, D streamed 16 deep through
+// shared memory) and recomputes it in every kernel:
 //
 //   ce_stats   splits V over blocks; each block keeps an online (m, l,
 //              picked) for its rows over its V tiles and a second launch
-//              merges the splits.
-//   ce_dh      splits V over blocks; the 64 x D fp32 accumulator of a block
-//              is too large for registers, so after each V tile the block
-//              adds ds_tile @ table_tile into its OWN slice of an fp32
-//              workspace (split, T, D); a last launch sums the splits and
-//              rounds once.
-//   ce_dtable  the same with the roles of T and V exchanged.
+//              merges the splits (bf16 and fp32).
+//   ce_dh      (fp32) splits V over blocks; after each V tile a block adds
+//              ds_tile @ table_tile into its own slice of an fp32 workspace
+//              (split, T, D); a last launch sums the splits.
+//   ce_dtable  (fp32) the same with the roles of T and V exchanged.
 //
-// Every workspace element has one owner, so the result is deterministic.
-// Tensor cores (mma/wgmma) and TMA are these kernels' next step.
+// Every workspace element has one owner, so every result is deterministic.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
 
 namespace {
 
@@ -55,9 +108,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
@@ -367,32 +417,429 @@ __global__ void sum_splits_kernel(const float* __restrict__ work, size_t n, int 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 gradients: one TMA + wgmma GEMM, three epilogues
+// ---------------------------------------------------------------------------
+
+constexpr int GM = 128;          // block tile rows: two consumer warpgroups of 64
+constexpr int GK = 64;           // k-tile: one 128-byte swizzle row of bf16
+constexpr int GTHREADS = 384;    // warpgroup 0 loads, warpgroups 1-2 multiply
+constexpr int ATOM = 64 * GK * 2;     // one 64 x 64 bf16 box: 8 KB
+constexpr int DS_TILE = 256;     // the ds pass's N tile: the workspace row is a multiple
+
+enum { EPI_DS = 0, EPI_DH = 1, EPI_DTABLE = 2 };
+
+struct EpiArgs {
+  const float* lse;
+  const float* dnll;
+  const int* tgt;
+  __nv_bfloat16* ds;     // chunk workspace (T, ld), written by EPI_DS
+  float* acc;            // (T, D) fp32 dh accumulator (EPI_DH over several chunks)
+  __nv_bfloat16* out;    // dh (T, D), or the chunk's rows of dtable (vr, D)
+  int T, D, ld;
+  int v0, vr;            // the chunk's first vocabulary row and its width
+  int first, last;       // the chunk's place, for EPI_DH
+};
+
+template <int BN> __host__ __device__ constexpr int gemm_stages() { return BN == 256 ? 4 : 6; }
+template <int BN> __host__ __device__ constexpr int stage_bytes() { return (GM + BN) * GK * 2; }
+template <int BN> __host__ __device__ constexpr int gemm_smem() {
+  return gemm_stages<BN>() * stage_bytes<BN>() + 1024 + 2 * 8 * gemm_stages<BN>();
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of `map` at (c0 inner, c1 outer) into shared memory at dst.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major tiles: rows of
+// 64 bf16 (128 bytes), 8-row groups 1024 bytes apart (SBO); a 16-deep k step
+// moves the start by 32 bytes.  M/N-major tiles: 64 x 64 boxes of 64 k-rows
+// of 64 M/N elements, the next 64 M/N elements one box (8 KB, LBO) on, 8
+// k-rows 1024 bytes apart (SBO); a 16-deep k step moves the start by 2 KB.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ACC8(o)                                                                        \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),         \
+      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define ACC32(o) ACC8(o), ACC8(o + 8), ACC8(o + 16), ACC8(o + 24)
+
+// d (64 x 256 per warpgroup, fp32) += A (64 x 16) * B (16 x 256)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n\t}"
+      : ACC32(0), ACC32(32), ACC32(64), ACC32(96)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 128 per warpgroup, fp32) += A (64 x 16) * B (16 x 128)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n\t}"
+      : ACC32(0), ACC32(32)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+#undef ACC32
+#undef ACC8
+
+// The per-row values of the ds epilogue for a thread's two rows r, r + 8:
+// loaded before the mainloop, so that their latency hides behind it.
+struct DsRows {
+  float ls[2], dn[2];
+  int tg[2];  // the target's column in the chunk
+};
+
+__device__ __forceinline__ DsRows ds_rows(const EpiArgs& ep, int r) {
+  DsRows x;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = r + 8 * hh;
+    const bool ok = t < ep.T;
+    x.ls[hh] = ok ? ep.lse[t] : 0.f;
+    x.dn[hh] = ok ? ep.dnll[t] : 0.f;
+    x.tg[hh] = ok ? ep.tgt[t] - ep.v0 : -1;
+  }
+  return x;
+}
+
+// The accumulator of a consumer warpgroup: element 4j + q sits at row
+// r = row0 + 16*warp + lane/4 (+8 for q >= 2), column n0 + 8j + 2*(lane%4)
+// (+1 for odd q).  Writes the block's share of the GEMM's output per EPI.
+template <int BN, int EPI>
+__device__ __forceinline__ void epilogue(float (&acc)[BN / 2], const EpiArgs& ep,
+                                         const DsRows& x, int r, int n0) {
+  const int cq = 2 * (threadIdx.x & 3);
+  if (EPI == EPI_DS) {
+    // The four threads of a quad hold, per 8-column group j, two columns
+    // each.  Over four groups a 4 x 4 transpose (two shuffle steps) gives
+    // each thread all 8 columns of one group: one 16-byte store in place of
+    // four 4-byte ones, 64 contiguous bytes per row and warp.
+    const int q = threadIdx.x & 3;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = r + 8 * hh;
+#pragma unroll
+      for (int i = 0; i < BN / 32; ++i) {
+        uint32_t p[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * i + jj;
+          const int col = n0 + 8 * j + cq;  // < ld: the grid covers ceil(vr / 256) tiles
+          float g0 = 0.f, g1 = 0.f;  // 0 past the chunk: TMA's zero logits are no gradient
+          if (col < ep.vr)
+            g0 = (expf(acc[4 * j + 2 * hh] - x.ls[hh]) - (col == x.tg[hh] ? 1.f : 0.f)) *
+                 x.dn[hh];
+          if (col + 1 < ep.vr)
+            g1 = (expf(acc[4 * j + 2 * hh + 1] - x.ls[hh]) -
+                  (col + 1 == x.tg[hh] ? 1.f : 0.f)) *
+                 x.dn[hh];
+          const __nv_bfloat162 b = __floats2bfloat162_rn(g0, g1);
+          p[jj] = *reinterpret_cast<const uint32_t*>(&b);
+        }
+        // swap the off-diagonal 2 x 2 blocks with the thread two lanes away
+        const bool hi = q & 2;
+        uint32_t s0 = hi ? p[0] : p[2], s1 = hi ? p[1] : p[3];
+        s0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+        s1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+        if (hi) { p[0] = s0; p[1] = s1; } else { p[2] = s0; p[3] = s1; }
+        // transpose each 2 x 2 block with the neighbouring lane
+        const bool odd = q & 1;
+        s0 = odd ? p[0] : p[1];
+        s1 = odd ? p[2] : p[3];
+        s0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        s1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        if (odd) { p[0] = s0; p[2] = s1; } else { p[1] = s0; p[3] = s1; }
+        if (t < ep.T)  // p: columns n0 + 8 * (4i + q) .. + 7 of row t
+          *reinterpret_cast<uint4*>(ep.ds + (size_t)t * ep.ld + n0 + 8 * (4 * i + q)) =
+              make_uint4(p[0], p[1], p[2], p[3]);
+      }
+    }
+    return;
+  }
+  const int rows = EPI == EPI_DH ? ep.T : ep.vr;
+  if (EPI == EPI_DH && !ep.first && ep.last) {
+    // every load before any store, so that they are all in flight at once
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + cq;  // even, and D % 8 == 0: col < D means col + 1 < D
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = r + 8 * hh;
+        if (col >= ep.D || t >= rows) continue;
+        const float2 o = *reinterpret_cast<const float2*>(ep.acc + (size_t)t * ep.D + col);
+        acc[4 * j + 2 * hh] += o.x;
+        acc[4 * j + 2 * hh + 1] += o.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + cq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = r + 8 * hh;
+      if (col >= ep.D || t >= rows) continue;
+      const size_t i = (size_t)t * ep.D + col;
+      const float a = acc[4 * j + 2 * hh], b = acc[4 * j + 2 * hh + 1];
+      if (EPI == EPI_DTABLE || ep.last)
+        *reinterpret_cast<__nv_bfloat162*>(ep.out + i) = __floats2bfloat162_rn(a, b);
+      else if (ep.first)
+        *reinterpret_cast<float2*>(ep.acc + i) = make_float2(a, b);
+      else  // one add per element and launch, in launch order: deterministic
+        asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(ep.acc + i), "f"(a), "f"(b)
+                     : "memory");
+    }
+  }
+}
+
+// out tile (blockIdx.y * 128, blockIdx.x * BN) of A (M x K) @ B (K x N), bf16
+// in, fp32 sums, through EPI.  A is K-major (TA 0: map rows are M, box 64 x
+// 128) or M-major (TA 1: map rows are K, box 64 x 64); B likewise (TB 0: map
+// rows are N, box 64 x BN; TB 1: map rows are K, box 64 x 64).  b_off shifts
+// B's map rows (the chunk's first table row).  nk 64-deep k-tiles.
+template <int BN, int EPI, int TA, int TB>
+__global__ void __launch_bounds__(GTHREADS, 1)
+    ce_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, int nk, int b_off,
+                   const EpiArgs ep) {
+  constexpr int S = gemm_stages<BN>();
+  constexpr int A_BYTES = GM * GK * 2;
+  constexpr int STAGE = stage_bytes<BN>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's alignment
+  const uint32_t bars = base + S * STAGE;  // full[s] at bars + 8s, empty[s] at bars + 8(S + s)
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * BN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);        // the producer's expect_tx, then the bytes
+      mbar_init(bars + 8 * (S + s), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S;
+        const uint32_t full = bars + 8 * s;
+        const uint32_t sa = base + s * STAGE, sb = sa + A_BYTES;
+        mbar_wait(bars + 8 * (S + s), ((kt / S) & 1) ^ 1);  // the stage's last use is done
+        mbar_expect_tx(full, STAGE);
+        const int k0 = kt * GK;
+        if (TA) {
+          tma_load(sa, &map_a, full, m0, k0);
+          tma_load(sa + ATOM, &map_a, full, m0 + 64, k0);
+        } else {
+          tma_load(sa, &map_a, full, k0, m0);
+        }
+        if (TB) {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(sb + j * ATOM, &map_b, full, n0 + 64 * j, b_off + k0);
+        } else {
+          tma_load(sb, &map_b, full, k0, b_off + n0);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;  // rows 64c..64c+63 of the tile
+    const int r = m0 + 64 * c + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+    DsRows x{};
+    if (EPI == EPI_DS) x = ds_rows(ep, r);
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % S;
+      const uint32_t sa = base + s * STAGE + c * ATOM, sb = base + s * STAGE + A_BYTES;
+      mbar_wait(bars + 8 * s, (kt / S) & 1);
+      fence_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < GK / 16; ++kk) {
+        const uint64_t da =
+            TA ? smem_desc(sa + kk * 2048, ATOM, 1024) : smem_desc(sa + kk * 32, 16, 1024);
+        const uint64_t db =
+            TB ? smem_desc(sb + kk * 2048, ATOM, 1024) : smem_desc(sb + kk * 32, 16, 1024);
+        if constexpr (BN == 256)
+          wgmma_n256<TA, TB>(acc, da, db);
+        else
+          wgmma_n128<TA, TB>(acc, da, db);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      fence_regs(acc);
+      // k-tile kt stays in flight; kt - 1 is done, so its stage goes back
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_regs(acc);
+      if (kt > 0 && (threadIdx.x & 31) == 0) mbar_arrive(bars + 8 * (S + (kt - 1) % S));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(acc);
+    epilogue<BN, EPI>(acc, ep, x, r, n0);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, so that the library links the
+// runtime alone.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major bf16 (rows, cols) matrix, boxes of box_rows x box_cols (64
+// columns: one 128-byte swizzle row), zeros outside.  0, or the negated
+// CUresult.
+int make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int box_cols,
+             int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+template <int BN, int EPI, int TA, int TB>
+int allow_smem() {
+  return static_cast<int>(cudaFuncSetAttribute(ce_gemm_kernel<BN, EPI, TA, TB>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               gemm_smem<BN>()));
+}
+
+// (m_rows x n_cols) output through EPI: one block per 128 x BN tile.
+template <int BN, int EPI, int TA, int TB>
+int gemm(const CUtensorMap& a, const CUtensorMap& b, int m_rows, int n_cols, int nk, int b_off,
+         const EpiArgs& ep, cudaStream_t st) {
+  const dim3 grid((n_cols + BN - 1) / BN, (m_rows + GM - 1) / GM);
+  ce_gemm_kernel<BN, EPI, TA, TB><<<grid, GTHREADS, gemm_smem<BN>(), st>>>(a, b, nk, b_off, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 int splits(int n_tiles, int tiles_per_split) {
   return (n_tiles + tiles_per_split - 1) / tiles_per_split;
 }
 
-template <typename E>
-int grads(bool dh, const void* h, const void* tab, const int* tgt, const float* lse,
-          const float* dnll, void* out, float* work, int T, int V, int D,
-          int tiles_per_split, cudaStream_t st) {
+// fp32 dh or dtable: the split kernel, then the sum of the splits.
+int grads_f32(bool dh, const void* h, const void* tab, const int* tgt, const float* lse,
+              const float* dnll, void* out, float* work, int T, int V, int D,
+              int tiles_per_split, cudaStream_t st) {
+  const float* hf = static_cast<const float*>(h);
+  const float* tf = static_cast<const float*>(tab);
   size_t n;
   int n_split;
   if (dh) {
     n_split = splits((V + BV - 1) / BV, tiles_per_split);
-    ce_dh_kernel<E><<<dim3((T + BT - 1) / BT, n_split), NT, 0, st>>>(
-        static_cast<const E*>(h), static_cast<const E*>(tab), tgt, lse, dnll, T, V, D,
-        tiles_per_split, work);
+    ce_dh_kernel<float><<<dim3((T + BT - 1) / BT, n_split), NT, 0, st>>>(
+        hf, tf, tgt, lse, dnll, T, V, D, tiles_per_split, work);
     n = (size_t)T * D;
   } else {
     n_split = splits((T + BT - 1) / BT, tiles_per_split);
-    ce_dtable_kernel<E><<<dim3((V + BV - 1) / BV, n_split), NT, 0, st>>>(
-        static_cast<const E*>(h), static_cast<const E*>(tab), tgt, lse, dnll, T, V, D,
-        tiles_per_split, work);
+    ce_dtable_kernel<float><<<dim3((V + BV - 1) / BV, n_split), NT, 0, st>>>(
+        hf, tf, tgt, lse, dnll, T, V, D, tiles_per_split, work);
     n = (size_t)V * D;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_splits_kernel<E><<<1024, 256, 0, st>>>(work, n, n_split, static_cast<E*>(out));
+  sum_splits_kernel<float><<<1024, 256, 0, st>>>(work, n, n_split, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,38 +881,82 @@ extern "C" int ce_stats(const void* h, const void* tab, const void* tgt, void* m
   return static_cast<int>(cudaGetLastError());
 }
 
-// dh (T, D) in h's dtype.  V is split as in ce_stats; `work` holds
-// n_split * T * D fp32.  lse, dnll: (T,) fp32.
+// fp32 dh (T, D).  V is split as in ce_stats; `work` holds n_split * T * D
+// fp32.  lse, dnll: (T,) fp32.  bf16 goes through ce_grads.
 extern "C" int ce_dh(const void* h, const void* tab, const void* tgt, const void* lse,
                      const void* dnll, void* dh, void* work, int T, int V, int D,
                      int tiles_per_split, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(T, V, D, tiles_per_split)) return cudaErrorInvalidValue;
-  const int* tg = static_cast<const int*>(tgt);
-  const float* ls = static_cast<const float*>(lse);
-  const float* dn = static_cast<const float*>(dnll);
-  float* w = static_cast<float*>(work);
-  if (dtype == 0) return grads<float>(true, h, tab, tg, ls, dn, dh, w, T, V, D, tiles_per_split, st);
-  if (dtype == 1)
-    return grads<__nv_bfloat16>(true, h, tab, tg, ls, dn, dh, w, T, V, D, tiles_per_split, st);
-  return cudaErrorInvalidValue;
+  if (bad_shape(T, V, D, tiles_per_split) || dtype != 0) return cudaErrorInvalidValue;
+  return grads_f32(true, h, tab, static_cast<const int*>(tgt), static_cast<const float*>(lse),
+                   static_cast<const float*>(dnll), dh, static_cast<float*>(work), T, V, D,
+                   tiles_per_split, static_cast<cudaStream_t>(stream));
 }
 
-// dtable (V, D) in the table's dtype.  T is split into groups of
-// `tiles_per_split` 64-row tiles; `work` holds n_split * V * D fp32.
+// fp32 dtable (V, D).  T is split into groups of `tiles_per_split` 64-row
+// tiles; `work` holds n_split * V * D fp32.  bf16 goes through ce_grads.
 extern "C" int ce_dtable(const void* h, const void* tab, const void* tgt, const void* lse,
                          const void* dnll, void* dtable, void* work, int T, int V, int D,
                          int tiles_per_split, int dtype, void* stream) {
+  if (bad_shape(T, V, D, tiles_per_split) || dtype != 0) return cudaErrorInvalidValue;
+  return grads_f32(false, h, tab, static_cast<const int*>(tgt), static_cast<const float*>(lse),
+                   static_cast<const float*>(dnll), dtable, static_cast<float*>(work), T, V, D,
+                   tiles_per_split, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 dh (T, D) and/or dtable (V, D), either null when not wanted, through
+// V chunks of Vc columns (Vc % 128 == 0; the last chunk may be shorter).
+// `work` holds the ds chunk, T x ld bf16 with ld = Vc rounded up to 256,
+// then (at the next multiple of 256 bytes) the T x D fp32 dh accumulator
+// when dh is wanted over more than one chunk.  h, table and work 16-byte
+// aligned, D % 8 == 0 (TMA's row strides).  dtype must be 1.  Up to three
+// launches per chunk on `stream`; returns 0, the first cudaError_t, or a
+// negated CUresult of cuTensorMapEncodeTiled.
+extern "C" int ce_grads(const void* h, const void* tab, const void* tgt, const void* lse,
+                        const void* dnll, void* dh, void* dtable, void* work, int T, int V,
+                        int D, int Vc, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(T, V, D, tiles_per_split)) return cudaErrorInvalidValue;
-  const int* tg = static_cast<const int*>(tgt);
-  const float* ls = static_cast<const float*>(lse);
-  const float* dn = static_cast<const float*>(dnll);
-  float* w = static_cast<float*>(work);
-  if (dtype == 0)
-    return grads<float>(false, h, tab, tg, ls, dn, dtable, w, T, V, D, tiles_per_split, st);
-  if (dtype == 1)
-    return grads<__nv_bfloat16>(false, h, tab, tg, ls, dn, dtable, w, T, V, D,
-                                tiles_per_split, st);
-  return cudaErrorInvalidValue;
+  if (dtype != 1 || T < 1 || V < 1 || D < 1 || D % 8 != 0 || Vc < GM || Vc % GM != 0 ||
+      (dh == nullptr && dtable == nullptr) || work == nullptr)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(tab) |
+       reinterpret_cast<uintptr_t>(work)) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const int ld = cdiv(Vc, DS_TILE) * DS_TILE;
+  auto* ds = static_cast<__nv_bfloat16*>(work);
+  auto* acc = reinterpret_cast<float*>(static_cast<char*>(work) +
+                                       ((size_t)T * ld * 2 + 255) / 256 * 256);
+  CUtensorMap h_k, tab_k, ds_k, tab_mn, ds_mn, h_mn;
+  int err;
+  if ((err = make_map(&h_k, h, D, T, GK, GM)) || (err = make_map(&tab_k, tab, D, V, GK, DS_TILE)) ||
+      (err = make_map(&ds_k, ds, ld, T, GK, GM)) || (err = make_map(&tab_mn, tab, D, V, 64, GK)) ||
+      (err = make_map(&ds_mn, ds, ld, T, 64, GK)) || (err = make_map(&h_mn, h, D, T, 64, GK)))
+    return err;
+  if ((err = allow_smem<DS_TILE, EPI_DS, 0, 0>()) || (err = allow_smem<256, EPI_DH, 0, 1>()) ||
+      (err = allow_smem<128, EPI_DTABLE, 1, 1>()))
+    return err;
+  EpiArgs ep{static_cast<const float*>(lse), static_cast<const float*>(dnll),
+             static_cast<const int*>(tgt), ds, acc, nullptr, T, D, ld, 0, 0, 0, 0};
+  const int n_chunks = cdiv(V, Vc);
+  for (int c = 0; c < n_chunks; ++c) {
+    ep.v0 = c * Vc;
+    ep.vr = V - ep.v0 < Vc ? V - ep.v0 : Vc;
+    ep.first = c == 0;
+    ep.last = c == n_chunks - 1;
+    // 1. ds = f(h @ table[v0:v0+vr]^T) into the workspace
+    if ((err = gemm<DS_TILE, EPI_DS, 0, 0>(h_k, tab_k, T, ep.vr, cdiv(D, GK), ep.v0, ep, st)))
+      return err;
+    // 2. dh (+)= ds @ table[v0:v0+vr]
+    if (dh != nullptr) {
+      ep.out = static_cast<__nv_bfloat16*>(dh);
+      if ((err = gemm<256, EPI_DH, 0, 1>(ds_k, tab_mn, T, D, cdiv(ep.vr, GK), ep.v0, ep, st)))
+        return err;
+    }
+    // 3. dtable[v0:v0+vr] = ds^T @ h
+    if (dtable != nullptr) {
+      ep.out = static_cast<__nv_bfloat16*>(dtable) + (size_t)ep.v0 * D;
+      if ((err = gemm<128, EPI_DTABLE, 1, 1>(ds_mn, h_mn, ep.vr, D, cdiv(T, GK), 0, ep, st)))
+        return err;
+    }
+  }
+  return 0;
 }

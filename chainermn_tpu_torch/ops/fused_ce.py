@@ -12,10 +12,14 @@ Counterpart of ``chainermn_tpu/ops/fused_ce.py``: :func:`ce_stats`,
   dtype before each product, fp32 sums, ``dh`` in h's dtype and
   ``dtable`` in the table's.
 
-On a CUDA tensor the wrappers launch ``csrc/fused_ce.cu`` (``ce_stats``,
-``ce_dh``, ``ce_dtable``), which never write a logits tile to memory; on a
-CPU tensor they take the plain versions, which materialise the ``(T, V)``
-logits as JAX's ``_stats_xla`` / ``_grads_xla`` do.
+On a CUDA tensor the wrappers launch ``csrc/fused_ce.cu``: ``ce_stats``
+recomputes its logits tiles and never stores one; the bf16 gradients go
+through ``ce_grads``'s tensor-core GEMMs, which make ``ds`` one V chunk at
+a time (:func:`_grad_plan`: at most 32 MiB, so that it stays in the L2)
+and never store an fp32 logit; the fp32 gradients keep the CUDA-core
+``ce_dh`` / ``ce_dtable`` kernels.  On a CPU tensor the wrappers take the
+plain versions, which materialise the ``(T, V)`` logits as JAX's
+``_stats_xla`` / ``_grads_xla`` do.
 """
 
 from __future__ import annotations
@@ -24,8 +28,11 @@ import torch
 
 from . import _build
 
-_TILE = 64              # the kernels' logits tile, both axes
+_TILE = 64              # the CUDA-core kernels' logits tile, both axes
 _TARGET_BLOCKS = 528    # ~4 resident blocks on each of the H100's 132 SMs
+_GRAD_TILE = 128        # the bf16 GEMMs' M tile: the V chunk is a multiple
+_DS_TILE = 256          # the ds pass's N tile: a workspace row is a multiple
+_DS_BYTES = 32 << 20    # the bf16 ds chunk stays in the H100's 50 MB L2
 
 
 def _check(h, table, targets):
@@ -132,8 +139,37 @@ def _ce_stats_cuda(h, table, targets):
     return out[0], out[1], out[2]
 
 
-def _ce_grad_cuda(fn_name, h, table, targets, lse, dnll):
-    code, tgt = _cuda_args(h, table, targets)
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _grad_plan(t: int, v: int, d: int, dtype, chunk=None) -> dict:
+    """How ``ce_grads`` walks V in bf16: the chunk width ``chunk`` (a
+    multiple of 128, at most V rounded up to 128; by default the widest
+    whose ``(T, chunk)`` bf16 ``ds`` fits 32 MiB), the chunks' ``(v0, v1)``
+    bounds, the ``ds`` workspace ``(T, ld)`` (``ld``: the chunk rounded up
+    to 256) and the fp32 dh accumulator ``(T, D)`` (``None`` with one
+    chunk).  ``chunk`` overrides the width (for tests).
+    Raises ``ValueError`` for bf16 with ``D % 8 != 0``: TMA needs 16-byte
+    row strides."""
+    if dtype == torch.bfloat16 and d % 8:
+        raise ValueError(f"the bf16 CE gradient kernels need D % 8 == 0 "
+                         f"(TMA's 16-byte row strides), got D = {d}")
+    if chunk is None:
+        chunk = max(_GRAD_TILE,
+                    _DS_BYTES // (2 * t) // _GRAD_TILE * _GRAD_TILE)
+    elif chunk < _GRAD_TILE or chunk % _GRAD_TILE:
+        raise ValueError(f"the V chunk must be a positive multiple of "
+                         f"{_GRAD_TILE}, got {chunk}")
+    chunk = min(chunk, _round_up(v, _GRAD_TILE))
+    bounds = [(v0, min(v, v0 + chunk)) for v0 in range(0, v, chunk)]
+    return {"chunk": chunk, "bounds": bounds,
+            "ds_shape": (t, _round_up(chunk, _DS_TILE)),
+            "acc_shape": (t, d) if len(bounds) > 1 else None}
+
+
+def _grads_f32_cuda(fn_name, h, table, tgt, ls, dn):
+    """One fp32 gradient through the CUDA-core split kernels."""
     t, d = h.shape
     v = table.shape[0]
     n_t, n_v = -(-t // _TILE), -(-v // _TILE)
@@ -145,13 +181,47 @@ def _ce_grad_cuda(fn_name, h, table, targets, lse, dnll):
         rows, n_split, out = v, -(-n_t // per), torch.empty_like(table)
     work = torch.empty((n_split, rows, d), dtype=torch.float32,
                        device=h.device)
-    ls, dn = _cuda_rows(lse, h.device), _cuda_rows(dnll, h.device)
     err = getattr(_build.library("fused_ce"), fn_name)(
         h.data_ptr(), table.data_ptr(), tgt.data_ptr(), ls.data_ptr(),
-        dn.data_ptr(), out.data_ptr(), work.data_ptr(), t, v, d, per, code,
+        dn.data_ptr(), out.data_ptr(), work.data_ptr(), t, v, d, per, 0,
         _build.stream_handle(h))
     _build.check(err, fn_name)
     return out
+
+
+def _grads_cuda(h, table, targets, lse, dnll, want_dh, want_dtable):
+    """``(dh or None, dtable or None)`` on the card: fp32 through the
+    CUDA-core kernels, bf16 through one ``ce_grads`` call that shares each
+    chunk's ``ds`` between the two products."""
+    code, tgt = _cuda_args(h, table, targets)
+    ls, dn = _cuda_rows(lse, h.device), _cuda_rows(dnll, h.device)
+    if code == 0:
+        return (_grads_f32_cuda("ce_dh", h, table, tgt, ls, dn)
+                if want_dh else None,
+                _grads_f32_cuda("ce_dtable", h, table, tgt, ls, dn)
+                if want_dtable else None)
+    t, d = h.shape
+    v = table.shape[0]
+    plan = _grad_plan(t, v, d, h.dtype)
+    for name, x in (("h", h), ("table", table)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"the bf16 CE gradient kernels need {name} "
+                             f"16-byte aligned (TMA)")
+    ds_bytes = _round_up(2 * plan["ds_shape"][0] * plan["ds_shape"][1], 256)
+    acc_bytes = 0
+    if want_dh and plan["acc_shape"] is not None:
+        acc_bytes = 4 * plan["acc_shape"][0] * plan["acc_shape"][1]
+    work = torch.empty(ds_bytes + acc_bytes, dtype=torch.uint8,
+                       device=h.device)
+    dh = torch.empty_like(h) if want_dh else None
+    dtable = torch.empty_like(table) if want_dtable else None
+    err = _build.library("fused_ce").ce_grads(
+        h.data_ptr(), table.data_ptr(), tgt.data_ptr(), ls.data_ptr(),
+        dn.data_ptr(), None if dh is None else dh.data_ptr(),
+        None if dtable is None else dtable.data_ptr(), work.data_ptr(), t, v,
+        d, plan["chunk"], code, _build.stream_handle(h))
+    _build.check(err, "ce_grads")
+    return dh, dtable
 
 
 def _is_cuda(h, what):
@@ -161,21 +231,21 @@ def _is_cuda(h, what):
 
 
 def ce_dh(h, table, targets, lse, dnll):
-    """``dh (T, D)`` in h's dtype: the ``ce_dh`` kernel on CUDA, the plain
-    version on the CPU."""
+    """``dh (T, D)`` in h's dtype: the bf16 GEMMs or the fp32 ``ce_dh``
+    kernel on CUDA, the plain version on the CPU."""
     if not _is_cuda(h, "ce_dh"):
         return ce_dh_plain(h, table, targets, lse, dnll)
-    out = _ce_grad_cuda("ce_dh", h, table, targets, lse, dnll)
+    out, _ = _grads_cuda(h, table, targets, lse, dnll, True, False)
     ce_dh.launches += 1
     return out
 
 
 def ce_dtable(h, table, targets, lse, dnll):
-    """``dtable (V, D)`` in the table's dtype: the ``ce_dtable`` kernel on
-    CUDA, the plain version on the CPU."""
+    """``dtable (V, D)`` in the table's dtype: the bf16 GEMMs or the fp32
+    ``ce_dtable`` kernel on CUDA, the plain version on the CPU."""
     if not _is_cuda(h, "ce_dtable"):
         return ce_dtable_plain(h, table, targets, lse, dnll)
-    out = _ce_grad_cuda("ce_dtable", h, table, targets, lse, dnll)
+    _, out = _grads_cuda(h, table, targets, lse, dnll, False, True)
     ce_dtable.launches += 1
     return out
 
@@ -190,11 +260,15 @@ def ce_stats(h, table, targets):
 
 def ce_grads(h, table, targets, lse, dnll):
     """``(dh, dtable)`` for the per-row NLL cotangent ``dnll (T,)`` given
-    the (possibly globally combined) ``lse (T,)``."""
-    if _is_cuda(h, "ce_grads"):
-        return (ce_dh(h, table, targets, lse, dnll),
-                ce_dtable(h, table, targets, lse, dnll))
-    return ce_grads_plain(h, table, targets, lse, dnll)
+    the (possibly globally combined) ``lse (T,)``.  On CUDA one pass: in
+    bf16 each chunk's ``ds`` feeds both products.  Counts one ``ce_dh``
+    and one ``ce_dtable`` launch."""
+    if not _is_cuda(h, "ce_grads"):
+        return ce_grads_plain(h, table, targets, lse, dnll)
+    dh, dtable = _grads_cuda(h, table, targets, lse, dnll, True, True)
+    ce_dh.launches += 1
+    ce_dtable.launches += 1
+    return dh, dtable
 
 
 def _local_combine(m, l, picked):

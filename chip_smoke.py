@@ -10,7 +10,9 @@ and prints no result line:
 
 1. ``device``  — the card (nvidia-smi name and power limit), torch and
    CUDA versions; ``build`` — every kernel compiled from ``csrc/`` in
-   parallel (one nvcc per source), with each kernel's ptxas report.
+   parallel (one nvcc per source), with each kernel's ptxas report, and
+   (where the toolkit has ``cuobjdump``) the count of ``HGMMA``
+   instructions in ``libfused_ce``'s SASS, which must not be 0.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and edge shapes, in bf16 (atol = rtol =
    2e-2: bf16 keeps 8 mantissa bits) and fp32 (atol = rtol = 1e-4: the
@@ -19,10 +21,17 @@ and prints no result line:
    version, one PyTorch library call, and the bound (bytes / 3.35 TB/s or
    FLOPs / peak, whichever is larger).  The training kernels: the flash
    backward (B 8, S 1024, H 8, hd 128, causal; hd 64, group 2, a ragged S
-   of 77, the LSE cotangent) and the three fused cross-entropy kernels (T
-   8192, V 32768, D 1024; ragged T and V, targets out of range).  The CE
-   gradients are small numbers, so their largest error must also stay
-   within the tolerance times their largest entry.  The beam kernel
+   of 77, the LSE cotangent) and the fused cross-entropy (T 8192, V 32768,
+   D 1024; ragged T and V; targets out of range; for the bf16 gradients,
+   which walk V in chunks of at most 32 MiB of ``ds``, V = 2 chunks of
+   2048 + 77 at T 8000, D 200 and V = 2 chunks of 1920 + 77 at T 8738,
+   D 64, with targets at each chunk's first column, the column before it
+   and V - 1): ``ce_stats``, ``ce_dh``
+   and ``ce_dtable`` alone and both gradients from one ``ce_grads`` call.
+   The CE gradients are small numbers, so their largest error must also
+   stay within the tolerance times their largest entry.  ``ce_grads`` is
+   timed beside the sum of the two library calls, with its peak memory
+   above its inputs; bf16 with D = 100 must raise ``ValueError`` (D % 8).  The beam kernel
    (``beam_attend_parts``: acc, m and l): beam 4's two segments at full
    width (the (8, 512, 1024) prompt, mode none; the (8, 2048, 1024)
    generated window as a strided view, mode amask, one valid slot per
@@ -114,6 +123,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -251,9 +261,20 @@ def phase_build(smoke):
           "per_source_s": {k: round(v["seconds"], 2) for k, v in report.items()}})
     for name, rep in report.items():
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if name == "fused_ce" and "Compiling entry" in line \
+                    or any(k in line for k in ("registers", "spill", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
         _build.library(name)
+    # the bf16 CE gradients must have kept their wgmma instructions
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", report["fused_ce"]["path"]],
+                              capture_output=True, text=True, timeout=300)
+        n = sass.stdout.count("HGMMA")
+        emit({"check": "build.fused_ce.hgmma", "sass_hgmma_instructions": n})
+        if n == 0:
+            raise AssertionError("libfused_ce has no HGMMA instruction: the "
+                                 "bf16 CE gradients lost their wgmma")
 
 
 def _flash_bound(b, s, h, d, causal, elem, dtype_name):
@@ -524,7 +545,8 @@ def check_flash_bwd(smoke):
 def _ce_bounds(t, v, d, elem, dtype_name):
     """(bound_ms, bound_by) per CE kernel: h and the table read once, the
     (T,) rows in, the outputs out; 2·T·V·D FLOP for the logits and as many
-    again for each gradient product."""
+    again for each gradient product (``ce_grads``: one logits pass, both
+    products)."""
     ins = (t * d + v * d) * elem + 4.0 * t
     return {
         "ce_stats": _bound(ins + 12.0 * t, 2.0 * t * v * d, dtype_name),
@@ -532,31 +554,51 @@ def _ce_bounds(t, v, d, elem, dtype_name):
                         dtype_name),
         "ce_dtable": _bound(ins + 8.0 * t + v * d * elem, 4.0 * t * v * d,
                             dtype_name),
+        "ce_grads": _bound(ins + 8.0 * t + (t + v) * d * elem,
+                           6.0 * t * v * d, dtype_name),
     }
+
+
+def _ce_inputs(torch, g, t, v, d, dtype):
+    h = torch.randn(t, d, generator=g, device="cuda").to(dtype)
+    tab = (torch.randn(v, d, generator=g, device="cuda")
+           * (2.0 / d) ** 0.5 * 4).to(dtype)
+    tgt = torch.randint(0, v, (t,), generator=g, device="cuda")
+    edges = [-1, v, v + 100]                         # pick nothing
+    if d % 8 == 0:  # each bf16 chunk's first column, the one before it, V - 1
+        from chainermn_tpu_torch.ops.fused_ce import _grad_plan
+
+        bounds = _grad_plan(t, v, d, torch.bfloat16)["bounds"]
+        edges += [x for v0, _ in bounds[1:] for x in (v0 - 1, v0)] + [v - 1]
+    tgt[:len(edges)] = torch.tensor(edges)
+    dnll = torch.rand(t, generator=g, device="cuda")
+    return h, tab, tgt, dnll
 
 
 def check_ce(smoke):
     torch = smoke.torch
     from chainermn_tpu_torch.ops import (ce_dh, ce_dh_plain, ce_dtable,
-                                         ce_dtable_plain, ce_grads_plain,
-                                         ce_stats, ce_stats_plain)
+                                         ce_dtable_plain, ce_grads,
+                                         ce_grads_plain, ce_stats,
+                                         ce_stats_plain)
+    from chainermn_tpu_torch.ops.fused_ce import _grad_plan
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    cases = [  # (T, V, D, timed)
+    cases = [  # (T, V, D, timed); the bf16 gradients' V chunk follows T
         (TRAIN_BATCH * TRAIN_SEQ, TRAIN["vocab"], TRAIN["d_model"], True),
-        (77, 301, 96, False),          # ragged T, V and D tiles
-        (512, 32768, 1024, False),     # the train-parity shape
+        (77, 301, 96, False),              # ragged T, V and D tiles
+        (512, 32768, 1024, False),         # the train-parity shape
+        # T not a multiple of 128, D = 200: chunks of 2048, 2048 and 77
+        (8000, 2 * 2048 + 77, 200, False),
+        # chunks of 1920 (a workspace row of 2048), 1920 and 77
+        (8738, 2 * 1920 + 77, 64, False),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         for t, v, d, timed in cases:
-            h = torch.randn(t, d, generator=g, device="cuda").to(dtype)
-            tab = (torch.randn(v, d, generator=g, device="cuda")
-                   * (2.0 / d) ** 0.5 * 4).to(dtype)
-            tgt = torch.randint(0, v, (t,), generator=g, device="cuda")
-            tgt[:3] = torch.tensor([-1, v, v + 100])     # pick nothing
-            dnll = torch.rand(t, generator=g, device="cuda")
-            shape = dict(T=t, V=v, D=d)
+            h, tab, tgt, dnll = _ce_inputs(torch, g, t, v, d, dtype)
+            shape = dict(T=t, V=v, D=d,
+                         chunk=_grad_plan(t, v, d, torch.bfloat16)["chunk"])
             got = ce_stats(h, tab, tgt)
             ref = ce_stats_plain(h, tab, tgt)
             torch.cuda.synchronize()
@@ -571,9 +613,17 @@ def check_ce(smoke):
             errs["ce_dtable"] = smoke.compare(
                 "ce_dtable", ce_dtable(h, tab, tgt, lse, dnll), dt_ref, dn,
                 scaled=True, **shape)
-            del dh_ref, dt_ref
+            both = ce_grads(h, tab, tgt, lse, dnll)
+            errs["ce_grads"] = max(
+                smoke.compare(f"ce_grads.{n}", x, r, dn, scaled=True, **shape)
+                for n, x, r in zip(("dh", "dtable"), both, (dh_ref, dt_ref)))
+            del dh_ref, dt_ref, both
             if not (timed and dtype == torch.bfloat16):
                 continue
+            lib = {"ce_dh": lambda: torch.matmul(torch.softmax(
+                       torch.matmul(h, tab.t()), -1), tab),
+                   "ce_dtable": lambda: torch.matmul(torch.softmax(
+                       torch.matmul(h, tab.t()), -1).t(), h)}
             kernels = {
                 "ce_stats": (lambda: ce_stats(h, tab, tgt),
                              lambda: ce_stats_plain(h, tab, tgt),
@@ -581,28 +631,58 @@ def check_ce(smoke):
                                  torch.matmul(h, tab.t()).float(), -1)),
                 "ce_dh": (lambda: ce_dh(h, tab, tgt, lse, dnll),
                           lambda: ce_dh_plain(h, tab, tgt, lse, dnll),
-                          lambda: torch.matmul(torch.softmax(
-                              torch.matmul(h, tab.t()), -1), tab)),
+                          lib["ce_dh"]),
                 "ce_dtable": (lambda: ce_dtable(h, tab, tgt, lse, dnll),
                               lambda: ce_dtable_plain(h, tab, tgt, lse,
                                                       dnll),
-                              lambda: torch.matmul(torch.softmax(
-                                  torch.matmul(h, tab.t()), -1).t(), h)),
+                              lib["ce_dtable"]),
             }
             bounds = _ce_bounds(t, v, d, h.element_size(), dn)
+            lib_ms = {}
             for name, (kern, plain_fn, lib_fn) in kernels.items():
                 ms = smoke.time_ms(kern, iters=10)
                 plain = smoke.time_ms(plain_fn, iters=3)
-                lib = smoke.time_ms(lib_fn, iters=10)
+                lib_ms[name] = smoke.time_ms(lib_fn, iters=10)
                 bound, by = bounds[name]
                 smoke.kernel_rows[name] = dict(
                     max_abs_err=errs[name], ms=ms, plain_ms=plain,
-                    bound_ms=bound, bound_by=by, library_ms=lib, shape=shape,
-                    dtype=dn)
+                    bound_ms=bound, bound_by=by, library_ms=lib_ms[name],
+                    shape=shape, dtype=dn)
                 emit(dict(check=f"{name}.time", max_abs_err=errs[name],
                           atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
-                          library_ms=lib, bound_ms=bound, bound_by=by,
-                          **shape))
+                          library_ms=lib_ms[name], bound_ms=bound,
+                          bound_by=by, **shape))
+            # both gradients from one ds pass (the training step's call),
+            # beside the two library calls it replaces; then its memory
+            ms = smoke.time_ms(lambda: ce_grads(h, tab, tgt, lse, dnll),
+                               iters=10)
+            bound, by = bounds["ce_grads"]
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ce_grads(h, tab, tgt, lse, dnll)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - before
+            emit(dict(check="ce_grads.time", max_abs_err=errs["ce_grads"],
+                      atol=TOL[dn], kernel_ms=ms,
+                      library_ms=lib_ms["ce_dh"] + lib_ms["ce_dtable"],
+                      library="softmax + matmul, dh and dtable",
+                      bound_ms=bound, bound_by=by,
+                      peak_extra_mib=extra / 2 ** 20,
+                      outputs_mib=(h.numel() + tab.numel())
+                      * h.element_size() / 2 ** 20, **shape))
+    # bf16 takes D % 8 == 0 only (TMA's 16-byte row strides), and says so
+    h, tab, tgt, dnll = _ce_inputs(torch, g, 64, 300, 100, torch.bfloat16)
+    lse = torch.zeros(64, device="cuda")
+    for fn in (ce_dh, ce_dtable, ce_grads):
+        try:
+            fn(h, tab, tgt, lse, dnll)
+        except ValueError as e:
+            emit({"check": f"{fn.__name__}.d_not_multiple_of_8",
+                  "raised": str(e)})
+            continue
+        raise AssertionError(f"{fn.__name__} took bf16 D = 100 without "
+                             f"raising")
 
 
 def _beam_bound(b, r, d, n_read, mode, elem, dtype_name, h):

@@ -8,9 +8,10 @@ flash attention and the fused cross-entropy (``--ce-impl``), after two
 warm-up steps, under ``torch.profiler``.  Prints one JSON line: the host
 wall per step, the device busy time (union of kernel, memcpy and memset
 intervals), the device idle share, the kernel count per step and the
-device time by kernel name (top entries); then the card's name and power
-limit.  The Chrome trace goes to ``--out-dir`` (default ``profile/``).
-Needs a card.
+device time by kernel name (top entries), the fused cross-entropy's
+kernels by name and the peak device memory of the profiled steps; then
+the card's name and power limit.  The Chrome
+trace goes to ``--out-dir`` (default ``profile/``).  Needs a card.
 
     python3 scripts/profile_torch_train.py --steps 2
 """
@@ -26,6 +27,33 @@ from functools import partial
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from profile_torch_serving import _summarise  # noqa: E402
+
+# the bf16 CE gradients' GEMM, by its epilogue template argument
+_CE_GEMM = {"0": "ds pass", "1": "dh product", "2": "dtable product"}
+
+
+def _fused_ce_ms(trace_path, steps):
+    """Device ms per step of each fused-CE kernel: ``ce_stats`` and its
+    merge, and the ``ce_gemm_kernel`` by epilogue (the ds pass, the dh and
+    dtable products), which the top-12 list can miss."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        if "ce_gemm_kernel<" in name:
+            epi = name.split("ce_gemm_kernel<")[1].split(",")[1].strip()
+            key = f"ce_gemm {_CE_GEMM.get(epi, epi)}"
+        elif "ce_stats_merge_kernel" in name:
+            key = "ce_stats merge"
+        elif "ce_stats_kernel" in name:
+            key = "ce_stats"
+        else:
+            continue
+        out[key] = out.get(key, 0.0) + e["dur"] / 1e3 / steps
+    return out
 
 
 def main(argv=None):
@@ -62,6 +90,7 @@ def main(argv=None):
     for _ in range(2):                                   # warm-up
         step(params, (tokens,))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -72,7 +101,9 @@ def main(argv=None):
     trace = os.path.join(args.out_dir, f"profile_train_{args.ce_impl}.json")
     prof.export_chrome_trace(trace)
     row = _summarise(trace, wall, args.steps, f"train_step_{args.ce_impl}")
+    row["fused_ce_ms_per_call"] = _fused_ce_ms(trace, args.steps)
     row["loss"] = float(loss)
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(json.dumps(row), flush=True)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

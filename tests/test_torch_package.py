@@ -30,6 +30,7 @@ PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serving.py",
     ROOT / "scripts" / "profile_torch_train.py",
     ROOT / "scripts" / "profile_torch_resnet.py",
+    ROOT / "scripts" / "sweep_torch_ce.py",
     ROOT / "tests" / "_torch_dp_worker.py"]
 
 
