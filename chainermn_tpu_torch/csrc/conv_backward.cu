@@ -22,31 +22,58 @@
 // Design.  The TPU kernels hold a few whole images in VMEM and apply each
 // tap as a roll of the flattened plane plus a mask, one tap per sequential
 // grid step, carrying the sums in scratch.  None of that carries over: here
-// both are tiled GEMMs whose operand tiles are gathered at the shifted
-// position straight from device memory, zero-filled at the border, so no
-// shifted copy of a plane exists anywhere.
+// both are tiled GEMMs whose operand tiles are read at the shifted position
+// straight from device memory, zero at the border, so no shifted copy of a
+// plane exists anywhere.
 //
 //   dgrad: an implicit GEMM, M = N*H*W pixels, N = Ci, K = taps*Co.  A block
 //          owns a 64-pixel x 64-channel tile of dX and walks the taps and Co
 //          in steps of 32: the dY tile of the step is read at the shifted
 //          pixels, the W tile is a (64 ci x 32 co) slice of W[tap].  One fp32
-//          accumulator over all taps; dX is written once.
+//          accumulator over all taps; dX is written once.  bf16 on
+//          mma.sync.m16n8k16 (four warps in a 2 x 2 grid of 32 x 32, tiles in
+//          shared memory as [row][k] rows padded by 8 elements), plain loads.
 //   wgrad: per tap a GEMM with M = Ci, N = Co, K = N*H*W (401,408 at 56x56,
-//          batch 128).  The long K is split over pixel ranges so that ~528
-//          blocks fill the 132 SMs; each block writes its fp32 partial to a
-//          slice of a workspace it alone owns, and a second launch sums the
-//          slices in a fixed order and rounds.  No atomics: deterministic.
+//          batch 128), the long K split over blocks that each write an fp32
+//          partial to a slice of a workspace they alone own; a second launch
+//          sums the slices in a fixed order and rounds.  No atomics:
+//          deterministic.
 //
-// bf16 runs on the tensor cores (mma.sync.m16n8k16, fp32 accumulation): four
-// warps in a 2 x 2 grid, each owning 32 x 32 of the 64 x 64 tile.  Tiles sit
-// in shared memory as bf16 rows padded by 8 elements (fragment loads hit
-// distinct banks); dgrad's tiles are [row][k] (k contiguous, 32-bit fragment
-// loads), wgrad's are [k][row] as they come from NHWC memory, and their
-// fragments are assembled from two 16-bit loads.  fp32 runs on the CUDA
-// cores (FFMA, no TF32): each thread owns a 4 x 8 piece of the tile.  Loads
-// are plain (16-byte vectors where the channel counts allow), with no
-// pipelining: cp.async or TMA, wgmma and a persistent schedule are this
-// kernel's next steps.
+// bf16 wgrad (TMA + wgmma).  The producer loads tiled 4-D TMA boxes (64
+// channels, box_w, box_h, 1 image) over X and dY as (C, W, H, N), X at the
+// tap-shifted coordinates (w0 + dw, h0 + dh): TMA's zero fill past the
+// plane is the SAME border, and past the box's end in dY it makes those
+// pixels add nothing.  A box never crosses an image, so a
+// split's pixel range needs no image bookkeeping.  Boxes tile each image as
+// ceil(H / box_h) x ceil(W / box_w); box_h and box_w come from the wrapper
+// (ops/conv_backward.py :: _wgrad_plan, which also picks CN and the splits)
+// so that a box holds at most 128 pixels (64 for a 256-wide tile, to keep
+// four stages in shared memory) with little waste at 56, 28 and 14 (112 /
+// 112 / 56 pixels).  The box's rows
+// past its pixel count, up to the next multiple of 16 (the wgmma depth),
+// are zeroed once per stage.  TMA's im2col mode would waste no rows at
+// 14 x 14 but needs a second descriptor kind and corner arithmetic; the
+// tiled boxes reuse the maps of the other kernels.
+//   A block owns (tap, a 64-ci x CN-co tile, a split of the boxes), with the
+// taps varying fastest in the grid, so the nine taps of one box range run
+// together and dY's boxes come from the L2.  CN = 64, 128 or 256 covers Co
+// (one co tile for ResNet-50's three shapes).  Warpgroup 0 keeps a ring of
+// 4 stages (an X box and CN / 64 dY panels) full; consumer warpgroups 1 and
+// 2 take alternate boxes, not alternate rows, so Ci = 64 keeps both busy,
+// and each runs wgmma m64nCNk16 with A = X^T M-major and B = dY N-major
+// (both transpose bits, as in fused_ce's dtable product; B's panels one box
+// apart: LBO = the box's bytes).  At the end consumer 1's partial joins
+// consumer 0's through shared memory, and one fp32 slice is written.  The
+// splits are sized so the grid fills about two waves of the card's SMs.
+//   Channels not a multiple of 8 (TMA's 16-byte strides) are padded with
+// zeros in a copy by the wrapper, which drops the pad from dW.
+//   ptxas (sm_90a, CUDA 12.9): 168 registers (the launch bound; setmaxnreg
+// 40 / 232), no spill, for CN = 64, 128 and 256; the k loop over a box is
+// not unrolled (its depth is the box's), so ptxas adds a warpgroup.arrive
+// before it.
+//
+// fp32 wgrad and dgrad run on the CUDA cores (FFMA, no TF32): each thread
+// owns a 4 x 8 piece of a 64 x 64 tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +81,11 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 64;    // tile rows (dgrad: pixels, wgrad: ci)
 constexpr int BN = 64;    // tile columns (dgrad: ci, wgrad: co)
@@ -111,20 +142,11 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* lo, const bf16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-// A fragment (16 x 16) of rows [m0, m0 + 16), depth [k0, k0 + 16): from a
-// [row][k] tile (KMAJOR false) or a [k][row] tile (KMAJOR true).  The same
-// loads give a B fragment's (8 columns) two registers with a[0], a[2].
-template <bool KMAJOR, int L>
+// A fragment register (two bf16 at depth k, k + 1) of row `row` of a
+// [row][k] tile; a B fragment's registers come from the same loads.
+template <int L>
 __device__ __forceinline__ uint32_t frag_reg(const bf16* X, int row, int k) {
-  if constexpr (KMAJOR)
-    return ld_pair(X + k * L + row, X + (k + 1) * L + row);
-  else
-    return ld32(X + row * L + k);
+  return ld32(X + row * L + k);
 }
 
 struct MmaAcc {
@@ -139,9 +161,11 @@ struct MmaAcc {
         for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
   }
 
-  // c += A B over one BK step; A holds tile rows (M), B tile columns (N)
+  // c += A B over one BK step; A holds tile rows (M), B tile columns (N),
+  // both [row][k] (dgrad's tiles)
   template <bool KMAJOR, int L>
   __device__ __forceinline__ void step(const bf16* A, const bf16* B) {
+    static_assert(!KMAJOR, "the bf16 tiles are [row][k]");
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int g = lane >> 2, t = lane & 3;
     const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
@@ -151,16 +175,16 @@ struct MmaAcc {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         const int r = wm + mi * 16 + g;
-        a[mi][0] = frag_reg<KMAJOR, L>(A, r, kk + 2 * t);
-        a[mi][1] = frag_reg<KMAJOR, L>(A, r + 8, kk + 2 * t);
-        a[mi][2] = frag_reg<KMAJOR, L>(A, r, kk + 2 * t + 8);
-        a[mi][3] = frag_reg<KMAJOR, L>(A, r + 8, kk + 2 * t + 8);
+        a[mi][0] = frag_reg<L>(A, r, kk + 2 * t);
+        a[mi][1] = frag_reg<L>(A, r + 8, kk + 2 * t);
+        a[mi][2] = frag_reg<L>(A, r, kk + 2 * t + 8);
+        a[mi][3] = frag_reg<L>(A, r + 8, kk + 2 * t + 8);
       }
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj) {
         const int n = wn + nj * 8 + g;
-        b[nj][0] = frag_reg<KMAJOR, L>(B, n, kk + 2 * t);
-        b[nj][1] = frag_reg<KMAJOR, L>(B, n, kk + 2 * t + 8);
+        b[nj][0] = frag_reg<L>(B, n, kk + 2 * t);
+        b[nj][1] = frag_reg<L>(B, n, kk + 2 * t + 8);
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -291,19 +315,18 @@ __global__ void __launch_bounds__(NT) conv_dgrad_kernel(const T* __restrict__ dy
 }
 
 // ---------------------------------------------------------------------------
-// wgrad: one block per (64 ci x 64 co tile, tap, pixel split); partials to
-// ws[split][tap][ci][co], summed by conv_wgrad_reduce
+// wgrad, fp32: one block per (64 ci x 64 co tile, tap, pixel split);
+// partials to ws[split][tap][ci][co], summed by conv_wgrad_reduce
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(NT) conv_wgrad_kernel(const T* __restrict__ x,
-                                                        const T* __restrict__ dy,
-                                                        float* __restrict__ ws, int N, int H,
-                                                        int W, int Ci, int Co, int k,
-                                                        int steps_per_split, int vec) {
-  constexpr int L = BM + kPad<T>;   // [k][row] tiles (BM == BN)
-  __shared__ __align__(16) T As[BK * L];
-  __shared__ __align__(16) T Bs[BK * L];
+__global__ void __launch_bounds__(NT) conv_wgrad_f32_kernel(const float* __restrict__ x,
+                                                            const float* __restrict__ dy,
+                                                            float* __restrict__ ws, int N,
+                                                            int H, int W, int Ci, int Co, int k,
+                                                            int steps_per_split) {
+  constexpr int L = BM + kPad<float>;   // [k][row] tiles (BM == BN)
+  __shared__ __align__(16) float As[BK * L];
+  __shared__ __align__(16) float Bs[BK * L];
   __shared__ long long s_x[2][BK], s_dy[2][BK];   // row offsets, double-buffered
 
   const int tiles_n = (Co + BN - 1) / BN;
@@ -334,13 +357,13 @@ __global__ void __launch_bounds__(NT) conv_wgrad_kernel(const T* __restrict__ x,
     }
   };
 
-  Acc<T> acc;
+  FmaAcc acc;
   offsets(p_begin, 0);
   int b = 0;
   for (long long p0 = p_begin; p0 < p_end; p0 += BK, b ^= 1) {
     __syncthreads();  // offsets[b] written, the previous step consumed
-    load_tile<T, BK, BM, L>(As, x, [&](int r) { return s_x[b][r]; }, m0, Ci, vec);
-    load_tile<T, BK, BN, L>(Bs, dy, [&](int r) { return s_dy[b][r]; }, n0, Co, vec);
+    load_tile<float, BK, BM, L>(As, x, [&](int r) { return s_x[b][r]; }, m0, Ci, false);
+    load_tile<float, BK, BN, L>(Bs, dy, [&](int r) { return s_dy[b][r]; }, n0, Co, false);
     offsets(p0 + BK, b ^ 1);
     __syncthreads();
     acc.template step<true, L>(As, Bs);
@@ -351,6 +374,148 @@ __global__ void __launch_bounds__(NT) conv_wgrad_kernel(const T* __restrict__ x,
     const int ci = m0 + m, co = n0 + n;
     if (ci < Ci && co < Co) out[(long long)ci * Co + co] = v;
   });
+}
+
+// ---------------------------------------------------------------------------
+// wgrad, bf16: TMA + wgmma.  One block per (tap, 64 ci x CN co tile, split
+// of the pixel boxes), taps fastest; warpgroup 0 loads, warpgroups 1 and 2
+// take alternate boxes and sum their partials through shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_STAGES = 4;    // even: stage s belongs to consumer s % 2
+
+struct WgradPlan {
+  int N, H, W, Ci, Co, k;
+  int box_h, box_w, nh, nw;     // a box: box_h x box_w pixels of one image
+  int r16;                      // the box's pixel rows rounded up to 16
+  int per, steps;               // boxes per split, boxes in all
+};
+
+template <int CN> __host__ __device__ constexpr int wg_red_bytes() { return 64 * (CN + 4) * 4; }
+
+template <int CN>
+__global__ void __launch_bounds__(384, 1)
+    conv_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_dy, float* __restrict__ ws,
+                            const WgradPlan a) {
+  constexpr int PN = CN / 64;                      // dY panels of 64 channels
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base;                      // full[s] at +8s, empty[s] at +8(S + s)
+  const uint32_t ring = base + 1024;
+  const int xb = a.r16 * 128;                      // one box: r16 pixel rows of 128 bytes
+  const int stage = xb * (1 + PN);                 // X, then the dY panels
+  const int rows = a.box_h * a.box_w;
+
+  const int taps = a.k * a.k;
+  const int nt = (a.Co + CN - 1) / CN, ct = (a.Ci + 63) / 64;
+  int id = blockIdx.x;
+  const int tap = id % taps;
+  id /= taps;
+  const int tile = id % (ct * nt), split = id / (ct * nt);
+  const int ci0 = (tile / nt) * 64, co0 = (tile % nt) * CN;
+  const int pad = (a.k - 1) / 2, dh = tap / a.k - pad, dw = tap % a.k - pad;
+  const int i0 = split * a.per, n = min(a.steps, i0 + a.per) - i0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);                  // the producer's expect_tx, then the bytes
+      mbar_init(bars + 8 * (WG_STAGES + s), 4);    // the owning consumer's four warps
+    }
+    mbar_init_fence();
+  }
+  // Pixel rows past the box (rows .. r16) are never written by TMA: zero
+  // them once, so that the last 16-deep k step adds 0 x 0.
+  if (rows < a.r16) {
+    const int tail = (a.r16 - rows) * 128 / 16;    // 16-byte words per box
+    for (int idx = threadIdx.x; idx < WG_STAGES * (1 + PN) * tail; idx += blockDim.x) {
+      const int bx = idx / tail, w = idx % tail;
+      const uint32_t at = ring + bx * xb + rows * 128 + 16 * w;
+      *reinterpret_cast<uint4*>(smem_raw + (at - raw)) = make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < n; ++kt) {
+        const int s = kt % WG_STAGES;
+        const uint32_t full = bars + 8 * s, sx = ring + s * stage;
+        mbar_wait(bars + 8 * (WG_STAGES + s), ((kt / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, (1 + PN) * rows * 128);
+        const int step = i0 + kt;
+        const int wi = step % a.nw, r = step / a.nw;
+        const int h0 = (r % a.nh) * a.box_h, w0 = wi * a.box_w, img = r / a.nh;
+        // X at the tap's shift: coordinates off the plane arrive as zeros (SAME)
+        tma_load(sx, &map_x, full, ci0, w0 + dw, h0 + dh, img);
+#pragma unroll
+        for (int j = 0; j < PN; ++j)  // dY rows off the plane are zeros: they add nothing
+          tma_load(sx + (1 + j) * xb, &map_dy, full, co0 + 64 * j, w0, h0, img);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  float acc[CN / 2];
+#pragma unroll
+  for (int i = 0; i < CN / 2; ++i) acc[i] = 0.f;
+  int prev = -1;
+  for (int kt = c; kt < n; kt += 2) {
+    const int s = kt % WG_STAGES;
+    const uint32_t sx = ring + s * stage, sdy = sx + xb;
+    mbar_wait(bars + 8 * s, (kt / WG_STAGES) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+    // A = X^T: M-major (ci along a line, pixels down); B = dY: N-major, its
+    // 64-channel panels one box apart (LBO); a 16-pixel step is 2 KB
+#pragma unroll 1
+    for (int kk = 0; kk < a.r16 / 16; ++kk)
+      wgmma_ss<1, 1>(acc, smem_desc(sx + kk * 2048, 8192, 1024),
+                     smem_desc(sdy + kk * 2048, xb, 1024));
+    wgmma_commit();
+    fence_regs(acc);
+    wgmma_wait<1>();  // this box stays in flight; the previous one is done
+    fence_regs(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(bars + 8 * (WG_STAGES + prev % WG_STAGES));
+    prev = kt;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (prev >= 0 && lane == 0) mbar_arrive(bars + 8 * (WG_STAGES + prev % WG_STAGES));
+
+  // consumer 1's partial joins consumer 0's through the (now idle) ring
+  constexpr int LD = CN + 4;
+  float* red = reinterpret_cast<float*>(smem_raw + (ring - raw));
+  const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  asm volatile("bar.sync 1, 256;" ::: "memory");   // both consumers are done with the ring
+  if (c == 1) {
+#pragma unroll
+    for (int j = 0; j < CN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(red + (r0 + 8 * hh) * LD + 8 * j + cq) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+  if (c == 1) return;
+  float* out = ws + ((size_t)split * taps + tap) * a.Ci * a.Co;
+#pragma unroll
+  for (int j = 0; j < CN / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ci = ci0 + r0 + 8 * hh, co = co0 + 8 * j + cq;  // Co % 8 == 0: co + 1 < Co
+      if (ci >= a.Ci || co >= a.Co) continue;
+      const float2 o = *reinterpret_cast<const float2*>(red + (r0 + 8 * hh) * LD + 8 * j + cq);
+      *reinterpret_cast<float2*>(out + (size_t)ci * a.Co + co) =
+          make_float2(acc[4 * j + 2 * hh] + o.x, acc[4 * j + 2 * hh + 1] + o.y);
+    }
 }
 
 template <typename T>
@@ -364,8 +529,6 @@ __global__ void conv_wgrad_reduce(const float* __restrict__ ws, T* __restrict__ 
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 template <typename T>
 int launch_dgrad(const void* dy, const void* w, void* dx, int N, int H, int W, int Ci, int Co,
                  int k, cudaStream_t st) {
@@ -378,20 +541,66 @@ int launch_dgrad(const void* dy, const void* w, void* dx, int N, int H, int W, i
 }
 
 template <typename T>
-int launch_wgrad(const void* x, const void* dy, void* dw, void* ws, int N, int H, int W, int Ci,
-                 int Co, int k, int steps_per_split, int splits, cudaStream_t st) {
-  const int vec = Ci % 8 == 0 && Co % 8 == 0 && aligned16(x) && aligned16(dy);
-  const int tiles = ((Ci + BM - 1) / BM) * ((Co + BN - 1) / BN);
-  conv_wgrad_kernel<T><<<dim3(tiles, k * k, splits), NT, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<float*>(ws), N, H, W, Ci,
-      Co, k, steps_per_split, vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+int reduce_wgrad(const void* ws, void* dw, int k, int Ci, int Co, int splits, cudaStream_t st) {
   const long long count = (long long)k * k * Ci * Co;
   const int blocks = (int)((count + 255) / 256 < 1024 ? (count + 255) / 256 : 1024);
   conv_wgrad_reduce<T><<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
                                                static_cast<T*>(dw), count, splits);
   return cudaGetLastError();
+}
+
+int launch_wgrad_f32(const void* x, const void* dy, void* dw, void* ws, int N, int H, int W,
+                     int Ci, int Co, int k, int steps_per_split, int splits, cudaStream_t st) {
+  const int tiles = ((Ci + BM - 1) / BM) * ((Co + BN - 1) / BN);
+  conv_wgrad_f32_kernel<<<dim3(tiles, k * k, splits), NT, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(ws), N, H,
+      W, Ci, Co, k, steps_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_wgrad<float>(ws, dw, k, Ci, Co, splits, st);
+}
+
+template <int CN>
+int launch_wgrad_wgmma(const void* x, const void* dy, const WgradPlan& a, void* ws, int splits,
+                       cudaStream_t st) {
+  CUtensorMap mx, mdy;
+  int err;
+  if ((err = make_map_4d(&mx, x, a.Ci, a.W, a.H, a.N, 64, a.box_w, a.box_h, 1)) ||
+      (err = make_map_4d(&mdy, dy, a.Co, a.W, a.H, a.N, 64, a.box_w, a.box_h, 1)))
+    return err;
+  const int stage = a.r16 * 128 * (1 + CN / 64);
+  const int ring = WG_STAGES * stage > wg_red_bytes<CN>() ? WG_STAGES * stage : wg_red_bytes<CN>();
+  const int smem = 2048 + ring;  // the 1 KB alignment pad, the barriers, the ring
+  if ((err = static_cast<int>(cudaFuncSetAttribute(
+           conv_wgrad_wgmma_kernel<CN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))))
+    return err;
+  const long long blocks =
+      (long long)a.k * a.k * ((a.Ci + 63) / 64) * ((a.Co + CN - 1) / CN) * splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  conv_wgrad_wgmma_kernel<CN><<<(unsigned)blocks, 384, smem, st>>>(
+      mx, mdy, static_cast<float*>(ws), a);
+  return cudaGetLastError();
+}
+
+int launch_wgrad_bf16(const void* x, const void* dy, void* dw, void* ws, int N, int H, int W,
+                      int Ci, int Co, int k, int per, int splits, int box_h, int box_w,
+                      int bn, cudaStream_t st) {
+  if (Ci % 8 || Co % 8 || box_h < 1 || box_w < 1 || box_h > 256 || box_w > 256 ||
+      (bn != 64 && bn != 128 && bn != 256))
+    return cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(dy)) return cudaErrorMisalignedAddress;
+  WgradPlan a{N, H, W, Ci, Co, k, box_h, box_w, (H + box_h - 1) / box_h,
+              (W + box_w - 1) / box_w, (box_h * box_w + 15) / 16 * 16, per, 0};
+  const long long steps = (long long)N * a.nh * a.nw;
+  if (steps > 0x7fffffffLL || (long long)per * splits < steps ||
+      (long long)per * (splits - 1) >= steps)
+    return cudaErrorInvalidValue;
+  a.steps = (int)steps;
+  int err = bn == 64    ? launch_wgrad_wgmma<64>(x, dy, a, ws, splits, st)
+            : bn == 128 ? launch_wgrad_wgmma<128>(x, dy, a, ws, splits, st)
+                        : launch_wgrad_wgmma<256>(x, dy, a, ws, splits, st);
+  if (err) return err;
+  return reduce_wgrad<bf16>(ws, dw, k, Ci, Co, splits, st);
 }
 
 bool shape_ok(int N, int H, int W, int Ci, int Co, int k) {
@@ -413,17 +622,25 @@ extern "C" int conv_dgrad(const void* dy, const void* w, void* dx, int N, int H,
 }
 
 // dW (k, k, Ci, Co) in X's dtype from X (N, H, W, Ci) and dY (N, H, W, Co);
-// ws holds splits * k * k * Ci * Co fp32 partials, split s covering pixels
-// [s * steps_per_split * 32, (s + 1) * steps_per_split * 32).
+// ws holds splits * k * k * Ci * Co fp32 partials, summed in split order.
+// fp32: split s covers pixels [s * per * 32, (s + 1) * per * 32); box_h,
+// box_w and tile_n are not read.  bf16: the pixels go in boxes of box_h x
+// box_w of one image (ceil(H / box_h) x ceil(W / box_w) per image,
+// image-major, W fastest), split s covering boxes [s * per, (s + 1) * per);
+// tile_n (64, 128 or 256) co columns a block; Ci and Co multiples of 8, x
+// and dy 16-byte aligned (TMA).  A box whose four stages do not fit in
+// shared memory fails at cudaFuncSetAttribute.  Returns a cudaError_t, or a
+// negated CUresult of cuTensorMapEncodeTiled.
 extern "C" int conv_wgrad(const void* x, const void* dy, void* dw, void* ws, int N, int H, int W,
-                          int Ci, int Co, int k, int steps_per_split, int splits, int dtype,
-                          void* stream) {
+                          int Ci, int Co, int k, int per, int splits, int box_h, int box_w,
+                          int tile_n, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!shape_ok(N, H, W, Ci, Co, k) || steps_per_split < 1 || splits < 1 || splits > 65535)
+  if (!shape_ok(N, H, W, Ci, Co, k) || per < 1 || splits < 1 || splits > 65535)
     return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_wgrad<float>(x, dy, dw, ws, N, H, W, Ci, Co, k, steps_per_split, splits, st);
+    return launch_wgrad_f32(x, dy, dw, ws, N, H, W, Ci, Co, k, per, splits, st);
   if (dtype == 1)
-    return launch_wgrad<bf16>(x, dy, dw, ws, N, H, W, Ci, Co, k, steps_per_split, splits, st);
+    return launch_wgrad_bf16(x, dy, dw, ws, N, H, W, Ci, Co, k, per, splits, box_h, box_w,
+                             tile_n, st);
   return cudaErrorInvalidValue;
 }

@@ -60,7 +60,9 @@
 // as __grid_constant__), each stage released by an mbarrier pair.
 // Warpgroups 1 and 2 each own 64 rows and run wgmma.mma_async m64nBNk16
 // with fp32 accumulators in registers; setmaxnreg moves registers from the
-// producer (40) to them (232).  TMA needs 16-byte row strides: D % 8 == 0.
+// producer (40) to them (232).  TMA needs 16-byte row strides: D % 8 == 0
+// (ops/fused_ce.py pads D with zero columns in a copy where it is not).  The
+// TMA, mbarrier and wgmma helpers live in hopper.cuh.
 //
 // ptxas (sm_90a, CUDA 12.9): the three GEMM instantiations take 168
 // registers a thread (the launch bound, 65,536 / 384), no spill and no
@@ -92,8 +94,12 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BT = 64;     // logits tile rows (tokens)
 constexpr int BV = 64;     // logits tile columns (vocabulary)
@@ -448,109 +454,6 @@ template <int BN> __host__ __device__ constexpr int gemm_smem() {
   return gemm_stages<BN>() * stage_bytes<BN>() + 1024 + 2 * 8 * gemm_stages<BN>();
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of `map` at (c0 inner, c1 outer) into shared memory at dst.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  K-major tiles: rows of
-// 64 bf16 (128 bytes), 8-row groups 1024 bytes apart (SBO); a 16-deep k step
-// moves the start by 32 bytes.  M/N-major tiles: 64 x 64 boxes of 64 k-rows
-// of 64 M/N elements, the next 64 M/N elements one box (8 KB, LBO) on, 8
-// k-rows 1024 bytes apart (SBO); a 16-deep k step moves the start by 2 KB.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC8(o)                                                                        \
-  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),         \
-      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define ACC32(o) ACC8(o), ACC8(o + 8), ACC8(o + 16), ACC8(o + 24)
-
-// d (64 x 256 per warpgroup, fp32) += A (64 x 16) * B (16 x 256)
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
-      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
-      "%125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, %132;\n\t}"
-      : ACC32(0), ACC32(32), ACC32(64), ACC32(96)
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// d (64 x 128 per warpgroup, fp32) += A (64 x 16) * B (16 x 128)
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n\t}"
-      : ACC32(0), ACC32(32)
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-#undef ACC32
-#undef ACC8
-
 // The per-row values of the ds epilogue for a thread's two rows r, r + 8:
 // loaded before the mainloop, so that their latency hides behind it.
 struct DsRows {
@@ -580,9 +483,8 @@ __device__ __forceinline__ void epilogue(float (&acc)[BN / 2], const EpiArgs& ep
   const int cq = 2 * (threadIdx.x & 3);
   if (EPI == EPI_DS) {
     // The four threads of a quad hold, per 8-column group j, two columns
-    // each.  Over four groups a 4 x 4 transpose (two shuffle steps) gives
-    // each thread all 8 columns of one group: one 16-byte store in place of
-    // four 4-byte ones, 64 contiguous bytes per row and warp.
+    // each.  Over four groups a 4 x 4 transpose gives each thread all 8
+    // columns of one group: 64 contiguous bytes per row and warp.
     const int q = threadIdx.x & 3;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -602,22 +504,9 @@ __device__ __forceinline__ void epilogue(float (&acc)[BN / 2], const EpiArgs& ep
             g1 = (expf(acc[4 * j + 2 * hh + 1] - x.ls[hh]) -
                   (col + 1 == x.tg[hh] ? 1.f : 0.f)) *
                  x.dn[hh];
-          const __nv_bfloat162 b = __floats2bfloat162_rn(g0, g1);
-          p[jj] = *reinterpret_cast<const uint32_t*>(&b);
+          p[jj] = pack_bf16(g0, g1);
         }
-        // swap the off-diagonal 2 x 2 blocks with the thread two lanes away
-        const bool hi = q & 2;
-        uint32_t s0 = hi ? p[0] : p[2], s1 = hi ? p[1] : p[3];
-        s0 = __shfl_xor_sync(0xffffffffu, s0, 2);
-        s1 = __shfl_xor_sync(0xffffffffu, s1, 2);
-        if (hi) { p[0] = s0; p[1] = s1; } else { p[2] = s0; p[3] = s1; }
-        // transpose each 2 x 2 block with the neighbouring lane
-        const bool odd = q & 1;
-        s0 = odd ? p[0] : p[1];
-        s1 = odd ? p[2] : p[3];
-        s0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-        s1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-        if (odd) { p[0] = s0; p[2] = s1; } else { p[1] = s0; p[3] = s1; }
+        quad_transpose(p);
         if (t < ep.T)  // p: columns n0 + 8 * (4i + q) .. + 7 of row t
           *reinterpret_cast<uint4*>(ep.ds + (size_t)t * ep.ld + n0 + 8 * (4 * i + q)) =
               make_uint4(p[0], p[1], p[2], p[3]);
@@ -685,7 +574,7 @@ __global__ void __launch_bounds__(GTHREADS, 1)
       mbar_init(bars + 8 * s, 1);        // the producer's expect_tx, then the bytes
       mbar_init(bars + 8 * (S + s), 8);  // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -728,72 +617,26 @@ __global__ void __launch_bounds__(GTHREADS, 1)
       const uint32_t sa = base + s * STAGE + c * ATOM, sb = base + s * STAGE + A_BYTES;
       mbar_wait(bars + 8 * s, (kt / S) & 1);
       fence_regs(acc);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < GK / 16; ++kk) {
         const uint64_t da =
             TA ? smem_desc(sa + kk * 2048, ATOM, 1024) : smem_desc(sa + kk * 32, 16, 1024);
         const uint64_t db =
             TB ? smem_desc(sb + kk * 2048, ATOM, 1024) : smem_desc(sb + kk * 32, 16, 1024);
-        if constexpr (BN == 256)
-          wgmma_n256<TA, TB>(acc, da, db);
-        else
-          wgmma_n128<TA, TB>(acc, da, db);
+        wgmma_ss<TA, TB>(acc, da, db);
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_commit();
       fence_regs(acc);
       // k-tile kt stays in flight; kt - 1 is done, so its stage goes back
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      wgmma_wait<1>();
       fence_regs(acc);
       if (kt > 0 && (threadIdx.x & 31) == 0) mbar_arrive(bars + 8 * (S + (kt - 1) % S));
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_wait<0>();
     fence_regs(acc);
     epilogue<BN, EPI>(acc, ep, x, r, n0);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, so that the library links the
-// runtime alone.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major bf16 (rows, cols) matrix, boxes of box_rows x box_cols (64
-// columns: one 128-byte swizzle row), zeros outside.  0, or the negated
-// CUresult.
-int make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int box_cols,
-             int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
 template <int BN, int EPI, int TA, int TB>
@@ -927,9 +770,9 @@ extern "C" int ce_grads(const void* h, const void* tab, const void* tgt, const v
                                        ((size_t)T * ld * 2 + 255) / 256 * 256);
   CUtensorMap h_k, tab_k, ds_k, tab_mn, ds_mn, h_mn;
   int err;
-  if ((err = make_map(&h_k, h, D, T, GK, GM)) || (err = make_map(&tab_k, tab, D, V, GK, DS_TILE)) ||
-      (err = make_map(&ds_k, ds, ld, T, GK, GM)) || (err = make_map(&tab_mn, tab, D, V, 64, GK)) ||
-      (err = make_map(&ds_mn, ds, ld, T, 64, GK)) || (err = make_map(&h_mn, h, D, T, 64, GK)))
+  if ((err = make_map_2d(&h_k, h, D, T, GK, GM)) || (err = make_map_2d(&tab_k, tab, D, V, GK, DS_TILE)) ||
+      (err = make_map_2d(&ds_k, ds, ld, T, GK, GM)) || (err = make_map_2d(&tab_mn, tab, D, V, 64, GK)) ||
+      (err = make_map_2d(&ds_mn, ds, ld, T, 64, GK)) || (err = make_map_2d(&h_mn, h, D, T, 64, GK)))
     return err;
   if ((err = allow_smem<DS_TILE, EPI_DS, 0, 0>()) || (err = allow_smem<256, EPI_DH, 0, 1>()) ||
       (err = allow_smem<128, EPI_DTABLE, 1, 1>()))

@@ -3,17 +3,20 @@
 Each source under ``chainermn_tpu_torch/csrc/`` compiles for ``sm_90a``
 into its own shared library with a plain C interface.  Libraries land in
 ``build/chainermn_tpu_torch/`` at the root of the checkout, named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  :func:`build` starts one ``nvcc`` per source, all
-at once; :func:`library` builds its one source on first use.  Nothing is
-built or imported at module import: the CPU tests import every module.
+hash of the source, the ``csrc/`` headers it includes and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
+:func:`build` starts one ``nvcc`` per source, all at once; :func:`library`
+builds its one source on first use.  Nothing is built or imported at module
+import: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,7 +47,7 @@ SIGNATURES = {
     "beam_attention": {"beam_attend": ([_P] * 8 + [_I] * 8 + [_L, _F, _P],
                                        _I)},
     "conv_backward": {"conv_dgrad": ([_P] * 3 + [_I] * 7 + [_P], _I),
-                      "conv_wgrad": ([_P] * 4 + [_I] * 9 + [_P], _I)},
+                      "conv_wgrad": ([_P] * 4 + [_I] * 12 + [_P], _I)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -67,8 +70,32 @@ def nvcc_path() -> str:
                        "to build the chainermn_tpu_torch kernels")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str, csrc: Path) -> list:
+    """``name``'s ``.cu`` and every local header it includes, directly or
+    through another header, in a fixed order."""
+    seen, todo = [], [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = csrc / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
+def _lib_path(name: str, csrc: Optional[Path] = None) -> Path:
+    """The library's path, keyed by the source, the headers it includes
+    and the flags: an edit to any of them builds a new library."""
+    csrc = _CSRC if csrc is None else csrc
+    h = hashlib.sha256()
+    for path in _sources(name, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
@@ -157,10 +184,36 @@ def pos_argument(pos, b: int, device):
     return pos.data_ptr(), 0
 
 
+def tma_operand(x, width: Optional[int] = None):
+    """``x`` as a TMA-fed kernel reads it: itself where its last dim is
+    ``width`` (default: unchanged) and its base 16-byte aligned, else a
+    copy, aligned, with zero columns up to ``width`` (TMA wants 16-byte
+    row strides and bases; zero columns add nothing to a product, and the
+    callers drop them from what they return)."""
+    import torch
+
+    width = x.shape[-1] if width is None else width
+    if x.shape[-1] == width and x.data_ptr() % 16 == 0:
+        return x
+    out = torch.zeros(x.shape[:-1] + (width,), dtype=x.dtype, device=x.device)
+    out[..., :x.shape[-1]] = x
+    return out
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the card that holds ``device``
+    (132 on the H100 SXM), for the kernels' wave sizing; cached, as the
+    wrappers ask on every launch."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_handle(t) -> int:

@@ -15,8 +15,10 @@ weights HWIO.
   :func:`_eligible` holds and ``F.conv2d``'s own backward elsewhere.
 
 On a CUDA tensor the wrappers launch ``csrc/conv_backward.cu``
-(``conv_wgrad``, ``conv_dgrad``); on a CPU tensor they take the plain
-versions, the k·k-tap sum of shifted matmuls that the TPU kernels compute.
+(``conv_wgrad``: bf16 on TMA + ``wgmma`` as :func:`_wgrad_plan` lays it
+out, channels not a multiple of 8 padded in a copy; ``conv_dgrad``); on a
+CPU tensor they take the plain versions, the k·k-tap sum of shifted
+matmuls that the TPU kernels compute.
 """
 
 from __future__ import annotations
@@ -28,9 +30,13 @@ import torch.nn.functional as F
 
 from . import _build
 
-_BM = _BN = 64          # the kernels' output tile
-_BK = 32                # pixels per reduction step (wgrad)
+_BM = _BN = 64          # the fp32 kernels' output tile
+_BK = 32                # pixels per reduction step (fp32 wgrad)
 _TARGET_BLOCKS = 528    # ~4 resident blocks on each of the H100's 132 SMs
+_WGRAD_WAVES = 2        # bf16 wgrad: one block per SM, about two waves
+# bf16 wgrad: pixels per TMA box by the co tile (four stages of an X box
+# and tile / 64 dY panels of 128-byte rows fit the 227 KB of shared memory)
+_BOX_PIXELS = {64: 128, 128: 128, 256: 64}
 
 
 def _same_pad(h: int, k: int, s: int) -> Tuple[int, int]:
@@ -113,12 +119,42 @@ def conv3x3_dgrad_plain(dy, w, xshape, stride: int = 1):
 
 
 def _wgrad_splits(p, tiles, taps):
-    """``(steps_per_split, splits)``: pixel steps of 32 per split, so that
-    about ``_TARGET_BLOCKS`` blocks run and every split is non-empty."""
+    """fp32: ``(steps_per_split, splits)``: pixel steps of 32 per split, so
+    that about ``_TARGET_BLOCKS`` blocks run and every split is
+    non-empty."""
     steps = -(-p // _BK)
     want = max(1, min(steps, -(-_TARGET_BLOCKS // (tiles * taps))))
     per = -(-steps // want)
     return per, -(-steps // per)
+
+
+def _round8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
+def _wgrad_plan(n: int, h: int, w: int, ci: int, co: int, k: int,
+                sms: int) -> dict:
+    """What the bf16 ``conv_wgrad`` kernel is told, all of it decided here:
+    channels padded to multiples of 8 (``ci_pad``, ``co_pad``: TMA's
+    16-byte strides), the co tile ``tile_n`` (64, 128 or 256), the pixel
+    boxes ``box_h`` x ``box_w`` of one image (at most
+    ``_BOX_PIXELS[tile_n]`` pixels), ``per`` boxes a split and ``splits``:
+    the grid of taps x ci tiles x co tiles x splits is about
+    ``_WGRAD_WAVES`` waves of the card's ``sms``."""
+    ci_p, co_p = _round8(ci), _round8(co)
+    tile_n = 64 if co_p <= 64 else 128 if co_p <= 128 else 256
+    cap = _BOX_PIXELS[tile_n]
+    nw = -(-w // cap)
+    box_w = -(-w // nw)
+    nh = -(-h // max(1, cap // box_w))
+    box_h = -(-h // nh)
+    steps = n * nh * nw
+    tiles = -(-ci_p // 64) * -(-co_p // tile_n) * k * k
+    want = max(1, min(steps, sms * _WGRAD_WAVES // tiles))
+    per = -(-steps // want)
+    return {"ci_pad": ci_p, "co_pad": co_p, "tile_n": tile_n,
+            "box_h": box_h, "box_w": box_w, "per": per,
+            "splits": -(-steps // per)}
 
 
 def _wgrad_cuda(x, dy, k):
@@ -128,15 +164,28 @@ def _wgrad_cuda(x, dy, k):
     code = _build.dtype_code(x.dtype)
     n, h, w, ci = x.shape
     co = dy.shape[-1]
-    tiles = -(-ci // _BM) * -(-co // _BN)
-    per, splits = _wgrad_splits(n * h * w, tiles, k * k)
+    ci0, co0 = ci, co
+    if code == 0:                   # fp32: the CUDA-core kernel
+        tiles = -(-ci // _BM) * -(-co // _BN)
+        per, splits = _wgrad_splits(n * h * w, tiles, k * k)
+        box_h = box_w = tile_n = 0
+    else:                           # bf16: TMA + wgmma over padded channels
+        plan = _wgrad_plan(n, h, w, ci, co, k, _build.sm_count(x.device))
+        x = _build.tma_operand(x, plan["ci_pad"])
+        dy = _build.tma_operand(dy, plan["co_pad"])
+        ci, co = plan["ci_pad"], plan["co_pad"]
+        per, splits = plan["per"], plan["splits"]
+        box_h, box_w, tile_n = plan["box_h"], plan["box_w"], plan["tile_n"]
     out = torch.empty((k, k, ci, co), dtype=x.dtype, device=x.device)
     work = torch.empty((splits, k * k, ci, co), dtype=torch.float32,
                        device=x.device)
     err = _build.library("conv_backward").conv_wgrad(
         x.data_ptr(), dy.data_ptr(), out.data_ptr(), work.data_ptr(), n, h, w,
-        ci, co, k, per, splits, code, _build.stream_handle(x))
+        ci, co, k, per, splits, box_h, box_w, tile_n, code,
+        _build.stream_handle(x))
     _build.check(err, "conv_wgrad")
+    if (ci, co) != (ci0, co0):              # drop the pad channels
+        out = out[:, :, :ci0, :co0].contiguous()
     return out
 
 

@@ -6,7 +6,8 @@ carry ``H_kv`` heads with ``H % H_kv == 0`` (GQA: ``H / H_kv`` consecutive
 q heads share one KV head).
 
 :func:`flash_attention` is a ``torch.autograd.Function``.  On a CUDA tensor
-its forward is ``csrc/flash_fwd.cu`` and its backward ``csrc/flash_bwd.cu``;
+its forward is ``csrc/flash_fwd.cu`` (bf16: TMA + ``wgmma`` over 128-row
+q tiles; fp32: CUDA cores) and its backward ``csrc/flash_bwd.cu``;
 on a CPU tensor they are :func:`flash_attention_plain` and
 :func:`flash_attention_bwd_plain`.  Both plain versions materialise the
 ``(B, H, S, S)`` scores and apply the JAX kernels' rules in one tile:
@@ -151,6 +152,8 @@ def _check_cuda(what, *ts):
 def _flash_fwd_cuda(q, k, v, causal: bool, group: int):
     b, s, h, d = q.shape
     code = _check_cuda("flash", q, k, v)
+    if code == 1:                     # bf16: TMA reads q, k and v
+        q, k, v = (_build.tma_operand(x) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_fwd")

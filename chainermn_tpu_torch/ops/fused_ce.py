@@ -149,12 +149,10 @@ def _grad_plan(t: int, v: int, d: int, dtype, chunk=None) -> dict:
     whose ``(T, chunk)`` bf16 ``ds`` fits 32 MiB), the chunks' ``(v0, v1)``
     bounds, the ``ds`` workspace ``(T, ld)`` (``ld``: the chunk rounded up
     to 256) and the fp32 dh accumulator ``(T, D)`` (``None`` with one
-    chunk).  ``chunk`` overrides the width (for tests).
-    Raises ``ValueError`` for bf16 with ``D % 8 != 0``: TMA needs 16-byte
-    row strides."""
-    if dtype == torch.bfloat16 and d % 8:
-        raise ValueError(f"the bf16 CE gradient kernels need D % 8 == 0 "
-                         f"(TMA's 16-byte row strides), got D = {d}")
+    chunk).  ``chunk`` overrides the width (for tests).  ``d_pad``: the
+    width the kernels see; TMA needs 16-byte row strides, so bf16 pads D
+    to a multiple of 8 with zero columns (they add nothing to the logits
+    and are dropped from dh and dtable)."""
     if chunk is None:
         chunk = max(_GRAD_TILE,
                     _DS_BYTES // (2 * t) // _GRAD_TILE * _GRAD_TILE)
@@ -163,9 +161,10 @@ def _grad_plan(t: int, v: int, d: int, dtype, chunk=None) -> dict:
                          f"{_GRAD_TILE}, got {chunk}")
     chunk = min(chunk, _round_up(v, _GRAD_TILE))
     bounds = [(v0, min(v, v0 + chunk)) for v0 in range(0, v, chunk)]
-    return {"chunk": chunk, "bounds": bounds,
+    d_pad = _round_up(d, 8) if dtype == torch.bfloat16 else d
+    return {"chunk": chunk, "bounds": bounds, "d_pad": d_pad,
             "ds_shape": (t, _round_up(chunk, _DS_TILE)),
-            "acc_shape": (t, d) if len(bounds) > 1 else None}
+            "acc_shape": (t, d_pad) if len(bounds) > 1 else None}
 
 
 def _grads_f32_cuda(fn_name, h, table, tgt, ls, dn):
@@ -203,24 +202,25 @@ def _grads_cuda(h, table, targets, lse, dnll, want_dh, want_dtable):
     t, d = h.shape
     v = table.shape[0]
     plan = _grad_plan(t, v, d, h.dtype)
-    for name, x in (("h", h), ("table", table)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"the bf16 CE gradient kernels need {name} "
-                             f"16-byte aligned (TMA)")
+    dp = plan["d_pad"]
+    hk, tk = _build.tma_operand(h, dp), _build.tma_operand(table, dp)
     ds_bytes = _round_up(2 * plan["ds_shape"][0] * plan["ds_shape"][1], 256)
     acc_bytes = 0
     if want_dh and plan["acc_shape"] is not None:
         acc_bytes = 4 * plan["acc_shape"][0] * plan["acc_shape"][1]
     work = torch.empty(ds_bytes + acc_bytes, dtype=torch.uint8,
                        device=h.device)
-    dh = torch.empty_like(h) if want_dh else None
-    dtable = torch.empty_like(table) if want_dtable else None
+    dh = torch.empty_like(hk) if want_dh else None
+    dtable = torch.empty_like(tk) if want_dtable else None
     err = _build.library("fused_ce").ce_grads(
-        h.data_ptr(), table.data_ptr(), tgt.data_ptr(), ls.data_ptr(),
+        hk.data_ptr(), tk.data_ptr(), tgt.data_ptr(), ls.data_ptr(),
         dn.data_ptr(), None if dh is None else dh.data_ptr(),
         None if dtable is None else dtable.data_ptr(), work.data_ptr(), t, v,
-        d, plan["chunk"], code, _build.stream_handle(h))
+        dp, plan["chunk"], code, _build.stream_handle(h))
     _build.check(err, "ce_grads")
+    if dp != d:                          # drop the pad columns
+        dh = None if dh is None else dh[:, :d].contiguous()
+        dtable = None if dtable is None else dtable[:, :d].contiguous()
     return dh, dtable
 
 

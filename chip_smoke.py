@@ -11,15 +11,20 @@ and prints no result line:
 1. ``device``  — the card (nvidia-smi name and power limit), torch and
    CUDA versions; ``build`` — every kernel compiled from ``csrc/`` in
    parallel (one nvcc per source), with each kernel's ptxas report, and
-   (where the toolkit has ``cuobjdump``) the count of ``HGMMA``
-   instructions in ``libfused_ce``'s SASS, which must not be 0.
+   the count of ``HGMMA`` instructions (``cuobjdump``) in the SASS of
+   ``libfused_ce``, ``libflash_fwd`` and ``libconv_backward``, none of
+   which may be 0 (their bf16 kernels are ``wgmma`` GEMMs).
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and edge shapes, in bf16 (atol = rtol =
    2e-2: bf16 keeps 8 mantissa bits) and fp32 (atol = rtol = 1e-4: the
    kernel sums in another order); the bf16 main-path shapes are also
    timed (CUDA events, L2 flushed before each launch) beside the plain
    version, one PyTorch library call, and the bound (bytes / 3.35 TB/s or
-   FLOPs / peak, whichever is larger).  The training kernels: the flash
+   FLOPs / peak, whichever is larger).  The flash forward: the training
+   shape (B 8, S 1024, H 8, hd 128, causal) and the prefill (B 8, S 512,
+   H 16, hd 64) timed beside SDPA, then serving's B 1 prefill (the 64-row
+   blocks), ragged S, GQA, S 1 and a q whose base is not 16-byte aligned.
+   The training kernels: the flash
    backward (B 8, S 1024, H 8, hd 128, causal; hd 64, group 2, a ragged S
    of 77, the LSE cotangent) and the fused cross-entropy (T 8192, V 32768,
    D 1024; ragged T and V; targets out of range; for the bf16 gradients,
@@ -31,7 +36,9 @@ and prints no result line:
    The CE gradients are small numbers, so their largest error must also
    stay within the tolerance times their largest entry.  ``ce_grads`` is
    timed beside the sum of the two library calls, with its peak memory
-   above its inputs; bf16 with D = 100 must raise ``ValueError`` (D % 8).  The beam kernel
+   above its inputs; bf16 at D = 100, 4, 1026 and 33 (padded to a
+   multiple of 8 in a copy) and with a misaligned h must give the plain
+   version's gradients.  The beam kernel
    (``beam_attend_parts``: acc, m and l): beam 4's two segments at full
    width (the (8, 512, 1024) prompt, mode none; the (8, 2048, 1024)
    generated window as a strided view, mode amask, one valid slot per
@@ -261,20 +268,25 @@ def phase_build(smoke):
           "per_source_s": {k: round(v["seconds"], 2) for k, v in report.items()}})
     for name, rep in report.items():
         for line in rep["log"].splitlines():
-            if name == "fused_ce" and "Compiling entry" in line \
+            if name in ("fused_ce", "flash_fwd", "conv_backward") \
+                    and "Compiling entry" in line \
                     or any(k in line for k in ("registers", "spill", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
         _build.library(name)
-    # the bf16 CE gradients must have kept their wgmma instructions
+    # the bf16 CE gradients, flash forward and conv weight gradient must
+    # have kept their wgmma instructions
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    if cuobjdump.exists():
-        sass = subprocess.run([str(cuobjdump), "-sass", report["fused_ce"]["path"]],
+    if not cuobjdump.exists():
+        raise AssertionError(f"no cuobjdump beside nvcc ({cuobjdump}): the "
+                             f"HGMMA counts cannot be read")
+    for name in ("fused_ce", "flash_fwd", "conv_backward"):
+        sass = subprocess.run([str(cuobjdump), "-sass", report[name]["path"]],
                               capture_output=True, text=True, timeout=300)
         n = sass.stdout.count("HGMMA")
-        emit({"check": "build.fused_ce.hgmma", "sass_hgmma_instructions": n})
+        emit({"check": f"build.{name}.hgmma", "sass_hgmma_instructions": n})
         if n == 0:
-            raise AssertionError("libfused_ce has no HGMMA instruction: the "
-                                 "bf16 CE gradients lost their wgmma")
+            raise AssertionError(f"lib{name} has no HGMMA instruction: its "
+                                 f"bf16 kernel lost its wgmma")
 
 
 def _flash_bound(b, s, h, d, causal, elem, dtype_name):
@@ -297,6 +309,7 @@ def check_flash(smoke):
 
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, S, H, H_kv, D, causal, timed)
+        (8, 1024, 8, 8, 128, True, True),     # the LM training step
         (8, 512, 16, 16, 64, True, True),     # lm_generate prefill
         (1, 512, 16, 16, 64, True, False),    # serving prefill
         (2, 77, 16, 16, 64, True, False),     # ragged tail
@@ -309,31 +322,40 @@ def check_flash(smoke):
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
-        for b, s, h, hkv, d, causal, timed in cases:
+        for b, s, h, hkv, d, causal, timed in cases + [
+                (2, 200, 4, 2, 128, True, "misaligned")]:
             q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
             k = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dtype)
             v = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dtype)
+            if timed == "misaligned":       # q's base one element past 16 bytes
+                q = torch.empty(q.numel() + 1, dtype=dtype, device="cuda")[
+                    1:].view(q.shape).copy_(q)
+                assert q.data_ptr() % 16
+                timed = False
             out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
             ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            shape = dict(B=b, S=s, H=h, H_kv=hkv, D=d, causal=causal)
+            shape = dict(B=b, S=s, H=h, H_kv=hkv, D=d, causal=causal,
+                         aligned=q.data_ptr() % 16 == 0)
             err = smoke.compare("flash_fwd.out", out, ref, dn, **shape)
             smoke.compare("flash_fwd.lse", lse, ref_lse, dn, **shape)
+            del out, lse, ref, ref_lse
             if not (timed and dtype == torch.bfloat16):
                 continue
             ms = smoke.time_ms(lambda: flash_attention(q, k, v, causal=True))
             plain = smoke.time_ms(
-                lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
+                lambda: flash_attention_plain(q, k, v, causal=True), iters=3)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib = smoke.time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
             bound, by = _flash_bound(b, s, h, d, True, q.element_size(), dn)
-            smoke.kernel_rows["flash_fwd"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=lib, shape=shape, dtype=dn)
+            if s == TRAIN_SEQ:               # the main-path row: training
+                smoke.kernel_rows["flash_fwd"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=by, library_ms=lib, shape=shape, dtype=dn)
             emit(dict(check="flash_fwd.time", max_abs_err=err, atol=TOL[dn],
                       kernel_ms=ms, plain_ms=plain, library_ms=lib,
-                      bound_ms=bound, bound_by=by, **shape))
+                      library="SDPA", bound_ms=bound, bound_by=by, **shape))
 
 
 def check_decode(smoke):
@@ -565,11 +587,11 @@ def _ce_inputs(torch, g, t, v, d, dtype):
            * (2.0 / d) ** 0.5 * 4).to(dtype)
     tgt = torch.randint(0, v, (t,), generator=g, device="cuda")
     edges = [-1, v, v + 100]                         # pick nothing
-    if d % 8 == 0:  # each bf16 chunk's first column, the one before it, V - 1
-        from chainermn_tpu_torch.ops.fused_ce import _grad_plan
+    # each bf16 chunk's first column, the one before it, V - 1
+    from chainermn_tpu_torch.ops.fused_ce import _grad_plan
 
-        bounds = _grad_plan(t, v, d, torch.bfloat16)["bounds"]
-        edges += [x for v0, _ in bounds[1:] for x in (v0 - 1, v0)] + [v - 1]
+    bounds = _grad_plan(t, v, d, torch.bfloat16)["bounds"]
+    edges += [x for v0, _ in bounds[1:] for x in (v0 - 1, v0)] + [v - 1]
     tgt[:len(edges)] = torch.tensor(edges)
     dnll = torch.rand(t, generator=g, device="cuda")
     return h, tab, tgt, dnll
@@ -671,18 +693,34 @@ def check_ce(smoke):
                       peak_extra_mib=extra / 2 ** 20,
                       outputs_mib=(h.numel() + tab.numel())
                       * h.element_size() / 2 ** 20, **shape))
-    # bf16 takes D % 8 == 0 only (TMA's 16-byte row strides), and says so
-    h, tab, tgt, dnll = _ce_inputs(torch, g, 64, 300, 100, torch.bfloat16)
-    lse = torch.zeros(64, device="cuda")
-    for fn in (ce_dh, ce_dtable, ce_grads):
-        try:
-            fn(h, tab, tgt, lse, dnll)
-        except ValueError as e:
-            emit({"check": f"{fn.__name__}.d_not_multiple_of_8",
-                  "raised": str(e)})
-            continue
-        raise AssertionError(f"{fn.__name__} took bf16 D = 100 without "
-                             f"raising")
+    # bf16 at any D: the wrapper pads D to a multiple of 8 (TMA's 16-byte
+    # row strides) in a copy, and a misaligned h or table is copied
+    for d in (100, 4, 1026, 33):
+        h, tab, tgt, dnll = _ce_inputs(torch, g, 64, 300, d, torch.bfloat16)
+        m, l, _ = ce_stats_plain(h, tab, tgt)
+        lse = m + torch.log(l)
+        dh_ref, dt_ref = ce_grads_plain(h, tab, tgt, lse, dnll)
+        shape = dict(T=64, V=300, D=d)
+        smoke.compare("ce_dh.d_not_multiple_of_8", ce_dh(h, tab, tgt, lse,
+                                                         dnll),
+                      dh_ref, "bfloat16", scaled=True, **shape)
+        smoke.compare("ce_dtable.d_not_multiple_of_8",
+                      ce_dtable(h, tab, tgt, lse, dnll), dt_ref, "bfloat16",
+                      scaled=True, **shape)
+        for n, x, r in zip(("dh", "dtable"), ce_grads(h, tab, tgt, lse, dnll),
+                           (dh_ref, dt_ref)):
+            smoke.compare(f"ce_grads.{n}.d_not_multiple_of_8", x, r,
+                          "bfloat16", scaled=True, **shape)
+    h, tab, tgt, dnll = _ce_inputs(torch, g, 64, 300, 128, torch.bfloat16)
+    hs = torch.empty(64 * 128 + 1, dtype=torch.bfloat16,
+                     device="cuda")[1:].view(64, 128)
+    hs.copy_(h)                                  # a 2-byte misaligned base
+    m, l, _ = ce_stats_plain(h, tab, tgt)
+    lse = m + torch.log(l)
+    for n, x, r in zip(("dh", "dtable"), ce_grads(hs, tab, tgt, lse, dnll),
+                       ce_grads_plain(h, tab, tgt, lse, dnll)):
+        smoke.compare(f"ce_grads.{n}.misaligned", x, r, "bfloat16",
+                      scaled=True, T=64, V=300, D=128)
 
 
 def _beam_bound(b, r, d, n_read, mode, elem, dtype_name, h):

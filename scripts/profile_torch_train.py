@@ -7,10 +7,10 @@ seed and profiles ``--steps`` SGD steps at batch 8 x 1024 tokens with
 flash attention and the fused cross-entropy (``--ce-impl``), after two
 warm-up steps, under ``torch.profiler``.  Prints one JSON line: the host
 wall per step, the device busy time (union of kernel, memcpy and memset
-intervals), the device idle share, the kernel count per step and the
-device time by kernel name (top entries), the fused cross-entropy's
-kernels by name and the peak device memory of the profiled steps; then
-the card's name and power limit.  The Chrome
+intervals), the device idle share, the kernel count per step, the device
+time by kernel name (top entries) and of each fused cross-entropy and
+flash-attention kernel, and the peak device memory of the profiled steps;
+then the card's name and power limit.  The Chrome
 trace goes to ``--out-dir`` (default ``profile/``).  Needs a card.
 
     python3 scripts/profile_torch_train.py --steps 2
@@ -32,10 +32,11 @@ from profile_torch_serving import _summarise  # noqa: E402
 _CE_GEMM = {"0": "ds pass", "1": "dh product", "2": "dtable product"}
 
 
-def _fused_ce_ms(trace_path, steps):
-    """Device ms per step of each fused-CE kernel: ``ce_stats`` and its
-    merge, and the ``ce_gemm_kernel`` by epilogue (the ds pass, the dh and
-    dtable products), which the top-12 list can miss."""
+def _kernel_ms(trace_path, steps):
+    """Device ms per step of each hand-written kernel, which the top-12
+    list can miss: ``ce_stats`` and its merge, the ``ce_gemm_kernel`` by
+    epilogue (the ds pass, the dh and dtable products), the flash forward
+    and the flash backward's two kernels."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     out = {}
@@ -50,6 +51,12 @@ def _fused_ce_ms(trace_path, steps):
             key = "ce_stats merge"
         elif "ce_stats_kernel" in name:
             key = "ce_stats"
+        elif "flash_fwd" in name:
+            key = "flash forward"
+        elif "flash_bwd_dkdv" in name:
+            key = "flash backward dk, dv"
+        elif "flash_bwd_dq" in name:
+            key = "flash backward dq"
         else:
             continue
         out[key] = out.get(key, 0.0) + e["dur"] / 1e3 / steps
@@ -101,7 +108,7 @@ def main(argv=None):
     trace = os.path.join(args.out_dir, f"profile_train_{args.ce_impl}.json")
     prof.export_chrome_trace(trace)
     row = _summarise(trace, wall, args.steps, f"train_step_{args.ce_impl}")
-    row["fused_ce_ms_per_call"] = _fused_ce_ms(trace, args.steps)
+    row["kernel_ms_per_call"] = _kernel_ms(trace, args.steps)
     row["loss"] = float(loss)
     row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(json.dumps(row), flush=True)

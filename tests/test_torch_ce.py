@@ -21,6 +21,7 @@ import torch
 
 from chainermn_tpu.ops import fused_ce as jax_ce
 from chainermn_tpu_torch import ops
+from chainermn_tpu_torch.ops._build import tma_operand
 from chainermn_tpu_torch.ops.fused_ce import _grad_plan
 
 TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}
@@ -59,9 +60,18 @@ def test_grad_plan_keeps_the_ds_chunk_in_l2_at_the_training_shape():
 
 @pytest.mark.parametrize("d", [100, 4, 1026, 33])
 def test_grad_plan_bf16_rejects_d_not_multiple_of_8(d):
-    with pytest.raises(ValueError, match="D % 8"):
-        _grad_plan(64, 300, d, torch.bfloat16)
-    _grad_plan(64, 300, d, torch.float32)       # fp32 keeps its own kernels
+    """The kernels reject such a D (TMA's 16-byte row strides), so the plan
+    never hands them one: bf16 pads D up to a multiple of 8 with zero
+    columns in a copy; fp32 keeps D."""
+    plan = _grad_plan(64, 300, d, torch.bfloat16)
+    assert plan["d_pad"] % 8 == 0 and 0 <= plan["d_pad"] - d < 8
+    assert plan["acc_shape"] in (None, (64, plan["d_pad"]))
+    assert _grad_plan(64, 300, d, torch.float32)["d_pad"] == d
+    x = torch.ones(5, d, dtype=torch.bfloat16)
+    padded = tma_operand(x, plan["d_pad"])
+    assert padded.shape == (5, plan["d_pad"])
+    assert torch.equal(padded[:, :d], x)
+    assert not padded[:, d:].any()               # the pad adds nothing
 
 
 @pytest.mark.parametrize("chunk,n_chunks", [(128, 3), (256, 2), (384, 1),
@@ -96,7 +106,9 @@ def _emulate(h, table, targets, lse, dnll, plan):
     t, d = h.shape
     v = table.shape[0]
     dt = h.dtype
-    acc = torch.zeros((t, d), dtype=torch.float32)
+    h, table = tma_operand(h, plan["d_pad"]), tma_operand(table,
+                                                           plan["d_pad"])
+    acc = torch.zeros((t, plan["d_pad"]), dtype=torch.float32)
     dtable = torch.empty_like(table)
     for v0, v1 in plan["bounds"]:
         vr = v1 - v0
@@ -111,7 +123,7 @@ def _emulate(h, table, targets, lse, dnll, plan):
         acc += ds[:, :kw] @ _rows(table, v0, v0 + kw)
         dtable[v0:v1] = (ds[:, :vr].t() @ h.float()).to(dt)
     assert v1 == v
-    return acc.to(dt), dtable
+    return acc[:, :d].to(dt), dtable[:, :d]
 
 
 def _inputs(dtype, t=64, v=300, d=32, seed=11):
@@ -159,3 +171,22 @@ def test_schedule_is_the_same_function_for_every_chunk(chunk):
                    _grad_plan(64, 300, 32, torch.float32, chunk))
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+
+
+def test_bf16_d_not_multiple_of_8_matches_jax():
+    """bf16 at D = 100: the padded schedule gives JAX's gradients."""
+    h, tab, tgt, lse, dnll = _inputs(torch.bfloat16, d=100, seed=13)
+    plan = _grad_plan(64, 300, 100, torch.bfloat16, chunk=128)
+    assert plan["d_pad"] == 104
+    dh, dtable = _emulate(h, tab, tgt, lse, dnll, plan)
+    assert dh.shape == (64, 100) and dtable.shape == (300, 100)
+    want = jax_ce.ce_grads(jnp.asarray(h.float().numpy(), jnp.bfloat16),
+                           jnp.asarray(tab.float().numpy(), jnp.bfloat16),
+                           jnp.asarray(tgt.numpy()), jnp.asarray(lse.numpy()),
+                           jnp.asarray(dnll.numpy()), 16, 1024,
+                           interpret=True)
+    atol, rtol = TOL[torch.bfloat16]
+    for got, w in zip((dh, dtable), want):
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(jnp.asarray(w, jnp.float32)),
+            atol=atol, rtol=rtol)

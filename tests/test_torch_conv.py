@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from chainermn_tpu.ops import conv_backward as jcb
+from chainermn_tpu_torch.ops import _build
 from chainermn_tpu_torch.ops import conv_backward as tcb
 from chainermn_tpu_torch.ops import (conv2d, conv3x3_dgrad, conv3x3_wgrad)
 
@@ -173,3 +174,130 @@ def test_wgrad_splits_cover_every_pixel_step():
             steps = -(-p // 32)
             assert per * splits >= steps > per * (splits - 1)
             assert splits <= 65535
+
+
+# ---------------------------------------------------------------------------
+# the bf16 wgrad kernel's plan and schedule (csrc/conv_backward.cu runs only
+# on the card): boxes of one image at the tap's shifted coordinates, zero
+# off the plane, rows padded to the wgmma depth, the two consumers'
+# alternate boxes summed, one fp32 slice per split, the slices summed in
+# split order and rounded once
+# ---------------------------------------------------------------------------
+
+RESNET_SHAPES = [(56, 56, 64, 64), (28, 28, 128, 128), (14, 14, 256, 256)]
+SMS = 132                       # the H100 SXM's streaming multiprocessors
+
+
+def _geometry(p, n, h, w_):
+    """What ``launch_wgrad_bf16`` derives from the plan: boxes per image
+    (``nh`` x ``nw``), the box's pixel rows rounded up to the wgmma depth
+    (``rows16``) and the boxes in all (``steps``)."""
+    nh, nw = -(-h // p["box_h"]), -(-w_ // p["box_w"])
+    return {"nh": nh, "nw": nw, "steps": n * nh * nw,
+            "rows16": -(-(p["box_h"] * p["box_w"]) // 16) * 16}
+
+
+@pytest.mark.parametrize("n,h,w_,ci,co,k", [
+    (128, 56, 56, 64, 64, 3), (128, 28, 28, 128, 128, 3),
+    (128, 14, 14, 256, 256, 3), (128, 56, 56, 64, 256, 1),
+    (2, 7, 5, 8, 8, 3), (3, 9, 11, 12, 20, 3), (2, 15, 13, 36, 44, 1),
+    (1, 300, 300, 8, 8, 3), (1, 1, 1, 8, 300, 1)])
+def test_wgrad_plan_covers_every_pixel_once(n, h, w_, ci, co, k):
+    p = tcb._wgrad_plan(n, h, w_, ci, co, k, SMS)
+    g = _geometry(p, n, h, w_)
+    assert p["ci_pad"] % 8 == 0 and 0 <= p["ci_pad"] - ci < 8
+    assert p["co_pad"] % 8 == 0 and 0 <= p["co_pad"] - co < 8
+    assert p["tile_n"] == min(t for t in (64, 128, 256)
+                              if t >= min(p["co_pad"], 256))
+    # the boxes tile each image exactly: no pixel twice, none left out
+    assert (g["nh"] - 1) * p["box_h"] < h <= g["nh"] * p["box_h"]
+    assert (g["nw"] - 1) * p["box_w"] < w_ <= g["nw"] * p["box_w"]
+    assert g["rows16"] <= tcb._BOX_PIXELS[p["tile_n"]]
+    assert p["per"] * p["splits"] >= g["steps"] > p["per"] * (p["splits"] - 1)
+    tiles = k * k * -(-p["ci_pad"] // 64) * -(-p["co_pad"] // p["tile_n"])
+    assert tiles * p["splits"] <= max(tiles, 2 * SMS)   # about two waves
+
+
+def test_wgrad_plan_at_resnet50_shapes():
+    """One co tile, 112 / 112 / 56-pixel boxes, about two waves."""
+    got = [tcb._wgrad_plan(128, h, w_, ci, co, 3, SMS)
+           for h, w_, ci, co in RESNET_SHAPES]
+    assert [(p["tile_n"], p["box_h"], p["box_w"]) for p in got] == [
+        (64, 2, 56), (128, 4, 28), (256, 4, 14)]
+    assert [_geometry(p, 128, h, w_)["rows16"] for p, (h, w_, _, _)
+            in zip(got, RESNET_SHAPES)] == [112, 112, 64]
+    blocks = [9 * -(-ci // 64) * p["splits"]                  # one co tile
+              for p, (_, _, ci, _) in zip(got, RESNET_SHAPES)]
+    assert blocks == [261, 252, 252]
+
+
+def _box(t, img, h0, w0, bh, bw, rows16):
+    """A (box_h x box_w) box of image ``img`` at (h0, w0) as rows16 x C
+    fp32 rows, zero off the plane and past the box."""
+    n, h, w_, c = t.shape
+    out = torch.zeros(bh, bw, c)
+    hs, ws = slice(max(h0, 0), min(h0 + bh, h)), slice(max(w0, 0),
+                                                      min(w0 + bw, w_))
+    if hs.start < hs.stop and ws.start < ws.stop:
+        out[hs.start - h0:hs.stop - h0, ws.start - w0:ws.stop - w0] = \
+            t[img, hs, ws].float()
+    flat = torch.zeros(rows16, c)
+    flat[:bh * bw] = out.reshape(-1, c)
+    return flat
+
+
+def _emulate_wgrad(x, dy, k):
+    n, h, w_, ci = x.shape
+    co = dy.shape[-1]
+    p = tcb._wgrad_plan(n, h, w_, ci, co, k, SMS)
+    g = _geometry(p, n, h, w_)
+    xp, dyp = _build.tma_operand(x, p["ci_pad"]), _build.tma_operand(dy,
+                                                                p["co_pad"])
+    pad = (k - 1) // 2
+    ws = torch.zeros(p["splits"], k * k, p["ci_pad"], p["co_pad"])
+    for split in range(p["splits"]):
+        i0 = split * p["per"]
+        boxes = range(i0, min(g["steps"], i0 + p["per"]))
+        for tap in range(k * k):
+            dh, dw = tap // k - pad, tap % k - pad
+            part = [torch.zeros(p["ci_pad"], p["co_pad"]) for _ in range(2)]
+            for kt, step in enumerate(boxes):        # consumers alternate
+                r, wi = divmod(step, g["nw"])
+                img, hi = divmod(r, g["nh"])
+                h0, w0 = hi * p["box_h"], wi * p["box_w"]
+                a = _box(xp, img, h0 + dh, w0 + dw, p["box_h"], p["box_w"],
+                         g["rows16"])
+                b = _box(dyp, img, h0, w0, p["box_h"], p["box_w"],
+                         g["rows16"])
+                part[kt % 2] += a.t() @ b
+            ws[split, tap] = part[0] + part[1]
+    dw_ = torch.zeros_like(ws[0])
+    for split in range(p["splits"]):             # the reduce's fixed order
+        dw_ += ws[split]
+    return dw_.reshape(k, k, p["ci_pad"], p["co_pad"])[:, :, :ci, :co] \
+        .to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w_,ci,co,k", [
+    (1,) + RESNET_SHAPES[0] + (3,), (1,) + RESNET_SHAPES[1] + (3,),
+    (1,) + RESNET_SHAPES[2] + (3,), (2, 14, 14, 16, 24, 1),
+    (3, 9, 11, 12, 20, 3), (2, 15, 13, 36, 44, 1)])
+def test_wgrad_schedule_matches_jax_and_plain(n, h, w_, ci, co, k, dtype):
+    x, _, dy = _inputs(n, h, w_, ci, co, k, seed=11)
+    tx, tdy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+    got = _emulate_wgrad(tx, tdy, k)
+    assert got.shape == (k, k, ci, co) and got.dtype == dtype
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jcb.conv3x3_wgrad(jnp.asarray(tx.float().numpy(), jd),
+                             jnp.asarray(tdy.float().numpy(), jd), 1,
+                             ksize=k, interpret=True)
+    tol = F32 if dtype == torch.float32 else BF16
+    scale = float(np.abs(np.asarray(want, np.float32)).max())
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol["rtol"], atol=tol["atol"] * scale)
+    ref = conv3x3_wgrad(tx, tdy, 1, ksize=k)       # the plain version
+    np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                               rtol=tol["rtol"], atol=tol["atol"] * scale)

@@ -261,3 +261,51 @@ def test_smoke_fails_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_build_key_follows_the_included_headers(tmp_path):
+    """An edit to a ``csrc/*.cuh`` that a source includes gives the source
+    a new library path; an unrelated header leaves it alone."""
+    from chainermn_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cuh").write_text("#pragma once\n#include \"b.cuh\"\n")
+    (csrc / "b.cuh").write_text("#pragma once\n// b\n")
+    (csrc / "other.cuh").write_text("// unrelated\n")
+    (csrc / "k.cu").write_text("#include <cuda.h>\n#include \"a.cuh\"\n")
+    before = _build._lib_path("k", csrc)
+    assert [p.name for p in _build._sources("k", csrc)] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    (csrc / "other.cuh").write_text("// edited\n")
+    assert _build._lib_path("k", csrc) == before
+    (csrc / "b.cuh").write_text("#pragma once\n// b, edited\n")
+    after = _build._lib_path("k", csrc)
+    assert after != before and after.name.startswith("libk-")
+    # the shipped sources that include the shared header are keyed by it
+    for name in ("fused_ce", "flash_fwd", "conv_backward"):
+        assert "hopper.cuh" in [p.name for p in _build._sources(
+            name, _build._CSRC)]
+
+
+@pytest.mark.parametrize("shape,width,padded", [
+    ((4, 16), None, False), ((4, 12), 16, True), ((2, 3, 3, 12), 16, True),
+    ((2, 3, 3, 16), 16, False)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_tma_operand_pads_and_copies_only_when_needed(shape, width, padded,
+                                                      offset):
+    """The TMA kernels' operands: a 16-byte-aligned input of the right
+    width is passed as it is; a narrower one gains zero columns, a
+    misaligned one (``offset`` elements past an aligned base) is copied."""
+    from chainermn_tpu_torch.ops._build import tma_operand
+
+    n = int(np.prod(shape))
+    x = torch.empty(n + offset, dtype=torch.bfloat16)[offset:].view(shape)
+    x.copy_(torch.randn(shape))
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    got = tma_operand(x, width)
+    want = width or shape[-1]
+    assert got.shape == shape[:-1] + (want,) and got.data_ptr() % 16 == 0
+    assert (got is x) == (offset == 0 and not padded)
+    assert torch.equal(got[..., :shape[-1]], x)
+    assert not got[..., shape[-1]:].any()
