@@ -26,18 +26,38 @@
 // straight from device memory, zero at the border, so no shifted copy of a
 // plane exists anywhere.
 //
-//   dgrad: an implicit GEMM, M = N*H*W pixels, N = Ci, K = taps*Co.  A block
-//          owns a 64-pixel x 64-channel tile of dX and walks the taps and Co
-//          in steps of 32: the dY tile of the step is read at the shifted
-//          pixels, the W tile is a (64 ci x 32 co) slice of W[tap].  One fp32
-//          accumulator over all taps; dX is written once.  bf16 on
-//          mma.sync.m16n8k16 (four warps in a 2 x 2 grid of 32 x 32, tiles in
-//          shared memory as [row][k] rows padded by 8 elements), plain loads.
+//   dgrad: an implicit GEMM, M = N*H*W pixels, N = Ci, K = taps*Co.  One
+//          fp32 accumulator over all taps; dX is written once, with no
+//          split, no workspace and no atomics: deterministic.
 //   wgrad: per tap a GEMM with M = Ci, N = Co, K = N*H*W (401,408 at 56x56,
 //          batch 128), the long K split over blocks that each write an fp32
 //          partial to a slice of a workspace they alone own; a second launch
 //          sums the slices in a fixed order and rounds.  No atomics:
 //          deterministic.
+//
+// bf16 dgrad (TMA + wgmma).  A block owns a box of box_h x box_w dX pixels
+// of one image (at most tile_m = 256, or 128 with TN 256) and a TN-wide ci
+// tile (64, 128 or 256), the ci tiles fastest in the grid so that a dY box's tiles run
+// together.  K walks the taps and, per tap, the 64-channel panels of Co.
+// Warpgroup 0 keeps a ring of 4-8 stages full, each holding the dY box at
+// the tap-shifted coordinates (co0, w0 - dw, h0 - dh, img) of a 4-D map
+// over dY as (C, W, H, N) (TMA's zero fill past the plane is the SAME
+// border) and the W panel of the tap (rows ci0 .. ci0 + TN of W viewed as
+// (k*k*Ci, Co), 64 co).  Both operands are K-major with a 128-byte swizzle
+// (a pixel's 64 channels are one 128-byte line), the form of fused_ce's ds
+// pass.  Pixel rows past the box are never written by TMA and need no
+// zeroing: row i of the product depends on row i of A alone, and those dX
+// rows are not stored.  Consumer warpgroups 1 and 2 each own 64 * MB rows
+// (MB = tile_m / 128: with TN <= 128 two m64 wgmmas per k step, so that
+// each W panel serves 256 pixels) and run wgmma m64nTNk16 into fp32
+// registers; the epilogue rounds once to bf16 and stores 16 bytes a thread
+// after a transpose over the quad.  ops/conv_backward.py :: _dgrad_plan
+// picks the box, TN and tile_m (rows used at ResNet-50's shapes: 224 / 256
+// at 56x56, 196 / 256 at 28x28, 98 / 128 at 14x14); the kernel derives
+// only the geometry.  Channels not a multiple of 8 are padded with zeros in
+// a copy by the wrapper, which drops the pad from dX.  ptxas (sm_90a): 168
+// registers (the launch bound; setmaxnreg 40 / 232), no spill, for (TN,
+// MB) = (64, 2), (128, 2) and (256, 1); 4 HGMMA in the SASS (8 with MB 2).
 //
 // bf16 wgrad (TMA + wgmma).  The producer loads tiled 4-D TMA boxes (64
 // channels, box_w, box_h, 1 image) over X and dY as (C, W, H, N), X at the
@@ -79,7 +99,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -87,10 +106,11 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BM = 64;    // tile rows (dgrad: pixels, wgrad: ci)
-constexpr int BN = 64;    // tile columns (dgrad: ci, wgrad: co)
-constexpr int BK = 32;    // reduction depth per step
-constexpr int NT = 128;   // four warps
+constexpr int BM = 64;    // fp32 tile rows (dgrad: pixels, wgrad: ci)
+constexpr int BN = 64;    // fp32 tile columns (dgrad: ci, wgrad: co)
+constexpr int BK = 32;    // fp32 reduction depth per step
+constexpr int NT = 128;   // fp32: four warps
+constexpr int kPad = 1;   // fp32 row padding of a shared tile: an odd row stride
 
 using bf16 = __nv_bfloat16;
 
@@ -98,116 +118,22 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
-// row padding of a shared tile: 16 bytes for bf16 (aligned vector stores,
-// conflict-free fragment loads), one element for fp32 (odd row stride)
-template <typename T> constexpr int kPad = sizeof(T) == 2 ? 8 : 1;
-
-// An R x C tile into dst (row stride L).  Row r reads src[off(r) + col0 + c]
-// for col0 + c < ncols; a row with off(r) < 0, or a column past ncols, is
-// zero.  With `vec`, full 8-element chunks of bf16 move as 16-byte vectors.
-template <typename T, int R, int C, int L, typename Off>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, Off off, int col0,
-                                          int ncols, bool vec) {
+// An R x C fp32 tile into dst (row stride L).  Row r reads src[off(r) + col0
+// + c] for col0 + c < ncols; a row with off(r) < 0, or a column past ncols,
+// is zero.
+template <int R, int C, int L, typename Off>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, Off off,
+                                          int col0, int ncols) {
   constexpr int CH = C / 8;
   for (int idx = threadIdx.x; idx < R * CH; idx += NT) {
     const int r = idx / CH, c = (idx % CH) * 8;
     const long long o = off(r);
     const int col = col0 + c;
-    T* d = dst + r * L + c;
-    if constexpr (sizeof(T) == 2) {
-      if (vec && o >= 0 && col + 8 <= ncols) {
-        *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src + o + col);
-        continue;
-      }
-    }
+    float* d = dst + r * L + c;
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      d[e] = (o >= 0 && col + e < ncols) ? src[o + col + e] : from_f<T>(0.f);
+    for (int e = 0; e < 8; ++e) d[e] = (o >= 0 && col + e < ncols) ? src[o + col + e] : 0.f;
   }
 }
-
-// ---------------------------------------------------------------------------
-// bf16 tile product on the tensor cores
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment register (two bf16 at depth k, k + 1) of row `row` of a
-// [row][k] tile; a B fragment's registers come from the same loads.
-template <int L>
-__device__ __forceinline__ uint32_t frag_reg(const bf16* X, int row, int k) {
-  return ld32(X + row * L + k);
-}
-
-struct MmaAcc {
-  float c[2][4][4];
-
-  __device__ __forceinline__ MmaAcc() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
-  }
-
-  // c += A B over one BK step; A holds tile rows (M), B tile columns (N),
-  // both [row][k] (dgrad's tiles)
-  template <bool KMAJOR, int L>
-  __device__ __forceinline__ void step(const bf16* A, const bf16* B) {
-    static_assert(!KMAJOR, "the bf16 tiles are [row][k]");
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane >> 2, t = lane & 3;
-    const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm + mi * 16 + g;
-        a[mi][0] = frag_reg<L>(A, r, kk + 2 * t);
-        a[mi][1] = frag_reg<L>(A, r + 8, kk + 2 * t);
-        a[mi][2] = frag_reg<L>(A, r, kk + 2 * t + 8);
-        a[mi][3] = frag_reg<L>(A, r + 8, kk + 2 * t + 8);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int n = wn + nj * 8 + g;
-        b[nj][0] = frag_reg<L>(B, n, kk + 2 * t);
-        b[nj][1] = frag_reg<L>(B, n, kk + 2 * t + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_bf16(c[mi][nj], a[mi], b[nj]);
-    }
-  }
-
-  // f(m, n, value) for every accumulator, (m, n) local to the tile
-  template <typename F>
-  __device__ __forceinline__ void store(F f) const {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane >> 2, t = lane & 3;
-    const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          f(wm + mi * 16 + g + (e >> 1) * 8, wn + nj * 8 + 2 * t + (e & 1), c[mi][nj][e]);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // fp32 tile product on the CUDA cores: thread (tm, tn) owns rows tm + 16 i
@@ -257,21 +183,18 @@ struct FmaAcc {
   }
 };
 
-template <typename T>
-using Acc = std::conditional_t<std::is_same<T, bf16>::value, MmaAcc, FmaAcc>;
-
 // ---------------------------------------------------------------------------
-// dgrad: one block per (64 pixels, 64 input channels) tile of dX
+// dgrad, fp32: one block per (64 pixels, 64 input channels) tile of dX
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(NT) conv_dgrad_kernel(const T* __restrict__ dy,
-                                                        const T* __restrict__ w,
-                                                        T* __restrict__ dx, int N, int H, int W,
-                                                        int Ci, int Co, int k, int vec) {
-  constexpr int L = BK + kPad<T>;   // [row][k] tiles
-  __shared__ __align__(16) T As[BM * L];
-  __shared__ __align__(16) T Bs[BN * L];
+__global__ void __launch_bounds__(NT) conv_dgrad_f32_kernel(const float* __restrict__ dy,
+                                                            const float* __restrict__ w,
+                                                            float* __restrict__ dx, int N,
+                                                            int H, int W, int Ci, int Co,
+                                                            int k) {
+  constexpr int L = BK + kPad;   // [row][k] tiles
+  __shared__ __align__(16) float As[BM * L];
+  __shared__ __align__(16) float Bs[BN * L];
   __shared__ int s_n[BM], s_h[BM], s_w[BM];
 
   const long long P = (long long)N * H * W;
@@ -287,21 +210,21 @@ __global__ void __launch_bounds__(NT) conv_dgrad_kernel(const T* __restrict__ dy
   }
 
   const int pad = (k - 1) / 2;
-  Acc<T> acc;
+  FmaAcc acc;
   for (int tap = 0; tap < k * k; ++tap) {
     const int dh = tap / k - pad, dw = tap % k - pad;
     for (int co0 = 0; co0 < Co; co0 += BK) {
       __syncthreads();  // the previous step is consumed (and s_* written)
-      load_tile<T, BM, BK, L>(As, dy, [&](int r) -> long long {
+      load_tile<BM, BK, L>(As, dy, [&](int r) -> long long {
         const int n = s_n[r];
         const int hs = s_h[r] - dh, ws = s_w[r] - dw;
         if (n < 0 || hs < 0 || hs >= H || ws < 0 || ws >= W) return -1;
         return (((long long)n * H + hs) * W + ws) * Co;
-      }, co0, Co, vec);
-      load_tile<T, BN, BK, L>(Bs, w, [&](int r) -> long long {
+      }, co0, Co);
+      load_tile<BN, BK, L>(Bs, w, [&](int r) -> long long {
         const int ci = n0 + r;
         return ci < Ci ? ((long long)tap * Ci + ci) * Co : -1;
-      }, co0, Co, vec);
+      }, co0, Co);
       __syncthreads();
       acc.template step<false, L>(As, Bs);
     }
@@ -310,8 +233,147 @@ __global__ void __launch_bounds__(NT) conv_dgrad_kernel(const T* __restrict__ dy
   acc.store([&](int m, int n, float v) {
     const long long p = m0 + m;
     const int ci = n0 + n;
-    if (p < P && ci < Ci) dx[p * Ci + ci] = from_f<T>(v);
+    if (p < P && ci < Ci) dx[p * Ci + ci] = v;
   });
+}
+
+// ---------------------------------------------------------------------------
+// dgrad, bf16: TMA + wgmma.  One block per (box of dX pixels, TN-wide Ci
+// tile), the Ci tiles fastest; warpgroup 0 loads, warpgroups 1 and 2 each
+// own 64 * MB rows of the box and walk every (tap, Co panel) into one fp32
+// accumulator; dX is written once.
+// ---------------------------------------------------------------------------
+
+struct DgradPlan {
+  int N, H, W, Ci, Co, k;
+  int box_h, box_w, nh, nw;     // a box: box_h x box_w pixels of one image
+  int ct, kc;                   // Ci tiles of TN, 64-channel panels of Co
+};
+
+// A stage: the dY box as 128 * MB pixel rows of 128 bytes (TMA writes
+// box_h * box_w of them; the rest only feed dX rows that are not stored),
+// then the W panel, TN rows of 64 co.
+template <int TN, int MB> __host__ __device__ constexpr int dg_a_bytes() { return 128 * MB * 128; }
+template <int TN, int MB> __host__ __device__ constexpr int dg_stage() {
+  return dg_a_bytes<TN, MB>() + TN * 128;
+}
+template <int TN, int MB> __host__ __device__ constexpr int dg_stages() {
+  return (200 << 10) / dg_stage<TN, MB>() > 8 ? 8 : (200 << 10) / dg_stage<TN, MB>();
+}
+template <int TN, int MB> __host__ __device__ constexpr int dg_smem() {
+  return dg_stages<TN, MB>() * dg_stage<TN, MB>() + 1024 + 16 * dg_stages<TN, MB>();
+}
+
+template <int TN, int MB>
+__global__ void __launch_bounds__(384, 1)
+    conv_dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_dy,
+                            const __grid_constant__ CUtensorMap map_w, bf16* __restrict__ dx,
+                            const DgradPlan a) {
+  constexpr int A_BYTES = dg_a_bytes<TN, MB>();
+  constexpr int STAGE = dg_stage<TN, MB>();
+  constexpr int S = dg_stages<TN, MB>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's alignment
+  const uint32_t bars = base + S * STAGE;  // full[s] at bars + 8s, empty[s] at bars + 8(S + s)
+  const int tile = blockIdx.x % a.ct, box = blockIdx.x / a.ct;
+  const int ci0 = tile * TN;
+  const int wi = box % a.nw, r = box / a.nw;
+  const int h0 = (r % a.nh) * a.box_h, w0 = wi * a.box_w, img = r / a.nh;
+  const int pad = (a.k - 1) / 2;
+  const int nk = a.k * a.k * a.kc;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);        // the producer's expect_tx, then the bytes
+      mbar_init(bars + 8 * (S + s), 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const uint32_t tx = (a.box_h * a.box_w + TN) * 128;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S;
+        const uint32_t full = bars + 8 * s, sa = base + s * STAGE;
+        mbar_wait(bars + 8 * (S + s), ((kt / S) & 1) ^ 1);  // the stage's last use is done
+        mbar_expect_tx(full, tx);
+        const int tap = kt / a.kc, c0 = (kt % a.kc) * 64;
+        const int dh = tap / a.k - pad, dw = tap % a.k - pad;
+        // dY at the tap's shift: coordinates off the plane arrive as zeros (SAME)
+        tma_load(sa, &map_dy, full, c0, w0 - dw, h0 - dh, img);
+        // W[tap] rows ci0 .. ci0 + TN; those past Ci (the next tap's, or
+        // zeros) feed only dX columns that are not stored
+        tma_load(sa + A_BYTES, &map_w, full, c0, tap * a.Ci + ci0);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  float acc[MB][TN / 2];
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int i = 0; i < TN / 2; ++i) acc[mb][i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % S;
+    const uint32_t sa = base + s * STAGE + c * MB * 8192, sb = base + s * STAGE + A_BYTES;
+    mbar_wait(bars + 8 * s, (kt / S) & 1);
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
+    wgmma_fence();
+    // A = dY pixels x 64 co, B = W rows (ci) x 64 co: both K-major, the ds
+    // pass's TN form; a 16-deep k step moves both starts by 32 bytes
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+        wgmma_ss<0, 0>(acc[mb], smem_desc(sa + mb * 8192 + kk * 32, 16, 1024),
+                       smem_desc(sb + kk * 32, 16, 1024));
+    wgmma_commit();
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
+    // step kt stays in flight; kt - 1 is done, so its stage goes back
+    wgmma_wait<1>();
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
+    if (kt > 0 && lane == 0) mbar_arrive(bars + 8 * (S + (kt - 1) % S));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
+
+  // Row p of the box is pixel (h0 + p / box_w, w0 + p % box_w).  A quad's
+  // 4 x 4 transpose gives each thread 8 contiguous channels: 16-byte stores.
+  const int rows = a.box_h * a.box_w, q = lane & 3;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = (c * MB + mb) * 64 + 16 * warp + (lane >> 2) + 8 * hh;
+      const int y = h0 + p / a.box_w, x = w0 + p % a.box_w;
+      const bool ok = p < rows && y < a.H && x < a.W;
+      bf16* row = dx + (((size_t)img * a.H + y) * a.W + x) * a.Ci + ci0;
+#pragma unroll
+      for (int i = 0; i < TN / 32; ++i) {
+        uint32_t pk[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * i + jj;
+          pk[jj] = pack_bf16(acc[mb][4 * j + 2 * hh], acc[mb][4 * j + 2 * hh + 1]);
+        }
+        quad_transpose(pk);
+        const int col = 8 * (4 * i + q);  // Ci % 8 == 0: all 8 in or all out
+        if (ok && ci0 + col < a.Ci)
+          *reinterpret_cast<uint4*>(row + col) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -324,7 +386,7 @@ __global__ void __launch_bounds__(NT) conv_wgrad_f32_kernel(const float* __restr
                                                             float* __restrict__ ws, int N,
                                                             int H, int W, int Ci, int Co, int k,
                                                             int steps_per_split) {
-  constexpr int L = BM + kPad<float>;   // [k][row] tiles (BM == BN)
+  constexpr int L = BM + kPad;   // [k][row] tiles (BM == BN)
   __shared__ __align__(16) float As[BK * L];
   __shared__ __align__(16) float Bs[BK * L];
   __shared__ long long s_x[2][BK], s_dy[2][BK];   // row offsets, double-buffered
@@ -362,8 +424,8 @@ __global__ void __launch_bounds__(NT) conv_wgrad_f32_kernel(const float* __restr
   int b = 0;
   for (long long p0 = p_begin; p0 < p_end; p0 += BK, b ^= 1) {
     __syncthreads();  // offsets[b] written, the previous step consumed
-    load_tile<float, BK, BM, L>(As, x, [&](int r) { return s_x[b][r]; }, m0, Ci, false);
-    load_tile<float, BK, BN, L>(Bs, dy, [&](int r) { return s_dy[b][r]; }, n0, Co, false);
+    load_tile<BK, BM, L>(As, x, [&](int r) { return s_x[b][r]; }, m0, Ci);
+    load_tile<BK, BN, L>(Bs, dy, [&](int r) { return s_dy[b][r]; }, n0, Co);
     offsets(p0 + BK, b ^ 1);
     __syncthreads();
     acc.template step<true, L>(As, Bs);
@@ -529,15 +591,48 @@ __global__ void conv_wgrad_reduce(const float* __restrict__ ws, T* __restrict__ 
   }
 }
 
-template <typename T>
-int launch_dgrad(const void* dy, const void* w, void* dx, int N, int H, int W, int Ci, int Co,
-                 int k, cudaStream_t st) {
+int launch_dgrad_f32(const void* dy, const void* w, void* dx, int N, int H, int W, int Ci,
+                     int Co, int k, cudaStream_t st) {
   const long long P = (long long)N * H * W;
-  const int vec = Co % 8 == 0 && aligned16(dy) && aligned16(w);
   dim3 grid((unsigned)((P + BM - 1) / BM), (Ci + BN - 1) / BN);
-  conv_dgrad_kernel<T><<<grid, NT, 0, st>>>(static_cast<const T*>(dy), static_cast<const T*>(w),
-                                            static_cast<T*>(dx), N, H, W, Ci, Co, k, vec);
+  conv_dgrad_f32_kernel<<<grid, NT, 0, st>>>(static_cast<const float*>(dy),
+                                             static_cast<const float*>(w),
+                                             static_cast<float*>(dx), N, H, W, Ci, Co, k);
   return cudaGetLastError();
+}
+
+template <int TN, int MB>
+int launch_dgrad_wgmma(const void* dy, const void* w, void* dx, const DgradPlan& a,
+                       cudaStream_t st) {
+  CUtensorMap mdy, mw;
+  int err;
+  if ((err = make_map_4d(&mdy, dy, a.Co, a.W, a.H, a.N, 64, a.box_w, a.box_h, 1)) ||
+      (err = make_map_2d(&mw, w, a.Co, a.k * a.k * a.Ci, 64, TN)))
+    return err;
+  constexpr int smem = dg_smem<TN, MB>();
+  if ((err = static_cast<int>(cudaFuncSetAttribute(
+           conv_dgrad_wgmma_kernel<TN, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))))
+    return err;
+  const long long blocks = (long long)a.ct * a.N * a.nh * a.nw;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  conv_dgrad_wgmma_kernel<TN, MB><<<(unsigned)blocks, 384, smem, st>>>(
+      mdy, mw, static_cast<bf16*>(dx), a);
+  return cudaGetLastError();
+}
+
+int launch_dgrad_bf16(const void* dy, const void* w, void* dx, int N, int H, int W, int Ci,
+                      int Co, int k, int box_h, int box_w, int tile_n, int tile_m,
+                      cudaStream_t st) {
+  if (Ci % 8 || Co % 8 || box_h < 1 || box_w < 1 || box_h > 256 || box_w > 256 ||
+      (tile_n != 64 && tile_n != 128 && tile_n != 256) ||
+      tile_m != (tile_n <= 128 ? 256 : 128) || box_h * box_w > tile_m)
+    return cudaErrorInvalidValue;
+  if (!aligned16(dy) || !aligned16(w) || !aligned16(dx)) return cudaErrorMisalignedAddress;
+  const DgradPlan a{N, H, W, Ci, Co, k, box_h, box_w, (H + box_h - 1) / box_h,
+                    (W + box_w - 1) / box_w, (Ci + tile_n - 1) / tile_n, (Co + 63) / 64};
+  if (tile_n == 64) return launch_dgrad_wgmma<64, 2>(dy, w, dx, a, st);
+  if (tile_n == 128) return launch_dgrad_wgmma<128, 2>(dy, w, dx, a, st);
+  return launch_dgrad_wgmma<256, 1>(dy, w, dx, a, st);
 }
 
 template <typename T>
@@ -611,13 +706,21 @@ bool shape_ok(int N, int H, int W, int Ci, int Co, int k) {
 }  // namespace
 
 // dX (N, H, W, Ci) in dY's dtype from dY (N, H, W, Co) and W (k, k, Ci, Co).
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// dtype: 0 = float32 (box_h, box_w, tile_n and tile_m are not read), 1 =
+// bfloat16: the caller's plan (ops/conv_backward.py :: _dgrad_plan), checked
+// here: boxes of box_h x box_w pixels of one image (ceil(H / box_h) x
+// ceil(W / box_w) per image) of at most tile_m pixels, tile_n (64, 128 or
+// 256) ci columns a block, tile_m 256 with tile_n <= 128, else 128; Ci and Co
+// multiples of 8, dy, w and dx 16-byte aligned (TMA).  Returns a
+// cudaError_t, or a negated CUresult of cuTensorMapEncodeTiled.
 extern "C" int conv_dgrad(const void* dy, const void* w, void* dx, int N, int H, int W, int Ci,
-                          int Co, int k, int dtype, void* stream) {
+                          int Co, int k, int box_h, int box_w, int tile_n, int tile_m,
+                          int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!shape_ok(N, H, W, Ci, Co, k)) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_dgrad<float>(dy, w, dx, N, H, W, Ci, Co, k, st);
-  if (dtype == 1) return launch_dgrad<bf16>(dy, w, dx, N, H, W, Ci, Co, k, st);
+  if (dtype == 0) return launch_dgrad_f32(dy, w, dx, N, H, W, Ci, Co, k, st);
+  if (dtype == 1)
+    return launch_dgrad_bf16(dy, w, dx, N, H, W, Ci, Co, k, box_h, box_w, tile_n, tile_m, st);
   return cudaErrorInvalidValue;
 }
 

@@ -17,8 +17,37 @@
 // 1.11 ms), and the pair as ce_grads shares the logits: 6*T*V*D (1.67 ms).
 // Their traffic is ~100 MB: all of them are bound by operations.
 //
-// bf16 gradients (ce_grads, the training path): one warp-specialised GEMM
-// on the tensor cores with three epilogues.  The TPU kernels keep a (256, D)
+// bf16 (the training path): one warp-specialised GEMM on the tensor cores
+// with four epilogues.  The GEMM: a block of 384 threads owns a 128 x BN
+// tile (BN 256 for ce_stats, the ds pass and dh, 128 for dtable, whose M
+// is only Vc).  Warpgroup 0 is the producer: one thread keeps a ring of 4
+// (BN 256) or 6 (BN 128) stages of 64-deep bf16 tiles filled by TMA
+// (128-byte swizzle, tensor maps made on the host by
+// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, passed as
+// __grid_constant__), each stage released by an mbarrier pair.  Warpgroups
+// 1 and 2 each own 64 rows and run wgmma.mma_async m64nBNk16 with fp32
+// accumulators in registers; setmaxnreg moves registers from the producer
+// (40) to them (232).  TMA needs 16-byte row strides: D % 8 == 0
+// (ops/fused_ce.py pads D with zero columns in a copy where it is not).
+// The TMA, mbarrier and wgmma helpers live in hopper.cuh.
+//
+// ce_stats (bf16): s = h @ table^T over 128 x 256 tiles (both operands
+// K-major, as the ds pass below), and the EPI_STATS epilogue turns each
+// tile into per-row statistics in registers: a row's 256 columns sit in
+// the four threads of a quad (64 each), so the row max is a max over the
+// thread's values and two __shfl_xor steps, then the sum of exp(s - max)
+// and the target's logit the same way.  TMA fills table rows past V with
+// zeros, a logit of 0 and not -inf, so columns >= V are left out of the
+// max, the sum and the pick.  Lane 0 of the quad writes the row's (m, l,
+// picked) of its V tile to part[3][ceil(V / 256)][T]; a second launch
+// merges the tiles in a fixed order (deterministic).  No logit leaves the
+// registers.  The T tiles go fastest: the blocks in flight share one or
+// two table tiles and h (16 MB at the training shape) stays in the 50 MB
+// L2, so the 64 MB table is read from device memory about once; with the V
+// tiles fastest (the ds pass's order) every row of T tiles would read it
+// again.
+//
+// bf16 gradients (ce_grads).  The TPU kernels keep a (256, D)
 // fp32 accumulator in VMEM across a sequential V (or T) axis: 1 MB at D
 // 1024.  On Hopper a block has at most 227 KB of shared memory and an SM
 // 256 KB of registers, so no block can hold a full-D accumulator of even 64
@@ -52,26 +81,14 @@
 //                from the row-major workspace and h).  Each chunk owns its
 //                rows, so they are written once in bf16.
 //
-// The GEMM: a block of 384 threads owns a 128 x BN tile (BN 256 for the ds
-// pass and dh, 128 for dtable, whose M is only Vc).  Warpgroup 0 is the
-// producer: one thread keeps a ring of 4 (BN 256) or 6 (BN 128) stages of
-// 64-deep bf16 tiles filled by TMA (128-byte swizzle, tensor maps made on
-// the host by cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, passed
-// as __grid_constant__), each stage released by an mbarrier pair.
-// Warpgroups 1 and 2 each own 64 rows and run wgmma.mma_async m64nBNk16
-// with fp32 accumulators in registers; setmaxnreg moves registers from the
-// producer (40) to them (232).  TMA needs 16-byte row strides: D % 8 == 0
-// (ops/fused_ce.py pads D with zero columns in a copy where it is not).  The
-// TMA, mbarrier and wgmma helpers live in hopper.cuh.
-//
-// ptxas (sm_90a, CUDA 12.9): the three GEMM instantiations take 168
-// registers a thread (the launch bound, 65,536 / 384), no spill and no
-// stack; setmaxnreg then gives each consumer thread 232 and each producer
-// thread 40.  Dynamic shared memory: 197,696 bytes for BN 256 (4 stages of
-// 48 KB) and 197,728 for BN 128 (6 of 32 KB), with a 1 KB alignment pad and
-// the mbarriers: one block per SM.  The fp32 kernels: ce_dh 128 registers,
-// ce_dtable 127, 44 KB of static shared memory each; ce_stats 64 and 9 KB
-// (bf16: 12 bytes spilled).
+// ptxas (sm_90a, CUDA 12.9): the GEMM instantiations take 168 registers a
+// thread (the launch bound, 65,536 / 384), no spill and no stack;
+// setmaxnreg then gives each consumer thread 232 and each producer thread
+// 40.  Dynamic shared memory: 197,696 bytes for BN 256 (4 stages of 48 KB)
+// and 197,728 for BN 128 (6 of 32 KB), with a 1 KB alignment pad and the
+// mbarriers: one block per SM.  The ce_stats merge: 32 registers, 3 KB of
+// shared memory.  The fp32 kernels: ce_dh 128 registers, ce_dtable 127, 44
+// KB of static shared memory each; ce_stats 64 and 9 KB.
 //
 // fp32 keeps the first, CUDA-core kernels: wgmma has no fp32 mode and the
 // fp32 checks must not run in TF32.  A block of 256 threads owns a 64 x 64
@@ -79,12 +96,12 @@
 // shared memory) and recomputes it in every kernel:
 //
 //   ce_stats   splits V over blocks; each block keeps an online (m, l,
-//              picked) for its rows over its V tiles and a second launch
-//              merges the splits (bf16 and fp32).
-//   ce_dh      (fp32) splits V over blocks; after each V tile a block adds
+//              picked) for its rows over its V tiles and the merge launch
+//              combines the splits.
+//   ce_dh      splits V over blocks; after each V tile a block adds
 //              ds_tile @ table_tile into its own slice of an fp32 workspace
 //              (split, T, D); a last launch sums the splits.
-//   ce_dtable  (fp32) the same with the roles of T and V exchanged.
+//   ce_dtable  the same with the roles of T and V exchanged.
 //
 // Every workspace element has one owner, so every result is deterministic.
 
@@ -109,16 +126,6 @@ constexpr int PAD = 4;     // row padding of shared tiles (bank spread, float4 a
 constexpr int NT = 256;    // threads per block: a 16 x 16 grid of 4 x 4 micro-tiles
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 // max / sum over the 16 threads of a half-warp that share a micro-tile row
 __device__ __forceinline__ float half_max(float x) {
 #pragma unroll
@@ -137,8 +144,8 @@ struct LogitsSmem {
 };
 
 // acc[i][j] = s[t0 + ty*4 + i][v0 + tx*4 + j], zero outside [0, T) x [0, V).
-template <typename E>
-__device__ __forceinline__ void logits_tile(const E* __restrict__ h, const E* __restrict__ tab,
+__device__ __forceinline__ void logits_tile(const float* __restrict__ h,
+                                            const float* __restrict__ tab,
                                             int T, int V, int D, int t0, int v0,
                                             LogitsSmem& sm, float acc[4][4]) {
   const int tid = threadIdx.x;
@@ -153,8 +160,8 @@ __device__ __forceinline__ void logits_tile(const E* __restrict__ h, const E* __
       const int row = idx / BD, dd = idx % BD;
       const int d = d0 + dd;
       const int t = t0 + row, v = v0 + row;
-      sm.hs[dd][row] = (t < T && d < D) ? to_f(h[(size_t)t * D + d]) : 0.f;
-      sm.ts[dd][row] = (v < V && d < D) ? to_f(tab[(size_t)v * D + d]) : 0.f;
+      sm.hs[dd][row] = (t < T && d < D) ? h[(size_t)t * D + d] : 0.f;
+      sm.ts[dd][row] = (v < V && d < D) ? tab[(size_t)v * D + d] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -171,10 +178,9 @@ __device__ __forceinline__ void logits_tile(const E* __restrict__ h, const E* __
   }
 }
 
-template <typename E>
 __global__ void __launch_bounds__(NT) ce_stats_kernel(
-    const E* __restrict__ h, const E* __restrict__ tab, const int* __restrict__ tgt, int T,
-    int V, int D, int tiles_per_split, float* __restrict__ part) {
+    const float* __restrict__ h, const float* __restrict__ tab, const int* __restrict__ tgt,
+    int T, int V, int D, int tiles_per_split, float* __restrict__ part) {
   __shared__ __align__(16) LogitsSmem sm;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -230,25 +236,45 @@ __global__ void __launch_bounds__(NT) ce_stats_kernel(
   }
 }
 
-__global__ void ce_stats_merge_kernel(const float* __restrict__ part, int T, int n_split,
-                                      float* __restrict__ m, float* __restrict__ l,
-                                      float* __restrict__ p) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  float mx = NEG;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part[(size_t)s * T + t]);
-  float sum = 0.f, pick = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    sum += part[((size_t)n_split + s) * T + t] * expf(part[(size_t)s * T + t] - mx);
-    pick += part[((size_t)2 * n_split + s) * T + t];
+// (m, l, picked) of each row from its parts' partials: thread (x, g) of a
+// 32 x MERGE_G block merges parts g, g + MERGE_G, ... of row blockIdx.x *
+// 32 + x in order, then thread (x, 0) merges the MERGE_G partials in g
+// order.  A fixed order: deterministic.
+constexpr int MERGE_G = 8;
+
+__global__ void __launch_bounds__(32 * MERGE_G)
+    ce_stats_merge_kernel(const float* __restrict__ part, int T, int n_split,
+                          float* __restrict__ m, float* __restrict__ l,
+                          float* __restrict__ p) {
+  __shared__ float sh[3][MERGE_G][32];
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int t = blockIdx.x * 32 + x;
+  float mx = NEG, sum = 0.f, pick = 0.f;
+  if (t < T) {
+    for (int s = g; s < n_split; s += MERGE_G) mx = fmaxf(mx, part[(size_t)s * T + t]);
+    for (int s = g; s < n_split; s += MERGE_G) {
+      sum += part[((size_t)n_split + s) * T + t] * expf(part[(size_t)s * T + t] - mx);
+      pick += part[((size_t)2 * n_split + s) * T + t];
+    }
+  }
+  sh[0][g][x] = mx;
+  sh[1][g][x] = sum;
+  sh[2][g][x] = pick;
+  __syncthreads();
+  if (g != 0 || t >= T) return;
+  mx = NEG;
+  for (int i = 0; i < MERGE_G; ++i) mx = fmaxf(mx, sh[0][i][x]);
+  sum = pick = 0.f;
+  for (int i = 0; i < MERGE_G; ++i) {  // a group without parts adds 0 * exp(NEG - mx) = 0
+    sum += sh[1][i][x] * expf(sh[0][i][x] - mx);
+    pick += sh[2][i][x];
   }
   m[t] = mx;
   l[t] = sum;
   p[t] = pick;
 }
 
-// ds for the block's 64 x 64 tile into shared memory, rounded to R.
-template <typename R>
+// ds for the block's 64 x 64 tile into shared memory.
 __device__ __forceinline__ void ds_tile(const float acc[4][4], const int tg[4],
                                         const float lse[4], const float dn[4], int T, int V,
                                         int t0, int v0, float (*ds)[BV + PAD]) {
@@ -266,7 +292,7 @@ __device__ __forceinline__ void ds_tile(const float acc[4][4], const int tg[4],
         const float onehot = c == tg[i] ? 1.f : 0.f;
         g = (expf(acc[i][j] - lse[i]) - onehot) * dn[i];
       }
-      out[j] = round_to<R>(g);
+      out[j] = g;
     }
     *reinterpret_cast<float4*>(&ds[ty * 4 + i][tx * 4]) =
         make_float4(out[0], out[1], out[2], out[3]);
@@ -275,9 +301,8 @@ __device__ __forceinline__ void ds_tile(const float acc[4][4], const int tg[4],
 
 // dh: block (T tile, V split).  After each V tile, work[split, t, :] +=
 // ds_tile @ table[v0:v0+64, :], D in DC-wide steps.
-template <typename E>
 __global__ void __launch_bounds__(NT) ce_dh_kernel(
-    const E* __restrict__ h, const E* __restrict__ tab, const int* __restrict__ tgt,
+    const float* __restrict__ h, const float* __restrict__ tab, const int* __restrict__ tgt,
     const float* __restrict__ lse, const float* __restrict__ dnll, int T, int V, int D,
     int tiles_per_split, float* __restrict__ work) {
   __shared__ __align__(16) LogitsSmem sm;
@@ -305,13 +330,13 @@ __global__ void __launch_bounds__(NT) ce_dh_kernel(
     const int v0 = vt * BV;
     float acc[4][4];
     logits_tile(h, tab, T, V, D, t0, v0, sm, acc);
-    ds_tile<E>(acc, tg, ls, dn, T, V, t0, v0, ds);  // ds.astype(table.dtype)
+    ds_tile(acc, tg, ls, dn, T, V, t0, v0, ds);
     for (int dc0 = 0; dc0 < D; dc0 += DC) {
       __syncthreads();  // ds written / the previous table slice consumed
       for (int idx = tid; idx < BV * DC; idx += NT) {
         const int c = idx / DC, dd = idx % DC;
         const int v = v0 + c, d = dc0 + dd;
-        tb[c][dd] = (v < V && d < D) ? to_f(tab[(size_t)v * D + d]) : 0.f;
+        tb[c][dd] = (v < V && d < D) ? tab[(size_t)v * D + d] : 0.f;
       }
       __syncthreads();
       float g[4][4] = {};
@@ -344,9 +369,8 @@ __global__ void __launch_bounds__(NT) ce_dh_kernel(
 
 // dtable: block (V tile, T split).  After each T tile, work[split, v, :] +=
 // ds_tile^T @ h[t0:t0+64, :], D in DC-wide steps.
-template <typename E>
 __global__ void __launch_bounds__(NT) ce_dtable_kernel(
-    const E* __restrict__ h, const E* __restrict__ tab, const int* __restrict__ tgt,
+    const float* __restrict__ h, const float* __restrict__ tab, const int* __restrict__ tgt,
     const float* __restrict__ lse, const float* __restrict__ dnll, int T, int V, int D,
     int tiles_per_split, float* __restrict__ work) {
   __shared__ __align__(16) LogitsSmem sm;
@@ -374,13 +398,13 @@ __global__ void __launch_bounds__(NT) ce_dtable_kernel(
     }
     float acc[4][4];
     logits_tile(h, tab, T, V, D, t0, v0, sm, acc);
-    ds_tile<E>(acc, tg, ls, dn, T, V, t0, v0, ds);  // ds.astype(h.dtype)
+    ds_tile(acc, tg, ls, dn, T, V, t0, v0, ds);
     for (int dc0 = 0; dc0 < D; dc0 += DC) {
       __syncthreads();  // ds written / the previous h slice consumed
       for (int idx = tid; idx < BT * DC; idx += NT) {
         const int r = idx / DC, dd = idx % DC;
         const int t = t0 + r, d = dc0 + dd;
-        hb[r][dd] = (t < T && d < D) ? to_f(h[(size_t)t * D + d]) : 0.f;
+        hb[r][dd] = (t < T && d < D) ? h[(size_t)t * D + d] : 0.f;
       }
       __syncthreads();
       float g[4][4] = {};  // rows: vocabulary v0 + ty*4 + i, columns: D
@@ -411,30 +435,29 @@ __global__ void __launch_bounds__(NT) ce_dtable_kernel(
   }
 }
 
-// out[i] = (sum over splits of work[s, i]) rounded to E, i < n.
-template <typename E>
+// out[i] = sum over splits of work[s, i], i < n.
 __global__ void sum_splits_kernel(const float* __restrict__ work, size_t n, int n_split,
-                                  E* __restrict__ out) {
+                                  float* __restrict__ out) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < n_split; ++k) s += work[(size_t)k * n + i];
-    out[i] = from_f<E>(s);
+    out[i] = s;
   }
 }
 
 
 // ---------------------------------------------------------------------------
-// bf16 gradients: one TMA + wgmma GEMM, three epilogues
+// bf16: one TMA + wgmma GEMM, four epilogues
 // ---------------------------------------------------------------------------
 
 constexpr int GM = 128;          // block tile rows: two consumer warpgroups of 64
 constexpr int GK = 64;           // k-tile: one 128-byte swizzle row of bf16
 constexpr int GTHREADS = 384;    // warpgroup 0 loads, warpgroups 1-2 multiply
 constexpr int ATOM = 64 * GK * 2;     // one 64 x 64 bf16 box: 8 KB
-constexpr int DS_TILE = 256;     // the ds pass's N tile: the workspace row is a multiple
+constexpr int DS_TILE = 256;     // the ds pass's and ce_stats' N tile
 
-enum { EPI_DS = 0, EPI_DH = 1, EPI_DTABLE = 2 };
+enum { EPI_DS = 0, EPI_DH = 1, EPI_DTABLE = 2, EPI_STATS = 3 };
 
 struct EpiArgs {
   const float* lse;
@@ -444,8 +467,10 @@ struct EpiArgs {
   float* acc;            // (T, D) fp32 dh accumulator (EPI_DH over several chunks)
   __nv_bfloat16* out;    // dh (T, D), or the chunk's rows of dtable (vr, D)
   int T, D, ld;
-  int v0, vr;            // the chunk's first vocabulary row and its width
+  int v0, vr;            // the chunk's first vocabulary row and its width (EPI_STATS: 0, V)
   int first, last;       // the chunk's place, for EPI_DH
+  float* part;           // (3, parts, T) fp32 per-tile (m, l, picked), written by EPI_STATS
+  int parts;             // the V tiles: ceil(V / 256)
 };
 
 template <int BN> __host__ __device__ constexpr int gemm_stages() { return BN == 256 ? 4 : 6; }
@@ -454,21 +479,25 @@ template <int BN> __host__ __device__ constexpr int gemm_smem() {
   return gemm_stages<BN>() * stage_bytes<BN>() + 1024 + 2 * 8 * gemm_stages<BN>();
 }
 
-// The per-row values of the ds epilogue for a thread's two rows r, r + 8:
-// loaded before the mainloop, so that their latency hides behind it.
+// The per-row values of the ds and stats epilogues for a thread's two rows
+// r, r + 8: loaded before the mainloop, so that their latency hides behind
+// it (EPI_STATS reads the target alone).
 struct DsRows {
   float ls[2], dn[2];
   int tg[2];  // the target's column in the chunk
 };
 
+template <int EPI>
 __device__ __forceinline__ DsRows ds_rows(const EpiArgs& ep, int r) {
-  DsRows x;
+  DsRows x{};
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = r + 8 * hh;
     const bool ok = t < ep.T;
-    x.ls[hh] = ok ? ep.lse[t] : 0.f;
-    x.dn[hh] = ok ? ep.dnll[t] : 0.f;
+    if (EPI == EPI_DS) {
+      x.ls[hh] = ok ? ep.lse[t] : 0.f;
+      x.dn[hh] = ok ? ep.dnll[t] : 0.f;
+    }
     x.tg[hh] = ok ? ep.tgt[t] - ep.v0 : -1;
   }
   return x;
@@ -481,6 +510,48 @@ template <int BN, int EPI>
 __device__ __forceinline__ void epilogue(float (&acc)[BN / 2], const EpiArgs& ep,
                                          const DsRows& x, int r, int n0) {
   const int cq = 2 * (threadIdx.x & 3);
+  if (EPI == EPI_STATS) {
+    // A row's BN columns sit in one quad, BN / 4 in each thread: the
+    // thread's max, sum and pick, then two shuffles across the quad.
+    // Columns >= V hold TMA's zero logits: they take no part.
+    const bool full = n0 + BN <= ep.vr;
+    const int nt = n0 / BN;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = NEG, pk = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + 8 * j + cq + e;
+          const float s = acc[4 * j + 2 * hh + e];
+          if (full || col < ep.vr) {
+            mx = fmaxf(mx, s);
+            if (col == x.tg[hh]) pk = s;
+          }
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float se = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (full || n0 + 8 * j + cq + e < ep.vr) se += expf(acc[4 * j + 2 * hh + e] - mx);
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        se += __shfl_xor_sync(0xffffffffu, se, o);
+        pk += __shfl_xor_sync(0xffffffffu, pk, o);
+      }
+      const int t = r + 8 * hh;
+      if ((threadIdx.x & 3) == 0 && t < ep.T) {
+        ep.part[((size_t)0 * ep.parts + nt) * ep.T + t] = mx;
+        ep.part[((size_t)1 * ep.parts + nt) * ep.T + t] = se;
+        ep.part[((size_t)2 * ep.parts + nt) * ep.T + t] = pk;
+      }
+    }
+    return;
+  }
   if (EPI == EPI_DS) {
     // The four threads of a quad hold, per 8-column group j, two columns
     // each.  Over four groups a 4 x 4 transpose gives each thread all 8
@@ -550,15 +621,16 @@ __device__ __forceinline__ void epilogue(float (&acc)[BN / 2], const EpiArgs& ep
   }
 }
 
-// out tile (blockIdx.y * 128, blockIdx.x * BN) of A (M x K) @ B (K x N), bf16
-// in, fp32 sums, through EPI.  A is K-major (TA 0: map rows are M, box 64 x
+// out tile (m tile * 128, n tile * BN) of A (M x K) @ B (K x N), bf16 in,
+// fp32 sums, through EPI.  A is K-major (TA 0: map rows are M, box 64 x
 // 128) or M-major (TA 1: map rows are K, box 64 x 64); B likewise (TB 0: map
 // rows are N, box 64 x BN; TB 1: map rows are K, box 64 x 64).  b_off shifts
-// B's map rows (the chunk's first table row).  nk 64-deep k-tiles.
+// B's map rows (the chunk's first table row).  nk 64-deep k-tiles.  The
+// raster: blockIdx.x walks the M tiles with m_fast, the N tiles without.
 template <int BN, int EPI, int TA, int TB>
 __global__ void __launch_bounds__(GTHREADS, 1)
     ce_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
-                   const __grid_constant__ CUtensorMap map_b, int nk, int b_off,
+                   const __grid_constant__ CUtensorMap map_b, int nk, int b_off, int m_fast,
                    const EpiArgs ep) {
   constexpr int S = gemm_stages<BN>();
   constexpr int A_BYTES = GM * GK * 2;
@@ -566,7 +638,8 @@ __global__ void __launch_bounds__(GTHREADS, 1)
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's alignment
   const uint32_t bars = base + S * STAGE;  // full[s] at bars + 8s, empty[s] at bars + 8(S + s)
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * BN;
+  const int m0 = (m_fast ? blockIdx.x : blockIdx.y) * GM;
+  const int n0 = (m_fast ? blockIdx.y : blockIdx.x) * BN;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -608,7 +681,7 @@ __global__ void __launch_bounds__(GTHREADS, 1)
     const int c = wg - 1;  // rows 64c..64c+63 of the tile
     const int r = m0 + 64 * c + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
     DsRows x{};
-    if (EPI == EPI_DS) x = ds_rows(ep, r);
+    if (EPI == EPI_DS || EPI == EPI_STATS) x = ds_rows<EPI>(ep, r);
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -646,12 +719,16 @@ int allow_smem() {
                                                gemm_smem<BN>()));
 }
 
-// (m_rows x n_cols) output through EPI: one block per 128 x BN tile.
+// (m_rows x n_cols) output through EPI: one block per 128 x BN tile, the M
+// tiles fastest with m_fast, else the N tiles.
 template <int BN, int EPI, int TA, int TB>
 int gemm(const CUtensorMap& a, const CUtensorMap& b, int m_rows, int n_cols, int nk, int b_off,
-         const EpiArgs& ep, cudaStream_t st) {
-  const dim3 grid((n_cols + BN - 1) / BN, (m_rows + GM - 1) / GM);
-  ce_gemm_kernel<BN, EPI, TA, TB><<<grid, GTHREADS, gemm_smem<BN>(), st>>>(a, b, nk, b_off, ep);
+         const EpiArgs& ep, cudaStream_t st, int m_fast = 0) {
+  const unsigned mt = (m_rows + GM - 1) / GM, nt = (n_cols + BN - 1) / BN;
+  if ((m_fast ? nt : mt) > 65535u) return cudaErrorInvalidConfiguration;
+  const dim3 grid = m_fast ? dim3(mt, nt) : dim3(nt, mt);
+  ce_gemm_kernel<BN, EPI, TA, TB><<<grid, GTHREADS, gemm_smem<BN>(), st>>>(a, b, nk, b_off, m_fast,
+                                                                           ep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -671,18 +748,18 @@ int grads_f32(bool dh, const void* h, const void* tab, const int* tgt, const flo
   int n_split;
   if (dh) {
     n_split = splits((V + BV - 1) / BV, tiles_per_split);
-    ce_dh_kernel<float><<<dim3((T + BT - 1) / BT, n_split), NT, 0, st>>>(
+    ce_dh_kernel<<<dim3((T + BT - 1) / BT, n_split), NT, 0, st>>>(
         hf, tf, tgt, lse, dnll, T, V, D, tiles_per_split, work);
     n = (size_t)T * D;
   } else {
     n_split = splits((T + BT - 1) / BT, tiles_per_split);
-    ce_dtable_kernel<float><<<dim3((V + BV - 1) / BV, n_split), NT, 0, st>>>(
+    ce_dtable_kernel<<<dim3((V + BV - 1) / BV, n_split), NT, 0, st>>>(
         hf, tf, tgt, lse, dnll, T, V, D, tiles_per_split, work);
     n = (size_t)V * D;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_splits_kernel<float><<<1024, 256, 0, st>>>(work, n, n_split, static_cast<float*>(out));
+  sum_splits_kernel<<<1024, 256, 0, st>>>(work, n, n_split, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -690,36 +767,62 @@ bool bad_shape(int T, int V, int D, int tiles_per_split) {
   return T < 1 || V < 1 || D < 1 || tiles_per_split < 1;
 }
 
+// bf16 ce_stats: the EPI_STATS GEMM over every 128 x 256 logits tile, one
+// part per V tile, the T tiles fastest.
+int stats_bf16(const void* h, const void* tab, const int* tgt, float* part, int T, int V, int D,
+               int parts, cudaStream_t st) {
+  CUtensorMap h_k, tab_k;
+  int err;
+  if ((err = make_map_2d(&h_k, h, D, T, GK, GM)) ||
+      (err = make_map_2d(&tab_k, tab, D, V, GK, DS_TILE)) ||
+      (err = allow_smem<DS_TILE, EPI_STATS, 0, 0>()))
+    return err;
+  EpiArgs ep{};
+  ep.tgt = tgt;
+  ep.T = T;
+  ep.D = D;
+  ep.vr = V;
+  ep.part = part;
+  ep.parts = parts;
+  return gemm<DS_TILE, EPI_STATS, 0, 0>(h_k, tab_k, T, V, cdiv(D, GK), 0, ep, st, 1);
+}
+
 }  // namespace
 
 // h: (T, D), table: (V, D) of one dtype (0 = float32, 1 = bfloat16);
-// targets: (T,) int32.  V is split into groups of `tiles_per_split`
-// 64-wide tiles, one block column each; `work` holds 3 * n_split * T fp32
-// (n_split = ceil(ceil(V / 64) / tiles_per_split)).  m, l, picked: (T,)
-// fp32.  Two launches on `stream`; returns the first cudaError_t.
+// targets: (T,) int32; m, l, picked: (T,) fp32.  The caller's plan
+// (ops/fused_ce.py :: _stats_plan), checked here: V goes in `parts` parts
+// of `per` tiles of `tile_v` columns, and `work` holds (3, parts, T) fp32,
+// each part's (m, l, picked), merged in a fixed order by a second launch.
+// float32: tile_v 64 (the CUDA-core kernel, one block column per part).
+// bfloat16: tile_v 256, per 1 (the wgmma GEMM, a part per 128 x 256
+// tile), D % 8 == 0, h and table 16-byte aligned.  Two
+// launches on `stream`; returns 0, the first cudaError_t, or a negated
+// CUresult of cuTensorMapEncodeTiled.
 extern "C" int ce_stats(const void* h, const void* tab, const void* tgt, void* m, void* l,
-                        void* picked, void* work, int T, int V, int D, int tiles_per_split,
-                        int dtype, void* stream) {
+                        void* picked, void* work, int T, int V, int D, int tile_v, int per,
+                        int parts, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(T, V, D, tiles_per_split)) return cudaErrorInvalidValue;
-  const int n_split = splits((V + BV - 1) / BV, tiles_per_split);
-  const dim3 grid((T + BT - 1) / BT, n_split);
+  if (bad_shape(T, V, D, per) || tile_v < 1 || parts != splits(cdiv(V, tile_v), per))
+    return cudaErrorInvalidValue;
   const int* tg = static_cast<const int*>(tgt);
   float* part = static_cast<float*>(work);
-  if (dtype == 0)
-    ce_stats_kernel<float><<<grid, NT, 0, st>>>(static_cast<const float*>(h),
-                                                static_cast<const float*>(tab), tg, T, V,
-                                                D, tiles_per_split, part);
-  else if (dtype == 1)
-    ce_stats_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(tab), tg, T,
-        V, D, tiles_per_split, part);
-  else
+  int err;
+  if (dtype == 0) {
+    if (tile_v != BV) return cudaErrorInvalidValue;
+    ce_stats_kernel<<<dim3(cdiv(T, BT), parts), NT, 0, st>>>(
+        static_cast<const float*>(h), static_cast<const float*>(tab), tg, T, V, D, per, part);
+    err = static_cast<int>(cudaGetLastError());
+  } else if (dtype == 1) {
+    if (tile_v != DS_TILE || per != 1 || D % 8 != 0) return cudaErrorInvalidValue;
+    if (!aligned16(h) || !aligned16(tab)) return cudaErrorMisalignedAddress;
+    err = stats_bf16(h, tab, tg, part, T, V, D, parts, st);
+  } else {
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ce_stats_merge_kernel<<<(T + 255) / 256, 256, 0, st>>>(
-      part, T, n_split, static_cast<float*>(m), static_cast<float*>(l),
+  }
+  if (err) return err;
+  ce_stats_merge_kernel<<<cdiv(T, 32), dim3(32, MERGE_G), 0, st>>>(
+      part, T, parts, static_cast<float*>(m), static_cast<float*>(l),
       static_cast<float*>(picked));
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,12 +41,13 @@ SIGNATURES = {
     "flash_bwd": {"flash_bwd": ([_P] * 9 + [_I] * 7 + [_F, _P], _I)},
     "decode_attention": {"decode_attend": ([_P] * 5 + [_I] * 6 + [_F, _P], _I)},
     "kv_cache": {"cache_append": ([_P] * 5 + [_I] * 5 + [_P], _I)},
-    "fused_ce": {**{fn: ([_P] * 7 + [_I] * 5 + [_P], _I)
-                    for fn in ("ce_stats", "ce_dh", "ce_dtable")},
+    "fused_ce": {"ce_stats": ([_P] * 7 + [_I] * 7 + [_P], _I),
+                 **{fn: ([_P] * 7 + [_I] * 5 + [_P], _I)
+                    for fn in ("ce_dh", "ce_dtable")},
                  "ce_grads": ([_P] * 8 + [_I] * 5 + [_P], _I)},
     "beam_attention": {"beam_attend": ([_P] * 8 + [_I] * 8 + [_L, _F, _P],
                                        _I)},
-    "conv_backward": {"conv_dgrad": ([_P] * 3 + [_I] * 7 + [_P], _I),
+    "conv_backward": {"conv_dgrad": ([_P] * 3 + [_I] * 11 + [_P], _I),
                       "conv_wgrad": ([_P] * 4 + [_I] * 12 + [_P], _I)},
 }
 

@@ -14,11 +14,11 @@ weights HWIO.
   ``F.conv2d`` and whose backward runs the two kernels where
   :func:`_eligible` holds and ``F.conv2d``'s own backward elsewhere.
 
-On a CUDA tensor the wrappers launch ``csrc/conv_backward.cu``
-(``conv_wgrad``: bf16 on TMA + ``wgmma`` as :func:`_wgrad_plan` lays it
-out, channels not a multiple of 8 padded in a copy; ``conv_dgrad``); on a
-CPU tensor they take the plain versions, the k·k-tap sum of shifted
-matmuls that the TPU kernels compute.
+On a CUDA tensor the wrappers launch ``csrc/conv_backward.cu``: in bf16
+both run on TMA + ``wgmma`` as :func:`_wgrad_plan` and :func:`_dgrad_plan`
+lay them out, channels not a multiple of 8 padded in a copy; fp32 runs on
+the CUDA cores.  On a CPU tensor they take the plain versions, the
+k·k-tap sum of shifted matmuls that the TPU kernels compute.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ import torch.nn.functional as F
 
 from . import _build
 
-_BM = _BN = 64          # the fp32 kernels' output tile
 _BK = 32                # pixels per reduction step (fp32 wgrad)
 _TARGET_BLOCKS = 528    # ~4 resident blocks on each of the H100's 132 SMs
 _WGRAD_WAVES = 2        # bf16 wgrad: one block per SM, about two waves
@@ -132,6 +131,14 @@ def _round8(c: int) -> int:
     return -(-c // 8) * 8
 
 
+def _box(h: int, w: int, cap: int) -> Tuple[int, int]:
+    """``(box_h, box_w)``: the box of at most ``cap`` pixels of one image
+    that tiles an ``h`` x ``w`` plane in the fewest boxes, whole rows
+    where they fit: ceil(h / box_h) x ceil(w / box_w) of them."""
+    box_w = -(-w // -(-w // cap))
+    return -(-h // -(-h // (cap // box_w))), box_w
+
+
 def _wgrad_plan(n: int, h: int, w: int, ci: int, co: int, k: int,
                 sms: int) -> dict:
     """What the bf16 ``conv_wgrad`` kernel is told, all of it decided here:
@@ -143,18 +150,36 @@ def _wgrad_plan(n: int, h: int, w: int, ci: int, co: int, k: int,
     ``_WGRAD_WAVES`` waves of the card's ``sms``."""
     ci_p, co_p = _round8(ci), _round8(co)
     tile_n = 64 if co_p <= 64 else 128 if co_p <= 128 else 256
-    cap = _BOX_PIXELS[tile_n]
-    nw = -(-w // cap)
-    box_w = -(-w // nw)
-    nh = -(-h // max(1, cap // box_w))
-    box_h = -(-h // nh)
-    steps = n * nh * nw
+    box_h, box_w = _box(h, w, _BOX_PIXELS[tile_n])
+    steps = n * -(-h // box_h) * -(-w // box_w)
     tiles = -(-ci_p // 64) * -(-co_p // tile_n) * k * k
     want = max(1, min(steps, sms * _WGRAD_WAVES // tiles))
     per = -(-steps // want)
     return {"ci_pad": ci_p, "co_pad": co_p, "tile_n": tile_n,
             "box_h": box_h, "box_w": box_w, "per": per,
             "splits": -(-steps // per)}
+
+
+def _dgrad_plan(n: int, h: int, w: int, ci: int, co: int) -> dict:
+    """What the bf16 ``conv_dgrad`` kernel is told, all of it decided here:
+    channels padded to multiples of 8 (``ci_pad``, ``co_pad``: TMA's
+    16-byte strides), the ci tile ``tile_n`` (64, 128 or 256), the pixel
+    tile ``tile_m`` and the box ``box_h`` x ``box_w`` of one image, at most
+    ``tile_m`` pixels, that tiles each image.  The operands come from the
+    L2 at every k step, a dY box and a W panel of ``tile_n`` rows, so where
+    ``tile_n`` is at most 128 the pixel tile is 256 (two 64-row ``wgmma``s
+    a consumer), which reads each W panel for twice the pixels; a 256-wide
+    ci tile leaves registers for 128.  ``rows_used``: the share of the
+    computed rows that are pixels.  The kernel size does not enter, as
+    every tap reads a box of the same shape."""
+    ci_p, co_p = _round8(ci), _round8(co)
+    tile_n = 64 if ci_p <= 64 else 128 if ci_p <= 128 else 256
+    tile_m = 256 if tile_n <= 128 else 128
+    box_h, box_w = _box(h, w, tile_m)
+    boxes = n * -(-h // box_h) * -(-w // box_w)
+    return {"ci_pad": ci_p, "co_pad": co_p, "tile_n": tile_n,
+            "tile_m": tile_m, "box_h": box_h, "box_w": box_w,
+            "rows_used": n * h * w / (boxes * tile_m)}
 
 
 def _wgrad_cuda(x, dy, k):
@@ -166,7 +191,7 @@ def _wgrad_cuda(x, dy, k):
     co = dy.shape[-1]
     ci0, co0 = ci, co
     if code == 0:                   # fp32: the CUDA-core kernel
-        tiles = -(-ci // _BM) * -(-co // _BN)
+        tiles = -(-ci // 64) * -(-co // 64)
         per, splits = _wgrad_splits(n * h * w, tiles, k * k)
         box_h = box_w = tile_n = 0
     else:                           # bf16: TMA + wgmma over padded channels
@@ -198,11 +223,25 @@ def _dgrad_cuda(dy, w, xshape):
     code = _build.dtype_code(dy.dtype)
     n, h, ww, ci = xshape
     co, k = dy.shape[-1], w.shape[0]
-    out = torch.empty((n, h, ww, ci), dtype=dy.dtype, device=dy.device)
+    plan = {"ci_pad": ci, "co_pad": co, "tile_n": 0, "tile_m": 0,
+            "box_h": 0, "box_w": 0}
+    if code:                        # bf16: TMA + wgmma over padded channels
+        plan = _dgrad_plan(n, h, ww, ci, co)
+        dy = _build.tma_operand(dy, plan["co_pad"])
+        if (plan["ci_pad"], plan["co_pad"]) != (ci, co) \
+                or w.data_ptr() % 16:
+            wp = w.new_zeros((k, k, plan["ci_pad"], plan["co_pad"]))
+            wp[:, :, :ci, :co] = w
+            w = wp
+    out = torch.empty((n, h, ww, plan["ci_pad"]), dtype=dy.dtype,
+                      device=dy.device)
     err = _build.library("conv_backward").conv_dgrad(
-        dy.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, ww, ci, co, k, code,
-        _build.stream_handle(dy))
+        dy.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, ww, plan["ci_pad"],
+        plan["co_pad"], k, plan["box_h"], plan["box_w"], plan["tile_n"],
+        plan["tile_m"], code, _build.stream_handle(dy))
     _build.check(err, "conv_dgrad")
+    if plan["ci_pad"] != ci:                 # drop the pad channels
+        out = out[..., :ci].contiguous()
     return out
 
 

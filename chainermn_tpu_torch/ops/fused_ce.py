@@ -12,12 +12,14 @@ Counterpart of ``chainermn_tpu/ops/fused_ce.py``: :func:`ce_stats`,
   dtype before each product, fp32 sums, ``dh`` in h's dtype and
   ``dtable`` in the table's.
 
-On a CUDA tensor the wrappers launch ``csrc/fused_ce.cu``: ``ce_stats``
-recomputes its logits tiles and never stores one; the bf16 gradients go
-through ``ce_grads``'s tensor-core GEMMs, which make ``ds`` one V chunk at
-a time (:func:`_grad_plan`: at most 32 MiB, so that it stays in the L2)
-and never store an fp32 logit; the fp32 gradients keep the CUDA-core
-``ce_dh`` / ``ce_dtable`` kernels.  On a CPU tensor the wrappers take the
+On a CUDA tensor the wrappers launch ``csrc/fused_ce.cu``, which never
+stores a logit: in bf16 ``ce_stats`` is one tensor-core GEMM whose
+epilogue reduces each 128 x 256 logits tile to per-row statistics, merged
+across V tiles by a second launch (:func:`_stats_plan`), and the
+gradients go through ``ce_grads``'s GEMMs, which make ``ds`` one V chunk
+at a time (:func:`_grad_plan`: at most 32 MiB, so that it stays in the
+L2); fp32 keeps the CUDA-core ``ce_stats`` / ``ce_dh`` / ``ce_dtable``
+kernels.  On a CPU tensor the wrappers take the
 plain versions, which materialise the ``(T, V)`` logits as JAX's
 ``_stats_xla`` / ``_grads_xla`` do.
 """
@@ -31,8 +33,10 @@ from . import _build
 _TILE = 64              # the CUDA-core kernels' logits tile, both axes
 _TARGET_BLOCKS = 528    # ~4 resident blocks on each of the H100's 132 SMs
 _GRAD_TILE = 128        # the bf16 GEMMs' M tile: the V chunk is a multiple
-_DS_TILE = 256          # the ds pass's N tile: a workspace row is a multiple
-_DS_BYTES = 32 << 20    # the bf16 ds chunk stays in the H100's 50 MB L2
+_DS_TILE = 256          # the ds pass's and bf16 ce_stats' N tile
+# what the bf16 GEMMs re-read (the ds chunk, h in ce_stats) stays in the
+# H100's 50 MB L2 at this size
+_L2_BYTES = 32 << 20
 
 
 def _check(h, table, targets):
@@ -121,26 +125,48 @@ def _cuda_rows(x, device):
     return x.to(device=device, dtype=torch.float32).contiguous()
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _stats_plan(t: int, v: int, d: int, dtype) -> dict:
+    """What ``ce_stats`` is told, all of it decided here and checked in C.
+    V goes in ``parts`` parts of ``per`` tiles of ``tile_v`` columns, each
+    part's ``(m, l, picked)`` in a ``(3, parts, T)`` fp32 workspace that a
+    second launch merges in a fixed order.  fp32 (the CUDA-core kernel): 64-wide
+    tiles, ``per`` of them a block so that about ``_TARGET_BLOCKS`` blocks
+    run.  bf16 (the ``wgmma`` GEMM): one part per 256-wide tile, D padded to
+    ``d_pad``, a multiple of 8 (TMA's 16-byte row strides; zero columns add
+    nothing to a logit); C launches its T tiles fastest, so that the blocks
+    in flight share a table tile and h stays in the L2."""
+    if dtype != torch.bfloat16:
+        n_v = -(-v // _TILE)
+        per = _tiles_per_split(-(-t // _TILE), n_v)
+        return {"d_pad": d, "tile_v": _TILE, "per": per,
+                "parts": -(-n_v // per)}
+    return {"d_pad": _round_up(d, 8), "tile_v": _DS_TILE, "per": 1,
+            "parts": -(-v // _DS_TILE)}
+
+
 def _ce_stats_cuda(h, table, targets):
     code, tgt = _cuda_args(h, table, targets)
     t, d = h.shape
     v = table.shape[0]
-    n_t, n_v = -(-t // _TILE), -(-v // _TILE)
-    per = _tiles_per_split(n_t, n_v)
-    n_split = -(-n_v // per)
+    plan = _stats_plan(t, v, d, h.dtype)
+    if code:                             # TMA: padded D, aligned bases
+        h = _build.tma_operand(h, plan["d_pad"])
+        table = _build.tma_operand(table, plan["d_pad"])
     out = torch.empty((3, t), dtype=torch.float32, device=h.device)
-    work = torch.empty((3, n_split, t), dtype=torch.float32, device=h.device)
+    work = torch.empty((3, plan["parts"], t), dtype=torch.float32,
+                       device=h.device)
     err = _build.library("fused_ce").ce_stats(
         h.data_ptr(), table.data_ptr(), tgt.data_ptr(), out[0].data_ptr(),
-        out[1].data_ptr(), out[2].data_ptr(), work.data_ptr(), t, v, d, per,
-        code, _build.stream_handle(h))
+        out[1].data_ptr(), out[2].data_ptr(), work.data_ptr(), t, v,
+        plan["d_pad"], plan["tile_v"], plan["per"], plan["parts"], code,
+        _build.stream_handle(h))
     _build.check(err, "ce_stats")
     ce_stats.launches += 1
     return out[0], out[1], out[2]
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _grad_plan(t: int, v: int, d: int, dtype, chunk=None) -> dict:
@@ -155,7 +181,7 @@ def _grad_plan(t: int, v: int, d: int, dtype, chunk=None) -> dict:
     and are dropped from dh and dtable)."""
     if chunk is None:
         chunk = max(_GRAD_TILE,
-                    _DS_BYTES // (2 * t) // _GRAD_TILE * _GRAD_TILE)
+                    _L2_BYTES // (2 * t) // _GRAD_TILE * _GRAD_TILE)
     elif chunk < _GRAD_TILE or chunk % _GRAD_TILE:
         raise ValueError(f"the V chunk must be a positive multiple of "
                          f"{_GRAD_TILE}, got {chunk}")

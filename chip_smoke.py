@@ -11,9 +11,10 @@ and prints no result line:
 1. ``device``  — the card (nvidia-smi name and power limit), torch and
    CUDA versions; ``build`` — every kernel compiled from ``csrc/`` in
    parallel (one nvcc per source), with each kernel's ptxas report, and
-   the count of ``HGMMA`` instructions (``cuobjdump``) in the SASS of
-   ``libfused_ce``, ``libflash_fwd`` and ``libconv_backward``, none of
-   which may be 0 (their bf16 kernels are ``wgmma`` GEMMs).
+   the count of ``HGMMA`` instructions (``cuobjdump``) in the SASS of each
+   bf16 ``wgmma`` kernel (``WGMMA_KERNELS``: ``ce_stats``, the three CE
+   gradient GEMMs, the flash forward, ``conv_wgrad`` and ``conv_dgrad``),
+   none of which may be 0.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and edge shapes, in bf16 (atol = rtol =
    2e-2: bf16 keeps 8 mantissa bits) and fp32 (atol = rtol = 1e-4: the
@@ -30,15 +31,16 @@ and prints no result line:
    D 1024; ragged T and V; targets out of range; for the bf16 gradients,
    which walk V in chunks of at most 32 MiB of ``ds``, V = 2 chunks of
    2048 + 77 at T 8000, D 200 and V = 2 chunks of 1920 + 77 at T 8738,
-   D 64, with targets at each chunk's first column, the column before it
-   and V - 1): ``ce_stats``, ``ce_dh``
+   D 64; with targets at each chunk's first column, the column before it,
+   the bf16 ``ce_stats``' 256-wide V tile edges and V - 1): ``ce_stats``,
+   ``ce_dh``
    and ``ce_dtable`` alone and both gradients from one ``ce_grads`` call.
    The CE gradients are small numbers, so their largest error must also
    stay within the tolerance times their largest entry.  ``ce_grads`` is
    timed beside the sum of the two library calls, with its peak memory
    above its inputs; bf16 at D = 100, 4, 1026 and 33 (padded to a
    multiple of 8 in a copy) and with a misaligned h must give the plain
-   version's gradients.  The beam kernel
+   version's statistics and gradients.  The beam kernel
    (``beam_attend_parts``: acc, m and l): beam 4's two segments at full
    width (the (8, 512, 1024) prompt, mode none; the (8, 2048, 1024)
    generated window as a strided view, mode amask, one valid slot per
@@ -52,7 +54,8 @@ and prints no result line:
    64 → 256, a ragged 7 x 5 plane, a 196-row plane, n = 1 and channel
    counts that are not multiples of 8, the bf16 error also within tol x
    max |ref|; the three 3x3 shapes timed beside cuDNN's
-   ``convolution_backward`` asked for dW alone or dX alone.
+   ``convolution_backward`` asked for dW alone or dX alone; then the bf16
+   ``conv3x3_dgrad`` of a dY whose base is not 16-byte aligned.
 3. ``parity``  — fp32, full width (d 1024, 8 layers, 16 heads, vocab
    32768), and a small RoPE model (d 256, 4 heads, 2 layers): 4 staggered
    requests through the port's ServingEngine on the card and on the CPU
@@ -146,6 +149,17 @@ TRAIN_SEQ, TRAIN_BATCH = 1024, 8
 RESNET = dict(arch="resnet50", image=224, batch=128, classes=1000)
 RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9          # bench.py:3106, training ~3x fwd
 RESNET_CONV_LAUNCHES = 11   # eligible 3x3 convs per step at 224 (3 + 3 + 5)
+# (library, kernel, a piece of its mangled name): the bf16 kernels that are
+# wgmma GEMMs, each of which must hold HGMMA instructions in its SASS
+WGMMA_KERNELS = (
+    ("fused_ce", "ce_stats", "ce_gemm_kernelILi256ELi3E"),
+    ("fused_ce", "ce_grads ds pass", "ce_gemm_kernelILi256ELi0E"),
+    ("fused_ce", "ce_grads dh", "ce_gemm_kernelILi256ELi1E"),
+    ("fused_ce", "ce_grads dtable", "ce_gemm_kernelILi128ELi2E"),
+    ("flash_fwd", "flash_fwd", "flash_fwd_wgmma_kernel"),
+    ("conv_backward", "conv_wgrad", "conv_wgrad_wgmma_kernel"),
+    ("conv_backward", "conv_dgrad", "conv_dgrad_wgmma_kernel"),
+)
 KERNEL_INFO = {
     "flash_fwd": ("chainermn_tpu_torch/csrc/flash_fwd.cu",
                   "chainermn_tpu/ops/flash_attention.py:226"),
@@ -273,20 +287,37 @@ def phase_build(smoke):
                     or any(k in line for k in ("registers", "spill", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
         _build.library(name)
-    # the bf16 CE gradients, flash forward and conv weight gradient must
-    # have kept their wgmma instructions
+    # every bf16 wgmma kernel must have kept its wgmma instructions
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     if not cuobjdump.exists():
         raise AssertionError(f"no cuobjdump beside nvcc ({cuobjdump}): the "
                              f"HGMMA counts cannot be read")
-    for name in ("fused_ce", "flash_fwd", "conv_backward"):
-        sass = subprocess.run([str(cuobjdump), "-sass", report[name]["path"]],
+    per_fn = {}
+    for lib in sorted({lib for lib, _, _ in WGMMA_KERNELS}):
+        sass = subprocess.run([str(cuobjdump), "-sass", report[lib]["path"]],
                               capture_output=True, text=True, timeout=300)
-        n = sass.stdout.count("HGMMA")
-        emit({"check": f"build.{name}.hgmma", "sass_hgmma_instructions": n})
-        if n == 0:
-            raise AssertionError(f"lib{name} has no HGMMA instruction: its "
-                                 f"bf16 kernel lost its wgmma")
+        per_fn[lib] = _hgmma_per_function(sass.stdout)
+    for lib, kernel, piece in WGMMA_KERNELS:
+        fns = {f: n for f, n in per_fn[lib].items() if piece in f}
+        emit({"check": f"build.{lib}.hgmma", "kernel": kernel,
+              "sass_hgmma_instructions": fns})
+        if not fns or not all(fns.values()):
+            raise AssertionError(f"{kernel} in lib{lib} has no HGMMA "
+                                 f"instruction: its bf16 kernel lost its "
+                                 f"wgmma ({fns})")
+
+
+def _hgmma_per_function(sass):
+    """HGMMA instructions per kernel (mangled name) of a ``cuobjdump
+    -sass`` listing."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def _flash_bound(b, s, h, d, causal, elem, dtype_name):
@@ -587,11 +618,15 @@ def _ce_inputs(torch, g, t, v, d, dtype):
            * (2.0 / d) ** 0.5 * 4).to(dtype)
     tgt = torch.randint(0, v, (t,), generator=g, device="cuda")
     edges = [-1, v, v + 100]                         # pick nothing
-    # each bf16 chunk's first column, the one before it, V - 1
+    # each bf16 gradient chunk's first column and the one before it, the
+    # bf16 ce_stats' 256-wide V tile edges (255, 256, the last tile's first
+    # column), V - 1
     from chainermn_tpu_torch.ops.fused_ce import _grad_plan
 
     bounds = _grad_plan(t, v, d, torch.bfloat16)["bounds"]
-    edges += [x for v0, _ in bounds[1:] for x in (v0 - 1, v0)] + [v - 1]
+    edges += [x for v0, _ in bounds[1:] for x in (v0 - 1, v0)]
+    edges += [x for x in (255, 256, (v - 1) // 256 * 256) if x < v] + [v - 1]
+    edges = edges[:t]
     tgt[:len(edges)] = torch.tensor(edges)
     dnll = torch.rand(t, generator=g, device="cuda")
     return h, tab, tgt, dnll
@@ -697,10 +732,14 @@ def check_ce(smoke):
     # row strides) in a copy, and a misaligned h or table is copied
     for d in (100, 4, 1026, 33):
         h, tab, tgt, dnll = _ce_inputs(torch, g, 64, 300, d, torch.bfloat16)
-        m, l, _ = ce_stats_plain(h, tab, tgt)
+        shape = dict(T=64, V=300, D=d)
+        ref = ce_stats_plain(h, tab, tgt)
+        for n, x, r in zip(("m", "l", "picked"), ce_stats(h, tab, tgt), ref):
+            smoke.compare(f"ce_stats.{n}.d_not_multiple_of_8", x, r,
+                          "bfloat16", **shape)
+        m, l, _ = ref
         lse = m + torch.log(l)
         dh_ref, dt_ref = ce_grads_plain(h, tab, tgt, lse, dnll)
-        shape = dict(T=64, V=300, D=d)
         smoke.compare("ce_dh.d_not_multiple_of_8", ce_dh(h, tab, tgt, lse,
                                                          dnll),
                       dh_ref, "bfloat16", scaled=True, **shape)
@@ -715,7 +754,11 @@ def check_ce(smoke):
     hs = torch.empty(64 * 128 + 1, dtype=torch.bfloat16,
                      device="cuda")[1:].view(64, 128)
     hs.copy_(h)                                  # a 2-byte misaligned base
-    m, l, _ = ce_stats_plain(h, tab, tgt)
+    ref = ce_stats_plain(h, tab, tgt)
+    for n, x, r in zip(("m", "l", "picked"), ce_stats(hs, tab, tgt), ref):
+        smoke.compare(f"ce_stats.{n}.misaligned", x, r, "bfloat16", T=64,
+                      V=300, D=128)
+    m, l, _ = ref
     lse = m + torch.log(l)
     for n, x, r in zip(("dh", "dtable"), ce_grads(hs, tab, tgt, lse, dnll),
                        ce_grads_plain(h, tab, tgt, lse, dnll)):
@@ -851,7 +894,8 @@ def check_conv(smoke):
     counts that are not multiples of 8.  Inputs are scaled so that the
     outputs are O(1), as a training step's gradients are small.  The
     three 3x3 shapes are timed in bf16 beside the plain version and
-    cuDNN's ``convolution_backward`` asked for dW alone or dX alone."""
+    cuDNN's ``convolution_backward`` asked for dW alone or dX alone.  Then
+    bf16 dgrad of a misaligned dY (the wrapper copies it for TMA)."""
     torch = smoke.torch
     from chainermn_tpu_torch.ops import (conv3x3_dgrad, conv3x3_dgrad_plain,
                                          conv3x3_wgrad, conv3x3_wgrad_plain)
@@ -923,6 +967,18 @@ def check_conv(smoke):
                           atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
                           library_ms=lib, library="cuDNN convolution_backward",
                           bound_ms=bound, bound_by=by, **shape))
+    # a dY 2 bytes past 16-byte alignment: the wrapper copies it for TMA
+    n, h, w, ci, co = 2, 14, 14, 64, 64
+    dy = torch.randn(n, h, w, co, generator=g, device="cuda").bfloat16()
+    dym = torch.empty(dy.numel() + 1, dtype=torch.bfloat16,
+                      device="cuda")[1:].view(dy.shape)
+    dym.copy_(dy)
+    wt = (torch.randn(3, 3, ci, co, generator=g, device="cuda")
+          / (9 * co) ** 0.5).bfloat16()
+    smoke.compare("conv_dgrad.misaligned",
+                  conv3x3_dgrad(dym, wt, (n, h, w, ci)),
+                  conv3x3_dgrad_plain(dy, wt, (n, h, w, ci)), "bfloat16",
+                  scaled=True, N=n, H=h, W=w, Ci=ci, Co=co, k=3)
 
 
 def phase_kernels(smoke):

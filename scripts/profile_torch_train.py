@@ -28,15 +28,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from profile_torch_serving import _summarise  # noqa: E402
 
-# the bf16 CE gradients' GEMM, by its epilogue template argument
-_CE_GEMM = {"0": "ds pass", "1": "dh product", "2": "dtable product"}
+# the bf16 CE GEMM (ce_stats and the gradients), by its epilogue template
+# argument
+_CE_GEMM = {"0": "ce_gemm ds pass", "1": "ce_gemm dh product",
+            "2": "ce_gemm dtable product", "3": "ce_stats"}
 
 
 def _kernel_ms(trace_path, steps):
     """Device ms per step of each hand-written kernel, which the top-12
-    list can miss: ``ce_stats`` and its merge, the ``ce_gemm_kernel`` by
-    epilogue (the ds pass, the dh and dtable products), the flash forward
-    and the flash backward's two kernels."""
+    list can miss: ``ce_stats`` (bf16: the ``ce_gemm_kernel`` with the
+    statistics epilogue; fp32: ``ce_stats_kernel``) and its merge, the
+    ``ce_gemm_kernel`` by epilogue (the ds pass, the dh and dtable
+    products), the flash forward and the flash backward's two kernels."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     out = {}
@@ -46,7 +49,7 @@ def _kernel_ms(trace_path, steps):
             continue
         if "ce_gemm_kernel<" in name:
             epi = name.split("ce_gemm_kernel<")[1].split(",")[1].strip()
-            key = f"ce_gemm {_CE_GEMM.get(epi, epi)}"
+            key = _CE_GEMM.get(epi, f"ce_gemm {epi}")
         elif "ce_stats_merge_kernel" in name:
             key = "ce_stats merge"
         elif "ce_stats_kernel" in name:

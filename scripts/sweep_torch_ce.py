@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Time the bf16 CE gradients on one card for several V-chunk widths.
+"""Time the bf16 fused CE kernels on one card: ce_stats, and the gradients for several V-chunk widths.
 
-``ce_grads`` makes ``ds`` one V chunk at a time (``ops.fused_ce._grad_plan``:
-by default the widest chunk whose ``ds`` fits 32 MiB, 2048 columns at T
-8192).  This script times, at the training shape (T 8192, V 32768, D 1024,
-bf16, weights and targets from ``--seed``), the ``ce_grads`` entry point of
-``csrc/fused_ce.cu`` with both outputs, with dh alone and with dtable alone,
-for each width in ``--chunks`` (CUDA events, median of ``--iters`` launches,
-the L2 flushed before each), and checks each result against the plain
-version once.  Prints one JSON line per width, then the card's name and
-power limit.  Needs a card.
+At the training shape (T 8192, V 32768, D 1024, bf16, weights and
+targets from ``--seed``; CUDA events, median of ``--iters`` launches,
+the L2 flushed before each) this script first times ``ops.ce_stats`` as
+the forward calls it, ``--repeats`` medians in a row, beside one library
+call of the same function (a matmul and a logsumexp), and checks it
+against the plain version once.  Then, for each width in ``--chunks``
+(none: the sweep is skipped), the ``ce_grads`` entry point of
+``csrc/fused_ce.cu``, which makes ``ds`` one V chunk at a time
+(``ops.fused_ce._grad_plan``: by default the widest chunk whose ``ds``
+fits 32 MiB, 2048 columns at T 8192), with both outputs, with dh alone
+and with dtable alone, each checked against the plain version once.
+Prints one JSON line for ``ce_stats`` and one per width, then the card's
+name and power limit.  Run it from two checkouts one after the other on
+one card to compare two versions of the kernels. Needs a card.
 
     python3 scripts/sweep_torch_ce.py --chunks 2048 4096 8192 32768
 """
@@ -25,9 +30,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--chunks", type=int, nargs="+",
+    parser.add_argument("--chunks", type=int, nargs="*",
                         default=[2048, 4096, 8192, 32768])
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--seed", type=int, default=5)
     args = parser.parse_args(argv)
 
@@ -47,7 +53,8 @@ def main(argv=None):
     tgt = torch.randint(0, v, (t,), generator=g, device="cuda",
                         dtype=torch.int32)
     dnll = torch.rand(t, generator=g, device="cuda")
-    m, l, _ = F.ce_stats_plain(h, tab, tgt)
+    stats = F.ce_stats_plain(h, tab, tgt)
+    m, l, _ = stats
     lse = (m + torch.log(l)).contiguous()
     ref = F.ce_grads_plain(h, tab, tgt, lse, dnll)
     lib = _build.library("fused_ce")
@@ -69,6 +76,23 @@ def main(argv=None):
             times.append(a.elapsed_time(b))
         times.sort()
         return times[len(times) // 2]
+
+    got = F.ce_stats(h, tab, tgt)
+    torch.cuda.synchronize()
+    errs = [float((x - r).abs().max()) for x, r in zip(got, stats)]
+    print(json.dumps({
+        "kernel": "ce_stats",
+        "ms": [timed(lambda: F.ce_stats(h, tab, tgt))
+               for _ in range(args.repeats)],
+        "library_ms": [timed(lambda: torch.logsumexp(
+            torch.matmul(h, tab.t()).float(), -1))
+            for _ in range(args.repeats)],
+        "library": "matmul + logsumexp",
+        "max_abs_err_m_l_picked": errs, "T": t, "V": v, "D": d}),
+        flush=True)
+    if max(errs[0], errs[2]) > 2e-2 or errs[1] > 2e-2 * float(
+            stats[1].abs().max()):
+        return 1
 
     for chunk in args.chunks:
         plan = F._grad_plan(t, v, d, torch.bfloat16, chunk)

@@ -1,4 +1,4 @@
-"""The bf16 CE gradients' chunk plan and schedule, on the CPU.
+"""The bf16 CE kernels' plans and schedules, on the CPU.
 
 ``ce_grads`` on the card walks V in chunks (``ops.fused_ce._grad_plan``):
 per chunk a ``ds`` pass writes ``(exp(s − lse) − onehot)·dnll`` rounded to
@@ -9,9 +9,15 @@ emulation of the kernels' schedule (the chunk's logits over the ds pass's
 256-wide tiles, the onehot offset by the chunk's start, columns past the
 chunk masked, TMA's zero rows past V, the dh product's 64-deep k range)
 is held against ``ce_grads_plain`` and JAX's ``ce_grads`` in interpret
-mode.  Inputs come from seeded numpy.  Tolerances: fp32 atol 1e-5 (sums
-in another order); bf16 atol = rtol = 2e-2 (8 mantissa bits; a chunked
-fp32 sum can move the final bf16 rounding by one unit).
+mode.  Likewise ``ce_stats`` (``ops.fused_ce._stats_plan``): per 256-wide V
+tile the statistics of its logits with the columns past V (TMA's zero
+rows) left out, then the merge of the tiles in order, against
+``ce_stats_plain`` and JAX's interpret-mode ``ce_stats``.  Inputs come
+from seeded numpy.  Tolerances: fp32 atol 1e-5 (sums in another order);
+bf16 atol = rtol = 2e-2 (8 mantissa bits; a chunked fp32 sum can move the
+final bf16 rounding by one unit); the statistics, fp32 from either input
+dtype, atol 1e-4 and rtol 1e-5 (the same fp32 products, summed in another
+order).
 """
 
 import jax.numpy as jnp
@@ -22,7 +28,7 @@ import torch
 from chainermn_tpu.ops import fused_ce as jax_ce
 from chainermn_tpu_torch import ops
 from chainermn_tpu_torch.ops._build import tma_operand
-from chainermn_tpu_torch.ops.fused_ce import _grad_plan
+from chainermn_tpu_torch.ops.fused_ce import _grad_plan, _stats_plan
 
 TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -59,10 +65,10 @@ def test_grad_plan_keeps_the_ds_chunk_in_l2_at_the_training_shape():
 
 
 @pytest.mark.parametrize("d", [100, 4, 1026, 33])
-def test_grad_plan_bf16_rejects_d_not_multiple_of_8(d):
-    """The kernels reject such a D (TMA's 16-byte row strides), so the plan
-    never hands them one: bf16 pads D up to a multiple of 8 with zero
-    columns in a copy; fp32 keeps D."""
+def test_grad_plan_bf16_pads_d_to_a_multiple_of_8(d):
+    """The kernels reject a D that is not a multiple of 8 (TMA's 16-byte
+    row strides), so the plan never hands them one: bf16 pads D up to a
+    multiple of 8 with zero columns in a copy; fp32 keeps D."""
     plan = _grad_plan(64, 300, d, torch.bfloat16)
     assert plan["d_pad"] % 8 == 0 and 0 <= plan["d_pad"] - d < 8
     assert plan["acc_shape"] in (None, (64, plan["d_pad"]))
@@ -190,3 +196,103 @@ def test_bf16_d_not_multiple_of_8_matches_jax():
         np.testing.assert_allclose(
             got.float().numpy(), np.asarray(jnp.asarray(w, jnp.float32)),
             atol=atol, rtol=rtol)
+
+
+# ---------------------------------------------------------------------------
+# ce_stats: the plan and the bf16 kernel's schedule, emulated
+# ---------------------------------------------------------------------------
+
+STATS_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("t,v,d", [
+    (8192, 32768, 1024), (64, 300, 100), (77, 301, 96), (5, 1, 8),
+    (64, 300, 4), (64, 300, 1026), (200000, 1000, 1024)])
+def test_stats_plan_pads_d_and_counts_the_tiles(t, v, d):
+    plan = _stats_plan(t, v, d, torch.bfloat16)
+    assert plan["d_pad"] % 8 == 0 and 0 <= plan["d_pad"] - d < 8
+    assert plan["tile_v"] == 256 and plan["per"] == 1
+    assert (plan["parts"] - 1) * 256 < v <= plan["parts"] * 256
+    f32 = _stats_plan(t, v, d, torch.float32)
+    assert f32["d_pad"] == d and f32["tile_v"] == 64
+    n_v = -(-v // 64)                      # every 64-wide tile in one part
+    assert f32["per"] * f32["parts"] >= n_v > f32["per"] * (f32["parts"] - 1)
+
+
+def test_stats_plan_partials_fit_13_mb_at_the_training_shape():
+    """A part per 256-wide V tile: the partials are 3 x 128 x 8192 fp32,
+    under 13 MB."""
+    plan = _stats_plan(8192, 32768, 1024, torch.bfloat16)
+    assert plan["parts"] == 128
+    assert 3 * plan["parts"] * 8192 * 4 < 13e6
+
+
+MERGE_G = 8     # csrc/fused_ce.cu: the merge's groups of parts
+
+
+def _merge(tiles):
+    """``(m, l, picked)`` from per-part ones, in the merge kernel's order:
+    group g takes parts g, g + 8, ... in order, then the groups in order."""
+    def one(parts):
+        m = torch.stack([x[0] for x in parts]).amax(0)
+        l, p = torch.zeros_like(m), torch.zeros_like(m)
+        for mx, se, pk in parts:
+            l += se * torch.exp(mx - m)
+            p += pk
+        return m, l, p
+    return one([one(tiles[g::MERGE_G]) for g in range(MERGE_G)
+                if tiles[g::MERGE_G]])
+
+
+def _emulate_stats(h, table, targets, plan):
+    """bf16 ``ce_stats`` as ``csrc/fused_ce.cu`` schedules it: per V tile
+    the logits of the padded operands (TMA's zero rows past V), the row
+    max, the sum of exp(s - max) and the pick over the columns < V alone,
+    then the merge of the tiles in the merge kernel's fixed order."""
+    v = table.shape[0]
+    h, table = tma_operand(h, plan["d_pad"]), tma_operand(table,
+                                                           plan["d_pad"])
+    tv, tgt = plan["tile_v"], targets.long()[:, None]
+    tiles = []
+    for part in range(plan["parts"]):
+        v0 = part * tv
+        s = h.float() @ _rows(table, v0, v0 + tv).t()
+        col = v0 + torch.arange(tv)[None, :]
+        valid = col < v
+        mx = torch.where(valid, s, torch.full((), -1e30)).amax(-1)
+        se = torch.where(valid, torch.exp(s - mx[:, None]),
+                         torch.zeros(())).sum(-1)
+        pk = torch.where(valid & (col == tgt), s, torch.zeros(())).sum(-1)
+        tiles.append((mx, se, pk))
+    return _merge(tiles)
+
+
+def _stats_inputs(dtype, t=64, v=300, d=100, seed=21):
+    rng = np.random.RandomState(seed)
+    h = torch.tensor(rng.randn(t, d).astype(np.float32)).to(dtype)
+    tab = torch.tensor((rng.randn(v, d) * 0.5).astype(np.float32)).to(dtype)
+    tgt = rng.randint(0, v, (t,)).astype(np.int32)
+    # out of range, the 256-wide tile edges, the last tile's first column
+    tgt[:7] = [-1, v, 255, 256, v - 1, 0, (v - 1) // 256 * 256]
+    return h, tab, torch.tensor(tgt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("t,v,d", [(64, 300, 100), (40, 256, 32),
+                                   (77, 513, 8), (33, 2600, 16)])
+def test_stats_schedule_matches_plain_and_jax(t, v, d, dtype):
+    """V off the 256 tile, D padded (100 -> 104), targets on the tile
+    edges and out of range."""
+    h, tab, tgt = _stats_inputs(dtype, t, v, d)
+    plan = _stats_plan(t, v, d, torch.bfloat16)
+    got = _emulate_stats(h, tab, tgt, plan)
+    ref = ops.ce_stats_plain(h, tab, tgt)
+    jd = JNP[dtype]
+    want = jax_ce.ce_stats(jnp.asarray(h.float().numpy(), jd),
+                           jnp.asarray(tab.float().numpy(), jd),
+                           jnp.asarray(tgt.numpy()), interpret=True)
+    for g, r, w in zip(got, ref, want):
+        torch.testing.assert_close(g, r, **STATS_TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **STATS_TOL)
+    assert float(got[2][0]) == 0.0 and float(got[2][1]) == 0.0  # no pick

@@ -301,3 +301,135 @@ def test_wgrad_schedule_matches_jax_and_plain(n, h, w_, ci, co, k, dtype):
     ref = conv3x3_wgrad(tx, tdy, 1, ksize=k)       # the plain version
     np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
                                rtol=tol["rtol"], atol=tol["atol"] * scale)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 dgrad kernel's plan and schedule (csrc/conv_backward.cu runs only
+# on the card): a box of dX pixels of one image and a ci tile a block, the
+# dY box read at each tap's shifted coordinates (zero off the plane), the W
+# panel of the tap (rows past Ci: the next tap's), one fp32 accumulator
+# over taps x 64-channel Co panels, rows past the box and columns past Ci
+# not stored, the pad channels dropped
+# ---------------------------------------------------------------------------
+
+DGRAD_SHAPES = [
+    (128, 56, 56, 64, 64, 3), (128, 28, 28, 128, 128, 3),
+    (128, 14, 14, 256, 256, 3), (128, 56, 56, 64, 256, 1),
+    (2, 7, 5, 8, 8, 3), (3, 9, 11, 12, 20, 3), (2, 15, 13, 36, 44, 1),
+    (1, 300, 300, 8, 8, 3), (1, 1, 1, 8, 300, 1), (4, 14, 14, 64, 64, 3),
+    (1, 56, 56, 64, 64, 3), (2, 14, 14, 16, 24, 1), (1, 14, 14, 520, 8, 3)]
+
+
+def _dgrad_geometry(p, n, h, w_):
+    nh, nw = -(-h // p["box_h"]), -(-w_ // p["box_w"])
+    return {"nh": nh, "nw": nw, "boxes": n * nh * nw,
+            "ci_tiles": -(-p["ci_pad"] // p["tile_n"])}
+
+
+@pytest.mark.parametrize("n,h,w_,ci,co,k", DGRAD_SHAPES)
+def test_dgrad_plan_covers_every_pixel_once(n, h, w_, ci, co, k):
+    p = tcb._dgrad_plan(n, h, w_, ci, co)
+    g = _dgrad_geometry(p, n, h, w_)
+    assert p["ci_pad"] % 8 == 0 and 0 <= p["ci_pad"] - ci < 8
+    assert p["co_pad"] % 8 == 0 and 0 <= p["co_pad"] - co < 8
+    assert p["tile_n"] == min(t for t in (64, 128, 256)
+                              if t >= min(p["ci_pad"], 256))
+    assert p["tile_m"] == (256 if p["tile_n"] <= 128 else 128)
+    assert p["box_h"] * p["box_w"] <= p["tile_m"]
+    assert 1 <= p["box_h"] <= 256 and 1 <= p["box_w"] <= 256
+    # the boxes tile each image exactly: every pixel once
+    seen = torch.zeros(g["nh"] * p["box_h"], g["nw"] * p["box_w"],
+                       dtype=torch.int32)
+    for r in range(g["nh"]):
+        for c in range(g["nw"]):
+            seen[r * p["box_h"]:(r + 1) * p["box_h"],
+                 c * p["box_w"]:(c + 1) * p["box_w"]] += 1
+    assert (seen == 1).all()
+    assert (g["nh"] - 1) * p["box_h"] < h and (g["nw"] - 1) * p["box_w"] < w_
+    assert p["rows_used"] == n * h * w_ / (g["boxes"] * p["tile_m"])
+
+
+def test_dgrad_plan_at_resnet50_shapes():
+    """One ci tile; 4 x 56 / 7 x 28 / 7 x 14 boxes: 224 of 256, 196 of 256
+    and 98 of 128 rows used; the 256-row tile wherever the ci tile allows
+    it, as each W panel then serves twice the pixels."""
+    got = [tcb._dgrad_plan(128, h, w_, ci, co)
+           for h, w_, ci, co in RESNET_SHAPES]
+    assert [(p["tile_n"], p["tile_m"], p["box_h"], p["box_w"])
+            for p in got] == [(64, 256, 4, 56), (128, 256, 7, 28),
+                              (256, 128, 7, 14)]
+    assert [p["rows_used"] for p in got] == [0.875, 0.765625, 0.765625]
+    assert [_dgrad_geometry(p, 128, h, w_)["boxes"] for p, (h, w_, _, _)
+            in zip(got, RESNET_SHAPES)] == [1792, 512, 256]
+
+
+def test_dgrad_plan_reads_the_fewer_operand_rows():
+    """At 28² x 128 the 128-row tile computes fewer rows (112 of 128 used)
+    but reads 7 x (112 + 128) dY and W rows a k step per image against the
+    256-row tile's 4 x (196 + 128)."""
+    p = tcb._dgrad_plan(128, 28, 28, 128, 128)
+    assert p["tile_m"] == 256 and 4 * (196 + 128) < 7 * (112 + 128)
+
+
+def _emulate_dgrad(dy, w, xshape):
+    n, h, w_, ci = xshape
+    co, k = dy.shape[-1], w.shape[0]
+    p = tcb._dgrad_plan(n, h, w_, ci, co)
+    g = _dgrad_geometry(p, n, h, w_)
+    cp, kc = p["ci_pad"], -(-p["co_pad"] // 64)
+    # TMA's zero fill past Co in both operands: a whole last 64-co panel
+    dyp = torch.zeros(n, h, w_, 64 * kc)
+    dyp[..., :co] = dy.float()
+    wm = torch.zeros(k * k * cp, 64 * kc)           # W as (k*k*Ci, Co)
+    wm.view(k, k, cp, 64 * kc)[:, :, :ci, :co] = w.float()
+    pad, tn, bh, bw = (k - 1) // 2, p["tile_n"], p["box_h"], p["box_w"]
+    dx = torch.zeros(n, h, w_, cp)
+    for box in range(g["boxes"]):
+        r, wi = divmod(box, g["nw"])
+        img, hi = divmod(r, g["nh"])
+        h0, w0 = hi * bh, wi * bw
+        for tile in range(g["ci_tiles"]):
+            ci0 = tile * tn
+            acc = torch.zeros(p["tile_m"], tn)
+            for tap in range(k * k):
+                dh, dw = tap // k - pad, tap % k - pad
+                a = _box(dyp, img, h0 - dh, w0 - dw, bh, bw, p["tile_m"])
+                b = torch.zeros(tn, 64 * kc)      # rows past the map: zeros
+                rows = wm[tap * cp + ci0:tap * cp + ci0 + tn]
+                b[:rows.shape[0]] = rows
+                for c in range(kc):               # the 64-deep k steps
+                    panel = slice(64 * c, 64 * c + 64)
+                    acc += a[:, panel] @ b[:, panel].t()
+            for i in range(bh * bw):              # rows past the box: unused
+                y, x = h0 + i // bw, w0 + i % bw
+                if y < h and x < w_:
+                    ncol = min(tn, cp - ci0)
+                    dx[img, y, x, ci0:ci0 + ncol] = acc[i, :ncol]
+    return dx[..., :ci].to(dy.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w_,ci,co,k", [
+    (1,) + RESNET_SHAPES[0] + (3,), (1,) + RESNET_SHAPES[1] + (3,),
+    (1,) + RESNET_SHAPES[2] + (3,), (1, 14, 14, 520, 8, 3),
+    (2, 14, 14, 16, 24, 1), (3, 9, 11, 12, 20, 3), (2, 15, 13, 36, 44, 1)])
+def test_dgrad_schedule_matches_jax_and_plain(n, h, w_, ci, co, k, dtype):
+    """The three ResNet-50 shapes at n = 1, three 256-wide ci tiles with a
+    ragged last one, a 1x1 at 14² x 16 → 24 and channels off 8."""
+    x, wt, dy = _inputs(n, h, w_, ci, co, k, seed=13)
+    tw, tdy = torch.from_numpy(wt).to(dtype), torch.from_numpy(dy).to(dtype)
+    got = _emulate_dgrad(tdy, tw, x.shape)
+    assert got.shape == x.shape and got.dtype == dtype
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jcb.conv3x3_dgrad(jnp.asarray(tdy.float().numpy(), jd),
+                             jnp.asarray(tw.float().numpy(), jd), x.shape, 1,
+                             interpret=True)
+    tol = F32 if dtype == torch.float32 else BF16
+    scale = float(np.abs(np.asarray(want, np.float32)).max())
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol["rtol"], atol=tol["atol"] * scale)
+    ref = conv3x3_dgrad(tdy, tw, x.shape)          # the plain version
+    np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                               rtol=tol["rtol"], atol=tol["atol"] * scale)
