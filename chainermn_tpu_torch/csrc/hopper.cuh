@@ -82,6 +82,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of a 3-D `map` at (c0 innermost .. c2 outermost).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box of a 4-D `map` at (c0 innermost .. c3 outermost); coordinates may
 // be negative or past the end: those elements arrive as zeros.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -250,20 +260,29 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (dims[0] innermost and contiguous; strides in
-// bytes of dims 1 .., each a multiple of 16), boxes of `box` elements with
-// 128-byte swizzle (box[0] at most 64), zeros outside.  0, or the negated
-// CUresult (cudaErrorNotSupported where the encoder is not found).
-inline int make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+// A tensor of `rank` dims of `type` (dims[0] innermost and contiguous;
+// strides in bytes of dims 1 .., each a multiple of 16), boxes of `box`
+// elements, zeros outside.  With 128-byte swizzle a box row is at most 128
+// bytes; without swizzle, box rows land densely in shared memory.  0, or the
+// negated CUresult (cudaErrorNotSupported where the encoder is not found).
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                    const void* ptr, int rank, const cuuint64_t* dims,
                     const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
-                         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = enc(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+// A bf16 tensor with 128-byte swizzle (box[0] at most 64), as the wgmma
+// operands want it.
+inline int make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, ptr, rank,
+                  dims, strides, box);
 }
 
 // A row-major bf16 (rows, cols) matrix, boxes of box_rows x box_cols.

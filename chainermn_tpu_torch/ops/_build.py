@@ -38,15 +38,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     "flash_fwd": {"flash_fwd": ([_P] * 5 + [_I] * 7 + [_F, _P], _I)},
-    "flash_bwd": {"flash_bwd": ([_P] * 9 + [_I] * 7 + [_F, _P], _I)},
+    "flash_bwd": {"flash_bwd": ([_P] * 11 + [_I] * 7 + [_F, _P], _I)},
     "decode_attention": {"decode_attend": ([_P] * 5 + [_I] * 6 + [_F, _P], _I)},
     "kv_cache": {"cache_append": ([_P] * 5 + [_I] * 5 + [_P], _I)},
     "fused_ce": {"ce_stats": ([_P] * 7 + [_I] * 7 + [_P], _I),
                  **{fn: ([_P] * 7 + [_I] * 5 + [_P], _I)
                     for fn in ("ce_dh", "ce_dtable")},
                  "ce_grads": ([_P] * 8 + [_I] * 5 + [_P], _I)},
-    "beam_attention": {"beam_attend": ([_P] * 8 + [_I] * 8 + [_L, _F, _P],
-                                       _I)},
+    "beam_attention": {"beam_attend": ([_P] * 9 + [_I] * 8 + [_L, _I, _I,
+                                                              _F, _P], _I)},
     "conv_backward": {"conv_dgrad": ([_P] * 3 + [_I] * 11 + [_P], _I),
                       "conv_wgrad": ([_P] * 4 + [_I] * 12 + [_P], _I)},
 }
@@ -114,16 +114,20 @@ def _start(name: str, nvcc: str):
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named sources (default: all) in parallel, skipping
-    those already built.  Returns ``{name: {"seconds", "log", "path"}}``;
+    those already built.  Returns ``{name: {"seconds", "log", "path"}}``
+    (a library built before keeps the nvcc log saved beside it);
     raises ``RuntimeError`` naming every source that failed to compile."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
     running, report = {}, {}
     for name in names:
-        if _lib_path(name).exists():
-            report[name] = {"seconds": 0.0, "log": "cached",
-                            "path": str(_lib_path(name))}
+        path = _lib_path(name)
+        if path.exists():
+            saved = path.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "path": str(path),
+                            "log": saved.read_text() if saved.exists()
+                            else "cached"}
             continue
         running[name] = _start(name, nvcc_path())
     failed = []
@@ -135,8 +139,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
-            (BUILD_DIR / f"{name}.log").write_text(log)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return report

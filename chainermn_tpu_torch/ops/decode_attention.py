@@ -21,7 +21,8 @@ _beam_kernel``) is :func:`beam_attend_parts`: ``R`` query rows per cache
 row (the beams of one prompt, or the ``g`` query heads that share a KV
 head) over one cache segment, returned unnormalised as ``(acc, m, l)``
 for :func:`merge_attend_parts`, the flash combine.  It runs
-``csrc/beam_attention.cu`` on a CUDA tensor and
+``csrc/beam_attention.cu`` on a CUDA tensor (the segment split along S
+by :func:`beam_split_plan`, the splits merged in a second launch) and
 :func:`beam_attend_parts_plain` on a CPU tensor.  :func:`decode_attend_gqa`
 is GQA decode through it.
 """
@@ -116,7 +117,37 @@ decode_attend.launches = 0
 # ---------------------------------------------------------------------------
 
 BEAM_MAX_ROWS = 16      # query rows per cache row the kernel takes
+BEAM_TILE = 64          # positions per tile of the kernel's TMA ring
+BEAM_BLOCKS_PER_SM = 2  # the split plan's target: blocks per SM
+BEAM_MIN_SPLIT_TILES = 16  # ... once the pairs alone give half a block an SM
 _MODES = {"none": 0, "amask": 1, "pos": 2}
+
+
+def beam_split_plan(s: int, pairs: int, sms: int):
+    """``(split_len, n_split)`` of the beam kernel for a segment of ``s``
+    positions and ``pairs`` (batch row, head) pairs on a card of ``sms``
+    SMs: whole 64-position tiles per split, as few as give the grid
+    ``pairs · n_split`` about ``BEAM_BLOCKS_PER_SM`` blocks an SM (long
+    splits stream K and V through the ring; each block pays its start and
+    its merge once), the last split ragged.  Where the pairs alone give
+    half a block an SM, no split is cut below ``BEAM_MIN_SPLIT_TILES``
+    tiles: a shorter one spends more on its start and the merge than a
+    second block an SM wins back (H100: the beam prompt, 8 tiles x 128
+    pairs, runs faster whole; the window's 32 tiles in two).  Split ``z``
+    reads positions ``[z · split_len, min(s, (z + 1) · split_len))``."""
+    tiles = -(-s // BEAM_TILE)
+    per = max(1, -(-tiles * pairs // (BEAM_BLOCKS_PER_SM * sms)))
+    if 2 * pairs >= sms:
+        per = max(per, min(tiles, BEAM_MIN_SPLIT_TILES))
+    split_len = per * BEAM_TILE
+    return split_len, -(-s // split_len)
+
+
+def _tma_misaligned(x) -> bool:
+    """True where TMA cannot read the segment ``x`` in place: its base or
+    its batch stride is not a multiple of 16 bytes."""
+    return bool(x.data_ptr() % 16
+                or (x.stride(0) * x.element_size()) % 16)
 
 
 def _beam_check(q, kc, vc, amask, beams: int, n_heads: int, head_dim: int):
@@ -184,6 +215,11 @@ def _beam_attend_cuda(q, kc, vc, amask, pos, beams: int, n_heads: int,
     if not (q.device == kc.device == vc.device):
         raise ValueError("q and the segment must be on one device")
     code = _build.dtype_code(q.dtype)
+    if _tma_misaligned(kc) or _tma_misaligned(vc):    # copy both: one layout
+        kc, vc = (x.clone(memory_format=torch.contiguous_format)
+                  for x in (kc, vc))
+    if q.data_ptr() % 16:     # the kernel reads q's rows in aligned words
+        q = q.clone()
     mode = _mode(amask, pos)
     mask_ptr, pos_ptr, pos_scalar = None, None, 0
     if mode == "amask":
@@ -198,12 +234,20 @@ def _beam_attend_cuda(q, kc, vc, amask, pos, beams: int, n_heads: int,
     acc = torch.empty((b * beams, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b * beams, n_heads), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    split_len, n_split = beam_split_plan(s, b * n_heads,
+                                         _build.sm_count(q.device))
+    # the splits' (acc, m, l), merged by the source's second launch
+    ws = (torch.empty(n_split * b * beams * (d + 2 * n_heads),
+                      dtype=torch.float32, device=q.device)
+          if n_split > 1 else None)
     lib = _build.library("beam_attention")
     err = lib.beam_attend(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), mask_ptr,
                           pos_ptr, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-                          pos_scalar, _MODES[mode], b, s, n_heads, beams,
-                          head_dim, code, kc.stride(0),
-                          1.0 / (head_dim ** 0.5), _build.stream_handle(q))
+                          None if ws is None else ws.data_ptr(), pos_scalar,
+                          _MODES[mode], b, s, n_heads, beams, head_dim, code,
+                          kc.stride(0) if b > 1 else s * d, split_len,
+                          n_split, 1.0 / (head_dim ** 0.5),
+                          _build.stream_handle(q))
     _build.check(err, "beam_attend")
     beam_attend_parts.launches += 1
     return acc, m, l

@@ -7,7 +7,8 @@ q heads share one KV head).
 
 :func:`flash_attention` is a ``torch.autograd.Function``.  On a CUDA tensor
 its forward is ``csrc/flash_fwd.cu`` (bf16: TMA + ``wgmma`` over 128-row
-q tiles; fp32: CUDA cores) and its backward ``csrc/flash_bwd.cu``;
+q tiles; fp32: CUDA cores) and its backward ``csrc/flash_bwd.cu`` (a
+``delta`` pass, then dk/dv and dq; bf16: TMA + ``wgmma``);
 on a CPU tensor they are :func:`flash_attention_plain` and
 :func:`flash_attention_bwd_plain`.  Both plain versions materialise the
 ``(B, H, S, S)`` scores and apply the JAX kernels' rules in one tile:
@@ -177,17 +178,24 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, got "
                          f"{q.device}")
     b, s, h, d = q.shape
-    do = do.contiguous()
-    code = _check_cuda("flash backward", q, k, v, do)
+    out, do = out.contiguous(), do.contiguous()
+    code = _check_cuda("flash backward", q, k, v, out, do)
+    # the kernels read q, k, v, out and do by TMA or in 16-byte loads
+    q, k, v, out, do = (_build.tma_operand(x) for x in (q, k, v, out, do))
     lse = lse.float().contiguous()
-    delta = _delta(out, do, dlse)
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    # rowsum(do·out) − dlse: the source's first launch writes it
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     lib = _build.library("flash_bwd")
     err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        b, s, h, group, d, code, int(bool(causal)),
-                        1.0 / (d ** 0.5), _build.stream_handle(q))
+                        out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        None if dlse is None else dlse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), b, s, h, group, d, code,
+                        int(bool(causal)), 1.0 / (d ** 0.5),
+                        _build.stream_handle(q))
     _build.check(err, "flash_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -13,8 +13,10 @@ and prints no result line:
    parallel (one nvcc per source), with each kernel's ptxas report, and
    the count of ``HGMMA`` instructions (``cuobjdump``) in the SASS of each
    bf16 ``wgmma`` kernel (``WGMMA_KERNELS``: ``ce_stats``, the three CE
-   gradient GEMMs, the flash forward, ``conv_wgrad`` and ``conv_dgrad``),
-   none of which may be 0.
+   gradient GEMMs, the flash forward, the flash backward's dk/dv and dq
+   kernels, ``conv_wgrad`` and ``conv_dgrad``), none of which may be 0;
+   the flash backward's two bf16 kernels and the beam kernel's bf16 split
+   kernels (``NO_SPILL_KERNELS``) may not spill.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and edge shapes, in bf16 (atol = rtol =
    2e-2: bf16 keeps 8 mantissa bits) and fp32 (atol = rtol = 1e-4: the
@@ -27,7 +29,8 @@ and prints no result line:
    blocks), ragged S, GQA, S 1 and a q whose base is not 16-byte aligned.
    The training kernels: the flash
    backward (B 8, S 1024, H 8, hd 128, causal; hd 64, group 2, a ragged S
-   of 77, the LSE cotangent) and the fused cross-entropy (T 8192, V 32768,
+   of 77, the LSE cotangent, bases not 16-byte aligned) and the fused
+   cross-entropy (T 8192, V 32768,
    D 1024; ragged T and V; targets out of range; for the bf16 gradients,
    which walk V in chunks of at most 32 MiB of ``ds``, V = 2 chunks of
    2048 + 77 at T 8000, D 200 and V = 2 chunks of 1920 + 77 at T 8738,
@@ -45,8 +48,10 @@ and prints no result line:
    width (the (8, 512, 1024) prompt, mode none; the (8, 2048, 1024)
    generated window as a strided view, mode amask, one valid slot per
    (b, beam, t)), the GQA tick (B 8, 4 KV heads of 64, g 4, S 1024, pos
-   scalar, per-row and at the edges), hd 128, S 1, a ragged S of 77 and
-   8 or 16 rows per cache row; the three timed shapes beside
+   scalar, per-row and at the edges), hd 128, S 1, a ragged S of 77,
+   8 or 16 rows per cache row and the edges of the S splits (S one past a
+   split multiple, pos on a split boundary, a split with no valid amask
+   position); the three timed shapes beside
    ``scaled_dot_product_attention`` (the rows as the query length, a
    boolean mask; ``enable_gqa`` for GQA).  The conv backward kernels
    (``conv3x3_wgrad``, ``conv3x3_dgrad``): ResNet-50's three eligible 3x3
@@ -159,6 +164,15 @@ WGMMA_KERNELS = (
     ("flash_fwd", "flash_fwd", "flash_fwd_wgmma_kernel"),
     ("conv_backward", "conv_wgrad", "conv_wgrad_wgmma_kernel"),
     ("conv_backward", "conv_dgrad", "conv_dgrad_wgmma_kernel"),
+    ("flash_bwd", "flash_bwd dk, dv", "flash_bwd_dkdv_wgmma_kernel"),
+    ("flash_bwd", "flash_bwd dq", "flash_bwd_dq_wgmma_kernel"),
+)
+# (library, a piece of the mangled name): kernels whose ptxas report must
+# show no spill (the bf16 redesigns; the build phase prints every kernel's)
+NO_SPILL_KERNELS = (
+    ("flash_bwd", "flash_bwd_dkdv_wgmma_kernel"),
+    ("flash_bwd", "flash_bwd_dq_wgmma_kernel"),
+    ("beam_attention", "beam_split_mma_kernel"),
 )
 KERNEL_INFO = {
     "flash_fwd": ("chainermn_tpu_torch/csrc/flash_fwd.cu",
@@ -282,8 +296,8 @@ def phase_build(smoke):
           "per_source_s": {k: round(v["seconds"], 2) for k, v in report.items()}})
     for name, rep in report.items():
         for line in rep["log"].splitlines():
-            if name in ("fused_ce", "flash_fwd", "conv_backward") \
-                    and "Compiling entry" in line \
+            if name in ("fused_ce", "flash_fwd", "flash_bwd", "conv_backward",
+                        "beam_attention") and "Compiling entry" in line \
                     or any(k in line for k in ("registers", "spill", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
         _build.library(name)
@@ -305,6 +319,29 @@ def phase_build(smoke):
             raise AssertionError(f"{kernel} in lib{lib} has no HGMMA "
                                  f"instruction: its bf16 kernel lost its "
                                  f"wgmma ({fns})")
+    for lib, piece in NO_SPILL_KERNELS:
+        spills = {f: n for f, n in _spills_per_function(report[lib]["log"])
+                  .items() if piece in f}
+        emit({"check": f"build.{lib}.spill", "kernel": piece,
+              "spill_bytes": spills})
+        if not spills or any(spills.values()):
+            raise AssertionError(f"{piece} in lib{lib} spills (or has no "
+                                 f"ptxas report): {spills}")
+
+
+def _spills_per_function(log):
+    """Spill store + load bytes per kernel (mangled name) of a ``ptxas
+    -v`` report."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills[name] = nums[1] + nums[2]   # stack, stores, loads
+            name = None
+    return spills
 
 
 def _hgmma_per_function(sass):
@@ -552,6 +589,7 @@ def check_flash_bwd(smoke):
         (2, 77, 4, 4, 128, True, False, False),    # ragged tail
         (3, 77, 6, 2, 64, False, False, False),    # ragged, group 3
         (2, 128, 4, 4, 128, False, True, False),   # LSE cotangent
+        (2, 200, 4, 2, 64, True, True, "misaligned"),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
@@ -563,12 +601,18 @@ def check_flash_bwd(smoke):
             dlse = (torch.randn(b, h, s, generator=g, device="cuda")
                     if with_dlse else None)
             out, lse = flash_attention_plain(q, k, v, causal)
+            if timed == "misaligned":   # bases one element past 16 bytes
+                q, k, out, do = (
+                    torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:]
+                    .view(x.shape).copy_(x) for x in (q, k, out, do))
+                assert q.data_ptr() % 16 and do.data_ptr() % 16
+                timed = False
             got = flash_attention_bwd(q, k, v, out, lse, do, causal, dlse)
             ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                             dlse)
             torch.cuda.synchronize()
             shape = dict(B=b, S=s, H=h, H_kv=hkv, D=d, causal=causal,
-                         dlse=with_dlse)
+                         dlse=with_dlse, aligned=q.data_ptr() % 16 == 0)
             err = max(smoke.compare(f"flash_bwd.d{n}", x, r, dn, **shape)
                       for n, x, r in zip("qkv", got, ref))
             del ref
@@ -782,12 +826,22 @@ def check_beam(smoke):
     generated window, a strided view of the slot caches, mode amask with
     one valid slot per (b, beam, t)), the GQA tick (B 8, 4 KV heads of
     64, g 4, S 1024, pos scalar / per-row / edge), hd 128, S 1, a ragged
-    S and 8 or 16 rows per cache row."""
+    S, 8 or 16 rows per cache row, and the S splits' edges: S one past a
+    split multiple, pos on a split's last and on its first position, an
+    amask with a split of no valid position beside valid ones."""
     torch = smoke.torch
     import torch.nn.functional as F
     from chainermn_tpu_torch.ops import beam_attend_parts, beam_attend_parts_plain
+    from chainermn_tpu_torch.ops.decode_attention import beam_split_plan
 
     g = torch.Generator(device="cuda").manual_seed(9)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the split edges: segments of B 2 x 4 heads split every `sl` positions
+    sl = beam_split_plan(4 * 64, 2 * 4, sms)[0]
+    edge_s = 4 * sl + 5
+    assert beam_split_plan(edge_s, 2 * 4, sms) == (sl, 5)
+    on_split = torch.tensor([sl - 1, 2 * sl], dtype=torch.int32,
+                            device="cuda")
 
     def one_slot_mask(b, k, t_len):
         """Exactly one valid slot per (b, beam, t), rows t·k + slot."""
@@ -812,6 +866,13 @@ def check_beam(smoke):
             [10, 76], dtype=torch.int32, device="cuda"), False, False),
         ("rows8", 2, 96, 2, 128, 8, "amask", None, False, False),
         ("rows16", 2, 100, 2, 64, 16, "amask", None, True, False),
+        # S one past a split multiple: the last split holds one position
+        ("split_plus1", 2, 3 * sl + 1, 4, 64, 4, "none", None, False, False),
+        # pos on the last position of a split, and on the first of one
+        ("split_pos", 2, edge_s, 4, 64, 4, "pos", on_split, True, False),
+        # a split whose amask rows are all 0, beside valid splits; row 0
+        # valid at the last position only
+        ("split_gap", 2, edge_s, 4, 128, 4, "amask", None, True, False),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
@@ -831,6 +892,10 @@ def check_beam(smoke):
                     amask = (torch.rand(b, r, s, generator=g, device="cuda")
                              > 0.5).to(torch.int8)
                     amask[:, :, 0] = 1
+                if label == "split_gap":
+                    amask[:, :, sl:2 * sl] = 0
+                    amask[:, 0] = 0
+                    amask[:, 0, -1] = 1
             kw = dict(beams=r, n_heads=h, head_dim=hd)
             args = (q, kc, vc, amask, pos if mode == "pos" else None)
             got = beam_attend_parts(*args, **kw)

@@ -8,7 +8,9 @@ ticks and one prefill with ``torch.profiler``.  Prints JSON lines: per
 phase the host wall per call, the device busy time (union of kernel,
 memcpy and memset intervals), the device idle share, the kernel count per
 call, and the device time by kernel name (top entries); then the card's
-name and power limit.  The Chrome traces go to ``--out-dir``.
+name and power limit.  The beam kernel's two launches (the S splits and
+their merge) are also summed under ``beam_kernel_ms_per_call``.  The Chrome
+traces go to ``--out-dir``.
 ``--kv-heads 4`` profiles the GQA model (the tick runs the beam kernel),
 ``--temperature T`` samples every slot at ``T``, and ``--beam-new N``
 adds a whole beam-4 generation (B 8, prompt 512, ``N`` new tokens, lazy
@@ -48,8 +50,12 @@ def _summarise(trace_path, wall_s, calls, name):
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     busy_us = _busy_union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     by_name = defaultdict(float)
+    beam = defaultdict(float)    # the beam kernel: its split and merge launches
     for e in dev:
         by_name[e["name"][:80]] += e["dur"]
+        for part in ("beam_split", "beam_merge"):
+            if part in e["name"]:
+                beam[part] += e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "phase": name, "calls": calls,
@@ -58,6 +64,9 @@ def _summarise(trace_path, wall_s, calls, name):
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
         "device_ops_per_call": len(dev) / calls,
         "top_device_ms_per_call": {k: v / 1e3 / calls for k, v in top},
+        "beam_kernel_ms_per_call": {
+            **{k: v / 1e3 / calls for k, v in beam.items()},
+            "total": sum(beam.values()) / 1e3 / calls},
     }
 
 

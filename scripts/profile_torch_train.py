@@ -39,7 +39,8 @@ def _kernel_ms(trace_path, steps):
     list can miss: ``ce_stats`` (bf16: the ``ce_gemm_kernel`` with the
     statistics epilogue; fp32: ``ce_stats_kernel``) and its merge, the
     ``ce_gemm_kernel`` by epilogue (the ds pass, the dh and dtable
-    products), the flash forward and the flash backward's two kernels."""
+    products), the flash forward and the flash backward's three kernels
+    (the delta pass, dk/dv, dq)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     out = {}
@@ -56,6 +57,8 @@ def _kernel_ms(trace_path, steps):
             key = "ce_stats"
         elif "flash_fwd" in name:
             key = "flash forward"
+        elif "flash_bwd_delta" in name:
+            key = "flash backward delta"
         elif "flash_bwd_dkdv" in name:
             key = "flash backward dk, dv"
         elif "flash_bwd_dq" in name:
