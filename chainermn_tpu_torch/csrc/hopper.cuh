@@ -72,6 +72,18 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// `bytes` contiguous bytes of global memory at src into shared memory at dst
+// (both 16-byte aligned, bytes a multiple of 16), completing on `bar`: a 1-D
+// bulk copy, no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // One box of a 2-D `map` at (c0 inner, c1 outer) into shared memory at dst.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int c0, int c1) {

@@ -8,8 +8,10 @@ plain integer attribute, ``<wrapper>.launches``.
 from .conv_backward import (conv2d, conv3x3_dgrad, conv3x3_dgrad_plain,
                             conv3x3_wgrad, conv3x3_wgrad_plain)
 from .decode_attention import (beam_attend_parts, beam_attend_parts_plain,
-                               decode_attend, decode_attend_gqa,
-                               decode_attend_plain, merge_attend_parts)
+                               decode_append_attend,
+                               decode_append_attend_plain, decode_attend,
+                               decode_attend_gqa, decode_attend_plain,
+                               merge_attend_parts)
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_bwd_plain, flash_attention_plain,
                               resolve_attn_impl)
@@ -47,6 +49,7 @@ __all__ = ["beam_attend_parts", "beam_attend_parts_plain",
            "ce_dtable", "ce_dtable_plain", "ce_grads", "ce_grads_plain",
            "ce_stats", "ce_stats_plain", "conv2d", "conv3x3_dgrad",
            "conv3x3_dgrad_plain", "conv3x3_wgrad", "conv3x3_wgrad_plain",
+           "decode_append_attend", "decode_append_attend_plain",
            "decode_attend", "decode_attend_gqa", "decode_attend_plain",
            "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",

@@ -39,7 +39,9 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "flash_fwd": {"flash_fwd": ([_P] * 5 + [_I] * 7 + [_F, _P], _I)},
     "flash_bwd": {"flash_bwd": ([_P] * 11 + [_I] * 7 + [_F, _P], _I)},
-    "decode_attention": {"decode_attend": ([_P] * 5 + [_I] * 6 + [_F, _P], _I)},
+    "decode_attention": {"decode_attend": (
+        [_P, _L, _L] * 3 + [_P] * 4 + [_I, _P, _P] + [_I] * 8 + [_F, _P],
+        _I)},
     "kv_cache": {"cache_append": ([_P] * 5 + [_I] * 5 + [_P], _I)},
     "fused_ce": {"ce_stats": ([_P] * 7 + [_I] * 7 + [_P], _I),
                  **{fn: ([_P] * 7 + [_I] * 5 + [_P], _I)

@@ -14,7 +14,16 @@ Positions must be >= 0.
 
 :func:`decode_attend` runs ``csrc/decode_attention.cu`` on a CUDA tensor
 and :func:`decode_attend_plain` (einsum, mask, softmax in fp32) on a CPU
-tensor.
+tensor.  :func:`decode_append_attend` is the decode tick's pair
+``cache_append`` then ``decode_attend`` in one launch of the same kernel
+(the new K/V row written at the clamped ``pos`` and attended there);
+:func:`decode_append_attend_plain` is that pair of plain versions.  In
+bf16 the kernel splits each row's ``[0, pos]`` over
+``decode_split_plan``'s blocks on the device (:func:`decode_split_range`),
+a block taking the lanes of one group of heads (:func:`decode_groups`),
+and the last block of a row's group merges the splits, through a
+workspace and counters the wrapper keeps per (device, B, splits, heads,
+D).
 
 The beam kernel (``chainermn_tpu/ops/decode_attention.py ::
 _beam_kernel``) is :func:`beam_attend_parts`: ``R`` query rows per cache
@@ -32,9 +41,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .kv_cache import cache_append_plain
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
+DECODE_MAX_SPLITS = 64       # splits a row, at most (the merge reads each)
+DECODE_TILE_BYTES = 16384    # K bytes of one tile of the ring (V alike)
+DECODE_GROUP_WIDTH = 2048    # lanes a block takes, at most (a thread 8 lanes)
 
 
 def _check(q, kc, vc, n_heads: int, head_dim: int):
@@ -73,26 +86,149 @@ def decode_attend_plain(q, kc, vc, pos, n_heads: int, head_dim: int):
     return ctx.reshape(b, d).to(q.dtype)
 
 
-def _decode_attend_cuda(q, kc, vc, pos, n_heads: int, head_dim: int):
+def decode_groups(n_heads: int, head_dim: int) -> int:
+    """Head groups of the bf16 kernel: the fewest that split the heads
+    evenly into groups of at most ``DECODE_GROUP_WIDTH`` lanes (one up to
+    D 2048; 32 heads of 128: two).  A block reads its group's lanes."""
+    return next(g for g in range(1, n_heads + 1) if n_heads % g == 0
+                and n_heads // g * head_dim <= DECODE_GROUP_WIDTH)
+
+
+def decode_tile(width: int) -> int:
+    """Positions of one tile of the bf16 kernel's ring: ``DECODE_TILE_BYTES``
+    of bf16 K rows of a group's ``width`` lanes (a stage holds a tile of K
+    and one of V), between 1 and 64."""
+    return max(1, min(64, DECODE_TILE_BYTES // (2 * width)))
+
+
+def decode_split_plan(b: int, s: int, n_heads: int, head_dim: int, sms: int):
+    """``(groups, n_split, tile)`` of the bf16 kernel for ``b`` rows of a
+    cache of ``s`` positions and ``n_heads`` heads of ``head_dim`` on a card
+    of ``sms`` SMs: as many splits a row and group as fill one wave of
+    blocks, one an SM, over the grid ``(n_split, b, groups)`` (H100, 8
+    slots of D 1024: 16 splits a row, 128 blocks, whose partials the last
+    block of a row merges in one round of loads), at most
+    ``DECODE_MAX_SPLITS`` and no more than the cache has tiles.  It reads
+    neither ``pos`` nor the device: the kernel balances each row's ``[0,
+    pos]`` over its splits itself (:func:`decode_split_range`)."""
+    groups = decode_groups(n_heads, head_dim)
+    tile = decode_tile(n_heads // groups * head_dim)
+    n_split = min(DECODE_MAX_SPLITS, sms // (b * groups), -(-s // tile))
+    return groups, max(1, n_split), tile
+
+
+def decode_split_range(z: int, n: int, n_split: int, tile: int):
+    """Positions ``[lo, hi)`` that block ``z`` of a row reads, as the
+    kernel computes them from the row's ``n = min(pos, S - 1) + 1``: tiles
+    ``[z·nt // n_split, (z + 1)·nt // n_split)`` of the ``nt = ceil(n /
+    tile)`` tiles of ``[0, n)``, the last one ragged.  ``lo == hi`` is an
+    empty split."""
+    nt = -(-n // tile)
+    lo = (z * nt // n_split) * tile
+    hi = min(n, ((z + 1) * nt // n_split) * tile)
+    return lo, max(lo, hi)
+
+
+def _row_layout(x, b: int, n_heads: int, head_dim: int, what: str):
+    """``(row stride, head stride)`` of the rows ``x`` (``(B, H·hd)``,
+    ``(B, 1, H·hd)``, ``(B, H, hd)`` or ``(B, 1, H, hd)``), read off its
+    shape and strides without making a view; None where its lanes are not
+    dense."""
+    shape, st = x.shape, x.stride()
+    d = n_heads * head_dim
+    if shape == (b, d) or shape == (b, 1, d):
+        layout = st[0], head_dim * st[-1]
+    elif shape == (b, n_heads, head_dim) or shape == (b, 1, n_heads, head_dim):
+        layout = st[0], st[-2]
+    else:
+        raise ValueError(f"{what} {tuple(shape)} is not ({b}, {d}) or "
+                         f"({b}, {n_heads}, {head_dim}) rows")
+    return layout if st[-1] == 1 else None
+
+
+def _kernel_rows(x, b: int, n_heads: int, head_dim: int, what: str, dtype):
+    """``(tensor, row stride, head stride)``: the rows ``x`` in ``dtype``
+    as the kernel reads them, in place where the lanes are dense and the
+    base and strides 16-byte aligned (the heads of a fused QKV
+    projection), else a dense aligned copy."""
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    layout = _row_layout(x, b, n_heads, head_dim, what)
+    elem = x.element_size()
+    if layout is None or x.data_ptr() % 16 or (layout[0] * elem) % 16 \
+            or (layout[1] * elem) % 16:
+        x = x.reshape(b, n_heads * head_dim).contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        layout = n_heads * head_dim, head_dim
+    return x, layout[0], layout[1]
+
+
+_WORKSPACE = {}
+
+
+def _workspace(device, b: int, n_split: int, n_heads: int, d: int,
+               groups: int):
+    """The bf16 kernel's fp32 partials and zeroed (row, group) counters for
+    one (device, B, splits, heads, D), which fix the groups, kept across
+    calls: the kernel leaves the counters zero.  One stream at a time."""
+    key = (device, b, n_split, n_heads, d)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        ws = (torch.empty(b * n_split * (d + 2 * n_heads), dtype=torch.float32,
+                          device=device),
+              torch.zeros(b * groups, dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
+
+
+def _decode_attend_cuda(q, kc, vc, pos, n_heads: int, head_dim: int,
+                        k_new=None, v_new=None):
+    """The kernel's launch.  It runs on every layer of every tick, where
+    the host is the bottleneck: shapes and strides are read off the
+    tensors, and nothing is copied or viewed that the kernel can read in
+    place."""
     b, s, d = kc.shape
+    dtype, dev = kc.dtype, kc.device
     if head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the decode kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {head_dim}")
-    if kc.dtype != q.dtype or vc.dtype != q.dtype:
+    if q.dtype != dtype or vc.dtype != dtype:
         raise ValueError(f"the decode kernel takes q and caches of one dtype, "
                          f"got {q.dtype}, {kc.dtype}, {vc.dtype}")
-    code = _build.dtype_code(q.dtype)
-    if not (q.is_contiguous() and kc.is_contiguous() and vc.is_contiguous()):
-        raise ValueError("the decode kernel needs contiguous q and caches")
-    if not (q.device == kc.device == vc.device):
-        raise ValueError("q and the caches must be on one device")
-    pos_ptr, pos_scalar = _build.pos_argument(pos, b, kc.device)
-    out = torch.empty_like(q)
+    code = _build.dtype_code(dtype)
+    if not (kc.is_contiguous() and vc.is_contiguous()) \
+            or kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("the decode kernel needs contiguous caches with "
+                         "16-byte aligned bases")
+    if q.device != dev or vc.device != dev or k_new is not None and (
+            k_new.device != dev or v_new.device != dev):
+        raise ValueError("q, the caches and the new rows must be on one device")
+    q, q_rs, q_hs = _kernel_rows(q, b, n_heads, head_dim, "q", dtype)
+    # the append stores the new rows in the cache's dtype
+    kn = vn = None
+    kn_rs = kn_hs = vn_rs = vn_hs = 0
+    if k_new is not None:
+        kn, kn_rs, kn_hs = _kernel_rows(k_new, b, n_heads, head_dim, "k_new",
+                                        dtype)
+        vn, vn_rs, vn_hs = _kernel_rows(v_new, b, n_heads, head_dim, "v_new",
+                                        dtype)
+    pos_ptr, pos_scalar = _build.pos_argument(pos, b, dev)
+    out = torch.empty((b, d), dtype=dtype, device=dev)
+    groups, n_split, tile, ws, counters = 1, 1, 1, None, None
+    if code == 1:
+        groups, n_split, tile = decode_split_plan(b, s, n_heads, head_dim,
+                                                  _build.sm_count(dev))
+        ws, counters = _workspace(dev, b, n_split, n_heads, d, groups)
     lib = _build.library("decode_attention")
-    err = lib.decode_attend(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                            out.data_ptr(), pos_ptr, pos_scalar, b, s,
-                            n_heads, head_dim, code,
-                            1.0 / (head_dim ** 0.5), _build.stream_handle(q))
+    err = lib.decode_attend(
+        q.data_ptr(), q_rs, q_hs, None if kn is None else kn.data_ptr(),
+        kn_rs, kn_hs, None if vn is None else vn.data_ptr(), vn_rs, vn_hs,
+        kc.data_ptr(), vc.data_ptr(), out.data_ptr(), pos_ptr, pos_scalar,
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, s, n_heads,
+        head_dim, code, n_split, tile, groups, 1.0 / (head_dim ** 0.5),
+        _build.stream_handle(q))
     _build.check(err, "decode_attend")
     decode_attend.launches += 1
     return out
@@ -110,6 +246,50 @@ def decode_attend(q, kc, vc, pos, n_heads: int, head_dim: int):
 
 
 decode_attend.launches = 0
+
+
+def _check_caches(kc, vc, n_heads: int, head_dim: int):
+    if kc.dim() != 3 or vc.shape != kc.shape \
+            or kc.shape[2] != n_heads * head_dim:
+        raise ValueError(f"decode_append_attend wants flat (B, S, H·hd) "
+                         f"caches of n_heads={n_heads} x head_dim={head_dim}, "
+                         f"got {tuple(kc.shape)}, {tuple(vc.shape)}")
+
+
+def decode_append_attend_plain(q, k_new, v_new, kc, vc, pos, n_heads: int,
+                               head_dim: int):
+    """:func:`cache_append_plain` of the new rows at ``pos``, then
+    :func:`decode_attend_plain` over the updated caches."""
+    _check_caches(kc, vc, n_heads, head_dim)
+    b, _, d = kc.shape
+    for x, what in ((q, "q"), (k_new, "k_new"), (v_new, "v_new")):
+        _row_layout(x, b, n_heads, head_dim, what)
+    cache_append_plain(kc, vc, k_new.reshape(b, 1, d), v_new.reshape(b, 1, d),
+                       pos)
+    return decode_attend_plain(q.reshape(b, d), kc, vc, pos, n_heads,
+                               head_dim)
+
+
+def decode_append_attend(q, k_new, v_new, kc, vc, pos, n_heads: int,
+                         head_dim: int):
+    """The decode tick's append and attention in one call: ``k_new/v_new``
+    written into ``kc/vc`` IN PLACE at ``pos`` (clamped to ``S - 1``, as
+    ``cache_append`` clamps), then ``q`` attends ``[0, pos]`` of the updated
+    caches.  ``q``, ``k_new`` and ``v_new`` are ``(B, H·hd)``, ``(B, 1,
+    H·hd)``, ``(B, H, hd)`` or ``(B, 1, H, hd)`` rows, read in place where
+    their lanes are dense (the heads of a fused QKV projection).  One
+    launch of the decode kernel on a CUDA tensor (counted under
+    ``decode_attend``), the plain pair on a CPU tensor.  Returns ``ctx
+    (B, H·hd)`` in q's dtype."""
+    _check_caches(kc, vc, n_heads, head_dim)
+    if kc.device.type == "cpu":
+        return decode_append_attend_plain(q, k_new, v_new, kc, vc, pos,
+                                          n_heads, head_dim)
+    if kc.is_cuda:
+        return _decode_attend_cuda(q, kc, vc, pos, n_heads, head_dim, k_new,
+                                   v_new)
+    raise ValueError(f"decode_append_attend runs on cuda or cpu, got "
+                     f"{kc.device}")
 
 
 # ---------------------------------------------------------------------------

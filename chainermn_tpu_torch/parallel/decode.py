@@ -4,7 +4,8 @@ Counterpart of ``chainermn_tpu/parallel/decode.py``: prefill (the full
 prompt through the stack, caches written by the append kernel, causal
 attention by the flash kernel), the per-tick step (one token per row, its
 K/V appended at the row's position, decode attention over the row's own
-prefix: the decode kernel, or the beam kernel for GQA), greedy or sampled
+prefix: one decode-kernel launch that also writes the K/V row, or for GQA
+the append kernel and then the beam kernel), greedy or sampled
 next-token choice, and beam search.  ``lm_generate`` and the beam search
 drive the ticks in a plain Python loop where JAX runs ``lax.scan``.
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import prng
-from ..ops.decode_attention import (beam_attend_parts, decode_attend,
+from ..ops.decode_attention import (beam_attend_parts, decode_append_attend,
                                     decode_attend_gqa, gqa_rows, gqa_unrows,
                                     merge_attend_parts)
 from ..ops.flash_attention import flash_attention
@@ -82,12 +83,20 @@ def _decoder_core(params, head_dim: int):
         ``write_at`` (a Python int, or an int32 ``(N,)`` tensor for the
         serving tick).  ``s_q > 1`` is the prefill (``write_at == q_valid
         == 0``, causal flash attention over the prompt); ``s_q == 1`` is
-        the decode tick, each row attending its own prefix
-        ``[0, q_valid]``."""
+        the decode tick, each row writing its token's K/V at ``write_at``
+        and attending its own prefix ``[0, write_at]``, as JAX's tick
+        does."""
         n = x.shape[0]
 
         def attend(q, k, v):
             s_q, hl, hkv = q.shape[1], q.shape[2], k.shape[2]
+            if s_q == 1 and hl == hkv:
+                # the MHA tick: append and attention in one decode-kernel
+                # launch, q/k/v read in place from the QKV projection
+                ctx = decode_append_attend(q, k, v, k_cache, v_cache,
+                                           write_at, n_heads=hkv,
+                                           head_dim=head_dim)
+                return ctx.reshape(n, 1, hl, head_dim).to(x.dtype), (k_cache, v_cache)
             cache_append(k_cache, v_cache, k.reshape(n, s_q, hkv * head_dim),
                          v.reshape(n, s_q, hkv * head_dim), write_at, axis=1)
             if s_q > 1:
@@ -99,16 +108,11 @@ def _decoder_core(params, head_dim: int):
                 ctx = flash_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=True)
                 return ctx.to(x.dtype), (k_cache, v_cache)
-            if hl == hkv:
-                ctx = decode_attend(q.reshape(n, hl * head_dim), k_cache,
-                                    v_cache, q_valid, n_heads=hkv,
-                                    head_dim=head_dim)
-            else:
-                # GQA: the g query heads of a KV head are the beam
-                # kernel's rows of the cache row
-                ctx = decode_attend_gqa(q.reshape(n, hl * head_dim), k_cache,
-                                        v_cache, q_valid, n_q_heads=hl,
-                                        n_kv_heads=hkv, head_dim=head_dim)
+            # the GQA tick: the g query heads of a KV head are the beam
+            # kernel's rows of the cache row
+            ctx = decode_attend_gqa(q.reshape(n, hl * head_dim), k_cache,
+                                    v_cache, write_at, n_q_heads=hl,
+                                    n_kv_heads=hkv, head_dim=head_dim)
             return ctx.reshape(n, 1, hl, head_dim).to(x.dtype), (k_cache, v_cache)
 
         return block_with(x, blk, lambda h: attention_with(

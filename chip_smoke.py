@@ -16,14 +16,23 @@ and prints no result line:
    gradient GEMMs, the flash forward, the flash backward's dk/dv and dq
    kernels, ``conv_wgrad`` and ``conv_dgrad``), none of which may be 0;
    the flash backward's two bf16 kernels and the beam kernel's bf16 split
-   kernels (``NO_SPILL_KERNELS``) may not spill.
+   kernels and the decode kernel's bf16 split kernels
+   (``NO_SPILL_KERNELS``) may not spill.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and edge shapes, in bf16 (atol = rtol =
    2e-2: bf16 keeps 8 mantissa bits) and fp32 (atol = rtol = 1e-4: the
    kernel sums in another order); the bf16 main-path shapes are also
    timed (CUDA events, L2 flushed before each launch) beside the plain
    version, one PyTorch library call, and the bound (bytes / 3.35 TB/s or
-   FLOPs / peak, whichever is larger).  The flash forward: the training
+   FLOPs / peak, whichever is larger).  Decode attention (``check_decode``):
+   ``decode_attend`` and the tick's fused ``decode_append_attend`` (the
+   caches after each fused call equal to ``cache_append_plain``'s,
+   exactly) at tiny caches, few slots (33 and 64 splits a row), widths
+   past one head group (D 2560 to 8192), per-row pos at the edges, on the
+   bf16 split plan's tile and split edges, scalar, the full cache and the
+   serving lengths, two fused calls in a row, q / k / v as QKV head views; both
+   timed at the serving lengths and the full cache beside SDPA (and
+   ``index_put_`` of the new rows for the fused call).  The flash forward: the training
    shape (B 8, S 1024, H 8, hd 128, causal) and the prefill (B 8, S 512,
    H 16, hd 64) timed beside SDPA, then serving's B 1 prefill (the 64-row
    blocks), ragged S, GQA, S 1 and a q whose base is not 16-byte aligned.
@@ -75,10 +84,12 @@ and prints no result line:
    (matmul and cuDNN).
 4. ``serving`` — bf16, full width: 16 staggered requests (prompt 512, 64
    new tokens) through an 8-slot, max_total 1024 ServingEngine; every
-   request must finish ``done`` and every serving kernel (flash forward,
-   decode attention, append) must have launched.  The
-   launch counts are zeroed just before this run and read just after.
-   Then ``lm_generate`` at B 8, prompt 512, 64 new tokens.
+   request must finish ``done``.  The launch counts, zeroed just before
+   this run and read just after, must be exactly one decode-attention
+   launch a layer a tick (its K/V append folded in) and one append and one
+   flash forward a layer a prefill.  Then ``lm_generate`` at B 8, prompt
+   512, 64 new tokens: 8 x 63 decode launches, 8 appends, 8 flash
+   forwards.
 5. ``beam`` — bf16, ``bench.py :: bench_decode``'s full width: beam 4,
    lazy reorder, B 8, prompt 512, 512 new tokens (tokens/s, ms per token,
    peak memory), beside the prefill alone and the greedy ``lm_generate``
@@ -173,6 +184,7 @@ NO_SPILL_KERNELS = (
     ("flash_bwd", "flash_bwd_dkdv_wgmma_kernel"),
     ("flash_bwd", "flash_bwd_dq_wgmma_kernel"),
     ("beam_attention", "beam_split_mma_kernel"),
+    ("decode_attention", "decode_split_kernel"),
 )
 KERNEL_INFO = {
     "flash_fwd": ("chainermn_tpu_torch/csrc/flash_fwd.cu",
@@ -297,7 +309,8 @@ def phase_build(smoke):
     for name, rep in report.items():
         for line in rep["log"].splitlines():
             if name in ("fused_ce", "flash_fwd", "flash_bwd", "conv_backward",
-                        "beam_attention") and "Compiling entry" in line \
+                        "beam_attention", "decode_attention") \
+                    and "Compiling entry" in line \
                     or any(k in line for k in ("registers", "spill", "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
         _build.library(name)
@@ -426,37 +439,105 @@ def check_flash(smoke):
                       library="SDPA", bound_ms=bound, bound_by=by, **shape))
 
 
+def _decode_bound(pos, b, s, d, elem, dtype_name, append):
+    """Bytes: each row's K and V up to pos read once, q read and the
+    output written, pos; with the append, the new K and V rows read and
+    written.  Operations: the scores and the PV products."""
+    n_read = float((pos.long().clamp(0, s - 1) + 1).sum()
+                   if hasattr(pos, "long") else b * (min(pos, s - 1) + 1))
+    nbytes = 2 * b * d * elem + 2 * n_read * d * elem + 4 * b
+    if append:
+        nbytes += 2 * 2 * b * d * elem
+    return _bound(nbytes, 4.0 * n_read * d, dtype_name)
+
+
 def check_decode(smoke):
+    """``decode_attend`` and the tick's ``decode_append_attend`` against
+    their plain versions: the new K/V row attended at min(pos, S - 1) and
+    the caches after the call equal to ``cache_append_plain``'s, exactly.
+    Cases: tiny caches (S 7, S 1), few slots (B 4 and 1: 33 and 64 splits
+    a row, merged in three and four rounds), widths past one head group (D
+    2560, 4096, 8192), per-row pos at the edges (0, 1, S - 1, past S), on
+    the bf16 split plan's tile and split edges and at the serving run's
+    lengths, a scalar pos, two fused calls in a row at different pos (the
+    counters reset), q / k / v as head views of a fused QKV projection;
+    bf16 and fp32, hd 64 and 128.  Timed (bf16, hd
+    64): attention alone and the fused call at the serving lengths and over
+    the full cache, beside SDPA (+ ``index_put_`` of the new rows for the
+    fused call)."""
     torch = smoke.torch
     import torch.nn.functional as F
-    from chainermn_tpu_torch.ops import decode_attend, decode_attend_plain
+    from chainermn_tpu_torch.ops import (decode_append_attend,
+                                         decode_append_attend_plain,
+                                         decode_attend, decode_attend_plain)
 
     g = torch.Generator(device="cuda").manual_seed(2)
     b, s = 8, 1024
-    edge_pos = torch.tensor([0, 1, 100, 511, 777, 1022, 1023, 5000],
-                            dtype=torch.int32, device="cuda")
+
+    def vec(xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+    edge_pos = vec([0, 1, 100, 511, 777, 1022, 1023, 5000])
+    # n = pos + 1 over the plan's 8-position tiles and 16 splits (B 8, D
+    # 1024): one tile, the new row last (n 8) or first (n 9) in it; one
+    # tile a split (n 128) and one over, in the last split (n 129); two a
+    # split (n 256) and one over (n 257); 17 tiles, the last full (n 136),
+    # and 18, the last of one position (n 137)
+    split_pos = vec([7, 8, 127, 128, 255, 256, 135, 136])
     # the serving run's positions: prompts of 512 plus up to 64 new tokens
     serve_pos = torch.randint(512, 576, (b,), generator=g, device="cuda",
                               dtype=torch.int32)
+
+    def fused_check(q, kc, vc, kn, vn, at, dn, **shape):
+        """One fused call at positions ``at`` on copies of the caches
+        against the plain pair; returns the context's error."""
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        kw = dict(n_heads=shape["H"], head_dim=shape["hd"])
+        out = decode_append_attend(q, kn, vn, k1, v1, at, **kw)
+        ref = decode_append_attend_plain(q, kn, vn, k2, v2, at, **kw)
+        torch.cuda.synchronize()
+        err = smoke.compare("decode_append_attend", out, ref, dn, **shape)
+        if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+            raise AssertionError(f"decode_append_attend {shape}: the caches "
+                                 f"differ from cache_append_plain's")
+        return err
+
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
-        for bs, ss, h, hd, pos in ((3, 7, 2, 128, [0, 3, 100]),
-                                   (1, 1, 4, 64, [0])):   # tiny caches
-            q = torch.randn(bs, h * hd, generator=g, device="cuda").to(dtype)
+        for bs, ss, h, hd, pos, label in (
+                (3, 7, 2, 128, [0, 3, 100], "tiny"),
+                (1, 1, 4, 64, [0], "tiny"),
+                # 33 splits: one tile each (n 264), one over (n 265)
+                (4, 1024, 16, 64, [263, 264, 1023, 5000], "few_slots"),
+                # 64 splits: one tile each, two each, one live split
+                (1, 1024, 16, 64, [511], "few_slots"),
+                (1, 1024, 16, 64, [1023], "few_slots"),
+                (1, 1024, 8, 128, [0], "few_slots"),
+                # two head groups of 1280 and of 2048 lanes, four of 2048
+                (3, 200, 40, 64, [17, 199, 64], "wide"),
+                (4, 512, 32, 128, [0, 100, 511, 5000], "wide"),
+                (2, 300, 64, 128, [299, 32], "wide")):
+            q, kn, vn = (torch.randn(bs, h * hd, generator=g, device="cuda")
+                         .to(dtype) for _ in range(3))
             kc, vc = (torch.randn(bs, ss, h * hd, generator=g,
                                   device="cuda").to(dtype) for _ in range(2))
-            pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            pos = vec(pos)
+            shape = dict(B=bs, S=ss, H=h, hd=hd, pos=label)
             smoke.compare(
                 "decode_attend",
                 decode_attend(q, kc, vc, pos, n_heads=h, head_dim=hd),
                 decode_attend_plain(q, kc, vc, pos, n_heads=h, head_dim=hd),
-                dn, B=bs, S=ss, H=h, hd=hd, pos="small")
+                dn, **shape)
+            fused_check(q, kc, vc, kn[:, None], vn[:, None], pos, dn,
+                        **shape)
         for h, hd in ((16, 64), (8, 128)):
             d = h * hd
-            q = torch.randn(b, d, generator=g, device="cuda").to(dtype)
+            q, kn, vn = (torch.randn(b, d, generator=g, device="cuda")
+                         .to(dtype) for _ in range(3))
             kc = torch.randn(b, s, d, generator=g, device="cuda").to(dtype)
             vc = torch.randn(b, s, d, generator=g, device="cuda").to(dtype)
-            for label, pos in (("edge", edge_pos), ("scalar", 300),
+            for label, pos in (("edge", edge_pos), ("split_edges", split_pos),
+                               ("scalar", 300), ("full", 1023),
                                ("serve", serve_pos)):
                 out = decode_attend(q, kc, vc, pos, n_heads=h, head_dim=hd)
                 ref = decode_attend_plain(q, kc, vc, pos, n_heads=h,
@@ -464,31 +545,79 @@ def check_decode(smoke):
                 torch.cuda.synchronize()
                 shape = dict(B=b, S=s, H=h, hd=hd, pos=label)
                 err = smoke.compare("decode_attend", out, ref, dn, **shape)
-                if not (label == "serve" and hd == 64
+                f_err = fused_check(q, kc, vc, kn[:, None], vn[:, None], pos,
+                                    dn, **shape)
+                if not (label in ("serve", "full") and hd == 64
                         and dtype == torch.bfloat16):
                     continue
                 ms = smoke.time_ms(lambda: decode_attend(
                     q, kc, vc, pos, n_heads=h, head_dim=hd))
+                k1, v1 = kc.clone(), vc.clone()
+                f_ms = smoke.time_ms(lambda: decode_append_attend(
+                    q, kn, vn, k1, v1, pos, n_heads=h, head_dim=hd))
                 plain = smoke.time_ms(lambda: decode_attend_plain(
                     q, kc, vc, pos, n_heads=h, head_dim=hd), iters=5)
+                f_plain = smoke.time_ms(lambda: decode_append_attend_plain(
+                    q, kn, vn, k1, v1, pos, n_heads=h, head_dim=hd), iters=5)
+                p_vec = (pos.long() if isinstance(pos, torch.Tensor)
+                         else torch.full((b,), pos, device="cuda"))
                 qt = q.view(b, h, 1, hd)
                 kt = kc.view(b, s, h, hd).transpose(1, 2)
                 vt = vc.view(b, s, h, hd).transpose(1, 2)
                 mask = (torch.arange(s, device="cuda")[None, :]
-                        <= pos.long()[:, None])[:, None, None, :]
-                lib = smoke.time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask))
-                n_read = float((pos.long().clamp(max=s - 1) + 1).sum())
+                        <= p_vec[:, None])[:, None, None, :]
+                bi, row = torch.arange(b, device="cuda"), p_vec.clamp(0, s - 1)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=mask)
+
+                def sdpa_append():
+                    kc.index_put_((bi, row), kn)
+                    vc.index_put_((bi, row), vn)
+                    return sdpa()
+
+                lib = smoke.time_ms(sdpa)
+                f_lib = smoke.time_ms(sdpa_append)
                 elem = q.element_size()
-                nbytes = 2 * b * d * elem + 2 * n_read * d * elem + 4 * b
-                bound, by = _bound(nbytes, 4.0 * n_read * d, dn)
-                smoke.kernel_rows["decode_attend"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                    bound_by=by, library_ms=lib, shape=shape, dtype=dn)
+                bound, by = _decode_bound(pos, b, s, d, elem, dn, False)
+                f_bound, f_by = _decode_bound(pos, b, s, d, elem, dn, True)
+                if label == "serve":       # the main path's call: the tick
+                    smoke.kernel_rows["decode_attend"] = dict(
+                        max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                        bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
+                        shape=shape, dtype=dn)
                 emit(dict(check="decode_attend.time", max_abs_err=err,
                           atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
-                          library_ms=lib, bound_ms=bound, bound_by=by,
-                          **shape))
+                          library_ms=lib, library="SDPA", bound_ms=bound,
+                          bound_by=by, **shape))
+                emit(dict(check="decode_append_attend.time",
+                          max_abs_err=f_err, atol=TOL[dn], kernel_ms=f_ms,
+                          plain_ms=f_plain, library_ms=f_lib,
+                          library="SDPA + index_put_", bound_ms=f_bound,
+                          bound_by=f_by, **shape))
+            # two fused calls in a row on one pair of caches, at different
+            # pos: the second sees the first's row and fresh counters
+            k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            for i, pos in enumerate((serve_pos, split_pos + 1)):
+                kn_i, vn_i = kn.roll(i, 0), vn.roll(i, 0)
+                out = decode_append_attend(q, kn_i, vn_i, k1, v1, pos,
+                                           n_heads=h, head_dim=hd)
+                ref = decode_append_attend_plain(q, kn_i, vn_i, k2, v2, pos,
+                                                 n_heads=h, head_dim=hd)
+                torch.cuda.synchronize()
+                smoke.compare("decode_append_attend", out, ref, dn, B=b, S=s,
+                              H=h, hd=hd, pos=f"twice.{i}")
+            if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+                raise AssertionError("decode_append_attend twice: the caches "
+                                     "differ from cache_append_plain's")
+        # the tick's layout: q, k, v as head views of one QKV projection
+        h, hd = 16, 64
+        qkv = torch.randn(b, 1, h, 3, hd, generator=g, device="cuda").to(dtype)
+        kc, vc = (torch.randn(b, s, h * hd, generator=g, device="cuda")
+                  .to(dtype) for _ in range(2))
+        fused_check(qkv[..., 0, :], kc, vc, qkv[..., 1, :], qkv[..., 2, :],
+                    serve_pos, dn, B=b, S=s, H=h, hd=hd, pos="qkv_views")
 
 
 def check_append(smoke):
@@ -1308,12 +1437,16 @@ def phase_serving(smoke):
 
     s_p, max_new = SERVE["prompt"], SERVE["new"]
     params = _init_full(torch, "cuda", torch.bfloat16, SERVE["max_total"])
-    launches, _ = _serve_run(smoke, "serving", params, 6)
-    missing = [k for k in ("flash_fwd", "decode_attend", "cache_append")
-               if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the serving path: "
-                             f"{missing}")
+    launches, ticks = _serve_run(smoke, "serving", params, 6)
+    # a tick: one decode launch a layer, its K/V append folded in; the
+    # append kernel runs only in the prefills (one slab write a layer)
+    n_layers = FULL["n_layers"]
+    want = {"decode_attend": n_layers * ticks,
+            "cache_append": n_layers * SERVE["requests"],
+            "flash_fwd": n_layers * SERVE["requests"], "beam_attend": 0}
+    wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    if wrong:
+        raise AssertionError(f"serving launches (got, want): {wrong}")
 
     gen = make_lm_generator(head_dim=HEAD_DIM, max_new_tokens=max_new)
     batch = np.random.RandomState(7).randint(
@@ -1325,13 +1458,18 @@ def phase_serving(smoke):
     toks = gen(params, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
     if tuple(toks.shape) != (8, max_new):
         raise AssertionError(f"lm_generate shape {tuple(toks.shape)}")
     emit({"check": "lm_generate", "dtype": "bfloat16", "B": 8, "prompt": s_p,
           "new_tokens": max_new, "wall_s": wall,
           "tokens_per_s": 8 * max_new / wall,
-          "ms_per_token_step": wall * 1e3 / max_new,
-          "launches": ops.launch_counts()})
+          "ms_per_token_step": wall * 1e3 / max_new, "launches": launches})
+    want = {"decode_attend": n_layers * (max_new - 1),
+            "cache_append": n_layers, "flash_fwd": n_layers}
+    wrong = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    if wrong:
+        raise AssertionError(f"lm_generate launches (got, want): {wrong}")
 
 
 def phase_beam(smoke):

@@ -9,7 +9,9 @@ phase the host wall per call, the device busy time (union of kernel,
 memcpy and memset intervals), the device idle share, the kernel count per
 call, and the device time by kernel name (top entries); then the card's
 name and power limit.  The beam kernel's two launches (the S splits and
-their merge) are also summed under ``beam_kernel_ms_per_call``.  The Chrome
+their merge) are also summed under ``beam_kernel_ms_per_call``, and the
+decode-attention and append kernels (device ms and launches) under
+``attend_append_per_call``.  The Chrome
 traces go to ``--out-dir``.
 ``--kv-heads 4`` profiles the GQA model (the tick runs the beam kernel),
 ``--temperature T`` samples every slot at ``T``, and ``--beam-new N``
@@ -51,11 +53,19 @@ def _summarise(trace_path, wall_s, calls, name):
     busy_us = _busy_union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     by_name = defaultdict(float)
     beam = defaultdict(float)    # the beam kernel: its split and merge launches
+    # the tick's attention and append kernels: decode_split_kernel (bf16,
+    # the append folded in) or decode_attend_kernel, and cache_append_kernel
+    attn = {part: [0.0, 0] for part in ("decode_split", "decode_attend_kernel",
+                                        "cache_append_kernel")}
     for e in dev:
         by_name[e["name"][:80]] += e["dur"]
         for part in ("beam_split", "beam_merge"):
             if part in e["name"]:
                 beam[part] += e["dur"]
+        for part, acc in attn.items():
+            if part in e["name"]:
+                acc[0] += e["dur"]
+                acc[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "phase": name, "calls": calls,
@@ -67,6 +77,9 @@ def _summarise(trace_path, wall_s, calls, name):
         "beam_kernel_ms_per_call": {
             **{k: v / 1e3 / calls for k, v in beam.items()},
             "total": sum(beam.values()) / 1e3 / calls},
+        "attend_append_per_call": {
+            k: {"ms": us / 1e3 / calls, "launches": n / calls}
+            for k, (us, n) in attn.items() if n},
     }
 
 
