@@ -16,19 +16,31 @@ Ported so far (one card, or one process per card for data parallelism):
 * ``prng``: threefry ``PRNGKey`` / ``fold_in`` / ``uniform`` bit for bit;
 * data-parallel training: ``topology`` (process group, rank topology),
   ``communicators`` (``create_communicator``: NCCL / gloo, the naive
-  oracle), ``optimizers`` (``create_multi_node_optimizer``: bucketed
-  gradient mean, bf16 wire, double buffering), ``train``
-  (``make_train_step``, ``make_flax_train_step``, ``shard_batch``),
+  oracle; every array and object collective, ``split``),
+  ``ops.collective`` (the in-step collectives), ``optimizers``
+  (``create_multi_node_optimizer``: bucketed gradient mean, bf16 wire,
+  double buffering), ``train`` (``make_train_step`` with gradient
+  accumulation, ``make_flax_train_step``, ``make_demo_step``,
+  ``shard_batch``),
   ``models`` (the ResNets with flax's BatchNorm, the MLP), ``datasets``
   (``scatter_dataset``), ``runtime`` (the native prefetcher);
-* ``convert``: JAX params → port params (the LM, ``resnet_from_jax``), npz;
-* CLIs: ``serve``, ``train_transformer``, ``train_imagenet``.
+* the Trainer stack: ``training`` (``Trainer``, ``StandardUpdater`` with
+  the prefetch thread, triggers, LogReport / PrintReport / StepTimer /
+  TorchProfiler / EvaluatorExtension / snapshot), ``iterators``
+  (``SerialIterator``, the multi-node and synchronized iterators),
+  ``evaluators`` (the multi-node evaluator, BLEU), ``extensions`` (the
+  observation aggregator), ``observability.trace`` (the span tracer);
+* ``convert``: JAX params → port params (the LM, ``resnet_from_jax``,
+  ``mlp_from_jax``, the demo step's), npz;
+* CLIs: ``serve``, ``train_transformer``, ``train_imagenet``, ``train``
+  (the demo trainer), ``train_mnist`` (the MNIST example).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.  Submodules are imported on use: importing this package
 imports nothing else.
 """
 
-__all__ = ["communicators", "convert", "datasets", "models", "observability",
-           "ops", "optimizers", "parallel", "prng", "runtime", "serving",
-           "topology", "train"]
+__all__ = ["communicators", "convert", "datasets", "evaluators", "extensions",
+           "iterators", "models", "observability", "ops", "optimizers",
+           "parallel", "prng", "runtime", "serving", "topology", "train",
+           "training"]

@@ -195,3 +195,22 @@ def resnet_to_numpy(model) -> Dict[str, Any]:
     params = dict(host(t, k) for k, t in model.named_parameters())
     stats = dict(host(t, k) for k, t in model.named_buffers())
     return {"params": _nest(params), "batch_stats": _nest(stats)}
+
+
+def mlp_from_jax(params, model):
+    """Load flax ``MLP`` params (``{"Dense_i": {"kernel", "bias"}}`` as
+    numpy, or ``{"params": ...}`` around them) into the port's
+    :class:`~chainermn_tpu_torch.models.mlp.MLP` in place and return it:
+    each (in, out) kernel becomes ``nn.Linear.weight`` (out, in)."""
+    if "params" in params:
+        params = params["params"]
+    return resnet_from_jax({"params": params}, model)
+
+
+def demo_params_from_numpy(params, device="cuda") -> Dict[str, Any]:
+    """The demo step's ``{"w1", "b1", "w2", "b2"}`` numpy arrays (the JAX
+    CLI's layout: ``x @ w1 + b1``) as fp32 leaf tensors on ``device`` that
+    require gradients."""
+    dev = resolve_device(device)
+    return {k: _to_tensor(params[k]).to(dev, torch.float32)
+            .requires_grad_(True) for k in ("w1", "b1", "w2", "b2")}

@@ -139,6 +139,22 @@ class MultiNodeOptimizer:
     def zero_grad(self, set_to_none: bool = True):
         self.actual_optimizer.zero_grad(set_to_none=set_to_none)
 
+    def state_dict(self) -> dict:
+        """The wrapped optimizer's state and, double-buffered, the mean
+        gradients waiting for the next step."""
+        out = {"optimizer": self.actual_optimizer.state_dict()}
+        if self.double_buffering:
+            out["stale_grads"] = [g.detach().clone()
+                                  for g in self.state.stale_grads]
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        self.actual_optimizer.load_state_dict(state["optimizer"])
+        if self.double_buffering:
+            self.state = DoubleBufferState(
+                [torch.as_tensor(g).to(p.device, p.dtype).clone()
+                 for g, p in zip(state["stale_grads"], self.params)])
+
 
 def create_multi_node_optimizer(actual_optimizer, communicator,
                                 double_buffering: bool = False,

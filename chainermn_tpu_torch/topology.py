@@ -81,13 +81,24 @@ class Topology:
     inter_size: int
 
     @classmethod
-    def detect(cls) -> "Topology":
+    def detect(cls, group=None) -> "Topology":
+        """The default group's topology, or ``group``'s: its rank and size,
+        the members on this host (intra) and the hosts it spans (inter),
+        a host being ``LOCAL_WORLD_SIZE`` consecutive global ranks."""
         rank, size = dist.get_rank(), dist.get_world_size()
         intra_size = int(os.environ.get("LOCAL_WORLD_SIZE", size))
-        intra_rank = int(os.environ.get("LOCAL_RANK", rank % intra_size))
-        return cls(rank=rank, size=size, intra_rank=intra_rank,
-                   intra_size=intra_size, inter_rank=rank // intra_size,
-                   inter_size=max(size // intra_size, 1))
+        if group is None:
+            intra_rank = int(os.environ.get("LOCAL_RANK", rank % intra_size))
+            return cls(rank=rank, size=size, intra_rank=intra_rank,
+                       intra_size=intra_size, inter_rank=rank // intra_size,
+                       inter_size=max(size // intra_size, 1))
+        members = dist.get_process_group_ranks(group)
+        local = [g for g in members if g // intra_size == rank // intra_size]
+        hosts = sorted({g // intra_size for g in members})
+        return cls(rank=dist.get_rank(group), size=len(members),
+                   intra_rank=local.index(rank), intra_size=len(local),
+                   inter_rank=hosts.index(rank // intra_size),
+                   inter_size=len(hosts))
 
 
 @dataclasses.dataclass(frozen=True)

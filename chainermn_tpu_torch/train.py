@@ -1,8 +1,8 @@
 """Data-parallel training steps over ``torch.distributed``.
 
 Counterpart of ``chainermn_tpu/train.py`` (``make_train_step``,
-``make_flax_train_step``, ``replicate``, ``shard_batch``,
-``shard_batch_local``).  JAX's step is one SPMD program over a mesh that
+``make_flax_train_step``, ``make_demo_step``, ``replicate``,
+``shard_batch``, ``shard_batch_local`` and the demo CLI ``main``).  JAX's step is one SPMD program over a mesh that
 is handed the GLOBAL batch; here each rank is a process that runs its
 local shard eagerly, and the step updates the module's tensors in place:
 
@@ -29,7 +29,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .optimizers import MultiNodeOptimizer, compressed_mean, gradient_average
+from .optimizers import (_INT8, MultiNodeOptimizer, _grads_of,
+                         compressed_mean, gradient_average)
 from .topology import DEFAULT_AXIS_NAME, make_mesh
 
 
@@ -44,33 +45,99 @@ def _mean_metrics(loss, metrics, mesh):
     return values[0], {k: v for k, v in zip(names, values[1:])}
 
 
-def _step_once(loss_of, optimizer, mesh, allreduce_grad_dtype):
-    loss, metrics = loss_of()
-    loss.backward()
-    if not isinstance(optimizer, MultiNodeOptimizer):
-        params = [p for g in optimizer.param_groups for p in g["params"]]
+def _apply(optimizer, params, mesh, allreduce_grad_dtype, grad_reduce=None):
+    """The one cross-rank gradient mean (``grad_reduce`` when given, else
+    this step's own unless the optimizer wrapper owns it), then the
+    update."""
+    if grad_reduce is not None:
+        for p, g in zip(params, grad_reduce(_grads_of(params))):
+            p.grad = g
+    elif not isinstance(optimizer, MultiNodeOptimizer):
         gradient_average(params, mesh, allreduce_grad_dtype)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
+
+
+def _step_once(loss_of, optimizer, mesh, allreduce_grad_dtype):
+    loss, metrics = loss_of()
+    loss.backward()
+    _apply(optimizer, [p for g in optimizer.param_groups for p in g["params"]],
+           mesh, allreduce_grad_dtype)
     return _mean_metrics(loss.detach(), metrics, mesh)
+
+
+def _microbatches(batch, steps):
+    leaves = batch if isinstance(batch, (tuple, list)) else (batch,)
+    rows = leaves[0].shape[0]
+    if rows % steps:
+        raise ValueError(f"per-rank batch {rows} not divisible by "
+                         f"grad_accum_steps {steps}")
+    per = rows // steps
+    for i in range(steps):
+        mb = tuple(t[i * per:(i + 1) * per] for t in leaves)
+        yield mb if isinstance(batch, (tuple, list)) else mb[0]
+
+
+def _accumulated_local_grads(local_loss, params, batch, steps):
+    """The mean LOCAL loss / aux over ``steps`` microbatches, and each
+    param's ``grad`` set to the mean of the microbatch gradients, summed in
+    fp32 (JAX's ``_accumulated_local_grads``; each backward keeps only its
+    microbatch's activations)."""
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    loss_sum, aux_sum = 0.0, {}
+    for mb in _microbatches(batch, steps):
+        loss, aux = local_loss(mb)
+        for a, g in zip(acc, torch.autograd.grad(loss, params,
+                                                 allow_unused=True)):
+            if g is not None:
+                a.add_(g.float())
+        loss_sum = loss_sum + loss.detach().float()
+        for k, v in aux.items():
+            aux_sum[k] = aux_sum.get(k, 0.0) + torch.as_tensor(v).float()
+    for p, a in zip(params, acc):
+        p.grad = (a / steps).to(p.dtype)
+    return loss_sum / steps, {k: v / steps for k, v in aux_sum.items()}
 
 
 def make_train_step(loss_fn: Callable, optimizer, mesh=None,
                     axis_name: str = DEFAULT_AXIS_NAME, has_aux: bool = False,
-                    allreduce_grad_dtype=None):
+                    allreduce_grad_dtype=None,
+                    grad_reduce: Optional[Callable] = None,
+                    grad_accum_steps: int = 1,
+                    error_feedback: bool = False):
     """``step(module, batch) -> loss`` (``(loss, aux)`` with ``has_aux``):
     ``loss_fn(module, local_batch)`` is the mean loss over this rank's rows
     (and an aux dict of scalars), ``optimizer`` was built over the module's
-    parameters."""
+    parameters.
+
+    ``grad_reduce(grads) -> grads`` (lists of tensors) replaces the step's
+    cross-rank gradient mean.  ``grad_accum_steps > 1`` splits this rank's
+    rows into that many microbatches, their gradients summed in fp32 and
+    divided by the count before the ONE cross-rank mean and update; a batch
+    it does not divide raises.  ``error_feedback`` (the int8 wire's
+    residual) is not ported yet."""
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got "
+                         f"{grad_accum_steps}")
+    if error_feedback:
+        raise NotImplementedError(_INT8)
     mesh = mesh or make_mesh(axis_name)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(module, batch):
-        def loss_of():
-            out = loss_fn(module, batch)
+        def local_loss(b):
+            out = loss_fn(module, b)
             return out if has_aux else (out, {})
 
         module.train()
-        loss, aux = _step_once(loss_of, optimizer, mesh, allreduce_grad_dtype)
+        if grad_accum_steps == 1:
+            loss, aux = local_loss(batch)
+            loss.backward()
+        else:
+            loss, aux = _accumulated_local_grads(local_loss, params, batch,
+                                                 grad_accum_steps)
+        _apply(optimizer, params, mesh, allreduce_grad_dtype, grad_reduce)
+        loss, aux = _mean_metrics(loss.detach(), aux, mesh)
         return (loss, aux) if has_aux else loss
 
     return step
@@ -131,16 +198,226 @@ def shard_batch_local(local_batch, device):
     return tuple(_to_device(b, device) for b in local_batch)
 
 
-def shard_batch(batch, device, mesh=None, axis_name: str = DEFAULT_AXIS_NAME):
-    """Rank ``r``'s rows ``[r·B/P, (r+1)·B/P)`` of the global host batch
-    every process holds, on ``device``."""
-    mesh = mesh or make_mesh(axis_name)
+def local_rows(batch, mesh):
+    """Rank ``r``'s rows ``[r·B/P, (r+1)·B/P)`` of each host array of the
+    global ``batch`` (a tuple), as numpy views."""
     rank = dist.get_rank(mesh.group)
     rows = len(batch[0])
     if rows % mesh.size:
         raise ValueError(f"global batch {rows} is not divisible by the "
                          f"world size {mesh.size}")
     per = rows // mesh.size
-    return shard_batch_local(
-        tuple(np.asarray(b)[rank * per:(rank + 1) * per] for b in batch),
-        device)
+    return tuple(np.asarray(b)[rank * per:(rank + 1) * per] for b in batch)
+
+
+def shard_batch(batch, device, mesh=None, axis_name: str = DEFAULT_AXIS_NAME):
+    """Rank ``r``'s rows ``[r·B/P, (r+1)·B/P)`` of the global host batch
+    every process holds, on ``device``."""
+    return shard_batch_local(local_rows(batch, mesh or make_mesh(axis_name)),
+                             device)
+
+
+def _ring_mean(g, mesh, world: int):
+    """Cross-rank mean as an explicit ring decomposition:
+    ``all_gather(reduce_scatter(g) / P)`` when the leading dim divides by
+    the world size, ``psum(g) / P`` otherwise (JAX's ``_ring_mean``: the
+    same math as ``pmean``, spelled out so each wire leg is its own
+    collective)."""
+    from .ops import collective as col
+
+    if world > 1 and g.dim() >= 1 and g.shape[0] % world == 0:
+        return col.all_gather(col.reduce_scatter(g, mesh) / world, mesh)
+    return col.psum(g, mesh) / world
+
+
+def make_demo_step(mesh=None, axis_name: str = DEFAULT_AXIS_NAME):
+    """The tanh-MLP classification step of ``python -m
+    chainermn_tpu_torch.train`` (JAX's ``make_demo_step``).
+
+    ``step(state, batch) -> (state, observation)``, the
+    :class:`~chainermn_tpu_torch.training.StandardUpdater` contract, with
+    ``state = (params, optimizer)``: ``params`` the dict ``w1, b1, w2, b2``
+    of leaf tensors and ``optimizer`` a ``torch.optim`` optimizer over them
+    (the torch counterpart of JAX's ``(params, opt_state)``).  The LOCAL
+    loss is differentiated and :func:`_ring_mean` is the one cross-rank
+    gradient mean; ``main/loss`` and ``main/accuracy`` are reduced with
+    ``psum`` as JAX reduces them."""
+    from .ops import collective as col
+
+    mesh = mesh or make_mesh(axis_name)
+    world = mesh.size
+
+    def step(state, batch):
+        params, optimizer = state
+        x, y = batch
+        h = torch.tanh(x @ params["w1"] + params["b1"])
+        logits = h @ params["w2"] + params["b2"]
+        logp = torch.log_softmax(logits, -1)
+        nll = -logp.gather(1, y.long()[:, None]).mean()
+        correct = (logits.argmax(-1) == y.long()).sum()
+        names = list(params)
+        grads = torch.autograd.grad(nll, [params[k] for k in names])
+        for k, g in zip(names, grads):
+            params[k].grad = _ring_mean(g, mesh, world)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        observation = {
+            "main/loss": col.psum(nll.detach(), mesh) / world,
+            "main/accuracy": col.psum(correct, mesh) / (x.shape[0] * world),
+        }
+        return state, observation
+
+    return step
+
+
+# flags of the JAX CLI whose machinery the port has not yet: (queue item, what)
+_REFUSED = {
+    "metrics_out": ("A12", "the metrics stream"),
+    "statusz_port": ("A12", "the live introspection server"),
+    "flight_dump_dir": ("A12", "the flight recorder"),
+    "checkpoint_dir": ("A7", "checkpoints and resume"),
+    "checkpoint_every": ("A7", "checkpoints and resume"),
+    "preemption_grace_s": ("A7", "the preemption handler"),
+    "self_heal": ("A7", "the rank health plane"),
+    "self_heal_min_world": ("A7", "the rank health plane"),
+    "self_heal_beat_s": ("A7", "the rank health plane"),
+}
+_WATCHDOG_DEFAULT = 1800.0
+
+
+def _parse(argv):
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="chainermn_tpu_torch demo trainer: a tanh MLP through "
+                    "Trainer / StandardUpdater")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default: this process's card) or cpu")
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--batchsize", type=int, default=64,
+                        help="GLOBAL batch (split across the ranks)")
+    parser.add_argument("--hidden", type=int, default=64)
+    parser.add_argument("--lr", type=float, default=1e-2)
+    parser.add_argument("--n-train", type=int, default=512)
+    parser.add_argument("--log-every", type=int, default=10)
+    parser.add_argument("--out", default="result")
+    parser.add_argument("--prefetch", action="store_true",
+                        help="assemble batch k+1 on a background thread "
+                             "while step k runs")
+    parser.add_argument("--trace-out", default=None,
+                        help="write a Chrome-trace / Perfetto JSON here "
+                             "(also enables tracing); at world > 1 each "
+                             "rank writes its own shard, <base>.rankNNNNN"
+                             ".json")
+    for flag in _REFUSED:
+        kind = {"self_heal": dict(action="store_true")}.get(flag, {})
+        parser.add_argument("--" + flag.replace("_", "-"),
+                            default=None, **kind, help="not ported yet")
+    parser.add_argument("--watchdog-timeout", type=float,
+                        default=_WATCHDOG_DEFAULT,
+                        help="only the default: the watchdog is not ported "
+                             "yet")
+    args = parser.parse_args(argv)
+    for flag, (item, what) in _REFUSED.items():
+        if getattr(args, flag) not in (None, False):
+            parser.error(f"--{flag.replace('_', '-')}: {what} is not ported "
+                         f"yet: see ROADMAP.md, queue A, {item}")
+    if args.watchdog_timeout != _WATCHDOG_DEFAULT:
+        parser.error("--watchdog-timeout: the watchdog is not ported yet: "
+                     "see ROADMAP.md, queue A, A7")
+    return args
+
+
+def run(argv=None):
+    """``python -m chainermn_tpu_torch.train``'s run: ``(result,
+    trainer)``.  The JAX CLI's synthetic task and initial weights
+    (``RandomState(42)`` map, ``(0)`` inputs, ``(1)`` weights), SGD with
+    momentum 0.9, through create_communicator → StandardUpdater (rank
+    ``r``'s rows of each global batch) → Trainer with the
+    ObservationAggregator, LogReport and PrintReport."""
+    from .communicators import create_communicator
+    from .convert import demo_params_from_numpy
+    from .extensions import ObservationAggregator
+    from .iterators import SerialIterator
+    from .observability import trace
+    from .training.extensions import LogReport, PrintReport
+    from .training.trainer import PRIORITY_EDITOR, Trainer
+    from .training.updaters import StandardUpdater
+
+    args = _parse(argv)
+    if args.trace_out:
+        trace.reset()
+        trace.enable()
+    comm = create_communicator("xla", device=args.device)
+    world = comm.size
+    if args.batchsize % world:
+        raise SystemExit(f"--batchsize {args.batchsize} must divide by the "
+                         f"world size {world}")
+
+    # a learnable task: labels are a fixed linear map of the inputs
+    in_dim, n_classes = 32, 10
+    w_true = np.random.RandomState(42).randn(in_dim, n_classes)
+    xs = np.random.RandomState(0).randn(args.n_train, in_dim).astype(
+        np.float32)
+    ys = (xs @ w_true).argmax(-1).astype(np.int32)
+    dataset = list(zip(xs, ys))
+    rng = np.random.RandomState(1)
+    params = demo_params_from_numpy({
+        "w1": (rng.randn(in_dim, args.hidden) / np.sqrt(in_dim)
+               ).astype(np.float32),
+        "b1": np.zeros((args.hidden,), np.float32),
+        "w2": (rng.randn(args.hidden, n_classes) / np.sqrt(args.hidden)
+               ).astype(np.float32),
+        "b2": np.zeros((n_classes,), np.float32),
+    }, comm.device)
+    optimizer = torch.optim.SGD(list(params.values()), lr=args.lr,
+                                momentum=0.9)
+
+    updater = StandardUpdater(
+        SerialIterator(dataset, args.batchsize, seed=0),
+        make_demo_step(comm.mesh), (params, optimizer), mesh=comm.mesh,
+        prefetch=args.prefetch, device=comm.device)
+    trainer = Trainer(updater, (args.steps, "iteration"), out=args.out)
+    trainer.extend(ObservationAggregator(comm), trigger=(1, "iteration"),
+                   priority=PRIORITY_EDITOR)
+    log = LogReport(trigger=(args.log_every, "iteration"))
+    trainer.extend(log)
+    trainer.extend(PrintReport(["iteration", "main/loss", "main/accuracy"],
+                               log, trigger=(args.log_every, "iteration")))
+    try:
+        trainer.run()
+    finally:
+        updater.close()
+
+    final = log.log[-1] if log.log else {}
+    result = {"steps": trainer.iteration, "world": world,
+              "final_loss": final.get("main/loss"),
+              "final_accuracy": final.get("main/accuracy")}
+    if args.trace_out:
+        rank = comm.rank if world > 1 else None
+        trace.export_chrome_trace(args.trace_out, rank=rank)
+        result["trace_out"] = (args.trace_out if rank is None
+                               else trace.shard_path(args.trace_out, rank))
+        result["trace_events"] = len(trace.get_tracer().events())
+        trace.disable()
+    return result, trainer
+
+
+def main(argv=None) -> int:
+    """``python -m chainermn_tpu_torch.train``: the JAX package's demo
+    trainer (``python -m chainermn_tpu.train``) on the port, one process
+    per rank (``torchrun --nproc-per-node N`` for N > 1).  Prints JAX's
+    result keys that the port has (``steps``, ``world``, ``final_loss``,
+    ``final_accuracy``, ``trace_out``, ``trace_events``) as one JSON line.
+    The flags of machinery not ported yet (metrics, statusz, flight
+    recorder: A12; checkpoints, preemption, self-heal, the watchdog: A7)
+    are refused."""
+    import json
+
+    result, _ = run(argv)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

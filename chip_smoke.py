@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ResNet training on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ResNet training, the communicator and the Trainer on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -138,7 +138,31 @@ and prints no result line:
    same with ``conv_impl="xla"`` (cuDNN's backward) from the same
    weights: no conv-kernel launch, the first loss within 2e-2 of the
    pallas run's, the step times side by side.
-11. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+11. ``comm`` — every communicator method and in-step collective of the
+   port's ``TorchDistCommunicator`` on the card at world 1 (the one-rank
+   NCCL group the ResNet phases made, or a new one), against
+   ``NaiveCommunicator(size=1)``: fp32 and int32 tensors, objects,
+   ``split`` with one color (a new NCCL group) and ``send`` / ``recv``
+   with ``source == dest``; data movement exact, sums rtol 1e-6.
+12. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
+   prefetch thread → ObservationAggregator / LogReport → the multi-node
+   evaluator), each run on the card and again on the CPU from the same
+   seeds (fp32, TF32 off): ``python -m chainermn_tpu_torch.train``'s run
+   (20 steps; every iteration's ``main/loss`` rtol 1e-4, the final
+   weights atol 1e-4, the trace's ``step``, ``step/data`` and
+   ``step/compute`` spans) and ``train_mnist`` at ``--unit 1000
+   --batchsize 128 --epoch 1`` (64 iterations), run twice on the card
+   (with the prefetch thread, a trace and a profiler window; then plain:
+   the epoch's loss rtol 1e-4, the evaluator's accuracy within 1/1,024)
+   and held to the CPU within ``MNIST_CPU_TOL`` (rtol 1e-3, 32/1,024:
+   Adam at width 1000 spreads that far under fp32 reordering alone,
+   ``scripts/mnist_fp32_spread.py``).  Each prints
+   iterations/s, update() ms (the two phase spans, host
+   ``perf_counter``) and whole-step ms p50/p99 after 3 warm-up steps, the
+   two spans' medians and the card line; the MNIST run also the device
+   busy ms and idle share of a ``torch.profiler`` window over iterations
+   10-19.  No hand-written kernel is on this path.
+13. One ``{"kernels": [...]}`` line (launches summed over the main paths'
    runs: the two serving runs, the beam run, the timed LM training steps
    and the timed pallas ResNet steps), the card line, then the result
    line ``{"ok": true, "device": {...}}``.
@@ -150,6 +174,8 @@ import sys
 import time
 import traceback
 from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1870,6 +1896,289 @@ def phase_resnet_train(smoke):
         raise AssertionError(f"xla vs pallas first loss: rel err {first}")
 
 
+def phase_comm(smoke):
+    """Every communicator method and in-step collective of the port's
+    ``TorchDistCommunicator`` on the card at world 1 (the one-rank NCCL
+    group; gloo carries the object lane), against ``NaiveCommunicator(
+    size=1)`` on the same values: fp32 and int32 tensors, objects,
+    ``split`` with one color (a new NCCL group) and ``send`` / ``recv``
+    with ``source == dest``.  Data movement exact; sums rtol 1e-6."""
+    import numpy as np
+    import torch.distributed as dist
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.communicators import (NaiveCommunicator,
+                                                   create_communicator)
+    from chainermn_tpu_torch.ops import collective as col
+
+    comm = create_communicator("xla", device="cuda")
+    naive = NaiveCommunicator(size=1)
+    rng = np.random.RandomState(0)
+    checked = []
+
+    def same(name, got, want, exact=True):
+        got = got.detach().cpu().numpy() if hasattr(got, "detach") \
+            else np.asarray(got)
+        want = np.asarray(want)
+        if got.shape != want.shape or not (
+                np.array_equal(got, want) if exact
+                else np.allclose(got, want, rtol=1e-6, atol=0)):
+            raise AssertionError(f"comm {name}: got {got}, want {want}")
+        checked.append(name)
+
+    for dt in (np.float32, np.int32):
+        stack = (rng.randn(1, 4, 3) * 10).astype(dt)
+        x = torch.from_numpy(stack[0]).cuda()
+        tag = np.dtype(dt).name
+        if x.device.type != "cuda":
+            raise AssertionError("the input is not on the card")
+        for op in ("sum", "max", "min"):
+            same(f"allreduce/{op}/{tag}", comm.allreduce(x, op),
+                 naive.allreduce(stack, op)[0])
+        same(f"bcast/{tag}", comm.bcast(x, 0), naive.bcast(stack, 0)[0])
+        same(f"gather/{tag}", comm.gather(x, 0), naive.gather(stack, 0))
+        same(f"allgather/{tag}", comm.allgather(x), naive.allgather(stack)[0])
+        same(f"scatter/{tag}", comm.scatter(torch.from_numpy(stack).cuda(),
+                                            0), naive.scatter(stack, 0)[0])
+        same(f"alltoall/{tag}", comm.alltoall(x[:1]),
+             naive.alltoall(stack[:, :1])[0])
+        same(f"send/{tag}", comm.send(x, dest=0, source=0),
+             naive.send(stack, dest=0, source=0)[0])
+        same(f"recv/{tag}", comm.recv(x, source=0, dest=0),
+             naive.recv(stack, source=0, dest=0)[0])
+        for name in ("psum", "pmax", "pmin"):
+            same(f"{name}/{tag}", getattr(col, name)(x), stack[0])
+        same(f"all_gather/{tag}", col.all_gather(x), stack[0])
+        same(f"all_gather/untiled/{tag}", col.all_gather(x, tiled=False),
+             stack)
+        same(f"all_to_all/{tag}", col.all_to_all(x, split_axis=1,
+                                                 concat_axis=0), stack[0])
+        same(f"reduce_scatter/{tag}", col.reduce_scatter(x, scatter_axis=1),
+             stack[0])
+        same(f"ppermute/{tag}", col.ppermute(x, [(0, 0)]), stack[0])
+        same(f"shift/{tag}", col.shift(x, 1), stack[0])
+        same(f"bcast_col/{tag}", col.bcast(x, 0), stack[0])
+    f = torch.from_numpy(rng.randn(5, 2).astype(np.float32)).cuda()
+    same("allreduce/mean", comm.allreduce(f, "mean"),
+         naive.allreduce(f.cpu().numpy()[None], "mean")[0], exact=False)
+    same("pmean", col.pmean(f), f.cpu(), exact=False)
+    same("pmean_if_bound", col.pmean_if_bound(f), f.cpu(), exact=False)
+    same("mean_grad", comm.multi_node_mean_grad([f])[0], f.cpu(),
+         exact=False)
+    same("stack", comm.stack([f.cpu().numpy()]), f.cpu().numpy()[None])
+    same("unstack", comm.unstack(f[None])[0], f.cpu())
+    if (col.axis_index(), col.axis_size()) != (0, 1):
+        raise AssertionError("axis_index / axis_size")
+    checked.append("axis_index/axis_size")
+    obj = {"a": [1, 2], "b": "x"}
+    objs = {"bcast_obj": (comm.bcast_obj(obj), naive.bcast_obj(obj)),
+            "gather_obj": (comm.gather_obj(obj), naive.gather_obj(obj)),
+            "allgather_obj": (comm.allgather_obj(obj),
+                              naive.allgather_obj(obj)),
+            "allreduce_obj": (comm.allreduce_obj(3), naive.allreduce_obj(3))}
+    comm.send_obj(obj, dest=0)
+    naive.send_obj(obj, dest=0)
+    objs["recv_obj"] = (comm.recv_obj(source=0), naive.recv_obj(source=0))
+    for name, (got, want) in objs.items():
+        if got != want:
+            raise AssertionError(f"comm {name}: got {got}, want {want}")
+        checked.append(name)
+    (color, sub), = comm.split([0]).items()
+    whole = comm.split(0)
+    for name, c in (("split/seq", sub), ("split/scalar", whole)):
+        if (c.size, c.rank) != (1, 0) or c.device != comm.device:
+            raise AssertionError(f"{name}: size {c.size}, rank {c.rank}")
+        same(name, c.allreduce(f), f.cpu(), exact=False)
+    if str(comm.device_of(0)) != str(comm.device):
+        raise AssertionError(f"device_of(0) {comm.device_of(0)}")
+    checked.append("device_of")
+    emit({"check": "comm", "world": comm.size,
+          "backend": str(dist.get_backend()), "device": str(comm.device),
+          "checked": len(checked), "names": checked})
+
+
+def _span_ms(events, name):
+    """Durations (ms) of the trace's complete events called ``name``, in
+    order."""
+    return [e["dur"] / 1e3 for e in events
+            if e.get("ph") == "X" and e.get("name") == name]
+
+
+def _trainer_timing(trace_path, warmup=3):
+    """Iterations/s, update() ms (``step/data`` + ``step/compute``, host
+    ``perf_counter``) and whole-step ms p50/p99 after ``warmup`` steps, and
+    the two phase spans' medians, from the run's own trace."""
+    import statistics
+
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    data, compute = _span_ms(events, "step/data"), _span_ms(events, "step/compute")
+    steps = _span_ms(events, "step")
+    if not (data and compute and steps):
+        raise AssertionError(f"{trace_path}: no step, step/data or "
+                             f"step/compute spans")
+    update = [d + c for d, c in zip(data, compute)][warmup:]
+    whole = steps[warmup:]
+    return {"iterations_per_s": len(whole) / (sum(whole) / 1e3),
+            "update_ms_p50": _percentile(update, 0.5),
+            "update_ms_p99": _percentile(update, 0.99),
+            "step_ms_p50": _percentile(whole, 0.5),
+            "step_ms_p99": _percentile(whole, 0.99),
+            "step_data_ms_median": statistics.median(data[warmup:]),
+            "step_compute_ms_median": statistics.median(compute[warmup:])}
+
+
+def _profile_window(trace_path, iterations):
+    """Device busy ms per iteration (union of kernel, memcpy and memset
+    intervals) and the idle share of the profiled window."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("ph") == "X"
+                 and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for a, b in dev:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e
+             and e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset")]
+    wall = (max(e["ts"] + e["dur"] for e in spans)
+            - min(e["ts"] for e in spans))
+    return {"device_busy_ms_per_iteration": busy / 1e3 / iterations,
+            "device_ops_per_iteration": len(dev) / iterations,
+            "window_ms_per_iteration": wall / 1e3 / iterations,
+            "device_idle_share": 1.0 - busy / wall}
+
+
+MNIST = dict(unit=1000, batchsize=128, epoch=1, n_train=8192, n_val=1024)
+# Adam (eps 1e-8) at width 1000 amplifies the order in which fp32 sums:
+# noise of 3e-8 x max|g| in the gradients (under fp32's unit roundoff) moves
+# this run's epoch loss by up to 2.7e-4 and its validation accuracy by up to
+# 9/1024 on the CPU, 1e-7 x max|g| by 2.4e-4 and 15/1024
+# (scripts/mnist_fp32_spread.py).  The card is held to the CPU within those
+# spreads with margin, and to its own plain rerun at rtol 1e-4 and 1/1024.
+MNIST_CPU_TOL = {"rtol": 1e-3, "accuracy": 32 / 1024}
+
+
+def phase_trainer(smoke):
+    """ChainerMN's own loop on the card, through the port's entry points,
+    each run again on the CPU from the same seeds (fp32, TF32 off):
+    (a) ``train.run`` (``python -m chainermn_tpu_torch.train``: 20 steps,
+    the prefetch thread, a trace): every iteration's ``main/loss`` rtol
+    1e-4, the final weights atol 1e-4, the trace's ``step`` /
+    ``step/data`` / ``step/compute`` spans; (b) ``train_mnist.run`` at
+    ``--unit 1000 --batchsize 128 --epoch 1`` (64 iterations, 8,192 rows)
+    with the evaluator at the end, run twice on the card (with the
+    prefetch thread, the trace and a ``torch.profiler`` window of
+    iterations 10-19, which gives the device busy time and idle share;
+    then plain): the two epoch losses rtol 1e-4 and evaluator accuracies
+    within 1/1,024, and the card within ``MNIST_CPU_TOL`` of the CPU.
+    No hand-written kernel is on this path: the launch counts must stay 0."""
+    import math
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops, train, train_mnist
+
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    ops.reset_launch_counts()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trace_path = out / f"demo_{dev}.json"
+        result, trainer = train.run(
+            ["--device", dev, "--steps", "20", "--log-every", "1",
+             "--prefetch", "--out", str(out / f"demo_{dev}"),
+             "--trace-out", str(trace_path)])
+        log = trainer.get_extension("LogReport").log
+        runs[dev] = (result, [e["main/loss"] for e in log],
+                     {k: v.detach().cpu() for k, v in
+                      trainer.updater.state[0].items()}, trace_path)
+        if dev == "cuda" and any(v.device.type != "cuda" for v in
+                                 trainer.updater.state[0].values()):
+            raise AssertionError("the demo's weights are not on the card")
+    (res_c, loss_c, par_c, trace_c), (_, loss_h, par_h, _) = \
+        runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_c, loss_h))
+    par_err = max(float((par_c[k] - par_h[k]).abs().max()) for k in par_h)
+    names = {e["name"] for e in json.load(open(trace_c))["traceEvents"]}
+    row = {"check": "trainer_demo", "card": smoke.card, "steps": 20,
+           "world": res_c["world"], "card_losses": loss_c,
+           "cpu_losses": loss_h, "loss_max_rel_err": loss_err,
+           "param_max_abs_err": par_err, "rtol": 1e-4, "atol": 1e-4,
+           "trace_events": res_c["trace_events"],
+           **_trainer_timing(trace_c)}
+    emit(row)
+    missing = {"step", "step/data", "step/compute"} - names
+    if len(loss_c) != 20 or loss_err > 1e-4 or par_err > 1e-4 or missing \
+            or not all(math.isfinite(v) for v in loss_c):
+        raise AssertionError(f"demo trainer: loss rel err {loss_err}, param "
+                             f"err {par_err}, spans missing {missing}")
+
+    runs = {}
+    for label, dev in (("card", "cuda"), ("card_plain", "cuda"),
+                       ("cpu", "cpu")):
+        argv = ["--device", dev, "--out", str(out / f"mnist_{label}")] + [
+            f"--{k.replace('_', '-')}={v}" for k, v in MNIST.items()]
+        if label == "card":
+            argv += ["--prefetch", "--trace-out", str(out / "mnist.json"),
+                     "--profile-out", str(out / "mnist_profile")]
+        t0 = time.perf_counter()
+        result, trainer = train_mnist.run(argv)
+        runs[label] = (result, trainer, time.perf_counter() - t0)
+    (res_c, tr_c, wall_c), (res_p, _, _), (res_h, _, wall_h) = (
+        runs["card"], runs["card_plain"], runs["cpu"])
+    prof = tr_c.get_extension("TorchProfiler")
+    window = prof.stop_iteration - prof.start_iteration
+
+    def loss_err(a, b):
+        return abs(a["epoch_losses"][0] - b["epoch_losses"][0]) \
+            / abs(b["epoch_losses"][0])
+
+    def acc_err(a, b):
+        return abs(a["validation/accuracy"] - b["validation/accuracy"])
+
+    launches = ops.launch_counts()
+    row = {"check": "trainer_mnist", "card": smoke.card, **MNIST,
+           "iterations": res_c["iterations"], "world": res_c["world"],
+           "card_epoch_loss": res_c["epoch_losses"][0],
+           "card_plain_epoch_loss": res_p["epoch_losses"][0],
+           "cpu_epoch_loss": res_h["epoch_losses"][0],
+           "card_val_accuracy": res_c["validation/accuracy"],
+           "cpu_val_accuracy": res_h["validation/accuracy"],
+           "card_val_loss": res_c["validation/loss"],
+           "plain_loss_rel_err": loss_err(res_c, res_p),
+           "plain_val_accuracy_err": acc_err(res_c, res_p),
+           "plain_tol": {"rtol": 1e-4, "accuracy": 1 / 1024},
+           "cpu_loss_rel_err": loss_err(res_c, res_h),
+           "cpu_val_accuracy_err": acc_err(res_c, res_h),
+           "cpu_tol": MNIST_CPU_TOL,
+           "run_s_card": wall_c, "run_s_cpu": wall_h,
+           "kernel_launches": launches,
+           **_trainer_timing(out / "mnist.json"),
+           "profiled_iterations": window,
+           **_profile_window(prof.trace_path, window)}
+    emit(row)
+    bad = []
+    if res_c["iterations"] != 64 or not math.isfinite(res_c["epoch_losses"][0]):
+        bad.append(f"{res_c['iterations']} iterations, loss "
+                   f"{res_c['epoch_losses']}")
+    if row["plain_loss_rel_err"] > 1e-4 or \
+            row["plain_val_accuracy_err"] > 1 / 1024:
+        bad.append("the prefetch / traced run left the trajectory")
+    if row["cpu_loss_rel_err"] > MNIST_CPU_TOL["rtol"] or \
+            row["cpu_val_accuracy_err"] > MNIST_CPU_TOL["accuracy"]:
+        bad.append("card and CPU apart by more than fp32 reordering moves "
+                   "Adam")
+    if any(launches.values()):
+        bad.append(f"kernel launches {launches}")
+    if bad:
+        raise AssertionError(f"train_mnist: {bad}")
+
+
 def main():
     import torch
 
@@ -1899,7 +2208,8 @@ def main():
                          ("train-parity", phase_train_parity),
                          ("train", phase_train),
                          ("resnet-parity", phase_resnet_parity),
-                         ("resnet-train", phase_resnet_train)):
+                         ("resnet-train", phase_resnet_train),
+                         ("comm", phase_comm), ("trainer", phase_trainer)):
             smoke.phase(name, lambda fn=fn: fn(smoke))
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1911,7 +2221,7 @@ def main():
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms")})
-    if torch.distributed.is_initialized():     # the ResNet phases' group
+    if torch.distributed.is_initialized():     # the one-rank group
         torch.distributed.destroy_process_group()
     if smoke.failed:
         print(f"FAILED phases: {smoke.failed}", flush=True)

@@ -31,7 +31,19 @@ PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "profile_torch_train.py",
     ROOT / "scripts" / "profile_torch_resnet.py",
     ROOT / "scripts" / "sweep_torch_ce.py",
-    ROOT / "tests" / "_torch_dp_worker.py"]
+    ROOT / "tests" / "_torch_dp_worker.py",
+    ROOT / "tests" / "_torch_comm_worker.py",
+    ROOT / "tests" / "_torch_trainer_worker.py"]
+# the communicator and Trainer slice: each must be among PORT_FILES
+TRAINER_SLICE = ["communicators/base.py", "communicators/naive.py",
+                 "communicators/torch_dist.py", "ops/collective.py",
+                 "observability/trace.py", "training/__init__.py",
+                 "training/triggers.py", "training/trainer.py",
+                 "training/updaters.py", "training/extensions.py",
+                 "iterators/__init__.py", "evaluators.py",
+                 "extensions/__init__.py",
+                 "extensions/observation_aggregator.py", "train.py",
+                 "train_mnist.py", "convert.py"]
 
 
 def _imported_modules(path):
@@ -54,6 +66,30 @@ def _forbidden(module):
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", TRAINER_SLICE)
+def test_trainer_slice_modules_are_checked(module):
+    assert ROOT / "chainermn_tpu_torch" / module in PORT_FILES
+
+
+def test_trainer_subprocess_never_loads_jax(tmp_path):
+    code = (
+        "import sys, json\n"
+        "from chainermn_tpu_torch import train, train_mnist\n"
+        f"train.main(['--device', 'cpu', '--steps', '2', '--out', "
+        f"{str(tmp_path / 'a')!r}])\n"
+        "train_mnist.main(['--device', 'cpu', '--unit', '8', '--n-train', "
+        f"'256', '--n-val', '32', '--epoch', '1', '--out', "
+        f"{str(tmp_path / 'b')!r}])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'chainermn_tpu'))\n"
+        "print(json.dumps({'bad': bad}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": []}
 
 
 def test_forbidden_rule_tells_the_packages_apart():
