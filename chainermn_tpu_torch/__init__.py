@@ -29,18 +29,92 @@ Ported so far (one card, or one process per card for data parallelism):
   TorchProfiler / EvaluatorExtension / snapshot), ``iterators``
   (``SerialIterator``, the multi-node and synchronized iterators),
   ``evaluators`` (the multi-node evaluator, BLEU), ``extensions`` (the
-  observation aggregator), ``observability.trace`` (the span tracer);
+  observation aggregator, ``AllreducePersistent``),
+  ``observability.trace`` (the span tracer);
+* model parallelism: ``functions`` (differentiable collectives, send /
+  recv, ``pseudo_connect``), ``links`` (``MultiNodeChainList``,
+  ``MultiNodeBatchNormalization``); ``models.seq2seq`` (the LSTM
+  encoder-decoder);
 * ``convert``: JAX params → port params (the LM, ``resnet_from_jax``,
-  ``mlp_from_jax``, the demo step's), npz;
+  ``mlp_from_jax``, ``seq2seq_from_jax``, the demo step's), npz;
 * CLIs: ``serve``, ``train_transformer``, ``train_imagenet``, ``train``
-  (the demo trainer), ``train_mnist`` (the MNIST example).
+  (the demo trainer), ``train_mnist`` (the MNIST example),
+  ``train_seq2seq`` and ``train_model_parallel``.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.  Submodules are imported on use: importing this package
-imports nothing else.
+imports nothing else.  The JAX package's top-level names resolve on first
+use (``import chainermn_tpu_torch as mn; mn.create_communicator(...)``)
+through a module ``__getattr__``; a name not ported yet raises
+``AttributeError`` naming its ROADMAP.md queue item.
 """
 
+import importlib
+
+__version__ = "0.1.0"
+
 __all__ = ["communicators", "convert", "datasets", "evaluators", "extensions",
-           "iterators", "models", "observability", "ops", "optimizers",
-           "parallel", "prng", "runtime", "serving", "topology", "train",
-           "training"]
+           "functions", "iterators", "links", "models", "observability",
+           "ops", "optimizers", "parallel", "prng", "runtime", "serving",
+           "topology", "train", "training"]
+
+# the JAX package's top-level names (chainermn_tpu/__init__.py) that the
+# port has: name -> the submodule that holds it
+_NAMES = {
+    **dict.fromkeys(("FileDataset", "PrefetchIterator", "write_file_dataset"),
+                    "runtime"),
+    **dict.fromkeys(("column_parallel_dense", "row_parallel_dense", "tp_mlp",
+                     "vocab_parallel_embedding"), "parallel"),
+    **dict.fromkeys(("AllreducePersistent", "ObservationAggregator"),
+                    "extensions"),
+    **dict.fromkeys(("SerialIterator", "create_multi_node_iterator",
+                     "create_synchronized_iterator"), "iterators"),
+    **dict.fromkeys(("ScatteredDataset", "SubDataset", "create_empty_dataset",
+                     "scatter_dataset", "scatter_index"), "datasets"),
+    **dict.fromkeys(("accuracy_evaluator", "bleu_evaluator", "corpus_bleu",
+                     "create_multi_node_evaluator"), "evaluators"),
+    **dict.fromkeys(("compressed_mean", "create_multi_node_optimizer",
+                     "gradient_average"), "optimizers"),
+    **dict.fromkeys(("make_flax_train_step", "make_train_step", "replicate",
+                     "shard_batch", "shard_batch_local"), "train"),
+    **dict.fromkeys(("CommunicatorBase", "NaiveCommunicator",
+                     "XlaCommunicator", "create_communicator"),
+                    "communicators"),
+    **dict.fromkeys(("DEFAULT_AXIS_NAME", "Topology", "init_distributed",
+                     "make_mesh"), "topology"),
+}
+
+# the JAX package's top-level names not ported yet: name -> ROADMAP.md
+# queue A item
+NOT_PORTED = {
+    **dict.fromkeys(("make_moe_mlp", "moe_mlp", "make_pipeline",
+                     "pipeline_apply", "stack_stage_params",
+                     "make_ring_attention", "ring_attention",
+                     "make_ulysses_attention", "ulysses_attention",
+                     "ErrorFeedbackState", "error_feedback_layout",
+                     "fold_error_feedback", "hierarchical_gradient_average",
+                     "opt_state_partition_specs"), "A9"),
+    **dict.fromkeys(("make_tensor_parallel_mlp", "make_nd_mesh",
+                     "make_multislice_mesh"), "A6"),
+    **dict.fromkeys(("create_multi_node_checkpointer", "multi_node_snapshot",
+                     "global_except_hook"), "A7"),
+}
+
+
+def __getattr__(name):
+    if name in __all__:
+        return importlib.import_module(f".{name}", __name__)
+    if name in _NAMES:
+        value = getattr(importlib.import_module(f".{_NAMES[name]}",
+                                                __name__), name)
+        globals()[name] = value
+        return value
+    if name in NOT_PORTED:
+        raise AttributeError(
+            f"chainermn_tpu_torch.{name} is not ported yet: see ROADMAP.md, "
+            f"queue A, {NOT_PORTED[name]}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__) | set(_NAMES))

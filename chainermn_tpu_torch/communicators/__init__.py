@@ -15,6 +15,9 @@ from .base import CommunicatorBase
 from .naive import NaiveCommunicator
 from .torch_dist import TorchDistCommunicator
 
+# the JAX package's name for its process-group communicator
+XlaCommunicator = TorchDistCommunicator
+
 # name → what it meant in the reference, and what it is here
 _ALIASES = {
     "xla": "the JAX package's backend → torch.distributed (NCCL)",
@@ -47,4 +50,4 @@ def create_communicator(communicator_name: str = "xla",
 
 
 __all__ = ["CommunicatorBase", "NaiveCommunicator", "TorchDistCommunicator",
-           "create_communicator"]
+           "XlaCommunicator", "create_communicator"]

@@ -214,3 +214,45 @@ def demo_params_from_numpy(params, device="cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
     return {k: _to_tensor(params[k]).to(dev, torch.float32)
             .requires_grad_(True) for k in ("w1", "b1", "w2", "b2")}
+
+
+_GATES = ("i", "f", "g", "o")
+
+
+def seq2seq_from_jax(params, model):
+    """Load flax ``Seq2seq`` params (``{"params": ...}`` or the tree inside,
+    arrays as numpy) into the port's
+    :class:`~chainermn_tpu_torch.models.seq2seq.Seq2seq` in place and
+    return it.  Each layer's four input kernels ``ii … io`` (in, H) become
+    ``wi`` (4H, in), its hidden kernels ``hi … ho`` ``wh`` (4H, H) and their
+    biases ``bh``; ``proj.kernel`` (U, V) becomes ``proj.weight`` (V, U)."""
+    if "params" in params:
+        params = params["params"]
+    np32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    src = {f"{e}.embedding": np32(params[e]["embedding"])
+           for e in ("embed_x", "embed_y")}
+    src["proj.weight"] = np32(params["proj"]["kernel"]).T
+    src["proj.bias"] = np32(params["proj"]["bias"])
+    for stack in ("encoder", "decoder"):
+        for i in range(model.n_layers):
+            cell = params[stack][f"lstm{i}"]
+            key = f"{stack}.lstm{i}"
+            src[f"{key}.wi"] = np.concatenate(
+                [np32(cell[f"i{g}"]["kernel"]) for g in _GATES], -1).T
+            src[f"{key}.wh"] = np.concatenate(
+                [np32(cell[f"h{g}"]["kernel"]) for g in _GATES], -1).T
+            src[f"{key}.bh"] = np.concatenate(
+                [np32(cell[f"h{g}"]["bias"]) for g in _GATES])
+    targets = dict(model.named_parameters())
+    if set(targets) != set(src):
+        raise KeyError(f"tensors without a JAX array: "
+                       f"{sorted(set(targets) - set(src))}; arrays without "
+                       f"a tensor: {sorted(set(src) - set(targets))}")
+    with torch.no_grad():
+        for key, a in src.items():
+            dst = targets[key]
+            if tuple(dst.shape) != a.shape:
+                raise ValueError(f"{key}: JAX shape {a.shape}, module shape "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(a)))
+    return model

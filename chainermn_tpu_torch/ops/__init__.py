@@ -2,8 +2,12 @@
 
 Every wrapper takes its plain version for a CPU tensor and launches its
 CUDA kernel for a CUDA tensor (or raises); each counts its launches in a
-plain integer attribute, ``<wrapper>.launches``.
+plain integer attribute, ``<wrapper>.launches``.  The in-step collectives
+of ``ops.collective`` (``psum``, ``pmean``, ``ppermute``, ...) resolve
+here on first use, as JAX's ``ops`` exports them.
 """
+
+import importlib
 
 from .conv_backward import (conv2d, conv3x3_dgrad, conv3x3_dgrad_plain,
                             conv3x3_wgrad, conv3x3_wgrad_plain)
@@ -44,6 +48,26 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+COLLECTIVES = ("all_gather", "all_to_all", "axis_index", "axis_size", "bcast",
+               "pmax", "pmean", "pmean_if_bound", "pmin", "ppermute", "psum",
+               "reduce_scatter", "shift")
+# JAX's ops names of the int8 ring and the hierarchical mean: ROADMAP.md A9
+NOT_PORTED = ("block_dequantize", "block_quantize", "choose_pipeline_depth",
+              "hierarchical_pmean", "quantized_ring_pmean")
+
+
+def __getattr__(name):
+    if name in COLLECTIVES:
+        value = getattr(importlib.import_module(".collective", __name__),
+                        name)
+        globals()[name] = value
+        return value
+    if name in NOT_PORTED:
+        raise AttributeError(f"chainermn_tpu_torch.ops.{name} is not ported "
+                             f"yet: see ROADMAP.md, queue A, A9")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = ["beam_attend_parts", "beam_attend_parts_plain",
            "cache_append", "cache_append_plain", "ce_dh", "ce_dh_plain",
            "ce_dtable", "ce_dtable_plain", "ce_grads", "ce_grads_plain",
@@ -55,4 +79,4 @@ __all__ = ["beam_attend_parts", "beam_attend_parts_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_plain", "fused_cross_entropy",
            "KERNEL_WRAPPERS", "launch_counts", "merge_attend_parts",
-           "reset_launch_counts", "resolve_attn_impl"]
+           "reset_launch_counts", "resolve_attn_impl", *COLLECTIVES]

@@ -12,6 +12,7 @@ force_equal_length=False)``.  The same synthetic, learnable MNIST (a
 images); each rank walks its shard in order, ``--batchsize`` rows a step,
 as the example does.  The example's default ``--unit`` is 256; the MLP's
 own default and the reference ChainerMN example's width is 1000.
+``--optimizer sgd`` (not a flag of the example) trains with plain SGD.
 
 Run:  python -m chainermn_tpu_torch.train_mnist --unit 1000
       torchrun --nproc-per-node 4 -m chainermn_tpu_torch.train_mnist
@@ -62,6 +63,11 @@ def _parse(argv):
     parser.add_argument("--epoch", type=int, default=3)
     parser.add_argument("--unit", type=int, default=256)
     parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--optimizer", default="adam",
+                        choices=("adam", "sgd"),
+                        help="the example's Adam, or plain SGD (whose fp32 "
+                             "trajectory does not amplify rounding as "
+                             "Adam's does)")
     parser.add_argument("--n-train", type=int, default=8192)
     parser.add_argument("--n-val", type=int, default=1024)
     parser.add_argument("--double-buffering", action="store_true")
@@ -122,9 +128,10 @@ def run(argv=None, params=None):
         mlp_from_jax(params, model)
     model.to(comm.device)
     comm.broadcast_data(model)
+    actual = (torch.optim.Adam if args.optimizer == "adam"
+              else torch.optim.SGD)(model.parameters(), lr=args.lr)
     optimizer = create_multi_node_optimizer(
-        torch.optim.Adam(model.parameters(), lr=args.lr), comm,
-        double_buffering=args.double_buffering)
+        actual, comm, double_buffering=args.double_buffering)
 
     def loss_fn(module, batch):
         xs, ys = batch

@@ -222,6 +222,10 @@ class TorchProfiler:
         self._active = False
 
 
+# the JAX package's name for the same extension
+JaxProfiler = TorchProfiler
+
+
 class EvaluatorExtension:
     """Run a multi-node evaluator on a trigger, merging results into the
     observation under ``validation/`` keys (Chainer's ``Evaluator`` slot)."""

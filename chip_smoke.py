@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ResNet training, the communicator and the Trainer on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ResNet training, the communicator, the Trainer, seq2seq and model parallelism on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -138,13 +138,20 @@ and prints no result line:
    same with ``conv_impl="xla"`` (cuDNN's backward) from the same
    weights: no conv-kernel launch, the first loss within 2e-2 of the
    pallas run's, the step times side by side.
-11. ``comm`` — every communicator method and in-step collective of the
+11. ``resnet152-db`` — BASELINE config #4: ResNet-152 with double
+   buffering (``build_step(arch="resnet152", double_buffering=True)``),
+   bf16, 128 images per card (12.25 GiB at peak on an 80 GB H100), 10
+   synchronised steps each with ``conv_impl="pallas"`` and ``"xla"``:
+   step ms p50/p99, images/s, analytic MFU (3 x 11.5e9 FLOP per image over
+   989 TFLOP/s), peak memory, beside ResNet-50's; exactly 45 ``conv_wgrad``
+   and 45 ``conv_dgrad`` launches per pallas step.
+12. ``comm`` — every communicator method and in-step collective of the
    port's ``TorchDistCommunicator`` on the card at world 1 (the one-rank
    NCCL group the ResNet phases made, or a new one), against
    ``NaiveCommunicator(size=1)``: fp32 and int32 tensors, objects,
    ``split`` with one color (a new NCCL group) and ``send`` / ``recv``
    with ``source == dest``; data movement exact, sums rtol 1e-6.
-12. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
+13. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
    prefetch thread → ObservationAggregator / LogReport → the multi-node
    evaluator), each run on the card and again on the CPU from the same
    seeds (fp32, TF32 off): ``python -m chainermn_tpu_torch.train``'s run
@@ -156,16 +163,33 @@ and prints no result line:
    the epoch's loss rtol 1e-4, the evaluator's accuracy within 1/1,024)
    and held to the CPU within ``MNIST_CPU_TOL`` (rtol 1e-3, 32/1,024:
    Adam at width 1000 spreads that far under fp32 reordering alone,
-   ``scripts/mnist_fp32_spread.py``).  Each prints
+   ``scripts/mnist_fp32_spread.py``); then ``train_mnist --optimizer sgd
+   --lr 0.1`` on the card and on the CPU, the epoch loss rtol 1e-4.  Each prints
    iterations/s, update() ms (the two phase spans, host
    ``perf_counter``) and whole-step ms p50/p99 after 3 warm-up steps, the
    two spans' medians and the card line; the MNIST run also the device
    busy ms and idle share of a ``torch.profiler`` window over iterations
    10-19.  No hand-written kernel is on this path.
-13. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+14. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
+   (Trainer, the per-epoch evaluator, four greedy translations, BLEU):
+   fp32 (TF32 off) at 512 units, 3 layers, vocabulary 4,096, 3 steps on
+   the card and on the CPU, every loss rtol 1e-4 and the greedy tokens
+   equal (or a CPU near-tie under 1e-3); then bf16 at full width
+   (``SEQ2SEQ``: 512 units, 3 layers, batch 64, bucket 32, vocabulary
+   32,768, one epoch of 40 iterations): target tokens/s over the sum of
+   every step's span, step ms p50/p99, peak memory, and the device busy
+   ms, ops and idle share of a
+   ``torch.profiler`` window of 5 iterations.  No kernel launches.
+15. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
+   card): a ``MultiNodeChainList`` of config #5's two stages on rank 0
+   joined by a self-edge, every ``functions`` call forward and backward,
+   and ``MultiNodeBatchNormalization``, each against the CPU in fp32
+   (elementwise rtol 1e-5, atol 1e-5 of the tensor's largest entry).
+   World 2 is held over gloo by the tests.
+16. One ``{"kernels": [...]}`` line (launches summed over the main paths'
    runs: the two serving runs, the beam run, the timed LM training steps
-   and the timed pallas ResNet steps), the card line, then the result
-   line ``{"ok": true, "device": {...}}``.
+   and the timed pallas ResNet-50 and ResNet-152 steps), the card line,
+   then the result line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -191,6 +215,21 @@ TRAIN_SEQ, TRAIN_BATCH = 1024, 8
 RESNET = dict(arch="resnet50", image=224, batch=128, classes=1000)
 RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9          # bench.py:3106, training ~3x fwd
 RESNET_CONV_LAUNCHES = 11   # eligible 3x3 convs per step at 224 (3 + 3 + 5)
+# BASELINE config #4: ResNet-152 with double buffering, bench.py's batch
+RESNET152 = dict(arch="resnet152", image=224, batch=128, classes=1000)
+# ResNet-152's forward is 11.5e9 FLOP per 224² image, counted as bench.py
+# counts ResNet-50's 4.1e9 (multiply-adds; He et al. 2016, Table 1, gives
+# 11.3e9 and 3.8e9); training ~3x forward
+RESNET152_FLOPS_PER_IMAGE = 3 * 11.5e9
+RESNET152_CONV_LAUNCHES = 45    # eligible 3x3 convs per step (3 + 7 + 35)
+# BASELINE config #3 at full width: the model's own defaults (512 units, 3
+# layers), the example's batch of 64 a step, bucket 32 with sources of 2-30
+# tokens, a WMT-scale vocabulary of 32,768 (the example's 32 is the
+# alphabet of its toy task); one epoch of 2,560 pairs is 40 iterations
+SEQ2SEQ = dict(unit=512, layer=3, batchsize=64, bucket=32, max_len=30,
+               vocab=32768, n_train=2560, n_val=256, epoch=1)
+# the fp32 card-vs-CPU leg: the same width, vocabulary 4,096, 3 steps
+SEQ2SEQ_PARITY = dict(SEQ2SEQ, vocab=4096, n_train=192, n_val=64)
 # (library, kernel, a piece of its mangled name): the bf16 kernels that are
 # wgmma GEMMs, each of which must hold HGMMA instructions in its SASS
 WGMMA_KERNELS = (
@@ -1292,6 +1331,36 @@ def _cpu_choice_values(params_cpu, head_dim, prompt, tokens, t, kw):
     return logits / temp + prng.gumbel(key, (1, logits.shape[0]))[0]
 
 
+def _near_ties(label, card_rows, cpu_rows, cpu_values):
+    """Token rows of the card against the CPU's: each equal, or first
+    differing where the CPU's values of the two tokens lie within 1e-3 (a
+    near-tie, after which the row is not compared).  ``cpu_values(i, t)``
+    gives the CPU's value of every token at row ``i``'s first difference
+    ``t`` (logits, or a sampled row's perturbed logits).  Returns the equal
+    rows and the ``(row, step, gap)`` of each near-tie."""
+    equal, near = 0, []
+    for i, (a, c) in enumerate(zip(card_rows, cpu_rows)):
+        a, c = [int(v) for v in a], [int(v) for v in c]
+        if a == c:
+            equal += 1
+            continue
+        t = next((j for j, (x, y) in enumerate(zip(a, c)) if x != y), None)
+        if t is None:
+            raise AssertionError(f"{label} row {i}: card {len(a)} tokens, "
+                                 f"CPU {len(c)}")
+        vals = cpu_values(i, t)
+        gap = abs(float(vals[a[t]]) - float(vals[c[t]]))
+        emit({"check": "parity.mismatch", "model": label, "row": i,
+              "step": t, "card_token": a[t], "cpu_token": c[t],
+              "cpu_value_gap": gap})
+        if gap >= 1e-3:
+            raise AssertionError(f"{label} row {i} step {t}: tokens {a[t]} "
+                                 f"vs {c[t]} with CPU gap {gap} >= 1e-3: "
+                                 f"card {a}, CPU {c}")
+        near.append((i, t, gap))
+    return equal, near
+
+
 def _parity_case(smoke, label, params_cpu, head_dim, s_p, max_new,
                  sample=None):
     import numpy as np
@@ -1313,26 +1382,14 @@ def _parity_case(smoke, label, params_cpu, head_dim, s_p, max_new,
         if not all(h.status == "done" for h in handles):
             raise AssertionError(f"{label} {dev}: not every request done")
         eng.close()
-    near_ties, equal = 0, 0
-    for i, (a, c) in enumerate(zip(results["cuda"], results["cpu"])):
-        if a == c:
-            equal += 1
-            continue
-        t = next(j for j in range(max_new) if a[j] != c[j])
-        kw = (sample or {}).get(i)
-        vals = _cpu_choice_values(params_cpu, head_dim, prompts[i], c, t, kw)
-        gap = abs(float(vals[a[t]]) - float(vals[c[t]]))
-        emit({"check": "parity.mismatch", "model": label, "request": i,
-              "sampled": kw is not None, "step": t, "card_token": a[t],
-              "cpu_token": c[t], "cpu_value_gap": gap})
-        if gap >= 1e-3:
-            raise AssertionError(f"{label} request {i} step {t}: tokens "
-                                 f"{a[t]} vs {c[t]} with CPU gap {gap} "
-                                 f">= 1e-3")
-        near_ties += 1
+    equal, near = _near_ties(
+        label, results["cuda"], results["cpu"],
+        lambda i, t: _cpu_choice_values(params_cpu, head_dim, prompts[i],
+                                        results["cpu"][i], t,
+                                        (sample or {}).get(i)))
     emit({"check": "parity", "model": label, "requests": n_req,
           "sampled": sorted(sample or {}), "equal": equal,
-          "near_ties": near_ties, "dtype": "float32"})
+          "near_ties": len(near), "dtype": "float32"})
 
 
 def _seq_logprob(torch, params_cpu, head_dim, prompt, toks):
@@ -1822,13 +1879,16 @@ def _resnet_run(torch, step, model, batch, steps):
     return losses, ms
 
 
-def phase_resnet_train(smoke):
-    """bf16, ``bench.py``'s headline through the port's entry points
-    (``train_imagenet.build_step``: create_communicator → ResNet-50 →
-    create_multi_node_optimizer → make_flax_train_step, world 1 over a
-    one-rank NCCL group), ``conv_impl="pallas"``: 2 warm-up and 10 timed
-    steps; then the same with ``conv_impl="xla"`` (cuDNN's backward) from
-    the same weights as the yardstick."""
+def _resnet_cell(smoke, cfg, flops_per_image, conv_launches,
+                 double_buffering=False):
+    """bf16 through ``train_imagenet.build_step`` at world 1 over a one-rank
+    NCCL group: with ``conv_impl="pallas"`` 2 warm-up and 10 timed steps,
+    each synchronised, then the same with ``"xla"`` (cuDNN's backward) from
+    the same weights as the yardstick, at ``cfg["batch"]`` images (a batch
+    that does not fit in the card's memory fails the phase).  Checks:
+    finite losses, exactly ``conv_launches`` of each conv kernel per pallas
+    step and none under xla, the first losses within 2e-2.  Returns the two
+    rows."""
     import math
 
     torch = smoke.torch
@@ -1836,20 +1896,21 @@ def phase_resnet_train(smoke):
     from chainermn_tpu_torch.train import shard_batch
     from chainermn_tpu_torch.train_imagenet import build_step, synthetic_batch
 
-    image, per_card = RESNET["image"], RESNET["batch"]
-    flops = RESNET_FLOPS_PER_IMAGE * (image / 224.0) ** 2 * per_card
+    image, per_card = cfg["image"], cfg["batch"]
     rows, weights = {}, None
     for impl in ("pallas", "xla"):
-        step, model, comm = build_step(RESNET["arch"], image, conv_impl=impl,
-                                       num_classes=RESNET["classes"])
+        step, model, comm = build_step(
+            cfg["arch"], image, conv_impl=impl, num_classes=cfg["classes"],
+            double_buffering=double_buffering)
         if weights is None:
             weights = {k: v.clone() for k, v in model.state_dict().items()}
         model.load_state_dict(weights)
-        batch = shard_batch(synthetic_batch(per_card * comm.size, image,
-                                            RESNET["classes"]),
-                            comm.device, comm.mesh)
+        batch = shard_batch(synthetic_batch(
+            per_card * comm.size, image, cfg["classes"]),
+            comm.device, comm.mesh)
         ops.reset_launch_counts()
         warm, _ = _resnet_run(torch, step, model, batch, 2)
+        flops = flops_per_image * (image / 224.0) ** 2 * per_card
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         losses, ms = _resnet_run(torch, step, model, batch, 10)
@@ -1857,14 +1918,18 @@ def phase_resnet_train(smoke):
         p50 = _percentile(ms, 0.5)
         rows[impl] = {
             "check": "resnet_train", "dtype": "bfloat16", "conv_impl": impl,
-            **RESNET, "world": comm.size,
+            **cfg, "batch": per_card, "double_buffering": double_buffering,
+            "world": comm.size,
             "n_params": sum(p.numel() for p in model.parameters()),
             "warmup_losses": warm, "losses": losses, "step_ms": ms,
             "step_ms_p50": p50, "step_ms_p99": _percentile(ms, 0.99),
             "images_per_s": per_card / (p50 / 1e3),
             "mfu_analytic": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": launches}
+            "launches": launches,
+            "conv_launches_per_step": {
+                k: launches[k] / len(losses)
+                for k in ("conv_wgrad", "conv_dgrad")}}
         if impl == "pallas":
             smoke.add_launches(launches)
         del step, model, batch
@@ -1882,18 +1947,48 @@ def phase_resnet_train(smoke):
     every = pal["warmup_losses"] + pal["losses"] + xla["warmup_losses"] \
         + xla["losses"]
     if not all(math.isfinite(v) for v in every):
-        raise AssertionError(f"resnet losses not finite: {every}")
+        raise AssertionError(f"{cfg['arch']} losses not finite: {every}")
     n = len(pal["losses"])
-    want = {"conv_wgrad": RESNET_CONV_LAUNCHES * n,
-            "conv_dgrad": RESNET_CONV_LAUNCHES * n}
+    want = {"conv_wgrad": conv_launches * n, "conv_dgrad": conv_launches * n}
     wrong = {k: (pal["launches"][k], w) for k, w in want.items()
              if pal["launches"][k] != w}
     wrong.update({f"xla {k}": (xla["launches"][k], 0) for k in want
                   if xla["launches"][k] != 0})
     if wrong:
-        raise AssertionError(f"resnet conv launches (got, want): {wrong}")
+        raise AssertionError(f"{cfg['arch']} conv launches (got, want): "
+                             f"{wrong}")
     if first > 2e-2:
         raise AssertionError(f"xla vs pallas first loss: rel err {first}")
+    return rows
+
+
+def phase_resnet_train(smoke):
+    """bf16, ``bench.py``'s headline through the port's entry points
+    (``train_imagenet.build_step``: create_communicator → ResNet-50 →
+    create_multi_node_optimizer → make_flax_train_step, world 1 over a
+    one-rank NCCL group), ``conv_impl="pallas"``: 2 warm-up and 10 timed
+    steps; then the same with ``conv_impl="xla"`` (cuDNN's backward) from
+    the same weights as the yardstick."""
+    smoke.resnet50 = _resnet_cell(smoke, RESNET, RESNET_FLOPS_PER_IMAGE,
+                                  RESNET_CONV_LAUNCHES)
+
+
+def phase_resnet152_db(smoke):
+    """BASELINE config #4 on the card: ResNet-152 with double buffering
+    (``train_imagenet.build_step(arch="resnet152",
+    double_buffering=True)``), bf16, ``bench.py``'s 128 images per card,
+    10 synchronised steps each with ``conv_impl="pallas"`` and ``"xla"``;
+    the step time, images/s, MFU and peak memory beside ResNet-50's."""
+    rows = _resnet_cell(smoke, RESNET152, RESNET152_FLOPS_PER_IMAGE,
+                        RESNET152_CONV_LAUNCHES, double_buffering=True)
+    r50 = getattr(smoke, "resnet50", None) or {}
+    keys = ("batch", "step_ms_p50", "step_ms_p99", "images_per_s",
+            "mfu_analytic", "peak_mem_gb", "conv_launches_per_step")
+    emit({"check": "resnet152_vs_resnet50", "card": smoke.card,
+          **{f"resnet152_{impl}": {k: rows[impl][k] for k in keys}
+             for impl in rows},
+          **{f"resnet50_{impl}": {k: r[k] for k in keys}
+             for impl, r in r50.items()}})
 
 
 def phase_comm(smoke):
@@ -2007,7 +2102,8 @@ def _span_ms(events, name):
 def _trainer_timing(trace_path, warmup=3):
     """Iterations/s, update() ms (``step/data`` + ``step/compute``, host
     ``perf_counter``) and whole-step ms p50/p99 after ``warmup`` steps, and
-    the two phase spans' medians, from the run's own trace."""
+    the two phase spans' medians, from the run's own trace; also every
+    step's span summed, warm-up, evaluator and profiler steps included."""
     import statistics
 
     with open(trace_path) as fh:
@@ -2019,7 +2115,8 @@ def _trainer_timing(trace_path, warmup=3):
                              f"step/compute spans")
     update = [d + c for d, c in zip(data, compute)][warmup:]
     whole = steps[warmup:]
-    return {"iterations_per_s": len(whole) / (sum(whole) / 1e3),
+    return {"steps": len(steps), "steps_ms_total": sum(steps),
+            "iterations_per_s": len(whole) / (sum(whole) / 1e3),
             "update_ms_p50": _percentile(update, 0.5),
             "update_ms_p99": _percentile(update, 0.99),
             "step_ms_p50": _percentile(whole, 0.5),
@@ -2175,8 +2272,302 @@ def phase_trainer(smoke):
                    "Adam")
     if any(launches.values()):
         bad.append(f"kernel launches {launches}")
+
+    # the strict leg: plain SGD (lr 0.1) does not amplify fp32 rounding as
+    # Adam does, so the card's epoch loss is held to the CPU's at rtol 1e-4.
+    # The evaluator's loss and accuracy, read after the last step alone, are
+    # reported: rounding-level gradient noise moves them by up to 3.2e-5
+    # and 2/1,024 on the CPU alone, single iterations by up to 5.3e-4
+    # (scripts/mnist_fp32_spread.py --optimizer sgd --lr 0.1)
+    sgd = {}
+    for dev in ("cuda", "cpu"):
+        argv = ["--device", dev, "--out", str(out / f"mnist_sgd_{dev}"),
+                "--optimizer", "sgd"] + [
+            f"--{k.replace('_', '-')}={v}" for k, v in MNIST.items()]
+        sgd[dev] = train_mnist.run(argv + ["--lr", "0.1"])[0]
+    row = {"check": "trainer_mnist_sgd", "card": smoke.card, **MNIST,
+           "optimizer": "sgd", "lr": 0.1,
+           "iterations": sgd["cuda"]["iterations"],
+           "card_epoch_loss": sgd["cuda"]["epoch_losses"][0],
+           "cpu_epoch_loss": sgd["cpu"]["epoch_losses"][0],
+           "card_val_loss": sgd["cuda"]["validation/loss"],
+           "cpu_val_loss": sgd["cpu"]["validation/loss"],
+           "card_val_accuracy": sgd["cuda"]["validation/accuracy"],
+           "cpu_val_accuracy": sgd["cpu"]["validation/accuracy"],
+           "cpu_loss_rel_err": loss_err(sgd["cuda"], sgd["cpu"]),
+           "cpu_val_loss_rel_err": abs(
+               sgd["cuda"]["validation/loss"] - sgd["cpu"]["validation/loss"])
+           / abs(sgd["cpu"]["validation/loss"]),
+           "cpu_val_accuracy_err": acc_err(sgd["cuda"], sgd["cpu"]),
+           "cpu_tol": {"rtol": 1e-4}}
+    emit(row)
+    if sgd["cuda"]["iterations"] != 64 or row["cpu_loss_rel_err"] > 1e-4:
+        bad.append(f"SGD leg: card vs CPU loss rel err "
+                   f"{row['cpu_loss_rel_err']}")
+    if any(ops.launch_counts().values()):
+        bad.append(f"kernel launches {ops.launch_counts()}")
     if bad:
         raise AssertionError(f"train_mnist: {bad}")
+
+
+def _seq2seq_argv(cfg, device, out, *extra):
+    return ["--device", device, "--out", str(out)] + [
+        f"--{k.replace('_', '-')}={v}" for k, v in cfg.items()] + list(extra)
+
+
+def _translation_parity(torch, card_model, cpu_model, src, max_len):
+    """Greedy tokens of the card's model against the CPU's (``_near_ties``
+    on the CPU's logits)."""
+    from chainermn_tpu_torch.models.seq2seq import BOS
+
+    got = card_model.translate(src.cuda(), max_len=max_len).cpu()
+    want = cpu_model.translate(src, max_len=max_len)
+
+    def cpu_logits(i, t):
+        tin = torch.cat([torch.tensor([BOS]), want[i, :t]])[None]
+        with torch.no_grad():
+            return cpu_model(src[i:i + 1], tin)[0, -1]
+
+    return _near_ties("seq2seq translation", got, want, cpu_logits)
+
+
+def phase_seq2seq(smoke):
+    """BASELINE config #3 through ``train_seq2seq.run`` (Trainer →
+    StandardUpdater → make_train_step, the evaluator each epoch, four greedy
+    translations, BLEU): first the fp32 leg at ``SEQ2SEQ_PARITY`` (3 steps,
+    TF32 off) on the card and on the CPU from the same seeds, every
+    iteration's loss rtol 1e-4 and the greedy tokens equal (or a CPU
+    near-tie); then bf16 at ``SEQ2SEQ``'s full width on the card: target
+    tokens/s (the epoch's non-PAD ``tgt_out`` tokens over the sum of every
+    ``step`` span), step ms p50/p99 (the spans after 3 warm-up steps), peak
+    memory, and the device busy
+    time, ops and idle share of a ``torch.profiler`` window of iterations
+    10-14.  No hand-written kernel is on this path: the launch counts, zeroed
+    before the runs, must stay 0."""
+    import math
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops, train_seq2seq
+    from chainermn_tpu_torch.models.seq2seq import PAD, encode_pairs
+
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    ops.reset_launch_counts()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        result, trainer = train_seq2seq.run(_seq2seq_argv(
+            SEQ2SEQ_PARITY, dev, out / f"s2s_parity_{dev}", "--dtype",
+            "float32"))
+        runs[dev] = (result, trainer.updater.state[0])
+    (res_c, model_c), (res_h, model_h) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(res_c["iteration_losses"], res_h["iteration_losses"]))
+    pairs = train_seq2seq.make_corpus(SEQ2SEQ_PARITY["n_val"],
+                                      SEQ2SEQ_PARITY["vocab"], seed=2,
+                                      max_len=SEQ2SEQ_PARITY["max_len"])
+    bucket = SEQ2SEQ_PARITY["bucket"]
+    src = torch.from_numpy(encode_pairs(pairs, bucket, bucket)[0])
+    equal, near = _translation_parity(torch, model_c, model_h, src, bucket)
+    emit({"check": "seq2seq_parity", "dtype": "float32", **SEQ2SEQ_PARITY,
+          "card_losses": res_c["iteration_losses"],
+          "cpu_losses": res_h["iteration_losses"],
+          "loss_max_rel_err": loss_err, "rtol": 1e-4,
+          "card_val_loss": res_c["validation/loss"],
+          "cpu_val_loss": res_h["validation/loss"],
+          "translated_rows": len(src), "equal_rows": equal,
+          "near_ties": near, "card_bleu": res_c["bleu"],
+          "cpu_bleu": res_h["bleu"]})
+    if len(res_c["iteration_losses"]) != 3 or loss_err > 1e-4:
+        raise AssertionError(f"seq2seq card vs CPU: loss rel err {loss_err}")
+    del runs, model_c, model_h
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result, trainer = train_seq2seq.run(_seq2seq_argv(
+        SEQ2SEQ, "cuda", out / "s2s", "--trace-out", str(out / "s2s.json"),
+        "--profile-out", str(out / "s2s_profile")))
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    model = trainer.updater.state[0]
+    prof = trainer.get_extension("TorchProfiler")
+    window = prof.stop_iteration - prof.start_iteration
+    timing = _trainer_timing(out / "s2s.json")
+    pairs = train_seq2seq.make_corpus(SEQ2SEQ["n_train"], SEQ2SEQ["vocab"],
+                                      seed=1, max_len=SEQ2SEQ["max_len"])
+    _, _, tout = encode_pairs(pairs, SEQ2SEQ["bucket"], SEQ2SEQ["bucket"])
+    # one epoch walks every pair once: the run's target tokens over the
+    # time of all its steps
+    tokens = int((tout != PAD).sum())
+    losses = result["iteration_losses"]
+    row = {"check": "seq2seq", "card": smoke.card, "dtype": result["dtype"],
+           **SEQ2SEQ, "world": result["world"],
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "iterations": result["iterations"], "losses": losses,
+           "epoch_loss": result["epoch_losses"][0],
+           "validation/loss": result["validation/loss"],
+           "validation/accuracy": result["validation/accuracy"],
+           "bleu": result["bleu"], "translations": result["translations"],
+           "run_s": wall, "target_tokens": tokens, **timing,
+           "target_tokens_per_s": tokens / (timing["steps_ms_total"] / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "kernel_launches": launches, "profiled_iterations": window,
+           **_profile_window(prof.trace_path, window)}
+    emit(row)
+    bad = []
+    if result["iterations"] < 40 or len(losses) != result["iterations"] \
+            or timing["steps"] != result["iterations"]:
+        bad.append(f"{result['iterations']} iterations")
+    if not all(math.isfinite(v) for v in losses + [
+            result["validation/loss"], result["validation/accuracy"]]) \
+            or not losses[-1] < losses[0]:
+        bad.append(f"losses not finite and falling: {losses}")
+    if not 0.0 <= result["bleu"] <= 1.0 or len(result["translations"]) != 4:
+        bad.append(f"BLEU {result['bleu']}, {result['translations']}")
+    if result["dtype"] != "bfloat16" or any(
+            p.device.type != "cuda" for p in model.parameters()):
+        bad.append("the model is not bf16 on the card")
+    if any(launches.values()):
+        bad.append(f"kernel launches {launches}")
+    if bad:
+        raise AssertionError(f"seq2seq: {bad}")
+
+
+def phase_model_parallel(smoke):
+    """BASELINE config #5's pieces at world 1 on the card (NCCL cannot put
+    two ranks on one card), each against the CPU on the same values in
+    fp32: a ``MultiNodeChainList`` of the model-parallel MLP's two
+    stages, both on rank 0 and joined by a self-edge (the output and every
+    gradient of the sigmoid BCE; against the naive communicator on the
+    CPU); every differentiable function of ``functions`` (and the private
+    all-reduce), forward and backward, on the card's NCCL group against the
+    same group's gloo side; ``MultiNodeBatchNormalization`` (two training
+    calls, the gradients, the running statistics, the running-average
+    output).  Each entry within rtol 1e-5 and an atol of 1e-5 of its
+    tensor's largest entry.  No hand-written kernel is on this path."""
+    import numpy as np
+    import torch.nn.functional as tF
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import functions as F
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.communicators import (NaiveCommunicator,
+                                                   create_communicator)
+    from chainermn_tpu_torch.functions.collective import _pmean, _psum
+    from chainermn_tpu_torch.functions.point_to_point import ring_exchange
+    from chainermn_tpu_torch.links import (MultiNodeBatchNormalization,
+                                           MultiNodeChainList)
+    from chainermn_tpu_torch.train_model_parallel import (init_params,
+                                                          make_task)
+
+    comm = create_communicator("xla", device="cuda")
+    ops.reset_launch_counts()
+    checked, worst = [], [0.0]
+
+    def close(name, got, want):
+        """Elementwise ``|card − CPU| <= 1e-5 · |CPU| + 1e-5 · max |CPU|``:
+        the atol follows the tensor's largest entry, since a summed
+        gradient (a BatchNorm scale, a weight) errs by its terms' size, not
+        by its own."""
+        got, want = got.detach().float().cpu(), want.detach().float().cpu()
+        if got.shape != want.shape:
+            raise AssertionError(f"model-parallel {name}: shapes "
+                                 f"{tuple(got.shape)} {tuple(want.shape)}")
+        ref = float(want.abs().max())
+        excess = float(((got - want).abs() - 1e-5 * want.abs()).max())
+        worst[0] = max(worst[0], excess / max(ref, 1e-30))
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5 * ref):
+            raise AssertionError(
+                f"model-parallel {name}: max err "
+                f"{float((got - want).abs().max())}, max |ref| {ref}")
+        checked.append(name)
+
+    xs, ys = make_task()
+    params = init_params(32)
+
+    def stage0(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    def stage1(p, h):
+        return h @ p["w"] + p["b"]
+
+    chains = {}
+    for dev, c in (("cuda", comm), ("cpu", NaiveCommunicator(size=1))):
+        mnc = MultiNodeChainList(c)
+        mnc.add_link(stage0, params["w0"], rank=0, rank_in=None, rank_out=0)
+        mnc.add_link(stage1, params["w1"], rank=0, rank_in=0, rank_out=None)
+        out = mnc(torch.from_numpy(xs).to(dev))
+        tF.binary_cross_entropy_with_logits(
+            out, torch.from_numpy(ys).to(dev)).backward()
+        chains[dev] = (out, {f"stage{i}.{k}": v for i, p in
+                             enumerate(mnc.params()) for k, v in p.items()})
+    (out_c, par_c), (out_h, par_h) = chains["cuda"], chains["cpu"]
+    if out_c.device.type != "cuda" or any(
+            v.device.type != "cuda" for v in par_c.values()):
+        raise AssertionError("the chain list's stages are not on the card")
+    close("chain/output", out_c, out_h)
+    for k in par_h:
+        close(f"chain/grad/{k}", par_c[k].grad, par_h[k].grad)
+
+    cases = {
+        "send": lambda b: F.send(b, dest=0, source=0),
+        "recv": lambda b: F.recv(b, source=0, dest=0),
+        "ring_exchange": lambda b: ring_exchange(b, 1),
+        "bcast": lambda b: F.bcast(b, root=0),
+        "allgather": lambda b: F.allgather(b),
+        "allgather_tiled": lambda b: F.allgather(b, axis=1, tiled=True),
+        "all_to_all": lambda b: F.all_to_all(b[:1]),
+        "all_to_all_tiled": lambda b: F.all_to_all(
+            b, split_axis=1, concat_axis=0, tiled=True),
+        "scatter": lambda b: F.scatter(b[None], root=0),
+        "gather": lambda b: F.gather(b, root=0),
+        "pseudo_connect": lambda b: F.pseudo_connect(
+            F.send(b, dest=0, source=0), b * 2.0),
+        "psum": lambda b: _psum(b),
+        "pmean": lambda b: _pmean(b),
+    }
+    x = np.random.RandomState(3).randn(64, 1024).astype(np.float32)
+    for name, fn in cases.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            b = torch.from_numpy(x).to(dev).requires_grad_(True)
+            y = fn(b)
+            w = torch.randn(y.shape, generator=torch.Generator()
+                            .manual_seed(7)).to(dev)
+            (y * w).sum().backward()
+            res[dev] = (y, b.grad)
+        close(f"functions/{name}", res["cuda"][0], res["cpu"][0])
+        close(f"functions/{name}/grad", res["cuda"][1], res["cpu"][1])
+
+    xb = (np.random.RandomState(4).randn(256, 1024) * 3 + 1).astype(
+        np.float32)
+    wb = np.random.RandomState(5).randn(256, 1024).astype(np.float32)
+    bns = {}
+    for dev in ("cuda", "cpu"):
+        bn = MultiNodeBatchNormalization(1024).to(dev)
+        xt = torch.from_numpy(xb).to(dev).requires_grad_(True)
+        y = bn(xt)
+        (y * torch.from_numpy(wb).to(dev)).sum().backward()
+        bn(torch.from_numpy(xb * 0.5).to(dev))
+        bns[dev] = {"y": y, "dx": xt.grad, "dscale": bn.scale.grad,
+                    "dbias": bn.bias.grad, "mean": bn.mean, "var": bn.var,
+                    "y_ra": bn(torch.from_numpy(xb).to(dev),
+                               use_running_average=True)}
+    for k in bns["cpu"]:
+        close(f"batchnorm/{k}", bns["cuda"][k], bns["cpu"][k])
+    launches = ops.launch_counts()
+    emit({"check": "model_parallel", "world": comm.size,
+          "device": str(comm.device), "rtol": 1e-5, "atol_of_max_ref": 1e-5,
+          "max_err_beyond_rtol_over_max_ref": worst[0],
+          "checked": len(checked), "names": checked,
+          "kernel_launches": launches})
+    print("model-parallel at world 2 (the chain list across processes, "
+          "send / recv, the collectives' backward, the synchronized "
+          "BatchNorm) is held to JAX over gloo on the CPU "
+          "(tests/test_torch_{functions,links,model_parallel}.py) until "
+          "two cards are given: one card cannot hold two NCCL ranks",
+          flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches {launches}")
 
 
 def main():
@@ -2209,7 +2600,10 @@ def main():
                          ("train", phase_train),
                          ("resnet-parity", phase_resnet_parity),
                          ("resnet-train", phase_resnet_train),
-                         ("comm", phase_comm), ("trainer", phase_trainer)):
+                         ("resnet152-db", phase_resnet152_db),
+                         ("comm", phase_comm), ("trainer", phase_trainer),
+                         ("seq2seq", phase_seq2seq),
+                         ("model-parallel", phase_model_parallel)):
             smoke.phase(name, lambda fn=fn: fn(smoke))
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -33,7 +33,9 @@ PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "sweep_torch_ce.py",
     ROOT / "tests" / "_torch_dp_worker.py",
     ROOT / "tests" / "_torch_comm_worker.py",
-    ROOT / "tests" / "_torch_trainer_worker.py"]
+    ROOT / "tests" / "_torch_trainer_worker.py",
+    ROOT / "tests" / "_torch_functions_worker.py",
+    ROOT / "tests" / "_torch_example_worker.py"]
 # the communicator and Trainer slice: each must be among PORT_FILES
 TRAINER_SLICE = ["communicators/base.py", "communicators/naive.py",
                  "communicators/torch_dist.py", "ops/collective.py",
@@ -44,6 +46,17 @@ TRAINER_SLICE = ["communicators/base.py", "communicators/naive.py",
                  "extensions/__init__.py",
                  "extensions/observation_aggregator.py", "train.py",
                  "train_mnist.py", "convert.py"]
+# the model-parallel and seq2seq slice: each must be among PORT_FILES
+MODEL_PARALLEL_SLICE = ["__init__.py", "functions/__init__.py",
+                        "functions/collective.py",
+                        "functions/point_to_point.py",
+                        "functions/pseudo_connect.py", "links/__init__.py",
+                        "links/multi_node_chain_list.py",
+                        "links/multi_node_batch_normalization.py",
+                        "extensions/allreduce_persistent.py",
+                        "models/seq2seq.py", "train_seq2seq.py",
+                        "train_model_parallel.py", "ops/__init__.py",
+                        "communicators/__init__.py"]
 
 
 def _imported_modules(path):
@@ -68,7 +81,7 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("module", TRAINER_SLICE)
+@pytest.mark.parametrize("module", TRAINER_SLICE + MODEL_PARALLEL_SLICE)
 def test_trainer_slice_modules_are_checked(module):
     assert ROOT / "chainermn_tpu_torch" / module in PORT_FILES
 
@@ -345,3 +358,143 @@ def test_tma_operand_pads_and_copies_only_when_needed(shape, width, padded,
     assert (got is x) == (offset == 0 and not padded)
     assert torch.equal(got[..., :shape[-1]], x)
     assert not got[..., shape[-1]:].any()
+
+
+# ---- the package's public face (JAX's top-level names) ----
+
+def _jax_top_level_names():
+    """Every public name ``chainermn_tpu/__init__.py`` binds."""
+    tree = ast.parse((ROOT / "chainermn_tpu" / "__init__.py").read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return sorted(n for n in names if not n.startswith("_")
+                  or n == "__version__")
+
+
+@pytest.mark.parametrize("name", _jax_top_level_names())
+def test_every_jax_top_level_name_resolves_or_is_listed(name):
+    """Each of JAX's top-level names resolves on ``import
+    chainermn_tpu_torch as mn``, or is in the one table of names not yet
+    ported beside its ROADMAP.md queue item, and then raises naming it."""
+    import re
+
+    import chainermn_tpu_torch as mn
+
+    if name in mn.NOT_PORTED:
+        assert re.fullmatch(r"A\d+", mn.NOT_PORTED[name])
+        with pytest.raises(AttributeError,
+                           match=f"ROADMAP.md, queue A, "
+                                 f"{mn.NOT_PORTED[name]}"):
+            getattr(mn, name)
+    else:
+        assert getattr(mn, name) is not None
+
+
+def test_not_ported_table_holds_only_jax_names():
+    import chainermn_tpu_torch as mn
+
+    assert set(mn.NOT_PORTED) <= set(_jax_top_level_names())
+
+
+def test_unknown_name_raises_attribute_error():
+    import chainermn_tpu_torch as mn
+
+    with pytest.raises(AttributeError, match="no attribute"):
+        mn.no_such_name
+    assert not hasattr(mn, "no_such_name")
+
+
+def test_chainermn_face_resolves_to_the_submodules():
+    import chainermn_tpu_torch as mn
+    from chainermn_tpu_torch import (communicators, datasets, evaluators,
+                                     optimizers, train)
+
+    assert mn.create_communicator is communicators.create_communicator
+    assert mn.create_multi_node_optimizer is \
+        optimizers.create_multi_node_optimizer
+    assert mn.scatter_dataset is datasets.scatter_dataset
+    assert mn.make_train_step is train.make_train_step
+    assert mn.create_multi_node_evaluator is \
+        evaluators.create_multi_node_evaluator
+    assert mn.functions.send is not None and mn.links.MultiNodeChainList
+    assert "create_communicator" in dir(mn)
+
+
+def test_importing_the_package_imports_no_submodule():
+    code = ("import sys, json\n"
+            "import chainermn_tpu_torch as mn\n"
+            "before = sorted(m for m in sys.modules if m.startswith("
+            "'chainermn_tpu_torch'))\n"
+            "mn.create_communicator\n"
+            "after = 'chainermn_tpu_torch.communicators' in sys.modules\n"
+            "print(json.dumps([before, after]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    before, after = json.loads(out.stdout.strip().splitlines()[-1])
+    assert before == ["chainermn_tpu_torch"] and after
+
+
+def test_ops_reexports_the_in_step_collectives():
+    """JAX's ``ops`` exports its collectives; the port's resolves each it
+    has to ``ops.collective`` and names A9 for the int8 ring's."""
+    import chainermn_tpu.ops as jops
+
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.ops import collective
+
+    jax_names = {n for n in dir(jops) if not n.startswith("_")
+                 and n in dir(__import__("chainermn_tpu.ops.collective",
+                                         fromlist=["x"]))
+                 and callable(getattr(jops, n))}
+    for name in jax_names:
+        if name in ops.NOT_PORTED:
+            with pytest.raises(AttributeError, match="A9"):
+                getattr(ops, name)
+        else:
+            assert getattr(ops, name) is getattr(collective, name), name
+    assert {"psum", "pmean", "pmax", "pmin", "all_gather", "all_to_all",
+            "ppermute", "shift", "axis_index", "axis_size", "bcast"} <= \
+        set(ops.COLLECTIVES)
+
+
+def test_renamed_classes_keep_their_jax_names():
+    import chainermn_tpu_torch as mn
+    from chainermn_tpu_torch.communicators import TorchDistCommunicator
+    from chainermn_tpu_torch.training import extensions
+
+    assert extensions.JaxProfiler is extensions.TorchProfiler
+    assert mn.XlaCommunicator is TorchDistCommunicator
+
+
+def test_new_clis_never_load_jax(tmp_path):
+    """``train_seq2seq`` and ``train_imagenet --arch resnet152
+    --double-buffering`` (one timed step after the warm-up at image 32,
+    batch 2) on the CPU, with ``jax`` out of ``sys.modules``."""
+    code = (
+        "import sys, json\n"
+        "from chainermn_tpu_torch import train_imagenet, train_seq2seq\n"
+        "r, _ = train_seq2seq.run(['--device', 'cpu', '--unit', '8', "
+        "'--n-train', '128', '--n-val', '16', '--epoch', '1', '--out', "
+        f"{str(tmp_path / 's2s')!r}])\n"
+        "train_imagenet.main(['--device', 'cpu', '--arch', 'resnet152', "
+        "'--double-buffering', '--image-size', '32', '--batchsize', '2', "
+        "'--steps', '1', '--dataset-size', '4', '--num-classes', '10'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'chainermn_tpu'))\n"
+        "print(json.dumps({'bad': bad, 'iterations': r['iterations']}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["OMP_NUM_THREADS"] = "1"     # beside other test workers
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert any(line.startswith("resnet152  cards=1  global_batch=2")
+               for line in lines)
+    assert lines[-3].startswith("loss ") and "throughput:" in lines[-2]
+    assert json.loads(lines[-1]) == {"bad": [], "iterations": 2}
