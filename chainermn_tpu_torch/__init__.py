@@ -18,11 +18,13 @@ Ported so far (one card, or one process per card for data parallelism):
   ``communicators`` (``create_communicator``: NCCL / gloo, the naive
   oracle; every array and object collective, ``split``),
   ``ops.collective`` (the in-step collectives), ``optimizers``
-  (``create_multi_node_optimizer``: bucketed gradient mean, bf16 wire,
-  double buffering), ``train`` (``make_train_step`` with gradient
+  (``create_multi_node_optimizer``: bucketed gradient mean, bf16 / fp16
+  wire, double buffering), ``train`` (``make_train_step`` with gradient
   accumulation, ``make_flax_train_step``, ``make_demo_step``,
   ``shard_batch``),
-  ``models`` (the ResNets with flax's BatchNorm, the MLP), ``datasets``
+  ``models`` (the ResNets with flax's BatchNorm, stalebn or affine norms,
+  the NF-ResNets, AlexNet / VGG-16 / GoogLeNet, ViT, the MLP), ``optim``
+  (LARS, LAMB, adaptive gradient clipping, the linear warmup), ``datasets``
   (``scatter_dataset``), ``runtime`` (the native prefetcher);
 * the Trainer stack: ``training`` (``Trainer``, ``StandardUpdater`` with
   the prefetch thread, triggers, LogReport / PrintReport / StepTimer /
@@ -35,8 +37,9 @@ Ported so far (one card, or one process per card for data parallelism):
   recv, ``pseudo_connect``), ``links`` (``MultiNodeChainList``,
   ``MultiNodeBatchNormalization``); ``models.seq2seq`` (the LSTM
   encoder-decoder);
-* ``convert``: JAX params → port params (the LM, ``resnet_from_jax``,
-  ``mlp_from_jax``, ``seq2seq_from_jax``, the demo step's), npz;
+* ``convert``: JAX params → port params (the LM, ``resnet_from_jax`` and
+  its twins for the NF-ResNets, the convnets and ViT, ``mlp_from_jax``,
+  ``seq2seq_from_jax``, the demo step's), npz;
 * CLIs: ``serve``, ``train_transformer``, ``train_imagenet``, ``train``
   (the demo trainer), ``train_mnist`` (the MNIST example),
   ``train_seq2seq`` and ``train_model_parallel``.
@@ -55,8 +58,8 @@ __version__ = "0.1.0"
 
 __all__ = ["communicators", "convert", "datasets", "evaluators", "extensions",
            "functions", "iterators", "links", "models", "observability",
-           "ops", "optimizers", "parallel", "prng", "runtime", "serving",
-           "topology", "train", "training"]
+           "ops", "optim", "optimizers", "parallel", "prng", "runtime",
+           "serving", "topology", "train", "training"]
 
 # the JAX package's top-level names (chainermn_tpu/__init__.py) that the
 # port has: name -> the submodule that holds it

@@ -149,7 +149,8 @@ def _nest(flat):
 
 def _dense(key):
     """The ``Dense`` (in, out) kernels; torch's ``Linear`` holds (out, in)."""
-    return key.rsplit(".", 2)[-2].startswith("Dense_") and (
+    parts = key.rsplit(".", 2)
+    return len(parts) > 1 and parts[-2].startswith("Dense_") and (
         key.endswith(".kernel") or key.endswith(".weight"))
 
 
@@ -157,9 +158,17 @@ def resnet_from_jax(variables, model):
     """Load flax ``{"params", "batch_stats"}`` (arrays as numpy) into the
     port's :class:`~chainermn_tpu_torch.models.resnet.ResNet` in place and
     return it.  Conv kernels stay HWIO, ``Dense`` kernels (in, out) become
-    ``Linear`` weights (out, in), BatchNorm ``scale``/``bias`` go to the
-    parameters and ``mean``/``var`` to the buffers.  Every tensor of the
-    module must be covered, and every array must find its tensor."""
+    ``Linear`` weights (out, in), norm ``scale``/``bias`` go to the
+    parameters and the statistics (``mean``/``var``, ``last_mean``/
+    ``last_var``) to the buffers.  Every tensor of the module must be
+    covered, and every array must find its tensor.
+
+    The mapping is by flax's names, which every ImageNet model of the port
+    keeps, so the same function loads the NF-ResNets, the convnets and ViT
+    (:func:`nf_resnet_from_jax`, :func:`convnet_from_jax`,
+    :func:`vit_from_jax`: ``ScaledWSConv`` kernels and gains, ``skip_gain``,
+    conv biases, ``qkv`` / ``proj`` in flax's layouts, ``pos_embed``,
+    ``cls``)."""
     targets = dict(model.named_parameters())
     targets.update(model.named_buffers())
     src = _flat_items(variables["params"])
@@ -195,6 +204,12 @@ def resnet_to_numpy(model) -> Dict[str, Any]:
     params = dict(host(t, k) for k, t in model.named_parameters())
     stats = dict(host(t, k) for k, t in model.named_buffers())
     return {"params": _nest(params), "batch_stats": _nest(stats)}
+
+
+nf_resnet_to_numpy = convnet_to_numpy = vit_to_numpy = resnet_to_numpy
+
+
+nf_resnet_from_jax = convnet_from_jax = vit_from_jax = resnet_from_jax
 
 
 def mlp_from_jax(params, model):

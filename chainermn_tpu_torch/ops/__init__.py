@@ -2,7 +2,8 @@
 
 Every wrapper takes its plain version for a CPU tensor and launches its
 CUDA kernel for a CUDA tensor (or raises); each counts its launches in a
-plain integer attribute, ``<wrapper>.launches``.  The in-step collectives
+plain integer attribute, ``<wrapper>.launches`` (the conv kernels also
+by kernel size, ``<wrapper>.launches_by_k``).  The in-step collectives
 of ``ops.collective`` (``psum``, ``pmean``, ``ppermute``, ...) resolve
 here on first use, as JAX's ``ops`` exports them.
 """
@@ -46,6 +47,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+        for k in getattr(fn, "launches_by_k", ()):
+            fn.launches_by_k[k] = 0
 
 
 COLLECTIVES = ("all_gather", "all_to_all", "axis_index", "axis_size", "bcast",

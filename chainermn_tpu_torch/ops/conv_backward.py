@@ -256,6 +256,7 @@ def conv3x3_wgrad(x, dy, stride: int = 1, ksize: int = 3):
         return conv3x3_wgrad_plain(x, dy, stride, ksize)
     out = _wgrad_cuda(x, dy, ksize)
     conv3x3_wgrad.launches += 1
+    conv3x3_wgrad.launches_by_k[ksize] += 1
     return out
 
 
@@ -273,6 +274,7 @@ def conv3x3_dgrad(dy, w, xshape, stride: int = 1):
         return conv3x3_dgrad_plain(dy, w, xshape, stride)
     out = _dgrad_cuda(dy, w, xshape)
     conv3x3_dgrad.launches += 1
+    conv3x3_dgrad.launches_by_k[w.shape[0]] += 1
     return out
 
 
@@ -339,5 +341,8 @@ def conv2d(x, w, stride: int = 1):
     return _Conv2d.apply(x, w, stride)
 
 
+# launches, and launches by kernel size (1 or 3)
 conv3x3_wgrad.launches = 0
 conv3x3_dgrad.launches = 0
+conv3x3_wgrad.launches_by_k = {1: 0, 3: 0}
+conv3x3_dgrad.launches_by_k = {1: 0, 3: 0}

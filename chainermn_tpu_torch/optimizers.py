@@ -5,8 +5,8 @@ Counterpart of ``chainermn_tpu/optimizers.py`` (reference:
 
 * :func:`create_multi_node_optimizer` wraps a ``torch.optim`` optimizer so
   that its ``step`` first means the gradients across ranks (one
-  all-reduce of one flat bucket, optionally ``bfloat16`` on the wire) and
-  then applies the wrapped optimizer;
+  all-reduce of one flat bucket, optionally ``bfloat16`` or ``float16``
+  on the wire) and then applies the wrapped optimizer;
 * ``double_buffering=True`` applies the PREVIOUS step's mean and keeps
   this step's for the next (1-step staleness; the first step applies the
   zero-filled buffer, ``zero_fill``).
@@ -15,6 +15,9 @@ optax recipes map onto ``torch.optim``: ``optax.chain(
 add_decayed_weights(wd), sgd(lr, momentum))`` is ``torch.optim.SGD(params,
 lr, momentum, weight_decay=wd)`` (the decay is added to the mean gradient,
 then the momentum trace ``g + momentum·trace``, then ``−lr`` times it).
+``optax.lars``, ``optax.lamb``, ``optax.adaptive_grad_clip`` and the
+linear warmup have no ``torch.optim`` twin: :mod:`chainermn_tpu_torch.optim`
+has them.
 
 The int8 quantized ring and error feedback are not ported (ROADMAP.md,
 queue A item 9).
@@ -30,15 +33,17 @@ import torch.distributed as dist
 _INT8 = ("the int8 quantized ring and error feedback are not ported yet: "
          "see ROADMAP.md, queue A item 9")
 _WIRE = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16,
-         torch.float32: torch.float32, torch.bfloat16: torch.bfloat16}
+         "float16": torch.float16, torch.float32: torch.float32,
+         torch.bfloat16: torch.bfloat16, torch.float16: torch.float16}
 
 
 def _wire_dtype(allreduce_grad_dtype):
     if str(allreduce_grad_dtype).replace("torch.", "") in ("int8", "uint8"):
         raise NotImplementedError(_INT8)
     if allreduce_grad_dtype not in _WIRE:
-        raise ValueError(f"allreduce_grad_dtype must be None, 'float32' or "
-                         f"'bfloat16', got {allreduce_grad_dtype!r}")
+        raise ValueError(f"allreduce_grad_dtype must be None, 'float32', "
+                         f"'bfloat16' or 'float16' (int8: see ROADMAP.md, "
+                         f"queue A item 9), got {allreduce_grad_dtype!r}")
     return _WIRE[allreduce_grad_dtype]
 
 
@@ -70,9 +75,10 @@ def compressed_mean(grads: List[torch.Tensor], communicator,
     """The cross-rank mean of ``grads`` (a list of tensors) over a
     communicator's (or a mesh's) process group, each returned in its own
     dtype.  The bucket goes over the wire in fp32 or, with
-    ``allreduce_grad_dtype="bfloat16"``, in bf16: each gradient rounded to
-    bf16, summed in bf16, divided by the size in bf16 and cast back, as
-    JAX's ``pmean`` of ``g.astype(wire)`` is."""
+    ``allreduce_grad_dtype="bfloat16"`` or ``"float16"`` (ChainerMN's own
+    compression), in that dtype: each gradient rounded to it, summed in it,
+    divided by the size in it and cast back, as JAX's ``pmean`` of
+    ``g.astype(wire)`` is."""
     wire = _wire_dtype(allreduce_grad_dtype) or torch.float32
     if not grads:
         return []

@@ -147,12 +147,13 @@ def make_flax_train_step(model, loss_and_metrics: Callable, optimizer,
                          mesh=None, axis_name: str = DEFAULT_AXIS_NAME,
                          allreduce_grad_dtype=None,
                          preprocess: Optional[Callable] = None):
-    """``step(model, batch) -> (loss, metrics)`` for a module with BatchNorm
-    running statistics: ``loss_and_metrics(logits, batch) -> (loss,
-    metrics)`` over this rank's rows; ``batch[0]`` goes into the model in
-    training mode; ``preprocess(batch)`` runs first, on the device.  After
-    the update the floating buffers (the running statistics) are meaned
-    across ranks."""
+    """``step(model, batch) -> (loss, metrics)`` for a flax-style module:
+    ``loss_and_metrics(logits, batch) -> (loss, metrics)`` over this rank's
+    rows; ``batch[0]`` goes into the model in training mode;
+    ``preprocess(batch)`` runs first, on the device.  After the update the
+    floating buffers (the running statistics, if the module has any: the
+    NF-ResNets, ViT and ``norm="affine"`` have none) are meaned across
+    ranks."""
     mesh = mesh or make_mesh(axis_name)
     owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
     if any(id(p) not in owned for p in model.parameters()):

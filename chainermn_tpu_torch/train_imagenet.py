@@ -1,19 +1,25 @@
 #!/usr/bin/env python
-"""CLI: data-parallel ImageNet ResNet training, one process per card.
+"""CLI: data-parallel ImageNet training, one process per card.
 
-The port of ``examples/imagenet/train_imagenet.py``: the same flags and
-the same path (communicator → ResNet → multi-node SGD with momentum and
-weight decay → ``make_flax_train_step``, fed by the native prefetcher),
-plus ``--device``.  Each process trains on its rows of the global batch;
-the gradient mean and the BatchNorm statistics cross the process group
-(NCCL).  Without ``--data-dir`` it trains on synthetic records; with it,
-on a :func:`~chainermn_tpu_torch.runtime.write_file_dataset` directory,
-written with synthetic records first if it is empty.  Prints the loss,
-the accuracy and the throughput, as the example does.
+The port of ``examples/imagenet/train_imagenet.py``: the same flags, archs
+(the ResNets, the NF-ResNets, AlexNet, VGG-16, GoogLeNet and the ViTs) and
+path (communicator → model → the optimizer chain under the multi-node
+optimizer → ``make_flax_train_step``, fed by the native prefetcher), plus
+``--device``.  Each process trains on its rows of the global batch; the
+gradient mean and the BatchNorm statistics cross the process group (NCCL).
+``--optimizer sgd`` is SGD with momentum and decayed weights, ``lars`` /
+``lamb`` the large-batch optimizers of :mod:`chainermn_tpu_torch.optim`;
+``--warmup-steps`` warms the learning rate up linearly from 0 and ``--agc``
+clips the mean gradients unit-wise ahead of the optimizer, as the example
+chains them.  Without ``--data-dir`` it trains on synthetic records; with
+it, on a :func:`~chainermn_tpu_torch.runtime.write_file_dataset`
+directory, written with synthetic records first if it is empty.  Prints
+the loss, the accuracy and the throughput, as the example does.  ``--fsdp``
+and the int8 wire are refused (ROADMAP.md, queue A item 9).
 
 Run:  python -m chainermn_tpu_torch.train_imagenet --arch resnet50
       torchrun --nproc-per-node 4 -m chainermn_tpu_torch.train_imagenet \\
-          --arch resnet50 --conv-impl pallas
+          --arch nf_resnet50 --conv-impl pallas --optimizer lars --agc 0.01
       python -m chainermn_tpu_torch.train_imagenet --device cpu \\
           --arch resnet18 --image-size 32 --batchsize 8 --steps 3
 """
@@ -22,53 +28,99 @@ import argparse
 import os
 import time
 
-PORTED_ARCHS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
-_LATER = "is not ported yet: see ROADMAP.md, queue A"
+# the JAX example's --arch choices (its literal list; main checks it
+# against the registry)
+ARCH_CHOICES = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+                "nf_resnet50", "nf_resnet101", "nf_resnet152", "alex",
+                "googlenet", "vgg16", "vit_ti16", "vit_s16", "vit_b16")
+_LATER = "is not ported yet: see ROADMAP.md, queue A item 9"
 
 
-def _refuse_unported(parser, args):
-    from chainermn_tpu_torch.models.resnet import NOT_PORTED_ARCHS
+def arch_kwargs(arch, image_size=224, conv_impl="xla", norm="bn"):
+    """The model's keyword arguments beside ``num_classes``, as the JAX
+    example builds them: ``stem_strides`` 1 below 64 pixels, ``norm`` for
+    the ResNets only, ``conv_impl`` for the (NF-)ResNets only, and the
+    image size that sizes ViT's ``pos_embed`` and the convnets' first
+    ``Dense``.  A flag that does not apply to ``arch`` raises."""
+    kw = {"stem_strides": 2 if image_size >= 64 else 1}
+    if norm != "bn":
+        if not arch.startswith("resnet"):
+            raise ValueError("--norm applies to the resnet archs only")
+        kw["norm"] = norm
+    if conv_impl != "xla":
+        if "resnet" not in arch:
+            raise ValueError("--conv-impl applies to the (nf_)resnet archs "
+                             "only")
+        kw["conv_impl"] = conv_impl
+    if arch.startswith(("vit", "alex", "vgg")):
+        kw["image_size"] = image_size
+    return kw
 
-    if args.arch in NOT_PORTED_ARCHS:
-        parser.error(f"--arch {args.arch} {_LATER} (NF-ResNets, ViT)")
-    if args.fsdp:
-        parser.error(f"--fsdp {_LATER} item 9 (ZeRO / FSDP)")
-    if args.norm != "bn":
-        parser.error(f"--norm {args.norm} {_LATER} (stalebn / affine)")
-    if args.optimizer != "sgd":
-        parser.error(f"--optimizer {args.optimizer} {_LATER} (LARS / LAMB)")
-    if args.agc:
-        parser.error(f"--agc {_LATER} (adaptive gradient clipping)")
-    if args.allreduce_grad_dtype == "int8":
-        parser.error(f"--allreduce-grad-dtype int8 {_LATER} item 9")
 
-
-def build_step(arch="resnet50", image_size=224, conv_impl="xla", allreduce_grad_dtype=None,
-               double_buffering=False, num_classes=1000, lr=0.1,
-               momentum=0.9, weight_decay=1e-4, communicator="xla",
-               device="cuda", seed=0, preprocess=None):
-    """``(step, model, comm)``: ``bench.py :: build_step``'s recipe, the
-    repo's headline configuration at its defaults (ResNet-50, image 224,
-    SGD 0.1 with momentum 0.9 and weight decay 1e-4 through the
-    multi-node optimizer, 1,000 classes; ``bench.py`` feeds it 128 images
-    per card).  ``step(model, batch) -> (loss, {"accuracy": ...})`` takes
-    this rank's rows (images NHWC, integer labels) on ``comm.device``; the
-    model is rank 0's on every rank."""
+def make_optimizer(model, optimizer="sgd", lr=0.1, momentum=0.9,
+                   weight_decay=1e-4, warmup_steps=0, agc=0.0):
+    """The JAX example's chain over ``model.parameters()``: SGD (decayed
+    weights, then momentum), LARS or LAMB, at ``lr`` or warmed up linearly
+    from 0 over ``warmup_steps``, behind adaptive gradient clipping when
+    ``agc`` > 0."""
     import torch
 
+    from chainermn_tpu_torch import optim
+
+    params = list(model.parameters())
+    if optimizer == "lars":
+        opt = optim.Lars(params, lr, weight_decay=weight_decay,
+                         momentum=momentum)
+    elif optimizer == "lamb":
+        opt = optim.Lamb(params, lr, weight_decay=weight_decay)
+    elif optimizer == "sgd":
+        opt = torch.optim.SGD(params, lr=lr, momentum=momentum,
+                              weight_decay=weight_decay)
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    if warmup_steps:
+        opt = optim.Scheduled(opt, optim.linear_schedule(0.0, lr,
+                                                         warmup_steps))
+    if agc:
+        opt = optim.AdaptiveGradClip(opt, agc,
+                                     transposed=optim.linear_weights(model))
+    return opt
+
+
+def build_step(arch="resnet50", image_size=224, conv_impl="xla",
+               allreduce_grad_dtype=None, double_buffering=False,
+               num_classes=1000, lr=0.1, momentum=0.9, weight_decay=1e-4,
+               communicator="xla", device="cuda", seed=0, preprocess=None,
+               optimizer="sgd", warmup_steps=0, agc=0.0, norm="bn",
+               variables=None, dtype=None):
+    """``(step, model, comm)``: at its defaults ``bench.py :: build_step``'s
+    recipe, the repo's headline configuration (ResNet-50, image 224, SGD
+    0.1 with momentum 0.9 and weight decay 1e-4 through the multi-node
+    optimizer, 1,000 classes; ``bench.py`` feeds it 128 images per card);
+    the other arguments are the example's flags.  ``variables`` (flax's
+    ``{"params", "batch_stats"}`` as numpy) replace the seeded weights;
+    ``dtype`` is the compute dtype (the model's default, bf16, if None).
+    ``step(model, batch) -> (loss, {"accuracy": ...})`` takes this rank's
+    rows (images NHWC, integer labels) on ``comm.device``; the model is
+    rank 0's on every rank."""
     from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.convert import resnet_from_jax
     from chainermn_tpu_torch.models import ARCHS, cross_entropy_loss
     from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
     from chainermn_tpu_torch.train import make_flax_train_step, replicate
 
+    kw = arch_kwargs(arch, image_size, conv_impl, norm)
+    if dtype is not None:
+        kw["dtype"] = dtype
     comm = create_communicator(communicator, device=device)
-    model = ARCHS[arch](num_classes=num_classes,
-                        stem_strides=2 if image_size >= 64 else 1,
-                        conv_impl=conv_impl, seed=seed, device=comm.device)
+    model = ARCHS[arch](num_classes=num_classes, seed=seed,
+                        device=comm.device, **kw)
+    if variables is not None:
+        resnet_from_jax(variables, model)
     replicate(model, comm)
-    optimizer = create_multi_node_optimizer(
-        torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum,
-                        weight_decay=weight_decay),
+    opt = create_multi_node_optimizer(
+        make_optimizer(model, optimizer, lr, momentum, weight_decay,
+                       warmup_steps, agc),
         comm, double_buffering=double_buffering,
         allreduce_grad_dtype=allreduce_grad_dtype)
 
@@ -77,7 +129,7 @@ def build_step(arch="resnet50", image_size=224, conv_impl="xla", allreduce_grad_
         return cross_entropy_loss(logits, labels), {
             "accuracy": (logits.argmax(-1) == labels).float().mean()}
 
-    step = make_flax_train_step(model, loss_and_metrics, optimizer,
+    step = make_flax_train_step(model, loss_and_metrics, opt,
                                 mesh=comm.mesh,
                                 allreduce_grad_dtype=allreduce_grad_dtype,
                                 preprocess=preprocess)
@@ -86,7 +138,8 @@ def build_step(arch="resnet50", image_size=224, conv_impl="xla", allreduce_grad_
 
 def synthetic_batch(n, image_size, num_classes=1000, seed=0):
     """``bench.py``'s synthetic global batch: ``(n, S, S, 3)`` fp32 normal
-    images and uniform integer labels, from ``seed``."""
+    images and uniform integer labels, from ``seed`` (the example's
+    records and labels at seed 0)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -94,13 +147,10 @@ def synthetic_batch(n, image_size, num_classes=1000, seed=0):
             rng.randint(0, num_classes, n).astype(np.int32))
 
 
-def main(argv=None):
-    from chainermn_tpu_torch.models.resnet import NOT_PORTED_ARCHS
-
+def _parser():
     parser = argparse.ArgumentParser(
         description="chainermn_tpu_torch: data-parallel ImageNet training")
-    parser.add_argument("--arch", default="resnet50",
-                        choices=list(PORTED_ARCHS) + list(NOT_PORTED_ARCHS))
+    parser.add_argument("--arch", default="resnet50", choices=ARCH_CHOICES)
     parser.add_argument("--batchsize", type=int, default=64,
                         help="per-card batch")
     parser.add_argument("--dataset-size", type=int, default=512,
@@ -116,27 +166,72 @@ def main(argv=None):
     parser.add_argument("--momentum", type=float, default=0.9)
     parser.add_argument("--weight-decay", type=float, default=1e-4)
     parser.add_argument("--double-buffering", action="store_true")
+    parser.add_argument("--optimizer", default="sgd",
+                        choices=["sgd", "lars", "lamb"],
+                        help="lars / lamb: the large-batch optimizers "
+                             "(layer-wise trust ratios)")
+    parser.add_argument("--warmup-steps", type=int, default=0,
+                        help="linear learning-rate warmup from 0")
     parser.add_argument("--allreduce-grad-dtype", default=None,
-                        choices=["bfloat16", "float32", "int8"],
-                        help="wire dtype of the cross-card gradient mean")
+                        choices=["bfloat16", "float16", "float32", "int8"],
+                        help="wire dtype of the cross-card gradient mean "
+                             "(int8 is not ported yet)")
     parser.add_argument("--conv-impl", default="xla",
                         choices=["xla", "pallas"],
-                        help="3x3 conv backward: 'xla' = F.conv2d's own "
-                             "(cuDNN), 'pallas' = the hand-written "
-                             "conv_wgrad / conv_dgrad kernels")
+                        help="(NF-)ResNet conv backward: 'xla' = F.conv2d's "
+                             "own (cuDNN), 'pallas' = the hand-written "
+                             "conv_wgrad / conv_dgrad kernels on the "
+                             "eligible stride-1 3x3 (and, in the NF-ResNets, "
+                             "1x1) convs; PERF.md has both step times")
+    parser.add_argument("--norm", default="bn",
+                        choices=["bn", "stalebn", "affine"],
+                        help="ResNet norm layer: 'stalebn' normalises with "
+                             "the previous step's batch statistics, "
+                             "'affine' with none")
+    parser.add_argument("--agc", type=float, default=0.0,
+                        help="adaptive gradient clipping threshold (0 = "
+                             "off), ahead of the optimizer")
     parser.add_argument("--communicator", default="xla")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions over gloo)")
-    # the JAX example's flags for paths not ported: refused, not ignored
-    parser.add_argument("--norm", default="bn",
-                        choices=["bn", "stalebn", "affine"])
-    parser.add_argument("--optimizer", default="sgd",
-                        choices=["sgd", "lars", "lamb"])
-    parser.add_argument("--agc", type=float, default=0.0)
-    parser.add_argument("--fsdp", action="store_true")
+    parser.add_argument("--fsdp", action="store_true",
+                        help=f"ZeRO-3 sharding: {_LATER}")
+    return parser
+
+
+def _check(parser, args):
+    """The JAX example's flag checks, and the two refusals."""
+    from chainermn_tpu_torch.models import ARCHS
+
+    if args.fsdp:
+        parser.error(f"--fsdp {_LATER} (ZeRO / FSDP)")
+    if args.allreduce_grad_dtype == "int8":
+        parser.error(f"--allreduce-grad-dtype int8 {_LATER} (the quantized "
+                     f"ring)")
+    try:
+        arch_kwargs(args.arch, args.image_size, args.conv_impl, args.norm)
+    except ValueError as e:
+        parser.error(str(e))
+    if args.agc < 0:
+        # a negative clip would negate every update (gradient ascent)
+        parser.error("--agc must be >= 0")
+    missing = [c for c in ARCH_CHOICES if c not in ARCHS]
+    if missing:
+        parser.error(f"--arch choices drifted from the model registry: "
+                     f"{missing} not in {sorted(ARCHS)}")
+
+
+def run(argv=None, variables=None, dtype=None):
+    """``python -m chainermn_tpu_torch.train_imagenet``'s run: the
+    warm-up step, then ``--steps`` steps.  ``variables`` (flax's, as
+    numpy) replace the seeded initial weights; ``dtype`` is the compute
+    dtype (the model's default, bf16, if None).  Returns ``{"losses":
+    [the warm-up step's, then each step's], "accuracy", "images_per_s",
+    ...}``."""
+    parser = _parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
+    _check(parser, args)
 
     import torch
 
@@ -158,7 +253,9 @@ def main(argv=None):
         double_buffering=args.double_buffering, num_classes=args.num_classes,
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
         communicator=args.communicator, device=args.device,
-        preprocess=normalize_on_card)
+        preprocess=normalize_on_card, optimizer=args.optimizer,
+        warmup_steps=args.warmup_steps, agc=args.agc, norm=args.norm,
+        variables=variables, dtype=dtype)
     device = comm.device
     n_cards = comm.size
     global_batch = args.batchsize * n_cards
@@ -193,19 +290,28 @@ def main(argv=None):
             torch.cuda.synchronize(device)
 
     loss, metrics = step(model, shard_batch(it.next(), device, comm.mesh))
+    losses = [loss]
     sync()
     t0 = time.time()
     for _ in range(args.steps):
         loss, metrics = step(model, shard_batch(it.next(), device, comm.mesh))
-    final, acc = float(loss), float(metrics["accuracy"])   # waits
+        losses.append(loss)
+    losses = [float(v) for v in losses]                  # waits
+    acc = float(metrics["accuracy"])
     sync()
     dt = time.time() - t0
     it.close()
+    ips = args.steps * global_batch / dt
     if comm.rank == 0:
-        ips = args.steps * global_batch / dt
-        print(f"loss {final:.4f}  acc {acc:.4f}")
+        print(f"loss {losses[-1]:.4f}  acc {acc:.4f}")
         print(f"throughput: {ips:.1f} images/sec total, "
               f"{ips / n_cards:.1f} images/sec/card", flush=True)
+    return {"arch": args.arch, "cards": n_cards, "losses": losses,
+            "accuracy": acc, "images_per_s": ips}
+
+
+def main(argv=None):
+    run(argv)
     return 0
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ResNet training, the communicator, the Trainer, seq2seq and model parallelism on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ImageNet training, the communicator, the Trainer, seq2seq and model parallelism on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -35,10 +35,13 @@ and prints no result line:
    ``index_put_`` of the new rows for the fused call).  The flash forward: the training
    shape (B 8, S 1024, H 8, hd 128, causal) and the prefill (B 8, S 512,
    H 16, hd 64) timed beside SDPA, then serving's B 1 prefill (the 64-row
-   blocks), ragged S, GQA, S 1 and a q whose base is not 16-byte aligned.
+   blocks), ragged S, GQA, S 1, a q whose base is not 16-byte aligned, and
+   ViT-B/16's attention (B 128, S 197, H 12, hd 64, non-causal), timed.
    The training kernels: the flash
    backward (B 8, S 1024, H 8, hd 128, causal; hd 64, group 2, a ragged S
-   of 77, the LSE cotangent, bases not 16-byte aligned) and the fused
+   of 77, the LSE cotangent, bases not 16-byte aligned; ViT-B/16's
+   non-causal B 128, S 197, H 12, hd 64, timed beside SDPA's backward)
+   and the fused
    cross-entropy (T 8192, V 32768,
    D 1024; ragged T and V; targets out of range; for the bf16 gradients,
    which walk V in chunks of at most 32 MiB of ``ds``, V = 2 chunks of
@@ -64,10 +67,13 @@ and prints no result line:
    ``scaled_dot_product_attention`` (the rows as the query length, a
    boolean mask; ``enable_gqa`` for GQA).  The conv backward kernels
    (``conv3x3_wgrad``, ``conv3x3_dgrad``): ResNet-50's three eligible 3x3
-   shapes at batch 128 (56² x 64, 28² x 128, 14² x 256), the 1x1 at 56² x
-   64 → 256, a ragged 7 x 5 plane, a 196-row plane, n = 1 and channel
-   counts that are not multiples of 8, the bf16 error also within tol x
-   max |ref|; the three 3x3 shapes timed beside cuDNN's
+   shapes at batch 128 (56² x 64, 28² x 128, 14² x 256), a ragged 7 x 5
+   plane, a 196-row plane, n = 1 and channel counts that are not
+   multiples of 8, and the ten distinct 1x1 shapes of an NF-ResNet-50 step
+   at batch 128 (``NF_1X1``: 64 → 64, 64 → 256, 256 → 64 and 256 → 128 at
+   56², 128 → 512, 512 → 128 and 512 → 256 at 28², 256 → 1024, 1024 →
+   256 and 1024 → 512 at 14²), the bf16 error also within tol x max
+   |ref|; the three 3x3 and ten 1x1 shapes timed beside cuDNN's
    ``convolution_backward`` asked for dW alone or dX alone; then the bf16
    ``conv3x3_dgrad`` of a dY whose base is not 16-byte aligned.
 3. ``parity``  — fp32, full width (d 1024, 8 layers, 16 heads, vocab
@@ -145,13 +151,41 @@ and prints no result line:
    step ms p50/p99, images/s, analytic MFU (3 x 11.5e9 FLOP per image over
    989 TFLOP/s), peak memory, beside ResNet-50's; exactly 45 ``conv_wgrad``
    and 45 ``conv_dgrad`` launches per pallas step.
-12. ``comm`` — every communicator method and in-step collective of the
+12. ``imagenet-parity`` — fp32 (TF32 off), card vs CPU from the same
+   weights: NF-ResNet-50 at image 112, batch 4, ``conv_impl="pallas"``
+   (skip gains 0.2; 16 1x1 and 6 3x3 launches of each conv kernel a
+   backward), ViT-S/16 at image 64 (17 tokens), full depth, through the
+   flash kernels (12 forward and 12 backward calls), AlexNet, VGG-16 and
+   GoogLeNet at ``stem_strides=1``, image 32: the loss rtol 1e-4, the
+   running statistics atol 1e-4, the whole gradient to a relative norm of
+   max(1e-4, 4x the CPU's own change when the images move by +1e-7 or by
+   -1e-7, the larger) (``_grad_parity``: fp32 ReLU / max-pool flips make
+   these gradients chaotic at small batch), and each leaf to 4x the
+   larger of that and the leaf's own change; the NF-ResNet's gradients
+   with the conv kernels also against the same model's with cuDNN's
+   backward on the card (the same forward, so the same flips), each leaf
+   to a relative norm of 1e-4.  Then ``train_imagenet.run`` on the card
+   and on the CPU: NF-ResNet-50 with LARS, warmup 2, AGC 0.01 and the
+   fp16 wire, and ResNet-18 with stalebn and LAMB at lr 0.01, 4 steps at
+   image 64, every loss rtol 1e-4; then the stalebn LAMB run at lr 0.1,
+   every loss within max(1e-4, 4x the CPU's own change when its initial
+   weights move by +1e-7 or by -1e-7).
+13. ``imagenet-train`` — bf16, image 224, batch 128, world 1 over a one-rank
+   NCCL group, through ``train_imagenet.build_step``: NF-ResNet-50 with
+   ``conv_impl="pallas"`` and ``"xla"`` and ViT-B/16 (``attn_impl="auto"``:
+   the flash kernels; LAMB 1e-3), 2 warm-up and 10 timed steps each (step
+   ms p50/p99, images/s, analytic MFU, peak memory, every loss), exactly
+   28 1x1 and 11 3x3 launches of each conv kernel a pallas step, none a
+   xla step, 12 flash forward and 12 flash backward calls a ViT step, the
+   first xla loss within 2e-2 of the pallas one; then AlexNet, VGG-16 and
+   GoogLeNet, 2 + 3 steps.  Losses must be finite.
+14. ``comm`` — every communicator method and in-step collective of the
    port's ``TorchDistCommunicator`` on the card at world 1 (the one-rank
    NCCL group the ResNet phases made, or a new one), against
    ``NaiveCommunicator(size=1)``: fp32 and int32 tensors, objects,
    ``split`` with one color (a new NCCL group) and ``send`` / ``recv``
    with ``source == dest``; data movement exact, sums rtol 1e-6.
-13. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
+15. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
    prefetch thread → ObservationAggregator / LogReport → the multi-node
    evaluator), each run on the card and again on the CPU from the same
    seeds (fp32, TF32 off): ``python -m chainermn_tpu_torch.train``'s run
@@ -170,7 +204,7 @@ and prints no result line:
    two spans' medians and the card line; the MNIST run also the device
    busy ms and idle share of a ``torch.profiler`` window over iterations
    10-19.  No hand-written kernel is on this path.
-14. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
+16. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
    (Trainer, the per-epoch evaluator, four greedy translations, BLEU):
    fp32 (TF32 off) at 512 units, 3 layers, vocabulary 4,096, 3 steps on
    the card and on the CPU, every loss rtol 1e-4 and the greedy tokens
@@ -180,15 +214,16 @@ and prints no result line:
    every step's span, step ms p50/p99, peak memory, and the device busy
    ms, ops and idle share of a
    ``torch.profiler`` window of 5 iterations.  No kernel launches.
-15. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
+17. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
    card): a ``MultiNodeChainList`` of config #5's two stages on rank 0
    joined by a self-edge, every ``functions`` call forward and backward,
    and ``MultiNodeBatchNormalization``, each against the CPU in fp32
    (elementwise rtol 1e-5, atol 1e-5 of the tensor's largest entry).
    World 2 is held over gloo by the tests.
-16. One ``{"kernels": [...]}`` line (launches summed over the main paths'
-   runs: the two serving runs, the beam run, the timed LM training steps
-   and the timed pallas ResNet-50 and ResNet-152 steps), the card line,
+18. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+   runs: the two serving runs, the beam run, the timed LM training steps,
+   the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50 steps and the
+   timed ViT-B/16 steps), the card line,
    then the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -230,6 +265,26 @@ SEQ2SEQ = dict(unit=512, layer=3, batchsize=64, bucket=32, max_len=30,
                vocab=32768, n_train=2560, n_val=256, epoch=1)
 # the fp32 card-vs-CPU leg: the same width, vocabulary 4,096, 3 steps
 SEQ2SEQ_PARITY = dict(SEQ2SEQ, vocab=4096, n_train=192, n_val=64)
+# NF-ResNet-50 (Brock et al. 2021) at bench.py's headline size: every SAME
+# conv goes through ops.conv2d, so the eligible ones (stride 1, plane >= 14²)
+# launch the conv kernels: 28 1x1 and 11 3x3 a step at 224
+NF_RESNET = dict(arch="nf_resnet50", image=224, batch=128, classes=1000)
+NF_CONV_LAUNCHES = {1: 28, 3: 11}
+# the ten distinct eligible 1x1 shapes of an NF-ResNet-50 step at batch 128
+# (plane, Ci, Co), timed beside cuDNN: stage 0 (56²) 64 -> 64, 64 -> 256
+# (the last conv and the shortcut), 256 -> 64; stage 1 (the stride on the
+# 3x3) 256 -> 128 at 56², then 128 -> 512, 512 -> 128 at 28²; stage 2
+# 512 -> 256 at 28², then 256 -> 1024, 1024 -> 256 at 14²; stage 3's first
+# 1024 -> 512 at 14² (the rest of stage 3, at 7², is not eligible)
+NF_1X1 = ((56, 64, 64), (56, 64, 256), (56, 256, 64), (56, 256, 128),
+          (28, 128, 512), (28, 512, 128), (28, 512, 256), (14, 256, 1024),
+          (14, 1024, 256), (14, 1024, 512))
+# ViT-B/16 (Dosovitskiy et al. 2021): d 768, 12 layers of 12 heads of 64,
+# patch 16 (196 patches + CLS = 197 tokens at 224), at the same size
+VIT = dict(arch="vit_b16", image=224, batch=128, classes=1000)
+VIT_LAYERS, VIT_HEADS, VIT_HEAD_DIM = 12, 12, 64
+# the rest of the example's zoo, 2 warm-up and 3 timed steps each
+CONVNETS = ("alex", "vgg16", "googlenet")
 # (library, kernel, a piece of its mangled name): the bf16 kernels that are
 # wgmma GEMMs, each of which must hold HGMMA instructions in its SASS
 WGMMA_KERNELS = (
@@ -465,6 +520,7 @@ def check_flash(smoke):
         (1, 1, 4, 4, 64, True, False),        # one token
         (3, 33, 6, 2, 128, False, False),     # tail inside a tile, group 3
         (1, 1000, 2, 2, 64, False, False),    # long, non-causal
+        (128, 197, 12, 12, 64, False, True),  # ViT-B/16 at 224
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
@@ -488,13 +544,14 @@ def check_flash(smoke):
             del out, lse, ref, ref_lse
             if not (timed and dtype == torch.bfloat16):
                 continue
-            ms = smoke.time_ms(lambda: flash_attention(q, k, v, causal=True))
+            ms = smoke.time_ms(lambda: flash_attention(q, k, v,
+                                                       causal=causal))
             plain = smoke.time_ms(
-                lambda: flash_attention_plain(q, k, v, causal=True), iters=3)
+                lambda: flash_attention_plain(q, k, v, causal=causal), iters=3)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib = smoke.time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
-            bound, by = _flash_bound(b, s, h, d, True, q.element_size(), dn)
+                qt, kt, vt, is_causal=causal))
+            bound, by = _flash_bound(b, s, h, d, causal, q.element_size(), dn)
             if s == TRAIN_SEQ:               # the main-path row: training
                 smoke.kernel_rows["flash_fwd"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
@@ -784,6 +841,7 @@ def check_flash_bwd(smoke):
         (3, 77, 6, 2, 64, False, False, False),    # ragged, group 3
         (2, 128, 4, 4, 128, False, True, False),   # LSE cotangent
         (2, 200, 4, 2, 64, True, True, "misaligned"),
+        (128, 197, 12, 12, 64, False, False, True),  # ViT-B/16 at 224
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
@@ -818,15 +876,16 @@ def check_flash_bwd(smoke):
                 q, k, v, out, lse, do, causal), iters=5)
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                           for x in (q, k, v))
-            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
             dot = do.transpose(1, 2).contiguous()
             lib = smoke.time_ms(lambda: torch.autograd.grad(
                 ot, (qt, kt, vt), dot, retain_graph=True))
             bound, by = _flash_bwd_bound(b, s, h, hkv, d, causal,
                                          q.element_size(), dn)
-            smoke.kernel_rows["flash_bwd"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=lib, shape=shape, dtype=dn)
+            if s == TRAIN_SEQ:               # the main-path row: training
+                smoke.kernel_rows["flash_bwd"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=by, library_ms=lib, shape=shape, dtype=dn)
             emit(dict(check="flash_bwd.time", max_abs_err=err, atol=TOL[dn],
                       kernel_ms=ms, plain_ms=plain,
                       library_ms=lib, library="SDPA backward",
@@ -1148,13 +1207,14 @@ def _conv_bounds(n, h, w, ci, co, k, elem, dtype_name):
 
 def check_conv(smoke):
     """``conv3x3_wgrad`` / ``conv3x3_dgrad`` against their plain versions:
-    ResNet-50's three eligible 3x3 shapes at batch 128, the 1x1 at 56² x
-    64 → 256, a ragged 7 x 5 plane, a 196-row plane, n = 1 and channel
-    counts that are not multiples of 8.  Inputs are scaled so that the
-    outputs are O(1), as a training step's gradients are small.  The
-    three 3x3 shapes are timed in bf16 beside the plain version and
-    cuDNN's ``convolution_backward`` asked for dW alone or dX alone.  Then
-    bf16 dgrad of a misaligned dY (the wrapper copies it for TMA)."""
+    ResNet-50's three eligible 3x3 shapes at batch 128, a ragged 7 x 5
+    plane, a 196-row plane, n = 1, channel counts that are not multiples
+    of 8, and NF-ResNet-50's ten 1x1 shapes at batch 128 (``NF_1X1``).
+    Inputs are scaled so that the outputs are O(1), as a training step's
+    gradients are small.  The 3x3 and the 1x1 shapes at batch 128 are
+    timed in bf16 beside the plain version and cuDNN's
+    ``convolution_backward`` asked for dW alone or dX alone.  Then bf16
+    dgrad of a misaligned dY (the wrapper copies it for TMA)."""
     torch = smoke.torch
     from chainermn_tpu_torch.ops import (conv3x3_dgrad, conv3x3_dgrad_plain,
                                          conv3x3_wgrad, conv3x3_wgrad_plain)
@@ -1164,13 +1224,12 @@ def check_conv(smoke):
         (128, 56, 56, 64, 64, 3, True),
         (128, 28, 28, 128, 128, 3, True),
         (128, 14, 14, 256, 256, 3, True),
-        (128, 56, 56, 64, 256, 1, False),
         (2, 7, 5, 8, 8, 3, False),
         (4, 14, 14, 64, 64, 3, False),
         (1, 28, 28, 128, 128, 3, False),
         (3, 9, 11, 12, 20, 3, False),
         (2, 15, 13, 36, 44, 1, False),
-    ]
+    ] + [(128, hw, hw, ci, co, 1, True) for hw, ci, co in NF_1X1]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         for n, h, w, ci, co, k, timed in cases:
@@ -1220,7 +1279,7 @@ def check_conv(smoke):
                 row = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain,
                            bound_ms=bound, bound_by=by, library_ms=lib,
                            shape=shape, dtype=dn)
-                if h == 56:
+                if h == 56 and k == 3:
                     smoke.kernel_rows[name] = row
                 emit(dict(check=f"{name}.time", max_abs_err=errs[name],
                           atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
@@ -1879,61 +1938,73 @@ def _resnet_run(torch, step, model, batch, steps):
     return losses, ms
 
 
-def _resnet_cell(smoke, cfg, flops_per_image, conv_launches,
-                 double_buffering=False):
-    """bf16 through ``train_imagenet.build_step`` at world 1 over a one-rank
-    NCCL group: with ``conv_impl="pallas"`` 2 warm-up and 10 timed steps,
-    each synchronised, then the same with ``"xla"`` (cuDNN's backward) from
-    the same weights as the yardstick, at ``cfg["batch"]`` images (a batch
-    that does not fit in the card's memory fails the phase).  Checks:
-    finite losses, exactly ``conv_launches`` of each conv kernel per pallas
-    step and none under xla, the first losses within 2e-2.  Returns the two
-    rows."""
-    import math
-
+def _imagenet_cell(smoke, cfg, warm, timed, flops_per_image=None,
+                   check="imagenet_train", label=None, **build_kw):
+    """bf16 through ``train_imagenet.build_step`` (seeded weights) at world
+    1 over a one-rank NCCL group, ``cfg``'s arch, image, per-card batch and
+    classes: ``warm`` warm-up and ``timed`` synchronised steps (a batch that
+    does not fit in the card's memory fails the phase).  Returns the row:
+    losses, step ms p50/p99, images/s, analytic MFU (``flops_per_image``
+    at 224², scaled by the image's area), peak memory and the launches of
+    the timed steps (the conv kernels also by kernel size)."""
     torch = smoke.torch
     from chainermn_tpu_torch import ops
     from chainermn_tpu_torch.train import shard_batch
     from chainermn_tpu_torch.train_imagenet import build_step, synthetic_batch
 
-    image, per_card = cfg["image"], cfg["batch"]
-    rows, weights = {}, None
-    for impl in ("pallas", "xla"):
-        step, model, comm = build_step(
-            cfg["arch"], image, conv_impl=impl, num_classes=cfg["classes"],
-            double_buffering=double_buffering)
-        if weights is None:
-            weights = {k: v.clone() for k, v in model.state_dict().items()}
-        model.load_state_dict(weights)
-        batch = shard_batch(synthetic_batch(
-            per_card * comm.size, image, cfg["classes"]),
-            comm.device, comm.mesh)
-        ops.reset_launch_counts()
-        warm, _ = _resnet_run(torch, step, model, batch, 2)
+    image, per_card, classes = cfg["image"], cfg["batch"], cfg["classes"]
+    step, model, comm = build_step(cfg["arch"], image, num_classes=classes,
+                                   **build_kw)
+    batch = shard_batch(synthetic_batch(per_card * comm.size, image,
+                                        classes), comm.device, comm.mesh)
+    warm_losses, _ = _resnet_run(torch, step, model, batch, warm)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, ms = _resnet_run(torch, step, model, batch, timed)
+    launches = ops.launch_counts()
+    for name in ("conv_wgrad", "conv_dgrad"):
+        launches.update({f"{name}_k{k}": n for k, n in
+                         ops.KERNEL_WRAPPERS[name].launches_by_k.items()})
+    p50 = _percentile(ms, 0.5)
+    row = {"check": check, "case": label or cfg["arch"], "dtype": "bfloat16",
+           **cfg, **build_kw, "world": comm.size,
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "warmup_losses": warm_losses, "losses": losses, "step_ms": ms,
+           "step_ms_p50": p50, "step_ms_p99": _percentile(ms, 0.99),
+           "images_per_s": per_card / (p50 / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches,
+           "conv_launches_per_step": {k: launches[k] / timed
+                                      for k in ("conv_wgrad", "conv_dgrad")},
+           "card": smoke.card}
+    if flops_per_image:
         flops = flops_per_image * (image / 224.0) ** 2 * per_card
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        losses, ms = _resnet_run(torch, step, model, batch, 10)
-        launches = ops.launch_counts()
-        p50 = _percentile(ms, 0.5)
-        rows[impl] = {
-            "check": "resnet_train", "dtype": "bfloat16", "conv_impl": impl,
-            **cfg, "batch": per_card, "double_buffering": double_buffering,
-            "world": comm.size,
-            "n_params": sum(p.numel() for p in model.parameters()),
-            "warmup_losses": warm, "losses": losses, "step_ms": ms,
-            "step_ms_p50": p50, "step_ms_p99": _percentile(ms, 0.99),
-            "images_per_s": per_card / (p50 / 1e3),
-            "mfu_analytic": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": launches,
-            "conv_launches_per_step": {
-                k: launches[k] / len(losses)
-                for k in ("conv_wgrad", "conv_dgrad")}}
-        if impl == "pallas":
-            smoke.add_launches(launches)
-        del step, model, batch
-        torch.cuda.empty_cache()
+        row["mfu_analytic"] = flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"]
+    del step, model, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def _check_finite(row):
+    import math
+
+    every = row["warmup_losses"] + row["losses"]
+    if not all(math.isfinite(v) for v in every):
+        raise AssertionError(f"{row['case']} losses not finite: {every}")
+
+
+def _resnet_cell(smoke, cfg, flops_per_image, conv_launches,
+                 check="resnet_train", **build_kw):
+    """``cfg``'s model with ``conv_impl="pallas"``, 2 warm-up and 10 timed
+    steps, then the same with ``"xla"`` (cuDNN's backward) from the same
+    seed as the yardstick.  Checks: finite losses, exactly
+    ``conv_launches`` (launch-count name -> per step) a pallas step and no
+    conv kernel under xla, the first losses within 2e-2.  Emits and
+    returns the two rows."""
+    rows = {impl: _imagenet_cell(smoke, cfg, 2, 10, flops_per_image, check,
+                                 f"{cfg['arch']} {impl}", conv_impl=impl,
+                                 **build_kw)
+            for impl in ("pallas", "xla")}
     pal, xla = rows["pallas"], rows["xla"]
     first = abs(xla["warmup_losses"][0] - pal["warmup_losses"][0]) \
         / abs(pal["warmup_losses"][0])
@@ -1942,23 +2013,21 @@ def _resnet_cell(smoke, cfg, flops_per_image, conv_launches,
                - xla["step_ms_p50"],
                images_per_s_pallas_over_xla=pal["images_per_s"]
                / xla["images_per_s"])
-    emit(pal)
-    emit(xla)
-    every = pal["warmup_losses"] + pal["losses"] + xla["warmup_losses"] \
-        + xla["losses"]
-    if not all(math.isfinite(v) for v in every):
-        raise AssertionError(f"{cfg['arch']} losses not finite: {every}")
+    for row in (pal, xla):
+        emit(row)
+        _check_finite(row)
     n = len(pal["losses"])
-    want = {"conv_wgrad": conv_launches * n, "conv_dgrad": conv_launches * n}
-    wrong = {k: (pal["launches"][k], w) for k, w in want.items()
-             if pal["launches"][k] != w}
-    wrong.update({f"xla {k}": (xla["launches"][k], 0) for k in want
+    wrong = {k: (pal["launches"][k], c * n) for k, c in conv_launches.items()
+             if pal["launches"][k] != c * n}
+    wrong.update({f"xla {k}": (xla["launches"][k], 0)
+                  for k in ("conv_wgrad", "conv_dgrad")
                   if xla["launches"][k] != 0})
     if wrong:
         raise AssertionError(f"{cfg['arch']} conv launches (got, want): "
                              f"{wrong}")
     if first > 2e-2:
         raise AssertionError(f"xla vs pallas first loss: rel err {first}")
+    smoke.add_launches(pal["launches"])
     return rows
 
 
@@ -1969,8 +2038,10 @@ def phase_resnet_train(smoke):
     one-rank NCCL group), ``conv_impl="pallas"``: 2 warm-up and 10 timed
     steps; then the same with ``conv_impl="xla"`` (cuDNN's backward) from
     the same weights as the yardstick."""
-    smoke.resnet50 = _resnet_cell(smoke, RESNET, RESNET_FLOPS_PER_IMAGE,
-                                  RESNET_CONV_LAUNCHES)
+    smoke.resnet50 = _resnet_cell(
+        smoke, RESNET, RESNET_FLOPS_PER_IMAGE,
+        {"conv_wgrad": RESNET_CONV_LAUNCHES,
+         "conv_dgrad": RESNET_CONV_LAUNCHES})
 
 
 def phase_resnet152_db(smoke):
@@ -1980,7 +2051,9 @@ def phase_resnet152_db(smoke):
     10 synchronised steps each with ``conv_impl="pallas"`` and ``"xla"``;
     the step time, images/s, MFU and peak memory beside ResNet-50's."""
     rows = _resnet_cell(smoke, RESNET152, RESNET152_FLOPS_PER_IMAGE,
-                        RESNET152_CONV_LAUNCHES, double_buffering=True)
+                        {"conv_wgrad": RESNET152_CONV_LAUNCHES,
+                         "conv_dgrad": RESNET152_CONV_LAUNCHES},
+                        double_buffering=True)
     r50 = getattr(smoke, "resnet50", None) or {}
     keys = ("batch", "step_ms_p50", "step_ms_p99", "images_per_s",
             "mfu_analytic", "peak_mem_gb", "conv_launches_per_step")
@@ -1989,6 +2062,247 @@ def phase_resnet152_db(smoke):
              for impl in rows},
           **{f"resnet50_{impl}": {k: r[k] for k in keys}
              for impl, r in r50.items()}})
+
+
+def _rel_norm(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _grad_parity(smoke, label, build, weights, x, y, launches=None,
+                 cudnn_twin=None):
+    """fp32 card vs CPU from the same ``weights``: one training forward and
+    backward of ``build(device)``.  The loss to rtol 1e-4, the buffers (the
+    BatchNorm running statistics) to atol 1e-4.  Gradients: where ReLUs or
+    max-pool windows sit within rounding of a flip, fp32 reordering moves
+    a channel's gradients by ~1e-3 at a few hundred pixels a channel, on
+    the CPU alone.  So the whole gradient (every leaf in one vector) is
+    held to a relative norm of max(1e-4, 4x the CPU's own change when the
+    images move by +1e-7 or by -1e-7, the larger), and each leaf to 4x the
+    larger of that and its own change: which leaves a flip lands in is
+    chance (one sign alone can miss a flip), and a wrong leaf (relative
+    error ~1) fails all the same.
+    ``cudnn_twin``: the same model with cuDNN's conv backward; its forward
+    on the card is the same code, so flips are the same, and each of its
+    gradients must equal the kernels' to a relative norm of 1e-4.
+    ``launches``: the exact kernel launches
+    the card's backward must make (``conv_*_k1`` / ``_k3`` by kernel
+    size)."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.models import cross_entropy_loss
+
+    def run(make, dev, images):
+        model = make(dev)
+        model.load_state_dict(weights)
+        model.train()
+        names = [n for n, _ in model.named_parameters()]
+        loss = cross_entropy_loss(model(torch.from_numpy(images).to(dev)),
+                                  torch.from_numpy(y).to(dev))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return (float(loss.detach()),
+                {n: g.detach().float().cpu() for n, g in zip(names, grads)},
+                {k: b.detach().float().cpu()
+                 for k, b in model.named_buffers()})
+
+    ops.reset_launch_counts()
+    lc, gc, bc = run(build, "cuda", x)
+    counts = ops.launch_counts()
+    for name in ("conv_wgrad", "conv_dgrad"):
+        fn = ops.KERNEL_WRAPPERS[name]
+        counts.update({f"{name}_k{k}": n
+                       for k, n in fn.launches_by_k.items()})
+    lh, gh, bh = run(build, "cpu", x)
+    moved = [run(build, "cpu", (x * np.float32(1 + e)).astype(np.float32))[1]
+             for e in (1e-7, -1e-7)]
+
+    def whole(a, b):
+        num = sum(float((a[n] - b[n]).norm()) ** 2 for n in b)
+        return (num / sum(float(g.norm()) ** 2 for g in b.values())) ** 0.5
+
+    rows = {n: (_rel_norm(gc[n], g), max(_rel_norm(m[n], g) for m in moved))
+            for n, g in gh.items()}
+    err, self_change = whole(gc, gh), max(whole(m, gh) for m in moved)
+    bad = {}
+    if err > max(1e-4, 4 * self_change):
+        bad["whole gradient"] = (err, self_change)
+    bad.update({n: r for n, r in rows.items()
+                if r[0] > max(1e-4, 4 * max(r[1], self_change))})
+    twin = {}
+    if cudnn_twin is not None:
+        _, gt, _ = run(cudnn_twin, "cuda", x)
+        twin = {n: _rel_norm(gc[n], gt[n]) for n in gt}
+        bad.update({f"vs cudnn {n}": (e,) for n, e in twin.items()
+                    if e > 1e-4})
+    worst = max(rows, key=lambda n: rows[n][0])
+    stats = max((float((bc[k] - b).abs().max()) for k, b in bh.items()),
+                default=0.0)
+    loss_rel = abs(lc - lh) / abs(lh)
+    wrong = {k: (counts[k], n) for k, n in (launches or {}).items()
+             if counts[k] != n}
+    emit({"check": "imagenet_parity", "case": label, "dtype": "float32",
+          "B": int(x.shape[0]), "image": int(x.shape[1]),
+          "card_loss": lc, "cpu_loss": lh, "loss_rel_err": loss_rel,
+          "grad_rel_norm_err": err, "grad_cpu_self_change": self_change,
+          "leaf_max_rel_norm_err": rows[worst][0], "leaf_worst": worst,
+          "leaf_worst_cpu_self_change": rows[worst][1],
+          "leaves_over_1e-4": {n: list(r) for n, r in rows.items()
+                               if r[0] > 1e-4},
+          "leaves": len(rows),
+          "vs_cudnn_max_rel_norm_err": max(twin.values(), default=None),
+          "stats_max_abs_err": stats,
+          "launches": {k: counts[k] for k in (launches or {})},
+          "rtol": 1e-4, "atol": 1e-4})
+    if loss_rel > 1e-4 or stats > 1e-4 or bad or wrong:
+        raise AssertionError(
+            f"{label}: loss rel err {loss_rel}, stats err {stats}, grads "
+            f"past their bound {bad}, launches (got, want) {wrong}")
+
+
+def _cli_parity(smoke, label, argv, seeded=None):
+    """``train_imagenet.run`` on the card and on the CPU from the same seed
+    (fp32): every step's loss to rtol 1e-4.  With ``seeded`` (the model as
+    ``run`` seeds it, for a run whose steps amplify rounding), to max(1e-4,
+    4x the CPU's own change when those weights move by +1e-7 or by -1e-7,
+    the larger)."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.convert import resnet_to_numpy, tree_map
+    from chainermn_tpu_torch.train_imagenet import run
+
+    got = {dev: run(["--device", dev, *argv], dtype=torch.float32)
+           for dev in ("cuda", "cpu")}
+    card, cpu = got["cuda"]["losses"], got["cpu"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    bound, self_change = 1e-4, None
+    if seeded is not None:
+        self_change = 0.0
+        for e in (1e-7, -1e-7):
+            variables = resnet_to_numpy(seeded)
+            variables["params"] = tree_map(
+                variables["params"], lambda a: a * np.float32(1 + e))
+            moved = run(["--device", "cpu", *argv], variables=variables,
+                        dtype=torch.float32)["losses"]
+            self_change = max(self_change, *(abs(a - b) / abs(b)
+                                             for a, b in zip(moved, cpu)))
+        bound = max(bound, 4 * self_change)
+    emit({"check": "imagenet_cli_parity", "case": label, "argv": argv,
+          "card_losses": card, "cpu_losses": cpu, "loss_max_rel_err": rel,
+          "cpu_self_change": self_change, "rtol": bound})
+    if len(card) != len(cpu) or rel > bound:
+        raise AssertionError(f"{label}: card losses {card}, cpu {cpu}, "
+                             f"bound {bound}")
+
+
+def phase_imagenet_parity(smoke):
+    """fp32 (TF32 off), card vs CPU from the same weights (``_grad_parity``):
+    NF-ResNet-50 at image 112, batch 4, ``conv_impl="pallas"`` (skip gains
+    0.2, so every branch is live; 16 1x1 and 6 3x3 launches of each conv
+    kernel a backward), each gradient also against the same model's on
+    the card with cuDNN's backward; ViT-S/16 at image 64 (17 tokens), full
+    depth, the flash kernels (12 forward and 12 backward calls); AlexNet,
+    VGG-16 and
+    GoogLeNet at ``stem_strides=1``, image 32.  Then ``train_imagenet``'s
+    own ``run`` on both: NF-ResNet-50 with LARS, warmup 2, AGC 0.01 and
+    the fp16 wire, and ResNet-18 with stalebn and LAMB at lr 0.01 (rtol
+    1e-4) and at lr 0.1 (within 4x the CPU's own change), 4 steps each."""
+    torch = smoke.torch
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.models import ARCHS
+    from chainermn_tpu_torch.train_imagenet import arch_kwargs, synthetic_batch
+
+    for dev in ("cuda", "cpu"):            # the card's group first
+        create_communicator("xla", device=dev)
+
+    def model(arch, **kw):
+        return lambda dev: ARCHS[arch](dtype=torch.float32, seed=3,
+                                       device=dev, **kw)
+
+    nf = model("nf_resnet50", conv_impl="pallas")
+    weights = nf("cpu").state_dict()
+    for k in weights:
+        if k.endswith("skip_gain"):
+            weights[k].fill_(0.2)
+    x, y = synthetic_batch(4, 112, seed=5)
+    _grad_parity(smoke, "nf_resnet50", nf, weights, x, y, launches={
+        "conv_wgrad_k1": 16, "conv_wgrad_k3": 6, "conv_dgrad_k1": 16,
+        "conv_dgrad_k3": 6}, cudnn_twin=model("nf_resnet50"))
+    vit = model("vit_s16", image_size=64, attn_impl="flash")
+    x, y = synthetic_batch(4, 64, seed=6)
+    _grad_parity(smoke, "vit_s16", vit, vit("cpu").state_dict(), x, y,
+                 launches={"flash_fwd": 12, "flash_bwd": 12})
+    for arch in CONVNETS:
+        kw = {} if arch == "googlenet" else {"image_size": 32}
+        net = model(arch, stem_strides=1, **kw)
+        x, y = synthetic_batch(4, 32, seed=7)
+        _grad_parity(smoke, arch, net, net("cpu").state_dict(), x, y)
+    small = ["--image-size", "64", "--batchsize", "4", "--dataset-size",
+             "16", "--steps", "3", "--num-classes", "1000"]
+    _cli_parity(smoke, "nf_resnet50 lars warmup agc fp16", [
+        "--arch", "nf_resnet50", "--conv-impl", "pallas", "--optimizer",
+        "lars", "--warmup-steps", "2", "--agc", "0.01",
+        "--allreduce-grad-dtype", "float16", *small])
+    # LAMB at its own scale of lr, then at SGD's 0.1: there every step moves
+    # each leaf by 10% of its norm, stalebn's stale statistics blow the
+    # loss up (7 -> 87 -> 9 -> 47) and 1e-7 differences grow to ~1e-4 by
+    # the fourth step, on the CPU alone
+    stale = ["--arch", "resnet18", "--norm", "stalebn", "--optimizer", "lamb",
+             *small]
+    _cli_parity(smoke, "resnet18 stalebn lamb", [*stale, "--lr", "0.01"])
+    _cli_parity(smoke, "resnet18 stalebn lamb lr 0.1", stale,
+                seeded=ARCHS["resnet18"](
+                    num_classes=1000, seed=0, device="cpu",
+                    dtype=torch.float32, **arch_kwargs("resnet18", 64,
+                                                       norm="stalebn")))
+
+
+def _vit_macs_per_image(image, patch, d, layers, classes):
+    """Forward multiply-adds of a ViT on one image: per layer and token
+    12·D² (qkv, proj, the 4x MLP) and 2·S·D (QKᵀ, PV), the patch
+    embedding and the head."""
+    n = (image // patch) ** 2
+    s = n + 1
+    return (layers * (12 * s * d * d + 2 * s * s * d)
+            + n * patch * patch * 3 * d + d * classes)
+
+
+def phase_imagenet_train(smoke):
+    """bf16, 224², batch 128, world 1: NF-ResNet-50 with ``conv_impl=
+    "pallas"`` then ``"xla"`` from the same seed (SGD 0.1 / momentum 0.9 /
+    wd 1e-4, bench.py's recipe), and ViT-B/16 with ``attn_impl="auto"``
+    (the flash kernels at S 197; LAMB at lr 1e-3), 2 warm-up and 10 timed
+    steps each; then AlexNet, VGG-16 and GoogLeNet, 2 + 3.  Launch
+    counts of the timed steps must be exact: 28 1x1 and 11 3x3 launches of
+    each conv kernel a pallas step, none a xla step, 12 flash forward and
+    12 flash backward calls a ViT step; the first xla loss within 2e-2 of
+    the first pallas loss.  MFU counts multiply-adds as FLOPs, as bench.py
+    counts ResNet-50's 4.1e9: NF-ResNet-50 that same 3 x 4.1e9 an image
+    (the weight standardisation is O(parameters)), ViT-B/16 3 x 17.56e9
+    (``_vit_macs_per_image``)."""
+    _resnet_cell(smoke, NF_RESNET, RESNET_FLOPS_PER_IMAGE, {
+        f"conv_{g}_k{k}": c for g in ("wgrad", "dgrad")
+        for k, c in NF_CONV_LAUNCHES.items()}, check="imagenet_train")
+    vit_flops = 3 * _vit_macs_per_image(224, 16, 768, VIT_LAYERS, 1000)
+    # ViT trains with LAMB (SGD 0.1 / momentum 0.9 blows a ViT up)
+    vit = _imagenet_cell(smoke, VIT, 2, 10, vit_flops, optimizer="lamb",
+                         lr=1e-3)
+    vit["flops_per_image"] = vit_flops
+    emit(vit)
+    _check_finite(vit)
+    n = len(vit["losses"])
+    want = {"flash_fwd": VIT_LAYERS * n, "flash_bwd": VIT_LAYERS * n,
+            "conv_wgrad": 0, "conv_dgrad": 0}
+    wrong = {k: (vit["launches"][k], w) for k, w in want.items()
+             if vit["launches"][k] != w}
+    if wrong:
+        raise AssertionError(f"vit launches (got, want): {wrong}")
+    smoke.add_launches(vit["launches"])
+    for arch in CONVNETS:
+        row = _imagenet_cell(smoke, dict(VIT, arch=arch), 2, 3)
+        emit(row)
+        _check_finite(row)
 
 
 def phase_comm(smoke):
@@ -2601,6 +2915,8 @@ def main():
                          ("resnet-parity", phase_resnet_parity),
                          ("resnet-train", phase_resnet_train),
                          ("resnet152-db", phase_resnet152_db),
+                         ("imagenet-parity", phase_imagenet_parity),
+                         ("imagenet-train", phase_imagenet_train),
                          ("comm", phase_comm), ("trainer", phase_trainer),
                          ("seq2seq", phase_seq2seq),
                          ("model-parallel", phase_model_parallel)):

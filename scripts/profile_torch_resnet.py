@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of a chainermn_tpu_torch ResNet-50 data-parallel step goes, on one card.
+"""Where the time of a chainermn_tpu_torch ImageNet data-parallel step goes, on one card.
 
 Builds ``bench.py``'s headline step through the port's entry points
-(``train_imagenet.build_step``: ResNet-50, image 224, batch 128, bf16,
-SGD 0.1 / momentum 0.9 / wd 1e-4 through the multi-node optimizer, world
-1 over a one-rank NCCL group) for each ``--conv-impl`` (default: pallas,
-then xla), and profiles ``--steps`` steps after two warm-up steps under
-``torch.profiler``.  Prints one JSON line per impl: the host wall per
+(``train_imagenet.build_step``: ``--arch`` ResNet-50 (default) or
+NF-ResNet-50 at image 224, batch 128, bf16, SGD 0.1 / momentum 0.9 / wd
+1e-4 through the multi-node optimizer, world 1 over a one-rank NCCL
+group) for each ``--conv-impl`` (default: pallas, then xla), or ViT-B/16
+(``--arch vit_b16``: LAMB 1e-3, attention through the flash kernels), and
+profiles ``--steps`` steps after two warm-up steps under
+``torch.profiler``.  Prints one JSON line per run: the host wall per
 step, the device busy time (union of kernel, memcpy and memset
 intervals), the device idle share, the device ops per step, the device
-time by kernel name (top entries) and by class (the hand-written conv
-kernels, cuDNN's convs, NCCL, reductions, copies, elementwise), and the
-device time of each hand-written conv kernel (``conv_wgrad``, its reduce,
-``conv_dgrad``); then the
-card's name and power limit.  Chrome traces go to ``--out-dir``.  Needs
-a card.
+time by kernel name (top entries) and by class (the hand-written conv and
+flash kernels, cuDNN's convs, GEMMs, NCCL, reductions, copies,
+elementwise), and the device time of each hand-written kernel
+(``conv_wgrad``, its reduce, ``conv_dgrad``, the flash forward and the
+flash backward's three); then the card's name and power limit.  Chrome
+traces go to ``--out-dir``.  Needs a card.
 
     python3 scripts/profile_torch_resnet.py --steps 5 --out-dir chiprun_out
+    python3 scripts/profile_torch_resnet.py --arch vit_b16
 """
 
 import argparse
@@ -32,11 +35,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from profile_torch_serving import _summarise  # noqa: E402
 
 
-# device-time classes, first match wins
+# device-time classes, first match wins; the first two are hand-written
 _CLASSES = (
     ("conv kernels (hand-written)", ("(anonymous namespace)::conv_",)),
-    ("cuDNN convs", ("xmma", "cudnn", "implicit_gemm", "conv2d", "wgrad",
-                     "dgrad", "fprop", "sm90_")),
+    ("flash kernels (hand-written)", ("(anonymous namespace)::flash_",)),
+    ("cuDNN convs", ("cudnn", "implicit_gemm", "conv2d", "wgrad", "dgrad",
+                     "fprop")),
+    ("GEMMs", ("gemm", "xmma", "sm90_", "nvjet")),
     ("NCCL", ("nccl",)),
     ("reductions", ("reduce_kernel",)),
     ("copies and casts", ("copy",)),
@@ -45,8 +50,8 @@ _CLASSES = (
 
 
 def _breakdown(trace_path, steps):
-    """Device ms per step by class, and of the hand-written conv kernels
-    by kernel."""
+    """Device ms per step by class, and of the hand-written kernels by
+    kernel."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     by_class, conv = defaultdict(float), defaultdict(float)
@@ -58,14 +63,16 @@ def _breakdown(trace_path, steps):
         cls = next((c for c, keys in _CLASSES
                     if any(k in name for k in keys)), "other")
         by_class[cls] += ms
-        if cls == _CLASSES[0][0]:
-            conv[name.split("::")[1].split("<")[0]] += ms
+        if cls in (_CLASSES[0][0], _CLASSES[1][0]):
+            conv[name.split("::")[1].split("<")[0].split("(")[0]] += ms
     return dict(by_class), dict(conv)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--arch", default="resnet50",
+                        choices=["resnet50", "nf_resnet50", "vit_b16"])
     parser.add_argument("--conv-impl", nargs="+", default=["pallas", "xla"],
                         choices=["pallas", "xla"])
     parser.add_argument("--out-dir", default="profile")
@@ -82,8 +89,12 @@ def main(argv=None):
         return 1
     os.makedirs(args.out_dir, exist_ok=True)
     image, per_card = 224, 128
-    for impl in args.conv_impl:
-        step, model, comm = build_step("resnet50", image, conv_impl=impl)
+    vit = args.arch.startswith("vit")
+    # a ViT has no conv to choose a backward for; it trains with LAMB
+    runs = [(None, dict(optimizer="lamb", lr=1e-3))] if vit else [
+        (impl, dict(conv_impl=impl)) for impl in args.conv_impl]
+    for impl, kw in runs:
+        step, model, comm = build_step(args.arch, image, **kw)
         batch = shard_batch(synthetic_batch(per_card * comm.size, image),
                             comm.device, comm.mesh)
         for _ in range(2):                               # warm-up
@@ -96,12 +107,13 @@ def main(argv=None):
                 loss, _ = step(model, batch)
             float(loss)                                  # waits for the card
             wall = time.perf_counter() - t0
-        trace = os.path.join(args.out_dir, f"profile_resnet_{impl}.json")
+        tag = args.arch if vit else f"{args.arch}_{impl}"
+        trace = os.path.join(args.out_dir, f"profile_{tag}.json")
         prof.export_chrome_trace(trace)
-        row = _summarise(trace, wall, args.steps, f"resnet50_step_{impl}")
-        classes, conv = _breakdown(trace, args.steps)
+        row = _summarise(trace, wall, args.steps, f"{tag}_step")
+        classes, kernels = _breakdown(trace, args.steps)
         row["device_ms_per_step_by_class"] = classes
-        row["conv_kernel_device_ms_per_step"] = conv
+        row["kernel_device_ms_per_step"] = kernels
         row["loss"] = float(loss)
         print(json.dumps(row), flush=True)
         del step, model, batch, prof

@@ -5,7 +5,10 @@ OUT_NPZ``.  Joins a gloo group through a ``FileStore`` (no port), checks
 the communicator's collectives against the numpy oracle, trains the
 ResNet in ``IN_NPZ`` for its steps on this rank's rows of the global
 batch, and writes the cross-rank losses, the parameters and the running
-statistics to ``OUT_NPZ``.  Imports no JAX.
+statistics to ``OUT_NPZ``.  An ``IN_NPZ`` holding ``wire/`` arrays (this
+rank's gradients, ``wire/{rank}/{i}``) instead writes their
+``compressed_mean`` over the fp16 wire (``g{i}``), for
+tests/test_torch_zoo_optim.py.  Imports no JAX.
 """
 
 import sys
@@ -18,7 +21,8 @@ from chainermn_tpu_torch.communicators import (NaiveCommunicator,
                                                create_communicator)
 from chainermn_tpu_torch.convert import resnet_from_jax, resnet_to_numpy
 from chainermn_tpu_torch.models import ARCHS, cross_entropy_loss
-from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
+from chainermn_tpu_torch.optimizers import (compressed_mean,
+                                            create_multi_node_optimizer)
 from chainermn_tpu_torch.topology import init_distributed
 from chainermn_tpu_torch.train import make_flax_train_step, shard_batch
 
@@ -75,6 +79,13 @@ def main(rank, world, store_file, in_npz, out_npz):
 
     with np.load(in_npz) as z:
         data = {k: z[k] for k in z.files}
+    if any(k.startswith("wire/") for k in data):
+        grads = [torch.from_numpy(data[f"wire/{rank}/{i}"])
+                 for i in range(len(data) // world)]
+        means = compressed_mean(grads, comm, "float16")
+        np.savez(out_npz, **{f"g{i}": m.numpy() for i, m in enumerate(means)})
+        dist.destroy_process_group()
+        return
     cfg = {k[4:]: int(data.pop(k)) for k in list(data) if k.startswith("cfg/")}
     x, y = data.pop("x"), data.pop("y")
     variables = _nest(data)

@@ -186,8 +186,3 @@ def test_bf16_compute_keeps_fp32_params_and_head():
     cross_entropy_loss(logits, torch.from_numpy(y)).backward()
     assert all(p.grad is not None and p.grad.dtype == torch.float32
                for p in tm.parameters())
-
-
-def test_unported_norms_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ARCHS["resnet18"](device="cpu", norm="stalebn")
