@@ -33,6 +33,13 @@ Ported so far (one card, or one process per card for data parallelism):
   ``evaluators`` (the multi-node evaluator, BLEU), ``extensions`` (the
   observation aggregator, ``AllreducePersistent``),
   ``observability.trace`` (the span tracer);
+* training robustness: ``extensions`` (``MultiNodeCheckpointer`` with v2
+  manifests and elastic resume, ``multi_node_snapshot``, the preemption
+  handler, the watchdog, the self-healing gang), ``health`` (leases,
+  epoch fences, membership consensus, the collective guard),
+  ``global_except_hook``, ``parallel.reshard``, the communicator's object
+  lanes, ``observability.flight`` (the flight recorder) and
+  ``observability.export.health_snapshot``;
 * model parallelism: ``functions`` (differentiable collectives, send /
   recv, ``pseudo_connect``), ``links`` (``MultiNodeChainList``,
   ``MultiNodeBatchNormalization``); ``models.seq2seq`` (the LSTM
@@ -42,7 +49,8 @@ Ported so far (one card, or one process per card for data parallelism):
   ``seq2seq_from_jax``, the demo step's), npz;
 * CLIs: ``serve``, ``train_transformer``, ``train_imagenet``, ``train``
   (the demo trainer), ``train_mnist`` (the MNIST example),
-  ``train_seq2seq`` and ``train_model_parallel``.
+  ``train_seq2seq``, ``train_model_parallel`` and
+  ``train_mnist_checkpoint`` (MNIST with checkpoints and resume).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.  Submodules are imported on use: importing this package
@@ -57,9 +65,10 @@ import importlib
 __version__ = "0.1.0"
 
 __all__ = ["communicators", "convert", "datasets", "evaluators", "extensions",
-           "functions", "iterators", "links", "models", "observability",
-           "ops", "optim", "optimizers", "parallel", "prng", "runtime",
-           "serving", "topology", "train", "training"]
+           "functions", "global_except_hook", "health", "iterators", "links",
+           "models", "observability", "ops", "optim", "optimizers",
+           "parallel", "prng", "runtime", "serving", "topology", "train",
+           "training"]
 
 # the JAX package's top-level names (chainermn_tpu/__init__.py) that the
 # port has: name -> the submodule that holds it
@@ -68,7 +77,8 @@ _NAMES = {
                     "runtime"),
     **dict.fromkeys(("column_parallel_dense", "row_parallel_dense", "tp_mlp",
                      "vocab_parallel_embedding"), "parallel"),
-    **dict.fromkeys(("AllreducePersistent", "ObservationAggregator"),
+    **dict.fromkeys(("AllreducePersistent", "ObservationAggregator",
+                     "create_multi_node_checkpointer", "multi_node_snapshot"),
                     "extensions"),
     **dict.fromkeys(("SerialIterator", "create_multi_node_iterator",
                      "create_synchronized_iterator"), "iterators"),
@@ -99,8 +109,6 @@ NOT_PORTED = {
                      "opt_state_partition_specs"), "A9"),
     **dict.fromkeys(("make_tensor_parallel_mlp", "make_nd_mesh",
                      "make_multislice_mesh"), "A6"),
-    **dict.fromkeys(("create_multi_node_checkpointer", "multi_node_snapshot",
-                     "global_except_hook"), "A7"),
 }
 
 

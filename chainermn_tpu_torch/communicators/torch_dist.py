@@ -27,12 +27,23 @@ stacks are its one-process stand-in for the same thing):
 ``root``, ``dest`` and ``source`` are ranks of this communicator's group.
 Gradients cross the wire as one flat bucket
 (:func:`chainermn_tpu_torch.optimizers.compressed_mean`).
+
+The object lanes (``allgather_obj_eventual``, ``kv_lane_transport`` and
+through it ``gang_lease_store``) run over the process group's
+``torch.distributed`` store, where JAX runs them over the jax.distributed
+KV store: a ``HashStore`` in a one-rank group, the ``FileStore`` or
+``TCPStore`` a caller or ``env://`` gives.  A store raises its own error
+on a missing key after blocking for its whole timeout, so every read
+here polls ``check`` and never blocks in ``get``; absence becomes
+``TimeoutError`` with the lanes' transient text.  Keys carry the group's
+ranks, so sub-communicators' lanes never collide.
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import Any, List, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -40,7 +51,7 @@ import torch.distributed as dist
 from .._device import resolve_device
 from ..optimizers import compressed_mean
 from ..topology import DEFAULT_AXIS_NAME, Topology, init_distributed, make_mesh
-from .base import CommunicatorBase
+from .base import CommunicatorBase, LaneConfig, lane_call
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT}
@@ -63,6 +74,9 @@ class TorchDistCommunicator(CommunicatorBase):
         self.axis_name = axis_name
         self.mesh = make_mesh(axis_name, group)
         self._mailbox: List[bytes] = []   # send_obj / recv_obj to oneself
+        self.lane_config = LaneConfig()
+        self._lane_prefix = ("w" if group is None else "g" + "-".join(
+            str(r) for r in dist.get_process_group_ranks(group)))
 
     @property
     def rank(self) -> int:
@@ -90,6 +104,14 @@ class TorchDistCommunicator(CommunicatorBase):
 
     def owns_rank(self, r: int) -> bool:
         return r == self.rank
+
+    @property
+    def process_index(self) -> int:
+        return self.rank
+
+    @property
+    def process_count(self) -> int:
+        return self.size
 
     def _global(self, r: int) -> int:
         """Rank ``r`` of this communicator's group as a world rank."""
@@ -195,6 +217,95 @@ class TorchDistCommunicator(CommunicatorBase):
         out = [None] * self.size
         dist.all_gather_object(out, obj, group=self.group)
         return out
+
+    # ---- the object lanes over the process group's store ----
+    def _store(self):
+        from torch.distributed import distributed_c10d
+
+        return distributed_c10d._get_default_store()
+
+    def allgather_obj_eventual(self, tag: str, obj: Any,
+                               timeout_s: float = 10.0,
+                               discard_tag: Optional[str] = None
+                               ) -> Dict[int, Any]:
+        """Bounded best-effort gather over the store (the base contract).
+
+        Keys are unique per (tag, process), so any subset of processes
+        may call in any order.  The publish rides ``lane_call`` (``set``
+        overwrites, so a retried or repeated publish of a tag is legal);
+        ``timeout_s`` is the total read budget shared by all peers,
+        spent in round-robin short polls so that an absent low rank costs
+        one slice a round, not the whole budget; ``timeout_s <= 0``
+        publishes only."""
+        me = self.rank
+        if self.size <= 1:
+            return {me: obj}
+        store = self._store()
+        base = f"chainermn_tpu_evt/{self._lane_prefix}"
+        payload = pickle.dumps(obj)
+        lane_call(f"store/evt_set/{tag}",
+                  lambda: store.set(f"{base}/{tag}/{me}", payload),
+                  self.lane_config)
+        if discard_tag is not None and discard_tag != tag:
+            try:
+                store.delete_key(f"{base}/{discard_tag}/{me}")
+            except Exception:
+                pass  # best effort
+        out = {me: obj}
+        if timeout_s <= 0:
+            return out
+        deadline = time.monotonic() + timeout_s
+        poll_s = max(0.005, min(0.05, timeout_s / 64))
+        pending = [p for p in range(self.size) if p != me]
+        while pending:
+            for p in list(pending):
+                key = f"{base}/{tag}/{p}"
+                try:
+                    if store.check([key]):
+                        out[p] = pickle.loads(store.get(key))
+                        pending.remove(p)
+                except Exception:
+                    pass  # absent or unreadable this round: degraded
+            if not pending or time.monotonic() >= deadline:
+                return out
+            time.sleep(poll_s)
+        return out
+
+    def kv_lane_transport(self):
+        """Tag-addressed put / get / delete over the store.  The raw
+        operations raise freely (callers wrap them in ``lane_call``); a
+        tag absent past ``timeout_s`` raises ``TimeoutError``."""
+        store = self._store()
+        base = f"chainermn_tpu_kvxfer/{self._lane_prefix}"
+
+        class _StoreLane:
+            def put(self, tag: str, payload: bytes) -> None:
+                store.set(f"{base}/{tag}", bytes(payload))
+
+            def get(self, tag: str, timeout_s: float = 10.0) -> bytes:
+                key = f"{base}/{tag}"
+                deadline = time.monotonic() + float(timeout_s)
+                while not store.check([key]):
+                    if time.monotonic() >= deadline:
+                        raise TimeoutError(
+                            f"lane tag {tag!r} not published within "
+                            f"{timeout_s}s (deadline exceeded)")
+                    time.sleep(0.002)
+                return bytes(store.get(key))
+
+            def delete(self, tag: str) -> None:
+                try:
+                    store.delete_key(f"{base}/{tag}")
+                except Exception as e:
+                    if not isinstance(e, (AttributeError,
+                                          NotImplementedError)) \
+                            and "implement" not in str(e).lower():
+                        raise
+                    raise NotImplementedError(
+                        f"{type(store).__name__} cannot delete keys: lane "
+                        f"tag {tag!r} stays in the store") from e
+
+        return _StoreLane()
 
     def send_obj(self, obj: Any, dest: int) -> None:
         if dest == self.rank:

@@ -18,6 +18,11 @@ list or tuple of tensors, as JAX's take a pytree.  ``ppermute`` and
 pair from a rank to itself is a copy.  They are not differentiable: the
 ``torch.autograd.Function`` forms are ROADMAP.md's A8 (``functions/``),
 and the int8 ring and ``hierarchical_pmean`` are A9.
+
+Each collective carries the collective guard of
+:mod:`chainermn_tpu_torch.health` (:func:`~chainermn_tpu_torch.health.guarded`):
+with a guard installed, a call that does not complete within the guard's
+window aborts loudly naming the lost rank(s).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..health import guarded
 from ..topology import DEFAULT_AXIS_NAME, Mesh, make_mesh
 
 # torch 2.13 flags reduce_scatter_tensor as deprecated in favour of
@@ -77,22 +83,26 @@ def _all_reduce(x, op, mesh):
     return out
 
 
+@guarded("psum")
 def psum(x, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
     return _tree_map(lambda v: _all_reduce(v, dist.ReduceOp.SUM, mesh), x)
 
 
+@guarded("pmean")
 def pmean(x, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
     return _tree_map(
         lambda v: _all_reduce(v, dist.ReduceOp.SUM, mesh) / mesh.size, x)
 
 
+@guarded("pmax")
 def pmax(x, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
     return _tree_map(lambda v: _all_reduce(v, dist.ReduceOp.MAX, mesh), x)
 
 
+@guarded("pmin")
 def pmin(x, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
     return _tree_map(lambda v: _all_reduce(v, dist.ReduceOp.MIN, mesh), x)
@@ -106,6 +116,7 @@ def pmean_if_bound(x, axis_name: Optional[str] = DEFAULT_AXIS_NAME):
     return pmean(x, axis_name)
 
 
+@guarded("all_gather")
 def all_gather(x, axis_name=DEFAULT_AXIS_NAME, axis: int = 0,
                tiled: bool = True):
     """Every rank's ``x`` along ``axis``: concatenated (``tiled``) or
@@ -117,6 +128,7 @@ def all_gather(x, axis_name=DEFAULT_AXIS_NAME, axis: int = 0,
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
 
 
+@guarded("all_to_all")
 def all_to_all(x, axis_name=DEFAULT_AXIS_NAME, split_axis: int = 0,
                concat_axis: int = 0, tiled: bool = True):
     """Chunk ``j`` of ``x`` along ``split_axis`` goes to rank ``j``; the
@@ -140,6 +152,7 @@ def all_to_all(x, axis_name=DEFAULT_AXIS_NAME, split_axis: int = 0,
         else torch.stack(parts, dim=concat_axis)
 
 
+@guarded("reduce_scatter")
 def reduce_scatter(x, axis_name=DEFAULT_AXIS_NAME, scatter_axis: int = 0):
     """The cross-rank sum of ``x``, of which this rank keeps block
     ``rank`` along ``scatter_axis``."""
@@ -153,6 +166,7 @@ def reduce_scatter(x, axis_name=DEFAULT_AXIS_NAME, scatter_axis: int = 0):
     return out.movedim(0, scatter_axis)
 
 
+@guarded("ppermute")
 def ppermute(x, perm, axis_name=DEFAULT_AXIS_NAME):
     """``perm`` is a list of ``(source, dest)`` rank pairs: rank ``dest``
     gets ``source``'s ``x``; a rank no pair sends to gets zeros."""
@@ -198,6 +212,7 @@ def axis_size(axis_name=DEFAULT_AXIS_NAME) -> int:
     return _mesh(axis_name).size
 
 
+@guarded("bcast")
 def bcast(x, root: int = 0, axis_name=DEFAULT_AXIS_NAME):
     """Every rank gets rank ``root``'s block."""
     mesh = _mesh(axis_name)

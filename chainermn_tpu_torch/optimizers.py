@@ -30,6 +30,8 @@ from typing import List, NamedTuple
 import torch
 import torch.distributed as dist
 
+from .health import guarded
+
 _INT8 = ("the int8 quantized ring and error feedback are not ported yet: "
          "see ROADMAP.md, queue A item 9")
 _WIRE = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -70,6 +72,7 @@ def _resolve_mesh(communicator):
     return getattr(communicator, "mesh", communicator)
 
 
+@guarded("compressed_mean")
 def compressed_mean(grads: List[torch.Tensor], communicator,
                     allreduce_grad_dtype=None) -> List[torch.Tensor]:
     """The cross-rank mean of ``grads`` (a list of tensors) over a

@@ -115,3 +115,28 @@ class Mesh:
 def make_mesh(axis_name: str = DEFAULT_AXIS_NAME, group=None) -> Mesh:
     """A 1-D mesh over every rank of ``group`` (default: the world)."""
     return Mesh(axis_name, group, dist.get_world_size(group))
+
+
+def abort_process_group(timeout_s: float = 5.0) -> bool:
+    """Tear the default process group down from a side thread, waiting at
+    most ``timeout_s``: the abort paths (the except hook, the watchdog,
+    the collective guard) call it before ``os._exit``, where JAX calls
+    ``jax.distributed.shutdown()``.  A peer wedged in the collective the
+    crash abandoned can make the teardown block (NCCL waits on it), so the
+    caller exits whatever happens.  Returns whether it finished."""
+    import threading
+
+    if not dist.is_initialized():
+        return True
+
+    def _down():
+        try:
+            dist.destroy_process_group()
+        except Exception:
+            pass
+
+    t = threading.Thread(target=_down, daemon=True,
+                         name="chainermn-tpu-torch-pg-teardown")
+    t.start()
+    t.join(timeout=timeout_s)
+    return not t.is_alive()

@@ -153,7 +153,8 @@ def make_flax_train_step(model, loss_and_metrics: Callable, optimizer,
     ``preprocess(batch)`` runs first, on the device.  After the update the
     floating buffers (the running statistics, if the module has any: the
     NF-ResNets, ViT and ``norm="affine"`` have none) are meaned across
-    ranks."""
+    ranks.  ``step.optimizer`` is ``optimizer`` (a checkpoint carries its
+    state beside the model's)."""
     mesh = mesh or make_mesh(axis_name)
     owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
     if any(id(p) not in owned for p in model.parameters()):
@@ -177,6 +178,7 @@ def make_flax_train_step(model, loss_and_metrics: Callable, optimizer,
                 b.copy_(m)
         return loss, metrics
 
+    step.optimizer = optimizer   # the state a checkpoint must carry
     return step
 
 
@@ -275,15 +277,7 @@ def make_demo_step(mesh=None, axis_name: str = DEFAULT_AXIS_NAME):
 _REFUSED = {
     "metrics_out": ("A12", "the metrics stream"),
     "statusz_port": ("A12", "the live introspection server"),
-    "flight_dump_dir": ("A12", "the flight recorder"),
-    "checkpoint_dir": ("A7", "checkpoints and resume"),
-    "checkpoint_every": ("A7", "checkpoints and resume"),
-    "preemption_grace_s": ("A7", "the preemption handler"),
-    "self_heal": ("A7", "the rank health plane"),
-    "self_heal_min_world": ("A7", "the rank health plane"),
-    "self_heal_beat_s": ("A7", "the rank health plane"),
 }
-_WATCHDOG_DEFAULT = 1800.0
 
 
 def _parse(argv):
@@ -310,22 +304,44 @@ def _parse(argv):
                              "(also enables tracing); at world > 1 each "
                              "rank writes its own shard, <base>.rankNNNNN"
                              ".json")
+    parser.add_argument("--watchdog-timeout", type=float, default=1800.0,
+                        help="abort the gang (exit 43) when no step "
+                             "completes for this many seconds")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="v2 manifest checkpoints here: a save every "
+                             "--checkpoint-every iterations and automatic "
+                             "resume, from another world size too")
+    parser.add_argument("--checkpoint-every", type=int, default=5)
+    parser.add_argument("--preemption-grace-s", type=float, default=None,
+                        help="treat SIGTERM as a preemption: a final "
+                             "checkpoint, a flight bundle and exit 0, all "
+                             "within this grace budget (the save needs "
+                             "--checkpoint-dir)")
+    parser.add_argument("--self-heal", action="store_true",
+                        help="run the rank health plane: a heartbeat lease "
+                             "per rank over the process group's store and "
+                             "a collective guard that names a lost rank "
+                             "(exit 44) instead of hanging")
+    parser.add_argument("--self-heal-min-world", type=int, default=1,
+                        help="live-shrink floor: below this many survivors "
+                             "heal() refuses and the job falls back to the "
+                             "checkpoint restart")
+    parser.add_argument("--self-heal-beat-s", type=float, default=0.05,
+                        help="heartbeat interval; the detection window is "
+                             "beat * (miss_beats + 1) with miss_beats=4")
+    parser.add_argument("--flight-dump-dir", default=None,
+                        help="crash-bundle directory of the flight recorder "
+                             "(SIGTERM / SIGUSR1 / uncaught exception / "
+                             "watchdog dumps land here; --out when "
+                             "--trace-out is given)")
     for flag in _REFUSED:
-        kind = {"self_heal": dict(action="store_true")}.get(flag, {})
-        parser.add_argument("--" + flag.replace("_", "-"),
-                            default=None, **kind, help="not ported yet")
-    parser.add_argument("--watchdog-timeout", type=float,
-                        default=_WATCHDOG_DEFAULT,
-                        help="only the default: the watchdog is not ported "
-                             "yet")
+        parser.add_argument("--" + flag.replace("_", "-"), default=None,
+                            help="not ported yet")
     args = parser.parse_args(argv)
     for flag, (item, what) in _REFUSED.items():
-        if getattr(args, flag) not in (None, False):
+        if getattr(args, flag) is not None:
             parser.error(f"--{flag.replace('_', '-')}: {what} is not ported "
                          f"yet: see ROADMAP.md, queue A, {item}")
-    if args.watchdog_timeout != _WATCHDOG_DEFAULT:
-        parser.error("--watchdog-timeout: the watchdog is not ported yet: "
-                     "see ROADMAP.md, queue A, A7")
     return args
 
 
@@ -335,12 +351,17 @@ def run(argv=None):
     (``RandomState(42)`` map, ``(0)`` inputs, ``(1)`` weights), SGD with
     momentum 0.9, through create_communicator → StandardUpdater (rank
     ``r``'s rows of each global batch) → Trainer with the
-    ObservationAggregator, LogReport and PrintReport."""
+    ObservationAggregator, LogReport, PrintReport and the Watchdog, and,
+    as the flags ask, the checkpointer (with resume), the preemption
+    handler and the self-healing gang, wired as JAX's ``main`` wires
+    them."""
+    import sys
+
     from .communicators import create_communicator
     from .convert import demo_params_from_numpy
-    from .extensions import ObservationAggregator
+    from .extensions import ObservationAggregator, Watchdog
     from .iterators import SerialIterator
-    from .observability import trace
+    from .observability import flight, trace
     from .training.extensions import LogReport, PrintReport
     from .training.trainer import PRIORITY_EDITOR, Trainer
     from .training.updaters import StandardUpdater
@@ -349,13 +370,29 @@ def run(argv=None):
     if args.trace_out:
         trace.reset()
         trace.enable()
+    # the flight recorder: the ring always tees the tracer; crash bundles
+    # go to --flight-dump-dir, or to --out once a trace is written
+    flight.install_tracer_tee()
+    dump_dir = args.flight_dump_dir or (args.out if args.trace_out
+                                        else None)
+    # run() is also called in-process (tests, the smoke): the handlers and
+    # the hook it installs are put back as they were when it returns
+    restore = {}
+    if dump_dir:
+        import signal
+
+        from . import global_except_hook
+        restore = {sig: signal.getsignal(sig)
+                   for sig in (signal.SIGTERM, signal.SIGUSR1)}
+        flight.install_signal_handlers(dump_dir)
+        global_except_hook.add_hook()
     comm = create_communicator("xla", device=args.device)
     world = comm.size
+    rank = comm.rank if world > 1 else None
     if args.batchsize % world:
         raise SystemExit(f"--batchsize {args.batchsize} must divide by the "
                          f"world size {world}")
 
-    # a learnable task: labels are a fixed linear map of the inputs
     in_dim, n_classes = 32, 10
     w_true = np.random.RandomState(42).randn(in_dim, n_classes)
     xs = np.random.RandomState(0).randn(args.n_train, in_dim).astype(
@@ -385,17 +422,81 @@ def run(argv=None):
     trainer.extend(log)
     trainer.extend(PrintReport(["iteration", "main/loss", "main/accuracy"],
                                log, trigger=(args.log_every, "iteration")))
+    flight.register_provider("train", lambda: {
+        "iteration": trainer.iteration, "last_phase": trainer.last_phase,
+        "elapsed_time": trainer.elapsed_time})
+    trainer.extend(Watchdog(timeout=args.watchdog_timeout, dump_dir=args.out,
+                            rank=rank))
+    # v2 manifest checkpoints resume across world-size changes; SIGTERM
+    # within the grace budget saves a final generation, dumps a `preempt`
+    # bundle and exits 0 (JAX also books the save into its goodput
+    # ledger, ROADMAP.md A12: the port passes no ledger)
+    checkpointer = None
+    if args.checkpoint_dir:
+        from .extensions import create_multi_node_checkpointer
+        checkpointer = create_multi_node_checkpointer(
+            "train", comm, cp_interval=args.checkpoint_every,
+            path=args.checkpoint_dir)
+        trainer.extend(checkpointer,
+                       trigger=(args.checkpoint_every, "iteration"))
+        loaded, it_resumed = checkpointer.maybe_load()
+        if it_resumed is not None:
+            trainer.load_checkpoint_state(loaded)
+            print(f"[chainermn_tpu_torch train] resumed from generation "
+                  f"{it_resumed} in {args.checkpoint_dir}", file=sys.stderr,
+                  flush=True)
+    if args.preemption_grace_s is not None:
+        from .extensions import PreemptionHandler
+        # installed after the flight handlers: SIGTERM now means
+        # checkpoint-and-exit-0, SIGUSR1 stays dump-and-continue
+        trainer.extend(PreemptionHandler(
+            checkpointer, grace_s=args.preemption_grace_s,
+            dump_dir=dump_dir or args.out, ledger=None, rank=rank))
+    # the rank health plane: a heartbeat lease per rank over the process
+    # group's store, and the collective guard on every eager collective:
+    # a rank lost mid-collective aborts loudly naming it (exit 44, a
+    # `rank_lost` bundle) instead of wedging the gang
+    gang = None
+    if args.self_heal:
+        from .extensions import SelfHealingGang
+        gang = SelfHealingGang(
+            comm.gang_lease_store(), rank=comm.rank, world=world,
+            name="train", beat_interval_s=args.self_heal_beat_s,
+            min_world=args.self_heal_min_world,
+            dump_dir=dump_dir or args.out)
+        gang.start()
+        # the join barrier before any detector is armed: a peer that has
+        # not started yet must not read as a death
+        gang.wait_for_members(timeout_s=120.0)
+        # the guard's bound is the gang's op bound, floored at 30 s so a
+        # slow object collective is not mistaken for a death
+        gang.install_collective_guard(timeout_s=max(gang.op_timeout_s, 30.0))
     try:
         trainer.run()
     finally:
+        if gang is not None:
+            gang.stop()
         updater.close()
+        flight.unregister_provider("train")
+        if restore:
+            import signal
+
+            from . import global_except_hook
+            for sig, prev in restore.items():
+                signal.signal(sig, prev)
+            global_except_hook.remove_hook()
 
     final = log.log[-1] if log.log else {}
     result = {"steps": trainer.iteration, "world": world,
               "final_loss": final.get("main/loss"),
               "final_accuracy": final.get("main/accuracy")}
+    if gang is not None:
+        st = gang.stats()
+        result["self_heal"] = {
+            k: st[k] for k in (
+                "epoch", "world", "min_world", "detection_window_s",
+                "rank_lost_events", "reconfigs", "fenced_refusals")}
     if args.trace_out:
-        rank = comm.rank if world > 1 else None
         trace.export_chrome_trace(args.trace_out, rank=rank)
         result["trace_out"] = (args.trace_out if rank is None
                                else trace.shard_path(args.trace_out, rank))
@@ -407,12 +508,15 @@ def run(argv=None):
 def main(argv=None) -> int:
     """``python -m chainermn_tpu_torch.train``: the JAX package's demo
     trainer (``python -m chainermn_tpu.train``) on the port, one process
-    per rank (``torchrun --nproc-per-node N`` for N > 1).  Prints JAX's
-    result keys that the port has (``steps``, ``world``, ``final_loss``,
-    ``final_accuracy``, ``trace_out``, ``trace_events``) as one JSON line.
-    The flags of machinery not ported yet (metrics, statusz, flight
-    recorder: A12; checkpoints, preemption, self-heal, the watchdog: A7)
-    are refused."""
+    per rank (``torchrun --nproc-per-node N`` for N > 1), with its
+    robustness flags: the watchdog (always on), checkpoints with resume,
+    preemption, the self-healing gang and the flight recorder's crash
+    bundles.  Prints JAX's result keys that the port has (``steps``,
+    ``world``, ``final_loss``, ``final_accuracy``, ``self_heal``,
+    ``trace_out``, ``trace_events``) as one JSON line.  ``--devices``
+    (JAX's virtual CPU devices) is ``--device`` and torchrun here; the
+    flags of the metrics stream and the statusz server (A12) are
+    refused."""
     import json
 
     result, _ = run(argv)

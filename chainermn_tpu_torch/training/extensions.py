@@ -248,9 +248,10 @@ class EvaluatorExtension:
 
 def snapshot(checkpointer, trigger=None):
     """Adapt a checkpointer (any callable ``checkpointer(trainer)`` with a
-    ``trigger``: the JAX package's ``MultiNodeCheckpointer``, whose port is
-    ROADMAP.md's A7) into a trainer extension (the reference's
-    ``trainer.extend(checkpointer, trigger=...)`` usage).
+    ``trigger``: :class:`~chainermn_tpu_torch.extensions.checkpoint
+    .MultiNodeCheckpointer` or a ``multi_node_snapshot``) into a trainer
+    extension (the reference's ``trainer.extend(checkpointer,
+    trigger=...)`` usage).
 
     Thin wrapper over the checkpointer's own extension ``__call__`` (single
     save path) whose only job is overriding the trigger and shielding the

@@ -7,9 +7,9 @@ iteration so aggregators (ObservationAggregator) run before writers
 (LogReport) before readers (PrintReport), Chainer's three bands
 (PRIORITY_EDITOR / WRITER / READER).  Each iteration is a ``step`` span
 holding the updater's ``step/data`` and ``step/compute`` spans and
-``step/extensions`` (one ``ext/<name>`` span each).  The JAX package also
-notes each phase in its flight recorder; that recorder is not ported yet
-(ROADMAP.md, A12).
+``step/extensions`` (one ``ext/<name>`` span each), and each completed
+update is noted in the flight recorder's ring (``phase``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, Dict, Optional
 
+from ..observability import flight as _flight
 from ..observability import trace as _trace
 from .triggers import get_trigger
 
@@ -143,6 +144,8 @@ class Trainer:
                     self.observation = self.updater.update()
                     self.last_progress = time.monotonic()
                     self.last_phase = "update"
+                    _flight.note("phase", name="update",
+                                 iteration=self.iteration)
                     t_ext = time.perf_counter()
                     with tracer.span("step/extensions", cat="phase"):
                         for e in sorted(self._extensions.values(),

@@ -12,9 +12,7 @@ the whole batch (this process's own rows) on the device.
 step ``k`` runs: the thread pulls, converts and stages the rows in host
 memory (pinned on the card); the copy to the card is issued on the main
 thread, on the step's stream, when the step takes the batch, so no copy
-in flight races a buffer the thread reuses.  The JAX package also
-attributes each step's collectives to it in its comm accountant; that is
-not ported yet (ROADMAP.md, A12).
+in flight races a buffer the thread reuses.
 """
 
 from __future__ import annotations

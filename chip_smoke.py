@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ImageNet training, the communicator, the Trainer, seq2seq and model parallelism on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -220,11 +220,35 @@ and prints no result line:
    and ``MultiNodeBatchNormalization``, each against the CPU in fp32
    (elementwise rtol 1e-5, atol 1e-5 of the tensor's largest entry).
    World 2 is held over gloo by the tests.
-18. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+18. ``robustness`` — ResNet-50 at the headline size (bf16, image 224,
+   batch 128, ``conv_impl="pallas"``, ``train_imagenet.build_step``)
+   through Trainer + StandardUpdater with a ``MultiNodeCheckpointer``
+   (asynchronous, keep 2, a save every 4 iterations, through
+   ``training.extensions.snapshot``): leg U runs 8 steps twice (losses, a
+   device clone of the whole state at iteration 4); leg R builds the model
+   from another seed, ``maybe_load``s U's generation 4 (generation 8
+   removed, as by a crash before it) and runs iterations 5-8.  Held: the
+   loaded state equals the clone bit for bit; R's losses equal U's when
+   the two U runs agree bit for bit, else lie within their spread;
+   exactly 11 launches of each conv kernel a step in every run.  The same
+   with double buffering (``stale_grads`` come back too).  A timing leg
+   (24 steps, six saves) prints the bytes a generation, ``save()``'s
+   blocking ms, the writer's ms, ``maybe_load``'s ms and the step ms p50
+   with a write in flight beside p50 without.  Then three groups side by
+   side, in subprocesses: ``train_mnist_checkpoint --unit 1000`` killed at
+   epoch 2 (exit 99) and rerun, its final loss against an uninterrupted
+   run's; ``python -m chainermn_tpu_torch.train --checkpoint-dir
+   --preemption-grace-s 30 --self-heal --flight-dump-dir`` sent SIGTERM
+   once its first generation is on disk (exit 0, a ``preempt`` bundle
+   naming the generation saved) and rerun to the uninterrupted run's final
+   loss; and two gloo processes on the CPU training MNIST with SGD 0.1 to
+   a world-2 generation, resumed at world 1 on the card (batch 256, the
+   same global batch) within rtol 1e-4 of the CPU's own continuation.
+19. One ``{"kernels": [...]}`` line (launches summed over the main paths'
    runs: the two serving runs, the beam run, the timed LM training steps,
-   the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50 steps and the
-   timed ViT-B/16 steps), the card line,
-   then the result line ``{"ok": true, "device": {...}}``.
+   the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50 steps, the
+   timed ViT-B/16 steps and the robustness phase's ResNet-50 runs), the
+   card line, then the result line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -2884,6 +2908,449 @@ def phase_model_parallel(smoke):
         raise AssertionError(f"kernel launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# robustness: checkpoints, resume, preemption, elastic resume
+# ---------------------------------------------------------------------------
+
+ROBUST_EVERY = 4           # the checkpointer's save cadence, iterations
+ROBUST_STEPS = 8           # leg U's uninterrupted steps
+ROBUST_TIMING_STEPS = 24   # the timing leg: six saves, four of them warm
+MNIST_UNIT = 1000
+DEMO_STEPS = 600           # long enough for SIGTERM to land mid-run
+
+
+class _OneBatch:
+    """An iterator over ``bench.py``'s one repeated global batch, with the
+    resume contract of ``SerialIterator`` (its position)."""
+
+    epoch, is_new_epoch, epoch_detail = 0, False, 0.0
+
+    def __init__(self, batch):
+        self.batch, self.position = batch, 0
+
+    def next(self):
+        self.position += 1
+        return self.batch
+
+    def state_dict(self):
+        return {"position": self.position}
+
+    def load_state_dict(self, state):
+        self.position = int(state["position"])
+
+
+def _r50_trainer(smoke, seed, db, stop, out, cp=None, clone_at=None):
+    """ResNet-50 at the headline size (``train_imagenet.build_step``: bf16,
+    image 224, batch 128, SGD 0.1 / 0.9 / 1e-4, ``conv_impl="pallas"``)
+    driven by Trainer + StandardUpdater, the checkpointer ``cp`` as an
+    extension through ``training.extensions.snapshot`` (every
+    ``ROBUST_EVERY`` iterations).  Returns ``(trainer, record)``: every
+    step's loss, its synchronised ms and whether a checkpoint write was in
+    flight when it began, and at ``clone_at`` a device clone of the whole
+    state (the updater's ``state_dict``)."""
+    torch = smoke.torch
+    from chainermn_tpu_torch.train_imagenet import build_step, synthetic_batch
+    from chainermn_tpu_torch.training import StandardUpdater, Trainer
+    from chainermn_tpu_torch.training.extensions import snapshot
+    from chainermn_tpu_torch.training.trainer import make_extension
+
+    step, model, comm = build_step("resnet50", RESNET["image"],
+                                   conv_impl="pallas",
+                                   num_classes=RESNET["classes"],
+                                   double_buffering=db, seed=seed)
+    batch = synthetic_batch(RESNET["batch"] * comm.size, RESNET["image"],
+                            RESNET["classes"])
+    rec = {"losses": [], "ms": [], "in_flight": [], "clone": None}
+
+    def step_fn(state, b):
+        rec["in_flight"].append(cp is not None and cp._pending is not None
+                                and not cp._pending.done())
+        t0 = time.perf_counter()
+        loss, _ = step(model, b)
+        rec["losses"].append(float(loss))          # synchronises
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        return state, {"main/loss": loss}
+
+    updater = StandardUpdater(_OneBatch(batch), step_fn,
+                              (model, step.optimizer), converter=lambda b: b,
+                              mesh=comm.mesh, device=comm.device)
+    trainer = Trainer(updater, (stop, "iteration"), out=str(out))
+    if cp is not None:
+        trainer.extend(snapshot(cp, trigger=(ROBUST_EVERY, "iteration")))
+    if clone_at is not None:
+        @make_extension(trigger=(clone_at, "iteration"), name="clone")
+        def _clone(tr):
+            if tr.iteration == clone_at:
+                rec["clone"] = tr.updater.state_dict()["state"]
+        trainer.extend(_clone)
+    return trainer, rec
+
+
+def _state_tensors(state):
+    """``(path, tensor)`` of a ``(model, optimizer)`` state snapshot."""
+    import torch
+
+    from chainermn_tpu_torch import _tree
+
+    return [(p, x) for p, x in _tree.flatten_with_path(state)[0]
+            if isinstance(x, torch.Tensor)]
+
+
+def _live_state(trainer):
+    model, opt = trainer.updater.state
+    return (model.state_dict(), opt.state_dict())
+
+
+def _resnet_resume_leg(smoke, tmp, db):
+    """Leg U twice (8 uninterrupted steps, saves at 4 and 8, a device clone
+    of the state at 4), then leg R: a model from another seed,
+    ``maybe_load`` of U's generation 4 (its generation 8 removed, as by a
+    crash before it), iterations 5-8.  Held: the loaded state equals the
+    clone bit for bit (``stale_grads`` too, double-buffered); R's losses
+    equal U's bit for bit when the two U runs agree, else within their
+    spread; 11 launches of each conv kernel a step in every run."""
+    import os
+    import shutil
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+
+    name = f"resnet50{'_db' if db else ''}"
+    runs = []
+    for k in range(2):
+        path = tmp / f"{name}_U{k}"
+        cp = create_multi_node_checkpointer(name, _comm(),
+                                            cp_interval=ROBUST_EVERY,
+                                            path=str(path), keep=2)
+        trainer, rec = _r50_trainer(smoke, 0, db, ROBUST_STEPS,
+                                    tmp / f"out_U{k}", cp=cp,
+                                    clone_at=ROBUST_EVERY)
+        ops.reset_launch_counts()
+        trainer.run()
+        torch.cuda.synchronize()
+        rec["launches"] = ops.launch_counts()
+        cp.flush()
+        rec["timings"] = list(cp.timings)
+        rec["path"] = path
+        runs.append(rec)
+        del trainer, cp
+        torch.cuda.empty_cache()
+    u1, u2 = runs
+    # a crash after iteration 7: generation 8 never reached the disk
+    for f in os.listdir(u2["path"]):
+        if f".iter{ROBUST_STEPS:012d}." in f:
+            os.unlink(u2["path"] / f)
+    trainer, rec = _r50_trainer(smoke, 1, db, ROBUST_STEPS, tmp / "out_R")
+    cp = create_multi_node_checkpointer(name, _comm(), path=str(u2["path"]))
+    t0 = time.perf_counter()
+    state, it = cp.maybe_load()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    trainer.load_checkpoint_state(state)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if it != ROBUST_EVERY:
+        raise AssertionError(f"{name}: maybe_load gave generation {it}, "
+                             f"want {ROBUST_EVERY}")
+    want = _state_tensors(u2["clone"])
+    got = _state_tensors(_live_state(trainer))
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError(f"{name}: the loaded state's leaves differ "
+                             f"from the clone's")
+    unequal = [p for (p, g), (_, w) in zip(got, want)
+               if g.dtype != w.dtype or g.device != w.device
+               or not torch.equal(g, w)]
+    stale = [p for p, _ in got if "stale_grads" in p]
+    if unequal or (db and not stale):
+        raise AssertionError(f"{name}: {len(unequal)} of {len(got)} tensors "
+                             f"differ from the iteration-4 clone after the "
+                             f"load ({unequal[:5]}); stale_grads leaves "
+                             f"{len(stale)}")
+    ops.reset_launch_counts()
+    trainer.run()
+    torch.cuda.synchronize()
+    rec["launches"] = ops.launch_counts()
+    tail = slice(ROBUST_EVERY, ROBUST_STEPS)
+    spread = max(abs(a - b) for a, b in zip(u1["losses"][tail],
+                                           u2["losses"][tail]))
+    diff = max(abs(a - b) for a, b in zip(rec["losses"],
+                                          u2["losses"][tail]))
+    per_step = {"U": ROBUST_STEPS, "R": ROBUST_STEPS - ROBUST_EVERY}
+    wrong = {f"{leg} {k}": (r["launches"][k], RESNET_CONV_LAUNCHES * n)
+             for leg, r, n in (("U1", u1, per_step["U"]),
+                               ("U2", u2, per_step["U"]),
+                               ("R", rec, per_step["R"]))
+             for k in ("conv_wgrad", "conv_dgrad")
+             if r["launches"][k] != RESNET_CONV_LAUNCHES * n}
+    row = {"check": "robustness.resume", "case": name, "db": db,
+           "generation_bytes": u1["timings"][0].get("bytes"),
+           "save_block_ms": [t["save_block_ms"] for t in u1["timings"]],
+           "write_ms": [t.get("write_ms") for t in u1["timings"]],
+           "maybe_load_ms": load_ms, "load_state_ms": restore_ms,
+           "tensors_equal": len(got), "stale_grads_tensors": len(stale),
+           "u1_losses": u1["losses"], "u2_losses": u2["losses"],
+           "r_losses": rec["losses"], "u_spread": spread,
+           "r_vs_u_max_abs": diff, "bitwise_u": spread == 0.0,
+           "launches": {"U1": u1["launches"], "U2": u2["launches"],
+                        "R": rec["launches"]},
+           "card": smoke.card}
+    emit(row)
+    for r in (u1, u2, rec):
+        smoke.add_launches({k: r["launches"][k]
+                            for k in ("conv_wgrad", "conv_dgrad")})
+    if wrong:
+        raise AssertionError(f"{name} conv launches (got, want): {wrong}")
+    if diff > spread:
+        raise AssertionError(f"{name}: resumed losses {rec['losses']} vs "
+                             f"U's {u2['losses'][tail]}: max |diff| {diff} "
+                             f"over the U runs' spread {spread}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def _comm():
+    from chainermn_tpu_torch.communicators import create_communicator
+
+    return create_communicator("xla", device="cuda")
+
+
+def _resnet_timing_leg(smoke, tmp):
+    """24 steps, a save every 4 (six generations, the pinned buffers warm
+    from the third): save()'s blocking ms, the writer's ms and bytes, and
+    the step ms p50 with a write in flight beside p50 without."""
+    torch = smoke.torch
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+
+    cp = create_multi_node_checkpointer("resnet50_t", _comm(),
+                                        cp_interval=ROBUST_EVERY,
+                                        path=str(tmp / "timing"), keep=2)
+    trainer, rec = _r50_trainer(smoke, 0, False, ROBUST_TIMING_STEPS,
+                                tmp / "out_T", cp=cp)
+    trainer.run()
+    cp.flush()
+    steps = list(zip(rec["ms"], rec["in_flight"]))[2:]     # 2 warm-up
+    busy = [ms for ms, f in steps if f]
+    idle = [ms for ms, f in steps if not f]
+    warm = cp.timings[2:]
+    row = {"check": "robustness.checkpoint_cost", "case": "resnet50",
+           "saves": len(cp.timings),
+           "generation_bytes": [t["bytes"] for t in cp.timings],
+           "save_block_ms": [t["save_block_ms"] for t in cp.timings],
+           "write_ms": [t["write_ms"] for t in cp.timings],
+           "save_block_ms_warm_p50": _percentile(
+               [t["save_block_ms"] for t in warm], 0.5),
+           "write_ms_warm_p50": _percentile([t["write_ms"] for t in warm],
+                                            0.5),
+           "step_ms": rec["ms"], "in_flight": rec["in_flight"],
+           "step_ms_p50_write_in_flight": _percentile(busy, 0.5)
+           if busy else None,
+           "step_ms_p50_no_write": _percentile(idle, 0.5) if idle else None,
+           "steps_in_flight": len(busy), "steps_without": len(idle),
+           "card": smoke.card}
+    emit(row)
+    smoke.robust_cost = row
+    if not busy or not idle:
+        raise AssertionError(f"timing leg: {len(busy)} steps with a write "
+                             f"in flight, {len(idle)} without: both needed")
+    del trainer, cp
+    torch.cuda.empty_cache()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(module, args, env_extra=None, cwd=None):
+    """``python -m module args`` from the checkout, output captured."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    env.update(env_extra or {})
+    return subprocess.Popen([sys.executable, "-m", module, *args],
+                            cwd=str(cwd or ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(p, label, want_rc=0, timeout=600):
+    out, err = p.communicate(timeout=timeout)
+    if p.returncode != want_rc:
+        raise AssertionError(f"{label}: exit {p.returncode}, want {want_rc}"
+                             f"\n{out[-2000:]}\n{err[-3000:]}")
+    return out, err
+
+
+def _last_json(out):
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _cli_mnist_kill_resume(tmp):
+    """``train_mnist_checkpoint --unit 1000``, killed at epoch 2 (exit 99),
+    rerun to its end, against an uninterrupted run, on the card."""
+    mod = "chainermn_tpu_torch.train_mnist_checkpoint"
+    base = ["--unit", str(MNIST_UNIT)]
+    full = _spawn(mod, base + ["--out", str(tmp / "m_full")])
+    kill = _spawn(mod, base + ["--kill-at-epoch", "2",
+                               "--out", str(tmp / "m_run")])
+    out, _ = _finish(kill, "mnist --kill-at-epoch 2", want_rc=99)
+    res = _spawn(mod, base + ["--out", str(tmp / "m_run")])
+    want = _last_json(_finish(full, "mnist uninterrupted")[0])
+    out, _ = _finish(res, "mnist resumed")
+    got = _last_json(out)
+    if got["resumed_from"] != 64 or got["iterations"] != want["iterations"]:
+        raise AssertionError(f"mnist resume: resumed from "
+                             f"{got['resumed_from']}, {got['iterations']} "
+                             f"iterations (want 64, {want['iterations']})")
+    diff = abs(got["epoch_losses"][-1] - want["epoch_losses"][-1])
+    row = {"check": "robustness.mnist_kill_resume", "device": "cuda",
+           "final_loss": got["epoch_losses"][-1],
+           "uninterrupted_final_loss": want["epoch_losses"][-1],
+           "abs_diff": diff, "resumed_from": got["resumed_from"]}
+    if diff > 1e-6 * abs(want["epoch_losses"][-1]):
+        raise AssertionError(f"mnist resumed final loss off: {row}")
+    return row
+
+
+def _cli_demo_preempt(tmp):
+    """``python -m chainermn_tpu_torch.train`` with the checkpointer, the
+    preemption handler, the self-healing gang and the flight recorder:
+    SIGTERM once its first generation is on disk; exit 0, a ``preempt``
+    bundle naming the generation saved; the rerun resumes to the
+    uninterrupted run's final loss."""
+    import os
+    import signal
+
+    from chainermn_tpu_torch.observability.flight import (find_bundles,
+                                                          read_bundle)
+
+    mod = "chainermn_tpu_torch.train"
+    base = ["--steps", str(DEMO_STEPS), "--log-every", "100"]
+    ck, dump = tmp / "d_ck", tmp / "d_dump"
+    argv = base + ["--checkpoint-dir", str(ck), "--preemption-grace-s", "30",
+                   "--self-heal", "--flight-dump-dir", str(dump),
+                   "--out", str(tmp / "d_run")]
+    full = _spawn(mod, base + ["--out", str(tmp / "d_full")])
+    p = _spawn(mod, argv)
+    first = ck / "train.iter000000000005.proc0of1"
+    deadline = time.monotonic() + 300
+    while not first.exists():
+        if p.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError("demo: no first generation before the end:"
+                                 f" {p.communicate()[1][-3000:]}")
+        time.sleep(0.002)
+    t_sig = time.monotonic()
+    p.send_signal(signal.SIGTERM)
+    _, err = _finish(p, "demo after SIGTERM")
+    exit_s = time.monotonic() - t_sig
+    bundles = [b for b in find_bundles(str(dump)) if b.endswith("-preempt")]
+    if len(bundles) != 1:
+        raise AssertionError(f"demo: preempt bundles {bundles}")
+    pre = read_bundle(bundles[0])["manifest"]["extra"]["preempt"]
+    saved = pre["generation_saved"]
+    if not isinstance(saved, int) or not any(
+            f".iter{saved:012d}.proc0of1" in f for f in os.listdir(ck)):
+        raise AssertionError(f"demo: the bundle names generation {saved}, "
+                             f"not on disk: {sorted(os.listdir(ck))}")
+    res = _spawn(mod, argv)
+    want = _last_json(_finish(full, "demo uninterrupted")[0])["final_loss"]
+    out, err2 = _finish(res, "demo resumed")
+    got = _last_json(out)
+    if f"resumed from generation {saved}" not in err2:
+        raise AssertionError(f"demo: the rerun did not resume: "
+                             f"{err2[-2000:]}")
+    row = {"check": "robustness.demo_preempt", "device": "cuda",
+           "generation_saved": saved, "grace_used_s": pre["grace_used_s"],
+           "save_s": pre["save_s"], "sigterm_to_exit_s": exit_s,
+           "final_loss": got["final_loss"],
+           "uninterrupted_final_loss": want,
+           "abs_diff": abs(got["final_loss"] - want),
+           "self_heal": got.get("self_heal")}
+    if row["abs_diff"] > 1e-6 * abs(want):
+        raise AssertionError(f"demo resumed final loss off: {row}")
+    return row
+
+
+def _cli_elastic(tmp):
+    """Two gloo processes on the CPU train MNIST with SGD (``--optimizer
+    sgd --lr 0.1``, unit 1000) and stop at epoch 2 with a world-2
+    generation; the world-2 run continues on the CPU while a world-1 run on
+    the card resumes from a copy of the same generations (batch 256: the
+    same global batch).  Final epoch losses within rtol 1e-4."""
+    import shutil
+
+    mod = "chainermn_tpu_torch.train_mnist_checkpoint"
+    base = ["--unit", str(MNIST_UNIT), "--optimizer", "sgd", "--lr", "0.1"]
+
+    def pair(extra):
+        port = str(_free_port())
+        return [_spawn(mod, ["--device", "cpu"] + base + extra,
+                       {"RANK": str(r), "WORLD_SIZE": "2",
+                        "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2",
+                        "MASTER_ADDR": "localhost", "MASTER_PORT": port,
+                        "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "2"})
+                for r in range(2)]
+
+    for r, p in enumerate(pair(["--kill-at-epoch", "2",
+                                "--out", str(tmp / "e2")])):
+        _finish(p, f"elastic world-2 rank {r} --kill-at-epoch 2",
+                want_rc=99)
+    shutil.copytree(tmp / "e2", tmp / "e1")
+    cont = pair(["--out", str(tmp / "e2")])
+    card = _spawn(mod, base + ["--batchsize", "256",
+                               "--out", str(tmp / "e1")])
+    outs = [_finish(p, f"elastic world-2 rank {r} continued")[0]
+            for r, p in enumerate(cont)]
+    want = _last_json(outs[0])
+    out, err = _finish(card, "elastic world-1 card resume")
+    got = _last_json(out)
+    if "resharded 2 -> 1" not in err:
+        raise AssertionError(f"elastic: no elastic resume: {err[-2000:]}")
+    rel = abs(got["epoch_losses"][-1] - want["epoch_losses"][-1]) \
+        / abs(want["epoch_losses"][-1])
+    row = {"check": "robustness.elastic_2_to_1", "rtol": 1e-4,
+           "world2_cpu_epoch_losses": want["epoch_losses"],
+           "world1_card_epoch_losses": got["epoch_losses"],
+           "resumed_from": got["resumed_from"], "final_rel_err": rel}
+    if rel > 1e-4 or got["world"] != 1 or want["world"] != 2:
+        raise AssertionError(f"elastic resume off: {row}")
+    return row
+
+
+def phase_robustness(smoke):
+    """Training robustness on the card.  ResNet-50 at the headline size
+    through Trainer + StandardUpdater with a ``MultiNodeCheckpointer``
+    (asynchronous, keep 2, a save every 4 iterations): leg U twice, leg R
+    resumed from U's generation 4 into a model from another seed, without
+    and with double buffering; a timing leg for the save's cost.  Then, in
+    subprocesses and side by side: ``train_mnist_checkpoint`` killed and
+    resumed, the demo CLI preempted by SIGTERM and resumed, and a world-2
+    CPU generation resumed on the card."""
+    import concurrent.futures
+    import tempfile
+
+    torch = smoke.torch
+    tmp = Path(tempfile.mkdtemp(prefix="chainermn_robustness_"))
+    for db in (False, True):
+        _resnet_resume_leg(smoke, tmp, db)
+    _resnet_timing_leg(smoke, tmp)
+    torch.cuda.synchronize()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futs = {name: pool.submit(fn, tmp) for name, fn in
+                (("mnist", _cli_mnist_kill_resume),
+                 ("demo", _cli_demo_preempt),
+                 ("elastic", _cli_elastic))}
+        rows = {name: f.result() for name, f in futs.items()}
+    for row in rows.values():
+        emit({**row, "card": smoke.card})
+
+
 def main():
     import torch
 
@@ -2919,7 +3386,8 @@ def main():
                          ("imagenet-train", phase_imagenet_train),
                          ("comm", phase_comm), ("trainer", phase_trainer),
                          ("seq2seq", phase_seq2seq),
-                         ("model-parallel", phase_model_parallel)):
+                         ("model-parallel", phase_model_parallel),
+                         ("robustness", phase_robustness)):
             smoke.phase(name, lambda fn=fn: fn(smoke))
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
