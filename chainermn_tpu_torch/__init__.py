@@ -5,14 +5,19 @@ imports).  It mirrors the JAX package's layout and public names; every
 Pallas kernel on a ported path is a hand-written CUDA kernel here
 (``csrc/``), each beside a plain PyTorch version that CPU tensors take.
 
-Ported so far (one card, or one process per card for data parallelism):
+Ported so far (one process per card: one card, data parallelism, and
+the LM's tensor and data parallelism over a ``('data', 'model')`` mesh):
 
 * ``ops``: flash-attention forward and backward, decode attention, the
   beam/GQA attention kernel, KV-cache append, fused cross-entropy (stats,
   dh, dtable), the conv backward (wgrad, dgrad) behind ``ops.conv2d``;
-* ``parallel``: tensor-parallel layers at world 1, the LM (layer norm,
-  RoPE, QKV, GQA), its training step, greedy / sampled / beam decoding;
-* ``serving``: scheduler, slot pool, decode engine, ``ServingEngine``;
+* ``parallel``: tensor- and sequence-parallel layers over a ``('data',
+  'model')`` mesh (``topology.make_nd_mesh``, ``make_multislice_mesh``,
+  ``slice_index_of``), the collective matmuls, the
+  LM (layer norm, RoPE, QKV, GQA, the vocab-parallel loss), the hybrid
+  DP x TP training step, greedy / sampled / beam decoding at any TP width;
+* ``serving``: scheduler, slot pool, decode engine, ``ServingEngine``
+  (at TP > 1: model rank 0 leads, the others follow its plan);
 * ``prng``: threefry ``PRNGKey`` / ``fold_in`` / ``uniform`` bit for bit;
 * data-parallel training: ``topology`` (process group, rank topology),
   ``communicators`` (``create_communicator``: NCCL / gloo, the naive
@@ -44,10 +49,12 @@ Ported so far (one card, or one process per card for data parallelism):
   recv, ``pseudo_connect``), ``links`` (``MultiNodeChainList``,
   ``MultiNodeBatchNormalization``); ``models.seq2seq`` (the LSTM
   encoder-decoder);
-* ``convert``: JAX params → port params (the LM, ``resnet_from_jax`` and
+* ``convert``: JAX params → port params (the LM, its shards on a mesh
+  with ``shard_from_jax`` and back with ``gather_to_numpy``, ``resnet_from_jax`` and
   its twins for the NF-ResNets, the convnets and ViT, ``mlp_from_jax``,
   ``seq2seq_from_jax``, the demo step's), npz;
-* CLIs: ``serve``, ``train_transformer``, ``train_imagenet``, ``train``
+* CLIs: ``serve`` and ``train_transformer`` (``--tp``), ``train_hybrid``,
+  ``generate``, ``train_imagenet``, ``train``
   (the demo trainer), ``train_mnist`` (the MNIST example),
   ``train_seq2seq``, ``train_model_parallel`` and
   ``train_mnist_checkpoint`` (MNIST with checkpoints and resume).
@@ -76,7 +83,12 @@ _NAMES = {
     **dict.fromkeys(("FileDataset", "PrefetchIterator", "write_file_dataset"),
                     "runtime"),
     **dict.fromkeys(("column_parallel_dense", "row_parallel_dense", "tp_mlp",
-                     "vocab_parallel_embedding"), "parallel"),
+                     "vocab_parallel_embedding", "make_tensor_parallel_mlp",
+                     "tp_mlp_sp", "tp_block_sp", "tp_attention_sp",
+                     "transformer_lm_specs", "shard_pytree",
+                     "state_specs_like", "all_gather_matmul",
+                     "matmul_reduce_scatter", "make_all_gather_matmul",
+                     "make_matmul_reduce_scatter"), "parallel"),
     **dict.fromkeys(("AllreducePersistent", "ObservationAggregator",
                      "create_multi_node_checkpointer", "multi_node_snapshot"),
                     "extensions"),
@@ -94,7 +106,8 @@ _NAMES = {
                      "XlaCommunicator", "create_communicator"),
                     "communicators"),
     **dict.fromkeys(("DEFAULT_AXIS_NAME", "Topology", "init_distributed",
-                     "make_mesh"), "topology"),
+                     "make_mesh", "make_nd_mesh", "make_multislice_mesh",
+                     "slice_index_of"), "topology"),
 }
 
 # the JAX package's top-level names not ported yet: name -> ROADMAP.md
@@ -107,8 +120,6 @@ NOT_PORTED = {
                      "ErrorFeedbackState", "error_feedback_layout",
                      "fold_error_feedback", "hierarchical_gradient_average",
                      "opt_state_partition_specs"), "A9"),
-    **dict.fromkeys(("make_tensor_parallel_mlp", "make_nd_mesh",
-                     "make_multislice_mesh"), "A6"),
 }
 
 

@@ -5,6 +5,8 @@
 (numpy's ``bfloat16`` from ``ml_dtypes`` included) and returns the same
 structure of torch tensors, so both packages compute the same function.
 :func:`to_numpy` goes back to fp32 numpy arrays.
+:func:`shard_from_jax` cuts the global params to this rank's shards of a
+tensor-parallel mesh, and :func:`gather_to_numpy` gathers them back.
 :func:`save_npz` / :func:`load_npz` store the structure under flat keys
 such as ``blocks.0.attn.wqkv`` (``serve.py --params``).  Neither needs
 JAX: a JAX-side caller converts with ``np.asarray`` first.
@@ -55,6 +57,31 @@ def to_numpy(params) -> Dict[str, Any]:
     """Torch param tree → the same structure of fp32 numpy arrays on the
     host (detached), for comparing with the JAX package's params."""
     return tree_map(params, lambda t: t.detach().float().cpu().numpy())
+
+
+def shard_from_jax(params, specs, mesh, device="cuda", dtype=None):
+    """GLOBAL params (the JAX package's numpy tree, or the port's tensors)
+    → this rank's shards on ``device``: each leaf cut by its spec
+    (``parallel.transformer_lm_specs`` or ``tensor_parallel.tp_mlp_specs``)
+    at this rank's coordinates of ``mesh`` (``topology.make_nd_mesh``).  A
+    contiguous ``1/P`` of the head-major ``wqkv`` / ``wkv`` columns is a
+    whole set of heads, so the cut follows heads as JAX's sharding does."""
+    from .parallel.hybrid import shard_pytree
+
+    dev = resolve_device(device)
+    host = shard_pytree(tree_map(params, lambda a: a.detach() if isinstance(
+        a, torch.Tensor) else _to_tensor(a)), mesh, specs)
+    return tree_map(host, lambda t: t.to(device=dev, dtype=dtype or t.dtype))
+
+
+def gather_to_numpy(params, specs, mesh) -> Dict[str, Any]:
+    """Inverse of :func:`shard_from_jax`: every rank's shards gathered over
+    the mesh axes of their specs, as fp32 numpy.  Every rank of ``mesh``
+    must call it."""
+    from .parallel._factory import _zip_map, gather_block
+
+    return to_numpy(_zip_map(
+        lambda t, s: gather_block(t.detach(), s, mesh), params, specs))
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, Any]:

@@ -6,10 +6,17 @@ Counterpart of ``chainermn_tpu/ops/collective.py``'s plain collectives
 ``shift``, ``axis_index``, ``axis_size``, ``bcast``) and a copy of
 ``collective_wire_cost``.  JAX calls them inside one SPMD program where
 ``axis_name`` is bound; here each rank is a process that calls them
-eagerly on its own tensor, and ``axis_name`` names the group of
-:func:`~chainermn_tpu_torch.topology.make_mesh` (the world), or is a
-:class:`~chainermn_tpu_torch.topology.Mesh` whose group they run over.
+eagerly on its own tensor.  ``axis_name`` names an axis of the N-D mesh
+bound by ``with mesh:`` (:func:`~chainermn_tpu_torch.topology.make_nd_mesh`;
+the collective runs over this rank's group along that axis), or else the
+group of :func:`~chainermn_tpu_torch.topology.make_mesh` (the world), or is
+a :class:`~chainermn_tpu_torch.topology.Mesh` whose group they run over.
 Each returns this rank's block of JAX's result; none writes its input.
+
+A gloo group has no card path for most collectives (its send / recv,
+all-gather, reduce-scatter, all-to-all), so when the group's backend is
+gloo a card tensor is staged through host memory: copied to the host, sent
+and copied back.  The group's backend decides, before the call.
 
 ``psum`` / ``pmean`` / ``pmax`` / ``pmin`` / ``bcast`` also take a dict,
 list or tuple of tensors, as JAX's take a pytree.  ``ppermute`` and
@@ -33,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..health import guarded
-from ..topology import DEFAULT_AXIS_NAME, Mesh, make_mesh
+from ..topology import DEFAULT_AXIS_NAME, Mesh, bound_axis, make_mesh
 
 # torch 2.13 flags reduce_scatter_tensor as deprecated in favour of
 # reduce_scatter_single; older torch has only the former
@@ -66,7 +73,20 @@ def collective_wire_cost(primitive: str, payload_bytes: int,
 
 
 def _mesh(axis_name) -> Mesh:
-    return axis_name if isinstance(axis_name, Mesh) else make_mesh(axis_name)
+    if isinstance(axis_name, Mesh):
+        return axis_name
+    return bound_axis(axis_name) or make_mesh(axis_name)
+
+
+def host_staged(mesh: Mesh, x) -> bool:
+    """Whether ``x`` goes through host memory on ``mesh``'s group: a card
+    tensor on a gloo group."""
+    return x.is_cuda and dist.get_backend(mesh.group) == "gloo"
+
+
+def _staged(mesh: Mesh, x):
+    """``(x or its host copy, the device to return to)``."""
+    return (x.cpu(), x.device) if host_staged(mesh, x) else (x, x.device)
 
 
 def _tree_map(fn, x):
@@ -78,9 +98,10 @@ def _tree_map(fn, x):
 
 
 def _all_reduce(x, op, mesh):
-    out = x.detach().clone()
+    out, dev = _staged(mesh, x.detach())
+    out = out.clone()
     dist.all_reduce(out, op=op, group=mesh.group)
-    return out
+    return out.to(dev)
 
 
 @guarded("psum")
@@ -122,10 +143,11 @@ def all_gather(x, axis_name=DEFAULT_AXIS_NAME, axis: int = 0,
     """Every rank's ``x`` along ``axis``: concatenated (``tiled``) or
     stacked on a new axis ``axis``."""
     mesh = _mesh(axis_name)
-    x = x.detach().contiguous()
+    x, dev = _staged(mesh, x.detach().contiguous())
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x, group=mesh.group)
-    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
+    out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
+    return out.to(dev)
 
 
 @guarded("all_to_all")
@@ -144,12 +166,13 @@ def all_to_all(x, axis_name=DEFAULT_AXIS_NAME, split_axis: int = 0,
     if len(chunks) != mesh.size or x.shape[split_axis] % mesh.size:
         raise ValueError(f"axis {split_axis} of {tuple(x.shape)} does not "
                          f"split into {mesh.size} equal chunks")
-    send = torch.stack(chunks).contiguous()
+    send, dev = _staged(mesh, torch.stack(chunks).contiguous())
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=mesh.group)
     parts = recv.unbind(0)
-    return torch.cat(parts, dim=concat_axis) if tiled \
+    out = torch.cat(parts, dim=concat_axis) if tiled \
         else torch.stack(parts, dim=concat_axis)
+    return out.to(dev)
 
 
 @guarded("reduce_scatter")
@@ -160,10 +183,11 @@ def reduce_scatter(x, axis_name=DEFAULT_AXIS_NAME, scatter_axis: int = 0):
     if x.shape[scatter_axis] % mesh.size:
         raise ValueError(f"axis {scatter_axis} of {tuple(x.shape)} does not "
                          f"divide by {mesh.size}")
-    inp = x.detach().movedim(scatter_axis, 0).contiguous()
+    inp, dev = _staged(mesh, x.detach().movedim(scatter_axis, 0)
+                       .contiguous())
     out = inp.new_empty((inp.shape[0] // mesh.size,) + inp.shape[1:])
     _reduce_scatter(out, inp, group=mesh.group)
-    return out.movedim(0, scatter_axis)
+    return out.movedim(0, scatter_axis).to(dev)
 
 
 @guarded("ppermute")
@@ -172,7 +196,7 @@ def ppermute(x, perm, axis_name=DEFAULT_AXIS_NAME):
     gets ``source``'s ``x``; a rank no pair sends to gets zeros."""
     mesh = _mesh(axis_name)
     me = dist.get_rank(mesh.group)
-    x = x.detach().contiguous()
+    x, dev = _staged(mesh, x.detach().contiguous())
     out = torch.zeros_like(x)
     ops = []
     for src, dst in perm:
@@ -187,7 +211,7 @@ def ppermute(x, perm, axis_name=DEFAULT_AXIS_NAME):
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    return out
+    return out.to(dev)
 
 
 def _peer(mesh, r):
@@ -218,13 +242,15 @@ def bcast(x, root: int = 0, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
 
     def one(v):
-        out = v.detach().clone()
+        out, dev = _staged(mesh, v.detach())
+        out = out.clone()
         dist.broadcast(out, src=_peer(mesh, root), group=mesh.group)
-        return out
+        return out.to(dev)
 
     return _tree_map(one, x)
 
 
 __all__ = ["all_gather", "all_to_all", "axis_index", "axis_size", "bcast",
-           "collective_wire_cost", "pmax", "pmean", "pmean_if_bound", "pmin",
+           "collective_wire_cost", "host_staged", "pmax", "pmean",
+           "pmean_if_bound", "pmin",
            "ppermute", "psum", "reduce_scatter", "shift"]

@@ -304,8 +304,9 @@ def _local_combine(m, l, picked):
 
 class _FusedCrossEntropy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, table, targets, combine):
+    def forward(ctx, h, table, targets, combine, dh_axis):
         lse, picked = combine(*ce_stats(h, table, targets))
+        ctx.dh_axis = dh_axis
         ctx.save_for_backward(h, table, targets, lse)
         return lse - picked
 
@@ -313,16 +314,24 @@ class _FusedCrossEntropy(torch.autograd.Function):
     def backward(ctx, dnll):
         h, table, targets, lse = ctx.saved_tensors
         dh, dtable = ce_grads(h, table, targets, lse, dnll)
-        return dh, dtable, None, None
+        if ctx.dh_axis is not None:
+            # every vocabulary shard's share of dh, summed in fp32 and cast
+            # back (JAX's _fused_vp_nll_bwd); dtable stays this shard's
+            from . import collective as col
+            dh = col.psum(dh.float(), ctx.dh_axis).to(h.dtype)
+        return dh, dtable, None, None, None
 
 
-def fused_cross_entropy(h, table, targets, combine=_local_combine):
+def fused_cross_entropy(h, table, targets, combine=_local_combine,
+                        dh_axis=None):
     """Per-row NLL ``(T,)`` of ``softmax(h @ table.T)`` at ``targets``,
     differentiable in ``h`` and ``table``.  ``combine(m, l, picked)`` turns
     this shard's stats into the row's ``(lse, picked)``; the default is the
     single-shard form, and ``parallel.transformer.vocab_parallel_logits_loss``
-    passes the vocab-parallel one.  The backward starts from that ``lse``."""
-    return _FusedCrossEntropy.apply(h, table, targets, combine)
+    passes the vocab-parallel one, with the model axis (a 1-D
+    ``topology.Mesh``) as ``dh_axis``, over which the backward sums ``dh``.
+    The backward starts from that ``lse``."""
+    return _FusedCrossEntropy.apply(h, table, targets, combine, dh_axis)
 
 
 ce_stats.launches = 0

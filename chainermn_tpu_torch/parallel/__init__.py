@@ -1,22 +1,40 @@
-"""Model layers, the training step and decoding (TP = 1 on one card), and
+"""Model layers over a ('data', 'model') mesh (tensor and sequence
+parallelism, the collective matmuls), the training step, decoding, and
 the array redistribution of ``reshard``."""
 
+from ._factory import P, PartitionSpec, make_global_apply
+from .collective_matmul import (all_gather_matmul, make_all_gather_matmul,
+                                make_matmul_reduce_scatter,
+                                matmul_reduce_scatter)
 from .decode import (lm_decode_tick, lm_generate, lm_generate_beam,
                      lm_prefill, make_lm_beam_generator, make_lm_generator)
-from .hybrid import make_hybrid_shard_map_step, param_leaves
+from .hybrid import (make_hybrid_shard_map_step, make_hybrid_train_step,
+                     param_leaves, shard_pytree, state_specs_like)
 from .reshard import (make_reshard, reshard, reshard_cost, reshard_host,
                       reshard_tree_cost)
-from .tensor_parallel import (column_parallel_dense, row_parallel_dense,
-                              tp_mlp, vocab_parallel_embedding)
+from .tensor_parallel import (column_parallel_dense, gather_seq_matmul,
+                              init_tp_mlp_params, make_tensor_parallel_mlp,
+                              matmul_scatter_seq, row_parallel_dense, tp_mlp,
+                              tp_mlp_sp, tp_mlp_specs,
+                              vocab_parallel_embedding)
 from .transformer import (apply_rope, init_tp_transformer_lm, tp_attention,
-                          tp_block, tp_transformer_lm_loss,
+                          tp_attention_sp, tp_block, tp_block_sp,
+                          tp_transformer_lm_loss, transformer_lm_specs,
                           vocab_parallel_logits_loss)
 
-__all__ = ["apply_rope", "column_parallel_dense", "init_tp_transformer_lm",
-           "lm_decode_tick", "lm_generate", "lm_generate_beam", "lm_prefill",
-           "make_hybrid_shard_map_step", "make_lm_beam_generator",
-           "make_lm_generator", "make_reshard", "param_leaves",
-           "reshard", "reshard_cost", "reshard_host", "reshard_tree_cost",
-           "row_parallel_dense", "tp_attention", "tp_block", "tp_mlp",
-           "tp_transformer_lm_loss", "vocab_parallel_embedding",
+__all__ = ["P", "PartitionSpec", "all_gather_matmul", "apply_rope",
+           "column_parallel_dense", "gather_seq_matmul",
+           "init_tp_mlp_params", "init_tp_transformer_lm", "lm_decode_tick",
+           "lm_generate", "lm_generate_beam", "lm_prefill",
+           "make_all_gather_matmul", "make_global_apply",
+           "make_hybrid_shard_map_step", "make_hybrid_train_step",
+           "make_lm_beam_generator", "make_lm_generator",
+           "make_matmul_reduce_scatter", "make_reshard",
+           "make_tensor_parallel_mlp", "matmul_reduce_scatter",
+           "matmul_scatter_seq", "param_leaves", "reshard", "reshard_cost",
+           "reshard_host", "reshard_tree_cost", "row_parallel_dense",
+           "shard_pytree", "state_specs_like", "tp_attention",
+           "tp_attention_sp", "tp_block", "tp_block_sp", "tp_mlp",
+           "tp_mlp_sp", "tp_mlp_specs", "tp_transformer_lm_loss",
+           "transformer_lm_specs", "vocab_parallel_embedding",
            "vocab_parallel_logits_loss"]

@@ -10,10 +10,12 @@ next-token choice, and beam search.  ``lm_generate`` and the beam search
 drive the ticks in a plain Python loop where JAX runs ``lax.scan``.
 
 The cache layout is the JAX package's flat ``(B, total, H_kv·head_dim)``.
-The port runs on one card (TP = 1): the psum sites of the TP layers are
-identities (``tensor_parallel.psum``), and so are the vocab-parallel
-collectives of the token choice (:func:`_pmax`, :func:`_pmin`,
-:func:`_psum`, :func:`_all_gather` at world 1).
+Tensor parallelism composes as in JAX: with ``axis_name`` naming the model
+axis, each rank holds its shards (``transformer_lm_specs``), projects and
+caches its ``H_kv/P`` heads, and the token choice runs on its ``V/P``
+vocabulary rows: a ``(max, index)`` pmax / pmin pair for greedy and
+sampled tokens, a pmax / psum log-sum-exp and an all-gather of each
+shard's top K for the beam.  ``axis_name=None`` is the one-card path.
 
 Sampling draws JAX's threefry Gumbel noise bit for bit (``prng.py``), so a
 sampled generation is held token-exact against JAX like a greedy one.  Not
@@ -23,50 +25,34 @@ raises).
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 
 import numpy as np
 import torch
 
 from .. import prng
+from ..ops import collective as col
 from ..ops.decode_attention import (beam_attend_parts, decode_append_attend,
                                     decode_attend_gqa, gqa_rows, gqa_unrows,
                                     merge_attend_parts)
 from ..ops.flash_attention import flash_attention
 from ..ops.kv_cache import cache_append
-from .tensor_parallel import matmul_f32, vocab_parallel_embedding
+from ._factory import model_axis
+from .tensor_parallel import (axis_index, axis_size, matmul_f32, pmax, pmin,
+                              reduce_from_model, vocab_parallel_embedding)
 from .transformer import _layer_norm, attention_with, block_with
 
 
-def _pmax(x):
-    """Cross-shard max of the greedy pick.  Identity at world 1."""
-    return x
-
-
-def _pmin(x):
-    """Cross-shard min of the greedy pick's winners.  Identity at world 1."""
-    return x
-
-
-def _psum(x):
-    """Cross-shard sum of the beam's logsumexp.  Identity at world 1."""
-    return x
-
-
-def _all_gather(x):
-    """The beam's per-shard top-K candidates gathered along the last axis.
-    Identity at world 1."""
-    return x
-
-
-def _decoder_core(params, head_dim: int):
+def _decoder_core(params, head_dim: int, axis_name=None):
     """``(embed, attn_block, block_with, rope)`` — the incremental-decoding
-    machinery shared by prefill and the tick."""
+    machinery shared by prefill and the tick, over this rank's shards."""
     d_model = params["embed"].shape[1]
     rope = "pos_embed" not in params
 
     def embed(tokens, positions):
-        x = vocab_parallel_embedding(tokens, params["embed"])
+        x = vocab_parallel_embedding(tokens, params["embed"],
+                                     axis_name=axis_name)
         x = x * (d_model ** 0.5)
         if not rope:
             table = params["pos_embed"]
@@ -116,7 +102,8 @@ def _decoder_core(params, head_dim: int):
             return ctx.reshape(n, 1, hl, head_dim).to(x.dtype), (k_cache, v_cache)
 
         return block_with(x, blk, lambda h: attention_with(
-            h, blk["attn"], head_dim, attend, positions if rope else None))
+            h, blk["attn"], head_dim, attend, positions if rope else None,
+            axis_name), axis_name)
 
     return embed, attn_block, block_with, rope
 
@@ -153,35 +140,38 @@ def _prefill(params, embed, attn_block, prompt, total: int, head_dim: int):
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]), caches
 
 
-def _pick(local_best, local_idx):
-    """The global argmax of per-shard ``(best, index)`` pairs: ``pmax``
-    of the values, then ``pmin`` over the winners' indices, so an exact
-    tie goes to the lowest index (world 1: the local index)."""
-    winner = local_best == _pmax(local_best)
-    return _pmin(torch.where(winner, local_idx,
-                             torch.full_like(local_idx, 2 ** 30))
-                 ).to(torch.int32)
+def _pick(local_best, local_idx, axis_name=None):
+    """The global argmax of per-shard ``(best, global index)`` pairs:
+    ``pmax`` of the values, then ``pmin`` over the winners' indices, so an
+    exact tie goes to the lowest index."""
+    winner = local_best == pmax(local_best, axis_name)
+    return pmin(torch.where(winner, local_idx,
+                            torch.full_like(local_idx, 2 ** 30)),
+                axis_name).to(torch.int32)
 
 
-def _greedy_token(table, h_last):
-    """Greedy next token from ``h_last (N, D)`` against the embedding
-    table, logits in fp32; ties go to the lowest index (``torch.argmax``
-    returns the first maximum, as JAX's argmax does)."""
+def _greedy_token(table, h_last, axis_name=None):
+    """Greedy next token from ``h_last (N, D)`` against this rank's
+    vocabulary shard ``table (V/P, D)``, logits in fp32; ties go to the
+    lowest index (``torch.argmax`` returns the first maximum, as JAX's
+    argmax does)."""
     logits = matmul_f32(h_last, table.t())
-    return _pick(logits.max(-1).values, logits.argmax(-1))
+    start = axis_index(axis_name) * table.shape[0]
+    return _pick(logits.max(-1).values, start + logits.argmax(-1), axis_name)
 
 
-def _gumbel_rows(keys, step_pos, vocab: int, device):
-    """Per-row Gumbel noise ``(N, V)``: row ``n`` draws ``uniform(fold_in(
-    fold_in(keys[n], step_pos[n]), 0), (1, V), minval=1e-20)`` (the axis
-    index 0 folded in last, as JAX does at any TP width), the draw of
-    ``lm_generate``'s B = 1 sampler at that position."""
+def _gumbel_rows(keys, step_pos, vocab_per: int, rank: int, device):
+    """Per-row Gumbel noise ``(N, V/P)``: row ``n`` draws ``uniform(fold_in(
+    fold_in(keys[n], step_pos[n]), rank), (1, V/P), minval=1e-20)`` (the
+    model rank folded in last, as JAX does), the draw of ``lm_generate``'s
+    B = 1 sampler at that position."""
     sp = torch.as_tensor(step_pos, device=device).to(torch.int64)
-    k = prng.fold_in(prng.fold_in(prng.as_key(keys, device), sp), 0)
-    return prng.gumbel(k, (1, vocab))[:, 0]
+    k = prng.fold_in(prng.fold_in(prng.as_key(keys, device), sp), rank)
+    return prng.gumbel(k, (1, vocab_per))[:, 0]
 
 
-def _next_token(table, h_last, keys=None, temps=None, step_pos=None):
+def _next_token(table, h_last, keys=None, temps=None, step_pos=None,
+                axis_name=None):
     """Per-row greedy-or-sampled next token from ``h_last (N, D)``, the
     serving engine's selection step (JAX's ``_next_token``).
 
@@ -194,18 +184,20 @@ def _next_token(table, h_last, keys=None, temps=None, step_pos=None):
     bit-identical to :func:`_greedy_token`.  With no sampled row (or no
     ``temps``) nothing is drawn, as JAX's ``lax.cond`` skips the draw."""
     logits = matmul_f32(h_last, table.t())
-    best, idx = logits.max(-1).values, logits.argmax(-1)
+    rank = axis_index(axis_name)
+    start = rank * table.shape[0]
+    best, idx = logits.max(-1).values, start + logits.argmax(-1)
     if temps is not None and not isinstance(temps, torch.Tensor):
         temps = torch.from_numpy(np.asarray(temps, np.float32))
     if temps is None or not bool((temps > 0.0).any()):
-        return _pick(best, idx)
+        return _pick(best, idx, axis_name)
     t = temps.to(device=logits.device, dtype=torch.float32)
     sample = t > 0.0
-    gum = _gumbel_rows(keys, step_pos, logits.shape[1], logits.device)
+    gum = _gumbel_rows(keys, step_pos, logits.shape[1], rank, logits.device)
     scored = logits / torch.where(sample, t, torch.ones_like(t))[:, None] + gum
     best = torch.where(sample, scored.max(-1).values, best)
-    idx = torch.where(sample, scored.argmax(-1), idx)
-    return _pick(best, idx)
+    idx = torch.where(sample, start + scored.argmax(-1), idx)
+    return _pick(best, idx, axis_name)
 
 
 def _check_rng(temperature: float, rng) -> None:
@@ -216,22 +208,24 @@ def _check_rng(temperature: float, rng) -> None:
             "default key would draw identical token sequences every call")
 
 
-def lm_prefill(params, prompt, total: int, *, head_dim: int):
+def lm_prefill(params, prompt, total: int, *, head_dim: int,
+               axis_name=None):
     """Prefill ``prompt (B, S_p)``: returns ``(h (B, S_p, D), caches)``,
     ``h`` after the final layer norm and ``caches`` the per-layer flat
-    ``(B, total, H_kv·head_dim)`` K/V pairs with the prompt at rows
-    ``[0, S_p)``."""
-    embed, attn_block, _, rope = _decoder_core(params, head_dim)
+    ``(B, total, H_kv/P·head_dim)`` K/V pairs of this rank's heads with the
+    prompt at rows ``[0, S_p)``."""
+    embed, attn_block, _, rope = _decoder_core(params, head_dim, axis_name)
     _check_length(params, total, rope)
     return _prefill(params, embed, attn_block, prompt, total, head_dim)
 
 
-def lm_decode_tick(params, tokens, caches, pos, *, head_dim: int):
+def lm_decode_tick(params, tokens, caches, pos, *, head_dim: int,
+                   axis_name=None):
     """One decode tick: consume ``tokens (N,)`` at ``pos`` (a Python int,
     or an int32 ``(N,)`` tensor on the caches' device), append each row's
     K/V in place and attend its prefix ``[0, pos]``.  Returns ``(h_last
     (N, D), caches)``."""
-    embed, attn_block, _, _ = _decoder_core(params, head_dim)
+    embed, attn_block, _, _ = _decoder_core(params, head_dim, axis_name)
     per_row = isinstance(pos, torch.Tensor)
     if per_row:
         positions = pos.long()[:, None]
@@ -247,35 +241,41 @@ def lm_decode_tick(params, tokens, caches, pos, *, head_dim: int):
 
 
 def lm_generate(params, prompt, rng=None, *, head_dim: int,
-                max_new_tokens: int, temperature: float = 0.0):
+                max_new_tokens: int, temperature: float = 0.0,
+                axis_name=None):
     """Generate ``max_new_tokens`` from ``prompt (B, S_p)`` (int tensor on
     the params' device), greedily or, with ``temperature > 0``, sampled
     with the key ``rng`` (required then: ``ValueError`` without it):
-    prefill, then one tick per new token.  The sampler draws ONE ``(B, V)``
-    uniform per step from ``fold_in(fold_in(rng, step_pos), 0)``, JAX's
-    closed-batch layout (counters ``b·V + v``).  Returns ``(B,
-    max_new_tokens) int32``."""
+    prefill, then one tick per new token.  The sampler draws ONE ``(B,
+    V/P)`` uniform per step and shard from ``fold_in(fold_in(rng,
+    step_pos), rank)``, JAX's closed-batch layout (counters ``b·V/P +
+    v``).  Returns ``(B, max_new_tokens) int32``."""
     _check_rng(temperature, rng)
     b, s_p = prompt.shape
     total = s_p + max_new_tokens
     table = params["embed"]
     key = None if temperature <= 0.0 else prng.as_key(rng, table.device)
     temp = torch.tensor(temperature, dtype=torch.float32, device=table.device)
+    rank = axis_index(axis_name)
+    start = rank * table.shape[0]
 
     def logits_next(h_last, step_pos: int):
         if key is None:
-            return _greedy_token(table, h_last)
+            return _greedy_token(table, h_last, axis_name)
         logits = matmul_f32(h_last, table.t())
-        k = prng.fold_in(prng.fold_in(key, step_pos), 0)
+        k = prng.fold_in(prng.fold_in(key, step_pos), rank)
         scored = logits / temp + prng.gumbel(k, tuple(logits.shape))
-        return _pick(scored.max(-1).values, scored.argmax(-1))
+        return _pick(scored.max(-1).values, start + scored.argmax(-1),
+                     axis_name)
 
-    h, caches = lm_prefill(params, prompt, total, head_dim=head_dim)
+    h, caches = lm_prefill(params, prompt, total, head_dim=head_dim,
+                           axis_name=axis_name)
     token = logits_next(h[:, -1], s_p)
     out = [token]
     for i in range(1, max_new_tokens):
         h_last, caches = lm_decode_tick(params, token, caches, s_p + i - 1,
-                                        head_dim=head_dim)
+                                        head_dim=head_dim,
+                                        axis_name=axis_name)
         token = logits_next(h_last, s_p + i)
         out.append(token)
     return torch.stack(out, dim=1)
@@ -286,19 +286,29 @@ def _prompt_on(params, prompt):
                            device=params["embed"].device)
 
 
-def make_lm_generator(*, head_dim: int, max_new_tokens: int,
+def _bound(mesh, fn):
+    """``fn()`` under inference mode, with ``mesh`` bound when given."""
+    with torch.inference_mode(), mesh or contextlib.nullcontext():
+        return fn()
+
+
+def make_lm_generator(mesh=None, axis_name: str = "model", *,
+                      head_dim: int, max_new_tokens: int,
                       temperature: float = 0.0):
     """``fn(params, prompt[, rng]) -> (B, max_new) int32`` tokens; the
-    prompt (numpy or tensor) goes to the params' device.  With
-    ``temperature > 0`` the ``rng`` key is required (``ValueError``)."""
+    prompt (numpy or tensor) goes to the params' device.  With a ``mesh``,
+    ``params`` are this rank's shards (``transformer_lm_specs`` over
+    ``axis_name``) and every rank of the model axis calls ``fn`` with the
+    same prompt; without one they are whole.  With ``temperature > 0`` the
+    ``rng`` key is required (``ValueError``)."""
+    ax = None if mesh is None else axis_name
 
     def apply(params, prompt, rng=None):
         _check_rng(temperature, rng)
-        with torch.inference_mode():
-            return lm_generate(params, _prompt_on(params, prompt), rng,
-                               head_dim=head_dim,
-                               max_new_tokens=max_new_tokens,
-                               temperature=temperature)
+        return _bound(mesh, lambda: lm_generate(
+            params, _prompt_on(params, prompt), rng, head_dim=head_dim,
+            max_new_tokens=max_new_tokens, temperature=temperature,
+            axis_name=ax))
 
     return apply
 
@@ -315,21 +325,26 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _shard_logprobs(table, h_last):
-    """``(N, D)`` → log-probs ``(N, V)`` normalised across the vocab
-    shards (``pmax``/``psum`` logsumexp), and the shard's first id."""
+def _shard_logprobs(table, h_last, axis_name=None):
+    """``(N, D)`` → this shard's log-probs ``(N, V/P)`` normalised across
+    the vocab shards (``pmax``/``psum`` logsumexp), and its first id."""
     logits = matmul_f32(h_last, table.t())
-    m = _pmax(logits.max(-1).values)
-    z = _psum(torch.exp(logits - m[:, None]).sum(-1))
-    return logits - (m + torch.log(z))[:, None], 0
+    m = pmax(logits.max(-1).values, axis_name)
+    z = reduce_from_model(torch.exp(logits - m[:, None]).sum(-1), axis_name)
+    return (logits - (m + torch.log(z))[:, None],
+            axis_index(axis_name) * table.shape[0])
 
 
-def _global_topk(table, h_last, k: int):
-    """``(N, D)`` → ``(values (N, K), ids (N, K))``: the shard's top-K,
-    gathered over the shards, and the top-K of those."""
-    logp, start = _shard_logprobs(table, h_last)
+def _global_topk(table, h_last, k: int, axis_name=None):
+    """``(N, D)`` → ``(values (N, K), ids (N, K))``: each shard's top-K,
+    all-gathered over the model axis, and the top-K of those."""
+    logp, start = _shard_logprobs(table, h_last, axis_name)
     v_loc, i_loc = _top_k(logp, k)
-    gv, gi = _all_gather(v_loc), _all_gather(i_loc + start)
+    gv, gi = v_loc, i_loc + start
+    axis = model_axis(axis_name)
+    if axis is not None:
+        gv = col.all_gather(gv, axis, axis=1, tiled=True)
+        gi = col.all_gather(gi, axis, axis=1, tiled=True)
     v, pos = _top_k(gv, k)
     return v, gi.gather(1, pos)
 
@@ -359,7 +374,7 @@ def _reorder(cache, parent, b: int, k: int):
 
 def lm_generate_beam(params, prompt, *, head_dim: int, max_new_tokens: int,
                      beam_size: int, lazy_reorder: bool = True,
-                     attend_impl: str = "auto"):
+                     attend_impl: str = "auto", axis_name=None):
     """Beam search with the KV cache: the highest-cumulative-log-prob
     continuation of each prompt among ``beam_size`` beams, fixed length.
     Returns ``(B, max_new_tokens) int32``, the best beam.
@@ -379,14 +394,15 @@ def lm_generate_beam(params, prompt, *, head_dim: int, max_new_tokens: int,
     b, s_p = prompt.shape
     k = beam_size
     total = s_p + max_new_tokens
-    embed, attn_block, _, rope = _decoder_core(params, head_dim)
+    embed, attn_block, _, rope = _decoder_core(params, head_dim, axis_name)
     _check_length(params, total, rope)
-    topk = partial(_global_topk, params["embed"], k=k)
+    topk = partial(_global_topk, params["embed"], k=k, axis_name=axis_name)
     if lazy_reorder:
         return _beam_lazy(params, prompt, embed, attn_block, topk,
                           head_dim=head_dim, max_new_tokens=max_new_tokens,
                           beam_size=k, rope=rope,
-                          use_kernel=attend_impl != "einsum")
+                          use_kernel=attend_impl != "einsum",
+                          axis_name=axis_name)
 
     h, caches = _prefill(params, embed, attn_block, prompt, total, head_dim)
     caches = [(kc.repeat_interleave(k, 0), vc.repeat_interleave(k, 0))
@@ -415,7 +431,7 @@ def lm_generate_beam(params, prompt, *, head_dim: int, max_new_tokens: int,
 
 def _beam_lazy(params, prompt, embed, attn_block, topk, *, head_dim: int,
                max_new_tokens: int, beam_size: int, rope: bool,
-               use_kernel: bool):
+               use_kernel: bool, axis_name=None):
     """The ancestry-indexed beam body (see :func:`lm_generate_beam`)."""
     b, s_p = prompt.shape
     k = beam_size
@@ -437,7 +453,8 @@ def _beam_lazy(params, prompt, embed, attn_block, topk, *, head_dim: int,
                         dtype=pv.dtype, device=dev)) for pk, pv in pcaches]
     anc = torch.zeros((b, k, max_new_tokens), dtype=torch.int64, device=dev)
     slot_ids = torch.arange(k, device=dev)
-    g = params["embed"].shape[1] // head_dim // n_kv
+    # query heads per KV head: the global ratio, n_kv being this rank's
+    g = params["embed"].shape[1] // head_dim // (n_kv * axis_size(axis_name))
 
     def attend_with(i, pk, pv, gk, gv, amask, amask_rows):
         def attend(q, kk, vv):
@@ -478,7 +495,8 @@ def _beam_lazy(params, prompt, embed, attn_block, topk, *, head_dim: int,
             attend = attend_with(i, pk, pv, gk, gv, amask, amask_rows)
             x = block_with(x, blk, lambda hh, a=blk["attn"], f=attend:
                            attention_with(hh, a, head_dim, f,
-                                          positions if rope else None))[0]
+                                          positions if rope else None,
+                                          axis_name), axis_name)[0]
         h = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
         tokens, scores, toks_buf, parent = _merge_candidates(
             topk, h, scores, toks_buf, i, b, k)
@@ -512,17 +530,20 @@ def _lazy_einsum(q, pk, pv, gk_w, gv_w, amask, b, k, n_kv, g, head_dim):
     return ctx.to(q.dtype).reshape(b * k, 1, n_kv * g, head_dim)
 
 
-def make_lm_beam_generator(*, head_dim: int, max_new_tokens: int,
+def make_lm_beam_generator(mesh=None, axis_name: str = "model", *,
+                           head_dim: int, max_new_tokens: int,
                            beam_size: int, lazy_reorder: bool = True,
                            attend_impl: str = "auto"):
     """``fn(params, prompt) -> (B, max_new) int32``: the best beam of
-    :func:`lm_generate_beam`; the prompt goes to the params' device."""
+    :func:`lm_generate_beam`; the prompt goes to the params' device.
+    ``mesh`` and ``params`` as in :func:`make_lm_generator`."""
+    ax = None if mesh is None else axis_name
 
     def apply(params, prompt):
-        with torch.inference_mode():
-            return lm_generate_beam(
-                params, _prompt_on(params, prompt), head_dim=head_dim,
-                max_new_tokens=max_new_tokens, beam_size=beam_size,
-                lazy_reorder=lazy_reorder, attend_impl=attend_impl)
+        return _bound(mesh, lambda: lm_generate_beam(
+            params, _prompt_on(params, prompt), head_dim=head_dim,
+            max_new_tokens=max_new_tokens, beam_size=beam_size,
+            lazy_reorder=lazy_reorder, attend_impl=attend_impl,
+            axis_name=ax))
 
     return apply

@@ -1,33 +1,41 @@
-"""The training step at world 1: loss → backward → optimizer, in place.
+"""Hybrid data x model parallelism: the training step over a ``('data', 'model')`` mesh.
 
-Counterpart of ``chainermn_tpu/parallel/hybrid.py ::
-make_hybrid_shard_map_step`` with a ``(1, 1)`` ``('data', 'model')``
-mesh.  There is no mesh and no partition spec: the model axis has size 1
-(the TP layers' collectives are identities) and so has the data axis,
-whose loss mean stays a named call (:func:`pmean`) for the data-parallel
-slice.
+Counterpart of ``chainermn_tpu/parallel/hybrid.py``.  JAX's step is one
+SPMD program under ``shard_map``; here each rank is a process that holds
+its shards of the parameters (:func:`shard_pytree`, the layout of
+``transformer_lm_specs`` / ``tensor_parallel.tp_mlp_specs``) and its rows
+of the batch:
+
+* :func:`make_hybrid_shard_map_step` runs ``loss_fn(params, local_batch)``
+  with the mesh bound, so the TP layers reduce over ``'model'``
+  themselves; after ``backward`` it averages the gradients over
+  ``data_axis`` only (JAX: autodiff of the loss's ``pmean`` over
+  ``'data'``) and returns that ``pmean`` of the loss;
+* :func:`make_hybrid_train_step` is the same step over the GLOBAL batch,
+  whose leading axis it slices over ``'data'`` onto this rank.
 
 JAX's step is functional (``params, opt_state, batch → params, opt_state,
 loss``).  This one is not: the optimizer is a ``torch.optim`` optimizer
-built over the parameter leaves (:func:`param_leaves`), and each step
-updates those tensors IN PLACE.  The optax recipes map as
-``optax.sgd(lr)`` → ``torch.optim.SGD(leaves, lr)`` and ``optax.adam(lr)``
-→ ``torch.optim.Adam(leaves, lr)`` (the same defaults: b1 0.9, b2 0.999,
-eps 1e-8 added outside the square root).
+built over this rank's parameter leaves (:func:`param_leaves`), and each
+step updates them IN PLACE.  The optax recipes map as ``optax.sgd(lr)`` →
+``torch.optim.SGD(leaves, lr)`` and ``optax.adam(lr)`` →
+``torch.optim.Adam(leaves, lr)`` (the same defaults: b1 0.9, b2 0.999,
+eps 1e-8 added outside the square root); :func:`state_specs_like` says
+which optimizer state follows which parameter shard.  ZeRO-1 and FSDP are
+ROADMAP.md's A9.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List
 
 import torch
 
 from ..convert import flatten
-
-
-def pmean(x):
-    """The data-axis mean of the loss.  Identity at world 1."""
-    return x
+from ..ops import collective as col
+from ..optimizers import gradient_average
+from ._factory import P, _zip_map, local_block
 
 
 def param_leaves(params) -> List[torch.Tensor]:
@@ -35,25 +43,84 @@ def param_leaves(params) -> List[torch.Tensor]:
     return list(flatten(params).values())
 
 
-def make_hybrid_shard_map_step(loss_fn: Callable, optimizer, params):
-    """``step(params, batch) -> loss``: ``loss_fn(params, batch)`` under
-    autograd, ``backward``, one ``optimizer.step()``, then the gradients are
-    dropped (``zero_grad(set_to_none=True)``) so they do not outlive the
-    step.  The leaves of ``params`` are marked as requiring
-    gradients here and updated in place by the optimizer, which must have
-    been built over them.  The returned loss is detached."""
+def shard_pytree(tree, mesh, specs):
+    """This rank's blocks of the GLOBAL tensors (or numpy arrays) of
+    ``tree`` under ``specs`` (one spec for every leaf, or a matching tree),
+    each a contiguous tensor of its own."""
+    def one(x, spec):
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        return local_block(t, spec, mesh).contiguous().clone()
+
+    return _zip_map(one, tree, specs)
+
+
+def state_specs_like(optimizer, params, param_specs):
+    """The spec of each state of ``optimizer`` (a ``torch.optim``
+    optimizer over ``param_leaves(params)``), by leaf: ``{leaf name:
+    {state name: spec}}``.  A state tensor of the parameter's shape (Adam's
+    ``exp_avg`` / ``exp_avg_sq``, momentum) follows the parameter's spec;
+    any other (the step count) is replicated.  Read after the first step,
+    when the states exist."""
+    specs = flatten(param_specs)
+    out = {}
+    for name, leaf in flatten(params).items():
+        state = optimizer.state.get(leaf, {})
+        out[name] = {k: (specs[name] if isinstance(v, torch.Tensor)
+                         and v.shape == leaf.shape else P())
+                     for k, v in state.items()}
+    return out
+
+
+def make_hybrid_shard_map_step(loss_fn: Callable, optimizer, params,
+                               mesh=None, data_axis: str = "data"):
+    """``step(params, local_batch) -> loss``: ``loss_fn(params,
+    local_batch)`` under autograd with ``mesh`` bound (None: no mesh, one
+    rank), ``backward``, the gradients averaged over ``data_axis`` when the
+    mesh has it with more than one rank, one ``optimizer.step()``, then the
+    gradients are dropped (``zero_grad(set_to_none=True)``).  The returned
+    loss is the mean over ``data_axis``, detached.  The leaves of
+    ``params`` are marked as requiring gradients here and updated in place
+    by the optimizer, which must have been built over them."""
     leaves = param_leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     owned = {id(p) for group in optimizer.param_groups for p in group["params"]}
     if any(id(leaf) not in owned for leaf in leaves):
         raise ValueError("the optimizer must be built over param_leaves(params)")
+    data = None
+    if mesh is not None and data_axis in mesh.axis_names \
+            and mesh.shape[data_axis] > 1:
+        data = mesh.axis(data_axis)
 
     def step(params, batch):
-        loss = pmean(loss_fn(params, batch))
-        loss.backward()
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-        return loss.detach()
+        with mesh or contextlib.nullcontext():
+            loss = loss_fn(params, batch)
+            loss.backward()
+            if data is not None:
+                gradient_average(param_leaves(params), data)
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss.detach()
+            return loss if data is None else col.pmean(loss, data)
+
+    return step
+
+
+def make_hybrid_train_step(loss_fn: Callable, optimizer, params, mesh=None,
+                           data_axis: str = "data"):
+    """:func:`make_hybrid_shard_map_step` over the GLOBAL batch: ``step(
+    params, batch)`` takes this rank's rows of each batch tensor (the
+    leading axis sharded over ``data_axis``), then runs the step.
+    ``params`` are this rank's shards, as the step updates them in
+    place."""
+    inner = make_hybrid_shard_map_step(loss_fn, optimizer, params, mesh,
+                                       data_axis)
+    if mesh is None or data_axis not in mesh.axis_names:
+        return inner
+    rows = P(data_axis)
+
+    def step(params, batch):
+        return inner(params, tuple(local_block(b, rows, mesh)
+                                   for b in batch))
 
     return step

@@ -1,22 +1,30 @@
-"""Transformer LM at TP = 1: layer norm, RoPE, QKV projection, blocks, the loss, init.
+"""Tensor-parallel transformer LM: layer norm, RoPE, QKV projection, blocks, the sequence-parallel block, the vocab-parallel loss, init and specs.
 
 Counterpart of ``chainermn_tpu/parallel/transformer.py``.  Parameters are
 the same nested dict as the JAX package's (``embed``, optional
 ``pos_embed``, ``blocks[i]`` with ``ln1_*``/``ln2_*``/``attn``/``mlp``,
-``lnf_*``), holding torch tensors; ``convert.py`` maps one onto the other.
+``lnf_*``), holding torch tensors; ``convert.py`` maps one onto the other
+and :func:`transformer_lm_specs` says how each leaf is sharded over the
+model axis (``convert.shard_from_jax`` cuts them so).
+
+Megatron sharding over ``axis_name`` (see ``tensor_parallel``): QKV and
+MLP-in column-parallel (heads: a contiguous ``1/P`` of the head-major
+``wqkv`` / ``wkv`` columns is a whole set of heads), attention-out and
+MLP-out row-parallel, the tied embedding vocab-parallel, norms and
+positions replicated.  ``axis_name=None`` is the one-card path.
 
 The training path is :func:`tp_transformer_lm_loss` → autograd: attention
 by the materialising ``"xla"`` path or the flash kernels (``ops.flash_attention``,
-forward and fused backward), the LM loss by the materialising ``"xla"``
-path or the fused cross-entropy kernels (``ops.fused_ce``).  The port runs
-on one card, so the model axis has size 1 and every collective of the
-vocab-parallel loss (``pmax``/``psum`` in ``tensor_parallel``) is a named
-identity.  :func:`block_with` is the one pre-norm block body, shared with
-``decode.py``.
+forward and fused backward) over this rank's heads, the loss by the
+materialising ``"xla"`` path or the fused cross-entropy kernels
+(``ops.fused_ce``) over this rank's ``V/P`` vocabulary rows, combined
+across the shards by a max and two sums.  :func:`block_with` is the one
+pre-norm block body, shared with ``decode.py``.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional
 
 import torch
@@ -24,8 +32,11 @@ import torch
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, resolve_attn_impl
 from ..ops.fused_ce import fused_cross_entropy
-from .tensor_parallel import (column_parallel_dense, pmax, psum,
-                              row_parallel_dense, tp_mlp,
+from ._factory import P, model_axis
+from .tensor_parallel import (axis_index, axis_size, column_parallel_dense,
+                              copy_to_model, gather_seq_matmul,
+                              matmul_scatter_seq, pmax, reduce_from_model,
+                              row_parallel_dense, tp_mlp, tp_mlp_sp,
                               vocab_parallel_embedding)
 
 
@@ -57,45 +68,50 @@ def apply_rope(x, positions, *, base: float = 10000.0):
                      dim=-1).to(x.dtype)
 
 
-def _project_qkv(h, a, head_dim: int):
-    """``q (B, S, H, hd)``, ``k, v (B, S, H_kv, hd)`` from either layout:
-    the fused head-major ``wqkv`` (columns ``[head0: q|k|v, head1: …]``) or
-    ``wq`` plus the kv-head-major ``wkv`` (GQA)."""
+def _project_qkv(h, a, head_dim: int, axis_name=None):
+    """This rank's ``q (B, S, H/P, hd)``, ``k, v (B, S, H_kv/P, hd)`` from
+    either layout: the fused head-major ``wqkv`` (columns ``[head0: q|k|v,
+    head1: …]``) or ``wq`` plus the kv-head-major ``wkv`` (GQA)."""
     b, s, _ = h.shape
     if "wq" in a:
-        q = column_parallel_dense(h, a["wq"], a["bq"]).reshape(b, s, -1, head_dim)
-        kv = column_parallel_dense(h, a["wkv"], a["bkv"])
+        q = column_parallel_dense(h, a["wq"], a["bq"], axis_name=axis_name)
+        q = q.reshape(b, s, -1, head_dim)
+        kv = column_parallel_dense(h, a["wkv"], a["bkv"], axis_name=axis_name)
         if kv.shape[-1] % (2 * head_dim):
-            raise ValueError(f"wkv width {kv.shape[-1]} is not a whole number "
-                             f"of KV heads (2*head_dim={2 * head_dim})")
+            raise ValueError(
+                f"local wkv shard width {kv.shape[-1]} is not a whole "
+                f"number of KV heads (2*head_dim={2 * head_dim}) — "
+                f"n_kv_heads must be divisible by the model-axis size")
         kv = kv.reshape(b, s, -1, 2, head_dim)
         return q, kv[..., 0, :], kv[..., 1, :]
-    qkv = column_parallel_dense(h, a["wqkv"], a["bqkv"])
+    qkv = column_parallel_dense(h, a["wqkv"], a["bqkv"], axis_name=axis_name)
     qkv = qkv.reshape(b, s, -1, 3, head_dim)
     return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
 
-def attention_with(h, a, head_dim: int, attend, positions=None):
+def attention_with(h, a, head_dim: int, attend, positions=None,
+                   axis_name=None):
     """QKV projection, RoPE when ``positions`` is given, ``attend(q, k, v)
-    -> (ctx (B, S, H, hd), extras)``, then the row-parallel output
+    -> (ctx (B, S, H/P, hd), extras)``, then the row-parallel output
     projection.  Returns ``(out (B, S, D), extras)``."""
     b, s, _ = h.shape
-    q, k, v = _project_qkv(h, a, head_dim)
+    q, k, v = _project_qkv(h, a, head_dim, axis_name)
     if positions is not None:
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
     ctx, extras = attend(q, k, v)
-    return row_parallel_dense(ctx.reshape(b, s, -1), a["wo"], a["bo"]), extras
+    return row_parallel_dense(ctx.reshape(b, s, -1), a["wo"], a["bo"],
+                              axis_name=axis_name), extras
 
 
-def block_with(x, blk, attention):
+def block_with(x, blk, attention, axis_name=None):
     """Pre-norm transformer block: ``x + attention(LN1 x)``, then ``+ MLP(LN2
     x)``.  ``attention(h) -> (out, extras)``; returns ``(x, *extras)``."""
     h = _layer_norm(x, blk["ln1_scale"], blk["ln1_bias"])
     out, extras = attention(h)
     x = x + out
     h = _layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
-    return (x + tp_mlp(h, blk["mlp"]),) + tuple(extras)
+    return (x + tp_mlp(h, blk["mlp"], axis_name=axis_name),) + tuple(extras)
 
 
 def _attend_local_heads(q, k, v, *, causal: bool, attn_impl: str,
@@ -121,33 +137,91 @@ def _attend_local_heads(q, k, v, *, causal: bool, attn_impl: str,
                         v.float()).to(q.dtype)
 
 
-def tp_attention(x, params, *, head_dim: int, causal: bool = True,
-                 attn_impl: str = "auto", positions=None):
-    """Multi-head self-attention over ``x (B, S, D)``: fused head-major
-    ``wqkv`` (or ``wq`` + ``wkv`` for GQA), then the output projection."""
+def tp_attention(x, params, *, head_dim: int, axis_name=None,
+                 causal: bool = True, attn_impl: str = "auto",
+                 positions=None):
+    """Multi-head self-attention over replicated ``x (B, S, D)`` with this
+    rank's heads: fused head-major ``wqkv`` (or ``wq`` + ``wkv`` for GQA),
+    then the row-parallel output projection (one sum over the model
+    axis)."""
     impl = resolve_attn_impl(attn_impl, x.shape[1], head_dim, x.device)
 
     def attend(q, k, v):
         return _attend_local_heads(q, k, v, causal=causal, attn_impl=impl,
                                    head_dim=head_dim), ()
 
-    return attention_with(x, params, head_dim, attend, positions)[0]
+    return attention_with(x, params, head_dim, attend, positions,
+                          axis_name)[0]
 
 
-def tp_block(x, params, *, head_dim: int, causal: bool = True,
-             attn_impl: str = "auto", positions=None):
+def tp_block(x, params, *, head_dim: int, axis_name=None,
+             causal: bool = True, attn_impl: str = "auto", positions=None):
     """Pre-norm transformer block: LN→attn→residual, LN→MLP→residual."""
     return block_with(x, params, lambda h: (tp_attention(
-        h, params["attn"], head_dim=head_dim, causal=causal,
-        attn_impl=attn_impl, positions=positions), ()))[0]
+        h, params["attn"], head_dim=head_dim, axis_name=axis_name,
+        causal=causal, attn_impl=attn_impl, positions=positions), ()),
+        axis_name)[0]
 
 
-def _vp_combine(m, l, picked):
+def tp_attention_sp(x, params, *, head_dim: int, axis_name,
+                    causal: bool = True, attn_impl: str = "auto",
+                    positions=None):
+    """Megatron-SP attention over sequence-sharded ``x (B, S/P, D)``: the
+    sequence gather rides the QKV projection's ring
+    (``gather_seq_matmul``), attention runs over this rank's heads and the
+    whole sequence, and the output projection's matmul-reduce-scatter
+    returns this rank's rows.  ``positions`` are the global ``arange(S)``."""
+    b, s_loc, _ = x.shape
+    s = s_loc * axis_size(axis_name)
+    impl = resolve_attn_impl(attn_impl, s, head_dim, x.device)
+    if "wq" in params:
+        q = gather_seq_matmul(x, params["wq"], params["bq"],
+                              axis_name=axis_name).reshape(b, s, -1, head_dim)
+        kv = gather_seq_matmul(x, params["wkv"], params["bkv"],
+                               axis_name=axis_name)
+        kv = kv.reshape(b, s, -1, 2, head_dim)
+        k, v = kv[..., 0, :], kv[..., 1, :]
+    else:
+        qkv = gather_seq_matmul(x, params["wqkv"], params["bqkv"],
+                                axis_name=axis_name)
+        qkv = qkv.reshape(b, s, -1, 3, head_dim)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    if positions is not None:
+        q = apply_rope(q, positions)
+        k = apply_rope(k, positions)
+    ctx = _attend_local_heads(q, k, v, causal=causal, attn_impl=impl,
+                              head_dim=head_dim)
+    return matmul_scatter_seq(ctx.reshape(b, s, -1), params["wo"],
+                              params["bo"], axis_name=axis_name)
+
+
+def tp_block_sp(x, params, *, head_dim: int, axis_name, causal: bool = True,
+                attn_impl: str = "auto", positions=None):
+    """Megatron-SP block over sequence-sharded ``x (B, S/P, D)``: the
+    :func:`tp_block` params; LayerNorms and residuals on the local rows,
+    the four collectives on the collective-matmul rings."""
+    from .tensor_parallel import tp_mlp_sp
+
+    def ln(x, name):
+        # replicated params over this rank's rows: their gradients sum
+        # over the model axis
+        return _layer_norm(x, copy_to_model(params[f"{name}_scale"], axis_name),
+                           copy_to_model(params[f"{name}_bias"], axis_name))
+
+    h = ln(x, "ln1")
+    x = x + tp_attention_sp(h, params["attn"], head_dim=head_dim,
+                            axis_name=axis_name, causal=causal,
+                            attn_impl=attn_impl, positions=positions)
+    return x + tp_mlp_sp(ln(x, "ln2"), params["mlp"], axis_name=axis_name)
+
+
+def _vp_combine(m, l, picked, axis_name=None):
     """The vocab-parallel combine of JAX's ``_fused_vp_nll``: shard-local
-    stats, then the ``pmax`` and ``psum`` legs (identities at world 1)."""
-    gm = pmax(m)
-    lse = gm + torch.log(psum(l * torch.exp(m - gm)))
-    return lse, psum(picked)        # the owner shard contributes; rest 0
+    stats, then a max and two sums over the model axis, in fp32."""
+    gm = pmax(m, axis_name)
+    lse = gm + torch.log(reduce_from_model(l * torch.exp(m - gm), axis_name))
+    # the owner shard contributes the target logit; the rest 0
+    return lse, reduce_from_model(picked, axis_name)
 
 
 # 'auto' takes the fused kernels once the materialised local logits would
@@ -155,14 +229,19 @@ def _vp_combine(m, l, picked):
 _FUSED_CE_AUTO_BYTES = 8 << 30
 
 
-def vocab_parallel_logits_loss(h, table, targets, *, ce_impl: str = "auto"):
-    """Mean cross-entropy of ``h (B, S, D)`` against the (tied) table
-    ``(V, D)`` at ``targets (B, S)``.  ``"xla"`` materialises the fp32
-    logits; ``"fused"`` runs the fused-CE kernels; ``"auto"`` picks fused
-    on a CUDA device once the logits would pass 8 GB with ``B·S`` and ``V``
+def vocab_parallel_logits_loss(h, table, targets, *, axis_name=None,
+                               ce_impl: str = "auto"):
+    """Mean cross-entropy of replicated ``h (B, S, D)`` against this rank's
+    vocabulary shard ``table (V/P, D)`` of the tied embedding at global
+    ``targets (B, S)``; the ``(B, S, V)`` logits never exist whole.
+    ``"xla"`` materialises the local fp32 logits (the max shift on detached
+    logits, ``sum exp`` and the owner shard's target logit summed over the
+    model axis); ``"fused"`` runs the fused-CE kernels, whose backward sums
+    ``dh`` over the model axis; ``"auto"`` picks fused on a CUDA device
+    once the local logits would pass 8 GB with ``B·S`` and ``V/P``
     multiples of 8, xla otherwise."""
     vocab = table.shape[0]
-    start = 0                        # this shard's first vocabulary id
+    start = axis_index(axis_name) * vocab    # this shard's first id
     b, s, d = h.shape
     if ce_impl == "auto":
         big = b * s * vocab * 4 > _FUSED_CE_AUTO_BYTES
@@ -171,30 +250,37 @@ def vocab_parallel_logits_loss(h, table, targets, *, ce_impl: str = "auto"):
     if ce_impl == "fused":
         local_t = (targets - start).reshape(-1)
         return fused_cross_entropy(h.reshape(b * s, d), table, local_t,
-                                   combine=_vp_combine).mean()
+                                   combine=partial(_vp_combine,
+                                                   axis_name=axis_name),
+                                   dh_axis=model_axis(axis_name)).mean()
     if ce_impl != "xla":
         raise ValueError(
             f"ce_impl must be 'auto', 'xla' or 'fused', got {ce_impl!r}")
-    logits = torch.matmul(h.float(), table.float().t())          # (B, S, V)
+    logits = torch.matmul(copy_to_model(h, axis_name).float(),
+                          table.float().t())               # (B, S, V/P)
     # the max shift is numerics only: no gradient flows through it
-    m = pmax(logits.detach().amax(-1))
-    sumexp = psum(torch.exp(logits - m[..., None]).sum(-1))
+    m = pmax(logits.detach().amax(-1), axis_name)
+    sumexp = reduce_from_model(torch.exp(logits - m[..., None]).sum(-1),
+                               axis_name)
     local_t = (targets - start).long()
     in_range = (local_t >= 0) & (local_t < vocab)
     picked = logits.gather(-1, local_t.clamp(0, vocab - 1)[..., None])[..., 0]
-    target_logit = psum(torch.where(in_range, picked,
-                                    torch.zeros((), device=h.device)))
+    target_logit = reduce_from_model(
+        torch.where(in_range, picked, torch.zeros((), device=h.device)),
+        axis_name)
     return (m + torch.log(sumexp) - target_logit).mean()
 
 
-def tp_transformer_lm_loss(params, batch, *, head_dim: int,
+def tp_transformer_lm_loss(params, batch, *, head_dim: int, axis_name=None,
                            causal: bool = True, attn_impl: str = "auto",
                            ce_impl: str = "auto"):
-    """Per-token mean NLL of the decoder-only LM.  ``batch``: ``(tokens
-    (B, S+1),)`` — inputs ``[:, :-1]``, targets ``[:, 1:]``."""
+    """Per-token mean NLL of the decoder-only LM over this rank's batch
+    rows (``make_hybrid_shard_map_step`` means it over the data axis).
+    ``batch``: ``(tokens (B, S+1),)`` — inputs ``[:, :-1]``, targets
+    ``[:, 1:]``."""
     tokens = batch[0]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x = vocab_parallel_embedding(inputs, params["embed"])
+    x = vocab_parallel_embedding(inputs, params["embed"], axis_name=axis_name)
     x = x * (params["embed"].shape[1] ** 0.5)
     positions = None
     if "pos_embed" in params:
@@ -202,11 +288,11 @@ def tp_transformer_lm_loss(params, batch, *, head_dim: int,
     else:
         positions = torch.arange(x.shape[1], device=x.device)
     for blk in params["blocks"]:
-        x = tp_block(x, blk, head_dim=head_dim, causal=causal,
-                     attn_impl=attn_impl, positions=positions)
+        x = tp_block(x, blk, head_dim=head_dim, axis_name=axis_name,
+                     causal=causal, attn_impl=attn_impl, positions=positions)
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
     return vocab_parallel_logits_loss(x, params["embed"], targets,
-                                      ce_impl=ce_impl)
+                                      axis_name=axis_name, ce_impl=ce_impl)
 
 
 def init_tp_transformer_lm(rng, vocab: int, d_model: int, n_heads: int,
@@ -279,4 +365,32 @@ def init_tp_transformer_lm(rng, vocab: int, d_model: int, n_heads: int,
            "lnf_scale": ones(d_model), "lnf_bias": zeros(d_model)}
     if pos_embed is not None:
         out["pos_embed"] = pos_embed
+    return out
+
+
+def transformer_lm_specs(params, axis_name: str = "model"):
+    """The :class:`~chainermn_tpu_torch.parallel._factory.PartitionSpec`
+    of each leaf of :func:`init_tp_transformer_lm`'s tree: QKV / MLP-in
+    column-sharded, attention-out / MLP-out row-sharded, the tied
+    embedding vocab-sharded, norms and positions replicated."""
+    ax = axis_name
+
+    def block_specs(blk):
+        if "wq" in blk["attn"]:          # GQA: separate q / fused kv
+            attn = {"wq": P(None, ax), "bq": P(ax),
+                    "wkv": P(None, ax), "bkv": P(ax),
+                    "wo": P(ax, None), "bo": P()}
+        else:
+            attn = {"wqkv": P(None, ax), "bqkv": P(ax),
+                    "wo": P(ax, None), "bo": P()}
+        return {"ln1_scale": P(), "ln1_bias": P(),
+                "ln2_scale": P(), "ln2_bias": P(), "attn": attn,
+                "mlp": {"wi": P(None, ax), "bi": P(ax),
+                        "wo": P(ax, None), "bo": P()}}
+
+    out = {"embed": P(ax, None),
+           "blocks": [block_specs(b) for b in params["blocks"]],
+           "lnf_scale": P(), "lnf_bias": P()}
+    if "pos_embed" in params:
+        out["pos_embed"] = P()
     return out

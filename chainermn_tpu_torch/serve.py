@@ -12,6 +12,12 @@ still decoding).  Prompts come from the same arithmetic-progression corpus
 as the JAX CLI.  Prints one ``chainermn_tpu.serve.v1`` summary JSON line
 on stdout (per-request outcomes + the serving metrics).
 
+``--tp N`` (launched by ``torchrun``; N must divide the world size) trains
+on the ``(world/N, N)`` ``('data', 'model')`` mesh and serves on the first
+N ranks with the model sharded over them (``ServingEngine(mesh=...)``):
+rank 0 runs the queue and the scheduler and prints the summary, ranks 1 to
+N-1 follow its plan, and the other ranks stop after training.
+
 The model is random-init from ``--seed`` (or loaded with ``--params`` from
 a ``convert.save_npz`` file) before training; ``--train-steps 0`` serves
 it untrained.  ``--kv-heads`` makes it a GQA model.  ``--temperature T``
@@ -20,6 +26,7 @@ samples every request at ``T``, request ``i`` with the key
 the same noise).
 
 Run:  python -m chainermn_tpu_torch.serve --device cuda
+      torchrun --nproc-per-node 2 -m chainermn_tpu_torch.serve --tp 2
       python -m chainermn_tpu_torch.serve --device cuda --dtype bfloat16 \\
           --vocab 32768 --d-model 1024 --n-heads 16 --n-layers 8 \\
           --n-slots 8 --max-total 1024 --requests 16 --prompt-len 512 \\
@@ -43,28 +50,30 @@ def make_corpus(rng, n, seq_len, vocab):
             ).astype("int32")
 
 
-def train(params, args, head_dim, vocab):
-    """The JAX CLI's recipe at world 1: Adam at ``args.lr``, batches of 8
-    corpus sequences of ``args.seq_len + 1`` tokens from
-    ``RandomState(0)``.  Returns the trained params, detached."""
+def train(params, args, head_dim, vocab, mesh):
+    """The JAX CLI's recipe on the ``('data', 'model')`` mesh: Adam at
+    ``args.lr``, global batches of ``8 · dp`` corpus sequences of
+    ``args.seq_len + 1`` tokens from ``RandomState(0)``, each data rank
+    taking its 8.  Returns this rank's trained shards, detached."""
     from functools import partial
 
     import numpy as np
     import torch
 
     from chainermn_tpu_torch.convert import tree_map
-    from chainermn_tpu_torch.parallel import (make_hybrid_shard_map_step,
+    from chainermn_tpu_torch.parallel import (make_hybrid_train_step,
                                               param_leaves,
                                               tp_transformer_lm_loss)
 
     optimizer = torch.optim.Adam(param_leaves(params), lr=args.lr)
-    step = make_hybrid_shard_map_step(
-        partial(tp_transformer_lm_loss, head_dim=head_dim), optimizer,
-        params)
+    step = make_hybrid_train_step(
+        partial(tp_transformer_lm_loss, head_dim=head_dim,
+                axis_name="model"), optimizer, params, mesh)
     rng = np.random.RandomState(0)
     device = params["embed"].device
+    dp = mesh.shape["data"]
     for i in range(args.train_steps):
-        tokens = make_corpus(rng, 8, args.seq_len, vocab)
+        tokens = make_corpus(rng, 8 * dp, args.seq_len, vocab)
         loss = step(params, (torch.as_tensor(tokens, device=device),))
         if i % 30 == 0 or i == args.train_steps - 1:
             print(f"train step {i:3d}  loss {float(loss):.4f}",
@@ -72,7 +81,11 @@ def train(params, args, head_dim, vocab):
     return tree_map(params, lambda t: t.detach())
 
 
-def main(argv=None):
+def run(argv=None, params=None):
+    """Train, then serve; returns the ``chainermn_tpu.serve.v1`` summary on
+    model rank 0 of the serving ranks, None on the others.  ``params``:
+    global initial params (the JAX package's numpy tree, or the port's
+    tensors) in place of the random init or ``--params``."""
     parser = argparse.ArgumentParser(
         description="chainermn_tpu_torch serving demo: continuous-batching "
                     "inference over a slot-managed KV-cache pool")
@@ -81,6 +94,8 @@ def main(argv=None):
                              "kernels' plain versions)")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"])
+    parser.add_argument("--tp", type=int, default=1,
+                        help="model-axis width for serving (and training)")
     parser.add_argument("--params", default=None,
                         help="load params from a convert.save_npz file "
                              "instead of a random init")
@@ -120,32 +135,49 @@ def main(argv=None):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from chainermn_tpu_torch import prng
-    from chainermn_tpu_torch.convert import load_npz
-    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+    from chainermn_tpu_torch._device import resolve_device
+    from chainermn_tpu_torch.convert import load_npz, shard_from_jax
+    from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
+                                              transformer_lm_specs)
     from chainermn_tpu_torch.serving import AdmissionError, ServingEngine
+    from chainermn_tpu_torch.topology import (dp_tp_mesh, init_distributed,
+                                              make_nd_mesh)
 
+    device = resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
+    init_distributed(device)
+    train_mesh = dp_tp_mesh(args.tp, "--tp {tp} does not divide {n} devices")
     total_len = args.prompt_len + args.max_new_tokens
     max_total = args.max_total or max(total_len, 8)
-    if args.params:
-        params = load_npz(args.params, device=args.device, dtype=dtype)
-    else:
+    if params is None and args.params:
+        params = load_npz(args.params, device="cpu", dtype=dtype)
+    elif params is None:
         params = init_tp_transformer_lm(
             torch.Generator().manual_seed(args.seed), args.vocab,
             args.d_model, args.n_heads, args.n_layers,
             max_len=max(max_total, args.seq_len), dtype=dtype,
-            n_kv_heads=args.kv_heads, pos_impl=args.pos_impl,
-            device=args.device)
+            n_kv_heads=args.kv_heads, pos_impl=args.pos_impl, device="cpu")
     head_dim = params["embed"].shape[1] // args.n_heads
     vocab = params["embed"].shape[0]
+    params = shard_from_jax(params, transformer_lm_specs(params, "model"),
+                            train_mesh, device=device, dtype=dtype)
     if args.train_steps > 0:
-        params = train(params, args, head_dim, vocab)
+        params = train(params, args, head_dim, vocab, train_mesh)
+    # serving on the first tp ranks: their model coordinates on the
+    # training mesh are the serving mesh's, so their shards carry over
+    serve_mesh = make_nd_mesh(("model",), (args.tp,), range(args.tp))
+    if serve_mesh.coords is None:
+        return None
     eng = ServingEngine(params, head_dim=head_dim, n_slots=args.n_slots,
                         max_total=max_total,
                         queue_capacity=args.queue_capacity,
-                        device=args.device)
+                        mesh=serve_mesh, device=device)
+    if not eng.engine.leader:
+        eng.follow()
+        return None
 
     test = make_corpus(np.random.RandomState(99), args.requests, total_len,
                        vocab)
@@ -168,22 +200,25 @@ def main(argv=None):
             rejected[i] = e.to_dict()
             print(f"request {i} rejected: {e}", file=sys.stderr)
 
-    first_wave = min(args.n_slots, args.requests)
-    for i in range(first_wave):
-        submit(i)
-    steps, nxt = 0, first_wave
-    budget = args.steps_budget
+    try:     # the followers wait in follow() until the leader closes
+        first_wave = min(args.n_slots, args.requests)
+        for i in range(first_wave):
+            submit(i)
+        steps, nxt = 0, first_wave
+        budget = args.steps_budget
 
-    def busy():
-        return eng.scheduler.queue_depth > 0 or eng.pool.busy_count > 0
+        def busy():
+            return eng.scheduler.queue_depth > 0 or eng.pool.busy_count > 0
 
-    while (budget is None or steps < budget) and (nxt < args.requests
-                                                  or busy()):
-        eng.step()
-        steps += 1
-        if nxt < args.requests and steps % max(args.stagger_every, 1) == 0:
-            submit(nxt)
-            nxt += 1
+        while (budget is None or steps < budget) and (nxt < args.requests
+                                                      or busy()):
+            eng.step()
+            steps += 1
+            if nxt < args.requests and steps % max(args.stagger_every, 1) == 0:
+                submit(nxt)
+                nxt += 1
+    finally:
+        eng.close()
 
     per_request, correct = [], []
     for i in range(args.requests):
@@ -198,6 +233,7 @@ def main(argv=None):
         toks = h.tokens
         row = {"id": h.id, "status": h.status,
                "finish_reason": h.finish_reason, "n_tokens": len(toks),
+               "tokens": toks,
                "ttft_ms": (round(h.ttft_ms, 2)
                            if h.ttft_ms is not None else None)}
         if h.status == "done" and len(toks) == args.max_new_tokens:
@@ -207,18 +243,25 @@ def main(argv=None):
         per_request.append(row)
 
     metrics = eng.metrics()
-    eng.close()
     summary = {
         "schema": "chainermn_tpu.serve.v1",
         "engine_steps": steps,
-        "device": str(torch.device(args.device)),
+        "device": str(device),
         "dtype": args.dtype,
+        "tp": args.tp,
+        "world": dist.get_world_size(),
         "requests": per_request,
         "mean_continuation_accuracy": (
             round(float(np.mean(correct)), 3) if correct else None),
         "metrics": {k: round(float(v), 3) for k, v in metrics.items()},
     }
-    print(json.dumps(summary))
+    return summary
+
+
+def main(argv=None):
+    summary = run(argv)
+    if summary is not None:
+        print(json.dumps(summary))
     return 0
 
 

@@ -7,6 +7,11 @@ prefill writes its slab into a free slot's rows ``[0, s_p)`` and sets
 ``pos[slot] = s_p``; every tick appends one row per slot at its own
 ``pos`` and advances it; eviction returns the slot to the free list.
 
+Under tensor parallelism every model rank holds its own pool of its
+``H_kv/P`` heads: ``kv_dim`` is this rank's ``H_kv/P · head_dim``
+(``ServingEngine`` sizes it from the rank's shard of the params), which
+is what JAX's pool holds on each device through its cache sharding.
+
 Recycling without zeroing is safe: a slot's rows ``> pos`` may hold a
 previous occupant's K/V, but attention reads only ``[0, pos]``, and the
 occupant writes row ``p`` before its ``pos`` reaches ``p``.

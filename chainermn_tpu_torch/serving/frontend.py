@@ -15,9 +15,16 @@ tokens and evicts finished sequences, so requests join and leave between
 ticks (continuous batching).  ``metrics()`` reports the JAX engine's
 ``serving/*`` keys that this slice has.  Requests are greedy, or sampled
 with their own key (``temperature`` and ``rng`` at submit); GQA models
-serve like any other.  Not in this slice: prefix cache, host spill,
-flight recorder, tracer, SLO tracking, the background thread that steps
-the engine (``start``/``stop``), prefill length buckets and trace ids.
+serve like any other.
+
+Tensor parallelism (``mesh=``, JAX ``frontend.py:169-189``): every rank of
+the model axis builds the engine over its shards; model rank 0 submits,
+schedules and steps it, and every device call it makes is broadcast as a
+plan to the other ranks, which call :meth:`ServingEngine.follow` and run
+those calls until the leader's :meth:`close`, which the leader calls in
+a ``finally`` so that the followers return when its loop raises.  Not
+in this slice: prefix cache, host spill, flight recorder, tracer, SLO
+tracking, the background thread that steps the engine (``start``/``stop``), prefill length buckets and trace ids.
 """
 
 from __future__ import annotations
@@ -81,7 +88,9 @@ class RequestHandle:
 class ServingEngine:
     """Continuous-batching inference over a slot-managed KV pool.
 
-    ``params``: ``init_tp_transformer_lm`` tensors (moved to ``device``).
+    ``params``: ``init_tp_transformer_lm`` tensors (moved to ``device``);
+    with ``mesh``, this rank's shards over ``axis_name``
+    (``transformer_lm_specs``), and the pool holds this rank's KV heads.
     ``max_total`` bounds each slot's sequence (prompt + generated); a
     request that cannot fit is rejected at submit (``AdmissionError``,
     reason ``too_long``), as is any submit while the bounded queue is full
@@ -90,13 +99,15 @@ class ServingEngine:
 
     def __init__(self, params, *, head_dim: int, n_slots: int = 4,
                  max_total: int = 128, queue_capacity: int = 16,
-                 max_prefills_per_tick: int = 1, device="cuda"):
+                 max_prefills_per_tick: int = 1, mesh=None,
+                 axis_name: str = "model", device="cuda"):
         dev = resolve_device(device)
         n_kv = _kv_heads(params, head_dim)
         params = tree_map(params, lambda t: t.to(dev))
         self.pool = CachePool(n_slots, max_total, len(params["blocks"]),
                               n_kv * head_dim, params["embed"].dtype, dev)
-        self.engine = DecodeEngine(params, self.pool, head_dim=head_dim)
+        self.engine = DecodeEngine(params, self.pool, mesh, axis_name,
+                                   head_dim=head_dim)
         self.scheduler = Scheduler(
             queue_capacity, max_total,
             max_prefills_per_tick=max_prefills_per_tick,
@@ -178,7 +189,7 @@ class ServingEngine:
                 # with reason "error" and its slot freed before re-raising
                 req.finish("error", time.monotonic())
                 self._slot_temps[slot] = 0.0
-                self.pool.release(slot)
+                self._release(slot)
                 raise
             self._emit(req, first, time.monotonic())
             with self._lock:
@@ -239,6 +250,10 @@ class ServingEngine:
             self._running.pop(slot, None)
         # a free slot keeps ticking: its discarded row goes back to greedy
         self._slot_temps[slot] = 0.0
+        self._release(slot)
+
+    def _release(self, slot: int) -> None:
+        self.engine.reset_slot(slot)          # on every model rank
         self.pool.release(slot)
 
     # ---- driving ----
@@ -254,9 +269,24 @@ class ServingEngine:
             n += 1
         return n
 
+    def follow(self) -> int:
+        """Model ranks other than 0: run the leader's device calls until
+        it closes; returns how many ran.  The engine is closed after it
+        (a later :meth:`close` does nothing)."""
+        try:
+            return self.engine.follow()
+        finally:
+            self._closed = True
+            self.pool.caches = []
+
     def close(self) -> None:
-        """Retire the engine: further submits raise and the pool's device
-        buffers are dropped."""
+        """Retire the engine: further submits raise, the followers are
+        released and the pool's device buffers are dropped.  The leader
+        must reach it, also when its driving loop raises (``try`` /
+        ``finally``): the followers wait in :meth:`follow` until it
+        does."""
+        if not self._closed:
+            self.engine.stop()
         self._closed = True
         self.pool.caches = []
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM and ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM training (also at TP = 2), ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -123,7 +123,31 @@ and prints no result line:
    after, must show 8 flash forward and 8 flash backward launches and one
    of each CE kernel per step.  Then 3 steps with ``ce_impl="auto"`` from
    the same initial weights: the first loss within 2e-2 of the fused one.
-9. ``resnet-parity`` — fp32, TF32 off: ResNet-50 at image 112 (stages 1-2
+9. ``tp`` — the LM over the ``('data', 'model')`` mesh.  First the train
+   phase's bf16 step at full width through ``make_hybrid_shard_map_step``
+   on a ``(1, 1)`` mesh of the NCCL group: 3 steps whose losses must equal
+   the train phase's first 3 bit for bit.  Then TP = 2 as two worker
+   processes (``chip_smoke.py --tp-worker RANK DIR``) on this card over a
+   gloo group through a ``FileStore`` (NCCL refuses two ranks of one
+   communicator on one device; gloo stages the card tensors through host
+   memory, so the times are the gloo host wire's on a shared card, not
+   NCCL's): (a) fp32 at full width, 3 Adam steps (lr 1e-4) at TP = 2 and
+   at TP = 1 on the card, losses rtol 1e-4 and the parameters gathered by
+   ``gather_to_numpy`` atol 1e-4 (the key bias apart: its exact gradient
+   is zero, and Adam turns the rounding noise there into +-lr steps);
+   (b) bf16 at full width, SGD 1e-2, 2 warm-up and 10 timed steps: step
+   ms p50 / p99 and each rank's launches a step (8 flash forward, 8 flash
+   backward, one of each CE kernel, at flash (8, 1024, 4, 128) and CE
+   (8192, 16384, 1024)); (c) fp32 serving of the decode-bench LM (16 heads
+   of 64, prompt 512, cache 1024; depth not cut) through
+   ``ServingEngine(mesh=...)``, 8 requests, the odd half sampled, and the
+   GQA model (4 KV heads) through beam 4 (B 2, prompt 128, 16 new): each
+   TP = 2 token equal to the TP = 1 model's choice on the card at its
+   position (a sampled row with TP = 2's noise: each shard's ``(1, V/2)``
+   draw), or a near-tie under 1e-3, and the best beams equal or within
+   1e-3 of log-probability; the decode, append, beam and flash launches of
+   each rank.  A worker that fails fails the phase.
+10. ``resnet-parity`` — fp32, TF32 off: ResNet-50 at image 112 (stages 1-2
    eligible for the conv kernels at 28² and 14²; the stride-2 and 7 x 7
    convs take cuDNN's backward), batch 4, ``conv_impl="pallas"``, card
    against CPU from the same random weights: the loss to rtol 1e-4, every
@@ -132,7 +156,7 @@ and prints no result line:
    (SGD 0.1, momentum 0.9, wd 1e-4, world 1; NCCL on the card, gloo on
    the CPU): losses rtol 1e-4, parameters and running statistics atol
    1e-4.
-10. ``resnet-train`` — bf16, ``bench.py``'s headline (ResNet-50, image
+11. ``resnet-train`` — bf16, ``bench.py``'s headline (ResNet-50, image
    224, batch 128, 1,000 classes, SGD 0.1 / momentum 0.9 / wd 1e-4
    through the multi-node optimizer) via ``train_imagenet.build_step`` at
    world 1 over a one-rank NCCL group, ``conv_impl="pallas"``: 2 warm-up
@@ -144,14 +168,14 @@ and prints no result line:
    same with ``conv_impl="xla"`` (cuDNN's backward) from the same
    weights: no conv-kernel launch, the first loss within 2e-2 of the
    pallas run's, the step times side by side.
-11. ``resnet152-db`` — BASELINE config #4: ResNet-152 with double
+12. ``resnet152-db`` — BASELINE config #4: ResNet-152 with double
    buffering (``build_step(arch="resnet152", double_buffering=True)``),
    bf16, 128 images per card (12.25 GiB at peak on an 80 GB H100), 10
    synchronised steps each with ``conv_impl="pallas"`` and ``"xla"``:
    step ms p50/p99, images/s, analytic MFU (3 x 11.5e9 FLOP per image over
    989 TFLOP/s), peak memory, beside ResNet-50's; exactly 45 ``conv_wgrad``
    and 45 ``conv_dgrad`` launches per pallas step.
-12. ``imagenet-parity`` — fp32 (TF32 off), card vs CPU from the same
+13. ``imagenet-parity`` — fp32 (TF32 off), card vs CPU from the same
    weights: NF-ResNet-50 at image 112, batch 4, ``conv_impl="pallas"``
    (skip gains 0.2; 16 1x1 and 6 3x3 launches of each conv kernel a
    backward), ViT-S/16 at image 64 (17 tokens), full depth, through the
@@ -170,7 +194,7 @@ and prints no result line:
    image 64, every loss rtol 1e-4; then the stalebn LAMB run at lr 0.1,
    every loss within max(1e-4, 4x the CPU's own change when its initial
    weights move by +1e-7 or by -1e-7).
-13. ``imagenet-train`` — bf16, image 224, batch 128, world 1 over a one-rank
+14. ``imagenet-train`` — bf16, image 224, batch 128, world 1 over a one-rank
    NCCL group, through ``train_imagenet.build_step``: NF-ResNet-50 with
    ``conv_impl="pallas"`` and ``"xla"`` and ViT-B/16 (``attn_impl="auto"``:
    the flash kernels; LAMB 1e-3), 2 warm-up and 10 timed steps each (step
@@ -179,13 +203,13 @@ and prints no result line:
    xla step, 12 flash forward and 12 flash backward calls a ViT step, the
    first xla loss within 2e-2 of the pallas one; then AlexNet, VGG-16 and
    GoogLeNet, 2 + 3 steps.  Losses must be finite.
-14. ``comm`` — every communicator method and in-step collective of the
+15. ``comm`` — every communicator method and in-step collective of the
    port's ``TorchDistCommunicator`` on the card at world 1 (the one-rank
    NCCL group the ResNet phases made, or a new one), against
    ``NaiveCommunicator(size=1)``: fp32 and int32 tensors, objects,
    ``split`` with one color (a new NCCL group) and ``send`` / ``recv``
    with ``source == dest``; data movement exact, sums rtol 1e-6.
-15. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
+16. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
    prefetch thread → ObservationAggregator / LogReport → the multi-node
    evaluator), each run on the card and again on the CPU from the same
    seeds (fp32, TF32 off): ``python -m chainermn_tpu_torch.train``'s run
@@ -204,7 +228,7 @@ and prints no result line:
    two spans' medians and the card line; the MNIST run also the device
    busy ms and idle share of a ``torch.profiler`` window over iterations
    10-19.  No hand-written kernel is on this path.
-16. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
+17. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
    (Trainer, the per-epoch evaluator, four greedy translations, BLEU):
    fp32 (TF32 off) at 512 units, 3 layers, vocabulary 4,096, 3 steps on
    the card and on the CPU, every loss rtol 1e-4 and the greedy tokens
@@ -214,13 +238,13 @@ and prints no result line:
    every step's span, step ms p50/p99, peak memory, and the device busy
    ms, ops and idle share of a
    ``torch.profiler`` window of 5 iterations.  No kernel launches.
-17. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
+18. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
    card): a ``MultiNodeChainList`` of config #5's two stages on rank 0
    joined by a self-edge, every ``functions`` call forward and backward,
    and ``MultiNodeBatchNormalization``, each against the CPU in fp32
    (elementwise rtol 1e-5, atol 1e-5 of the tensor's largest entry).
    World 2 is held over gloo by the tests.
-18. ``robustness`` — ResNet-50 at the headline size (bf16, image 224,
+19. ``robustness`` — ResNet-50 at the headline size (bf16, image 224,
    batch 128, ``conv_impl="pallas"``, ``train_imagenet.build_step``)
    through Trainer + StandardUpdater with a ``MultiNodeCheckpointer``
    (asynchronous, keep 2, a save every 4 iterations, through
@@ -244,8 +268,10 @@ and prints no result line:
    loss; and two gloo processes on the CPU training MNIST with SGD 0.1 to
    a world-2 generation, resumed at world 1 on the card (batch 256, the
    same global batch) within rtol 1e-4 of the CPU's own continuation.
-19. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+20. One ``{"kernels": [...]}`` line (launches summed over the main paths'
    runs: the two serving runs, the beam run, the timed LM training steps,
+   the ``tp`` phase's ``(1, 1)`` steps and both ranks' bf16 steps, serving
+   and beam runs,
    the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50 steps, the
    timed ViT-B/16 steps and the robustness phase's ResNet-50 runs), the
    card line, then the result line ``{"ok": true, "device": {...}}``.
@@ -535,7 +561,10 @@ def check_flash(smoke):
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, S, H, H_kv, D, causal, timed)
         (8, 1024, 8, 8, 128, True, True),     # the LM training step
+        (8, 1024, 4, 4, 128, True, False),    # the step at TP = 2 (a rank)
         (8, 512, 16, 16, 64, True, True),     # lm_generate prefill
+        (1, 512, 8, 8, 64, True, False),      # serving prefill at TP = 2
+        (2, 128, 8, 2, 64, True, False),      # GQA beam prefill at TP = 2
         (1, 512, 16, 16, 64, True, False),    # serving prefill
         (2, 77, 16, 16, 64, True, False),     # ragged tail
         (2, 77, 16, 16, 64, False, False),    # non-causal
@@ -605,7 +634,7 @@ def check_decode(smoke):
     a row, merged in three and four rounds), widths past one head group (D
     2560, 4096, 8192), per-row pos at the edges (0, 1, S - 1, past S), on
     the bf16 split plan's tile and split edges and at the serving run's
-    lengths, a scalar pos, two fused calls in a row at different pos (the
+    lengths (also at a rank's 8 heads of 64 at TP = 2), a scalar pos, two fused calls in a row at different pos (the
     counters reset), q / k / v as head views of a fused QKV projection;
     bf16 and fp32, hd 64 and 128.  Timed (bf16, hd
     64): attention alone and the fused call at the serving lengths and over
@@ -676,7 +705,8 @@ def check_decode(smoke):
                 dn, **shape)
             fused_check(q, kc, vc, kn[:, None], vn[:, None], pos, dn,
                         **shape)
-        for h, hd in ((16, 64), (8, 128)):
+        # the serving width, hd 128, and a rank's heads at TP = 2
+        for h, hd in ((16, 64), (8, 128), (8, 64)):
             d = h * hd
             q, kn, vn = (torch.randn(b, d, generator=g, device="cuda")
                          .to(dtype) for _ in range(3))
@@ -694,7 +724,7 @@ def check_decode(smoke):
                 f_err = fused_check(q, kc, vc, kn[:, None], vn[:, None], pos,
                                     dn, **shape)
                 if not (label in ("serve", "full") and hd == 64
-                        and dtype == torch.bfloat16):
+                        and h == FULL["n_heads"] and dtype == torch.bfloat16):
                     continue
                 ms = smoke.time_ms(lambda: decode_attend(
                     q, kc, vc, pos, n_heads=h, head_dim=hd))
@@ -782,6 +812,12 @@ def check_append(smoke):
             device="cuda")),
         ("odd_width", 3, 10, 1001, 3, torch.tensor(
             [0, 8, 50], dtype=torch.int32, device="cuda")),
+        # TP = 2: a rank's 8 heads of 64 (the tick, the prefill slab), and
+        # its 2 GQA KV heads of the beam (the prompt slab, a tick's 4 rows)
+        ("tp2_tick", 8, 1024, 512, 1, tick_pos),
+        ("tp2_prefill_slab", 1, 1024, 512, 512, 0),
+        ("tp2_gqa_slab", 2, 128, 128, 128, 0),
+        ("tp2_gqa_beam_rows", 2, 64, 128, 4, 8),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
@@ -859,6 +895,7 @@ def check_flash_bwd(smoke):
                       B=2, S=64, H=4, D=128, causal=True)
     cases = [  # (B, S, H, H_kv, D, causal, dlse, timed)
         (8, 1024, 8, 8, 128, True, False, True),   # the training step
+        (8, 1024, 4, 4, 128, True, False, False),  # the step at TP = 2
         (2, 256, 8, 8, 64, True, False, False),    # head_dim 64
         (2, 256, 8, 4, 128, True, False, False),   # group 2
         (2, 77, 4, 4, 128, True, False, False),    # ragged tail
@@ -964,6 +1001,9 @@ def check_ce(smoke):
     g = torch.Generator(device="cuda").manual_seed(5)
     cases = [  # (T, V, D, timed); the bf16 gradients' V chunk follows T
         (TRAIN_BATCH * TRAIN_SEQ, TRAIN["vocab"], TRAIN["d_model"], True),
+        # the step at TP = 2: a rank's V / 2 shard
+        (TRAIN_BATCH * TRAIN_SEQ, TRAIN["vocab"] // 2, TRAIN["d_model"],
+         False),
         (77, 301, 96, False),              # ragged T, V and D tiles
         (512, 32768, 1024, False),         # the train-parity shape
         # T not a multiple of 128, D = 200: chunks of 2048, 2048 and 77
@@ -1102,8 +1142,10 @@ def check_beam(smoke):
     two segments at full width (the shared prompt, mode none; the
     generated window, a strided view of the slot caches, mode amask with
     one valid slot per (b, beam, t)), the GQA tick (B 8, 4 KV heads of
-    64, g 4, S 1024, pos scalar / per-row / edge), hd 128, S 1, a ragged
-    S, 8 or 16 rows per cache row, and the S splits' edges: S one past a
+    64, g 4, S 1024, pos scalar / per-row / edge), the GQA beam at TP = 2
+    (a rank's 2 KV heads, 16 rows: the prompt, the window), hd 128, S 1,
+    a ragged S, 8 or 16 rows per cache row, and the S splits' edges: S one
+    past a
     split multiple, pos on a split's last and on its first position, an
     amask with a split of no valid position beside valid ones."""
     torch = smoke.torch
@@ -1137,6 +1179,9 @@ def check_beam(smoke):
         ("gqa_scalar", 8, 1024, 4, 64, 4, "pos", 700, False, False),
         ("gqa_serve", 8, 1024, 4, 64, 4, "pos", serve, False, True),
         ("gqa_edge", 8, 1024, 4, 64, 4, "pos", edge, False, False),
+        # the GQA beam 4 at TP = 2: a rank's 2 KV heads, g 4 x 4 beams
+        ("tp2_gqa_prompt", 2, 128, 2, 64, 16, "none", None, False, False),
+        ("tp2_gqa_window", 2, 60, 2, 64, 16, "amask", None, True, False),
         ("hd128", 2, 300, 8, 128, 4, "amask", None, True, False),
         ("s1", 3, 1, 4, 64, 2, "none", None, False, False),
         ("ragged", 2, 77, 4, 64, 3, "pos", torch.tensor(
@@ -1851,6 +1896,7 @@ def phase_train(smoke):
           "mfu_analytic": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
           "peak_mem_gb": peak, "launches": launches})
     every = warm + losses
+    smoke.train_losses = every          # phase tp holds its (1, 1) step to these
     if not all(math.isfinite(x) for x in every) or not every[-1] < every[0]:
         raise AssertionError(f"train losses not finite and falling: {every}")
     n_layers, n = TRAIN["n_layers"], len(losses)
@@ -1871,6 +1917,584 @@ def phase_train(smoke):
           "launches": ops.launch_counts()})
     if rel > 2e-2:
         raise AssertionError(f"auto vs fused first loss: rel err {rel}")
+
+
+# ---------------------------------------------------------------------------
+# tp: the LM at TP = 1 through the mesh path, and TP = 2 on one card
+# ---------------------------------------------------------------------------
+
+TP_ADAM_LR, TP_PARITY_STEPS = 1e-4, 3
+TP_BF16 = dict(warm=2, steps=10)
+TP_SERVE = dict(requests=8, prompt=512, new=16, max_total=1024, slots=8)
+TP_BEAM = dict(batch=2, prompt=128, new=16, beam_size=4)
+TP_WORKER_TIMEOUT_S = 600
+TP_WIRE = "gloo host wire, one shared card"
+TP_DEVICE = "cuda"          # the card the legs run on
+
+
+def phase_tp(smoke):
+    """The LM over the ``('data', 'model')`` mesh: the train phase's bf16
+    step at TP = 1 through ``make_hybrid_shard_map_step`` on a ``(1, 1)``
+    NCCL mesh (losses bit for bit the train phase's), then TP = 2 as two
+    processes on this card over a gloo group (NCCL refuses two ranks of one
+    communicator on one device): fp32 training parity against TP = 1, bf16
+    training (times are the gloo host wire's, not NCCL's), fp32 serving
+    and GQA beam 4, each held against TP = 1 on the card."""
+    _tp_mesh_1x1(smoke)
+    _tp_two_ranks(smoke)
+
+
+def _tp_loss(head_dim, axis_name, ce_impl="fused"):
+    from functools import partial
+
+    from chainermn_tpu_torch.parallel import tp_transformer_lm_loss
+
+    return partial(tp_transformer_lm_loss, head_dim=head_dim,
+                   axis_name=axis_name, attn_impl="flash", ce_impl=ce_impl)
+
+
+def _tp_train_tokens(torch):
+    import numpy as np
+
+    return torch.as_tensor(np.random.RandomState(0).randint(
+        0, TRAIN["vocab"], (TRAIN_BATCH, TRAIN_SEQ + 1)), device=TP_DEVICE)
+
+
+def _tp_mesh_1x1(smoke):
+    torch = smoke.torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
+                                              make_hybrid_shard_map_step,
+                                              param_leaves)
+    from chainermn_tpu_torch.topology import init_distributed, make_nd_mesh
+
+    want = getattr(smoke, "train_losses", None)
+    if want is None:
+        raise AssertionError("the train phase left no losses to hold the "
+                             "(1, 1) mesh step against")
+    init_distributed(TP_DEVICE)
+    mesh = make_nd_mesh(("data", "model"), (1, 1))
+    head_dim = TRAIN["d_model"] // TRAIN["n_heads"]
+    params = init_tp_transformer_lm(torch.Generator().manual_seed(0),
+                                    max_len=TRAIN_SEQ, dtype=torch.bfloat16,
+                                    device=TP_DEVICE, **TRAIN)
+    step = make_hybrid_shard_map_step(
+        _tp_loss(head_dim, "model"),
+        torch.optim.SGD(param_leaves(params), lr=1e-2), params, mesh)
+    n = TP_PARITY_STEPS
+    ops.reset_launch_counts()
+    losses, ms = _train_run(torch, step, params, n, _tp_train_tokens(torch))
+    launches = ops.launch_counts()
+    smoke.add_launches(launches)
+    emit({"check": "tp.mesh_1x1", "dtype": "bfloat16", "mesh": [1, 1],
+          "backend": dist.get_backend(), "losses": losses,
+          "train_phase_losses": want[:n], "step_ms": ms,
+          "launches": launches, **TRAIN, "S": TRAIN_SEQ, "B": TRAIN_BATCH})
+    if losses != want[:n]:
+        raise AssertionError(f"(1, 1) mesh losses {losses} are not the "
+                             f"train phase's {want[:n]} bit for bit")
+    del step, params
+    torch.cuda.empty_cache()
+
+
+def _tp_two_ranks(smoke):
+    import os
+    import pickle
+    import tempfile
+
+    torch = smoke.torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chainermn_tp_"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-worker", str(r),
+         str(tmp)], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = ["", ""]
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(timeout=TP_WORKER_TIMEOUT_S)[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"tp worker {r}: exit {p.returncode}\n"
+                                 f"{logs[r][-4000:]}")
+    res = []
+    for r in range(2):
+        with open(tmp / f"rank{r}.pkl", "rb") as fh:
+            res.append(pickle.load(fh))
+    wall = time.monotonic() - t0
+    for r in range(2):
+        for leg in ("train_bf16", "serve", "beam"):
+            smoke.add_launches(res[r][leg]["launches"])
+    _tp_report(smoke, res, wall)
+
+
+def _tp_report(smoke, res, wall):
+    """Emit the TP = 2 legs' lines and hold them to their bounds."""
+    r0, r1 = res
+    a, ref = r0["train_fp32"], r0["train_ref"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                   ref["losses"]))
+    emit({"check": "tp.train_fp32", "dtype": "float32", "mesh": [1, 2],
+          "backend": r0["backend"], "optimizer": f"adam {TP_ADAM_LR}",
+          "tp2_losses": a["losses"], "tp1_losses": ref["losses"],
+          "loss_max_rel_err": rel, "rtol": 1e-4,
+          "param_max_abs_err": ref["param_max_abs_err"],
+          "param_worst": ref["param_worst"], "atol": 1e-4,
+          "first_grads": {"rtol": 1e-4, "atol": "1e-4 * max|g| of the leaf",
+                          "worst_leaf": ref["grad_worst"],
+                          "worst_err_over_bound": ref["grad_worst_ratio"],
+                          "worst_max_abs_err": ref["grad_worst_max_abs_err"],
+                          "worst_max_abs_ref": ref["grad_worst_max_abs_ref"],
+                          "replicated_vs_rank0_err_over_bound": [
+                              r["train_fp32"]["replicated_grad_vs_rank0"]
+                              for r in res]},
+          "tp2_step_ms": a["ms"], "tp1_step_ms": ref["ms"],
+          "wire": TP_WIRE, **TRAIN, "S": TRAIN_SEQ, "B": TRAIN_BATCH})
+    b = [r["train_bf16"] for r in res]
+    per_step = [{k: v / TP_BF16["steps"] for k, v in x["launches"].items()
+                 if v} for x in b]
+    tp1 = smoke.train_losses[:len(b[0]["losses"])]
+    bf16_rel = max(abs(x - y) / abs(y) for x, y in zip(b[0]["losses"], tp1))
+    emit({"check": "tp.train_bf16", "dtype": "bfloat16", "mesh": [1, 2],
+          "wire": TP_WIRE, "losses": b[0]["losses"],
+          "train_phase_losses": tp1, "loss_max_rel_err_vs_tp1": bf16_rel,
+          "rtol": TOL["bfloat16"],
+          "step_ms": b[0]["ms"], "step_ms_p50": _percentile(b[0]["ms"], 0.5),
+          "step_ms_p99": _percentile(b[0]["ms"], 0.99),
+          "launches_per_step_by_rank": per_step, "shapes": b[0]["shapes"],
+          **TRAIN, "S": TRAIN_SEQ, "B": TRAIN_BATCH, "card": smoke.card})
+    s, sref = r0["serve"], r0["serve_ref"]
+    emit({"check": "tp.serve_fp32", "dtype": "float32", "tp": 2,
+          "wire": TP_WIRE, **TP_SERVE, "sampled": s["sampled"],
+          "done": s["done"], "steps": s["steps"], "wall_s": s["wall_s"],
+          "tick_ms_p50": _percentile(s["tick_ms"], 0.5),
+          "tick_ms_p99": _percentile(s["tick_ms"], 0.99),
+          "follower_calls": r1["serve"]["follower_calls"],
+          "equal_rows": sref["equal"], "near_ties": sref["near"],
+          "launches_by_rank": [r["serve"]["launches"] for r in res],
+          "shapes": s["shapes"]})
+    m, mref = r0["beam"], r0["beam_ref"]
+    emit({"check": "tp.beam_fp32", "dtype": "float32", "tp": 2,
+          "kv_heads": GQA_KV_HEADS, **TP_BEAM, "wire": TP_WIRE,
+          "equal_rows": mref["equal"], "near_ties": mref["near"],
+          "wall_s": m["wall_s"],
+          "launches_by_rank": [r["beam"]["launches"] for r in res],
+          "shapes": m["shapes"]})
+    emit({"check": "tp.workers", "wall_s": wall, "card": smoke.card})
+    bad = []
+    if rel > 1e-4 or ref["param_max_abs_err"] > 1e-4:
+        bad.append(f"fp32 TP=2 vs TP=1: loss rel err {rel}, param abs err "
+                   f"{ref['param_max_abs_err']} ({ref['param_worst']})")
+    if ref["grad_worst_ratio"] > 1:
+        bad.append(f"fp32 TP=2 vs TP=1 first gradients: {ref['grad_worst']} "
+                   f"off by {ref['grad_worst_max_abs_err']} (max |g| "
+                   f"{ref['grad_worst_max_abs_ref']}), "
+                   f"{ref['grad_worst_ratio']} times the bound")
+    for r, x in enumerate(res):
+        ratio, leaf = x["train_fp32"]["replicated_grad_vs_rank0"]
+        if ratio > 1:
+            bad.append(f"rank {r}: replicated {leaf}'s gradient is not rank "
+                       f"0's ({ratio} times the bound)")
+    losses = b[0]["losses"]
+    if not all(x == x and abs(x) < 1e9 for x in losses) \
+            or not losses[-1] < losses[0]:
+        bad.append(f"bf16 TP=2 losses not finite and falling: {losses}")
+    if bf16_rel > TOL["bfloat16"]:
+        bad.append(f"bf16 TP=2 losses vs the train phase's TP=1: rel err "
+                   f"{bf16_rel} > {TOL['bfloat16']}")
+    n_layers = TRAIN["n_layers"]
+    want = {"flash_fwd": n_layers, "flash_bwd": n_layers, "ce_stats": 1,
+            "ce_dh": 1, "ce_dtable": 1}
+    for r, ps in enumerate(per_step):
+        wrong = {k: (ps.get(k), w) for k, w in want.items()
+                 if ps.get(k) != w}
+        if wrong:
+            bad.append(f"bf16 TP=2 rank {r} launches a step (got, want): "
+                       f"{wrong}")
+    if s["done"] != TP_SERVE["requests"]:
+        bad.append(f"TP=2 serving: {s['done']} requests done")
+    for r in res:
+        ls, lb = r["serve"]["launches"], r["beam"]["launches"]
+        if not (ls["decode_attend"] and ls["cache_append"]
+                and ls["flash_fwd"] and lb["beam_attend"]
+                and lb["cache_append"] and lb["flash_fwd"]):
+            bad.append(f"TP=2 serving / beam launches: {ls} / {lb}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def tp_worker(rank, tmp):
+    """One of the two TP = 2 processes of phase ``tp`` on ``cuda:0``: a
+    gloo group through a ``FileStore`` in ``tmp``, the legs, then (rank 0,
+    after the group is gone) the TP = 1 references on the card; pickles
+    its results to ``tmp/rank<r>.pkl``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.topology import make_nd_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    tmp = Path(tmp)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"),
+                                                         2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=180))
+    mesh = make_nd_mesh(("data", "model"), (1, 2))
+    serve_mesh = make_nd_mesh(("model",), (2,))
+    out = {"backend": dist.get_backend()}
+    out["train_fp32"], train_keep = _tp_leg_train_fp32(torch, mesh)
+    out["train_bf16"] = _tp_leg_train_bf16(torch, mesh)
+    out["serve"], serve_keep = _tp_leg_serve(torch, serve_mesh)
+    out["beam"], beam_keep = _tp_leg_beam(torch, serve_mesh)
+    dist.destroy_process_group()
+    if rank == 0:
+        torch.cuda.empty_cache()
+        out["train_ref"] = _tp_ref_train(torch, *train_keep)
+        out["serve_ref"] = _tp_ref_serve(torch, *serve_keep)
+        out["beam_ref"] = _tp_ref_beam(torch, *beam_keep)
+    with open(tmp / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    return 0
+
+
+def _keep_first_grads(optimizer, params):
+    """Wrap ``optimizer.step`` so that its first call keeps a copy of
+    every leaf's gradient, in a tree like ``params``: the first step's
+    gradients, after the step's reductions and before the update."""
+    from chainermn_tpu_torch.convert import tree_map
+
+    kept, step = {}, optimizer.step
+
+    def first(*args, **kwargs):
+        if not kept:
+            kept["grads"] = tree_map(params,
+                                     lambda t: t.grad.detach().clone())
+        return step(*args, **kwargs)
+
+    optimizer.step = first
+    return kept
+
+
+def _grad_err(got, want):
+    """Per leaf, ``|got - want| <= 1e-4·|want| + 1e-4·max|want|``: the
+    worst leaf by its largest error over that bound, as ``(ratio, leaf,
+    max abs err, max |want|)``.  A leaf's gradient off by a constant
+    factor (a sum over the model axis where there should be none) breaks
+    it, which Adam's update, blind to a leaf's scale, does not show."""
+    import numpy as np
+
+    worst = (0.0, None, 0.0, 0.0)
+    for name, w in want.items():
+        top = float(np.abs(w).max())
+        err = np.abs(got[name] - w)
+        ratio = float((err / (1e-4 * np.abs(w) + 1e-4 * top + 1e-30)).max())
+        if ratio >= worst[0]:
+            worst = (ratio, name, float(err.max()), top)
+    return worst
+
+
+def _tp_leg_train_fp32(torch, mesh):
+    """fp32 at full width, 3 Adam steps at TP = 2; keeps the initial global
+    params, the first step's gradients and the final params, each gathered
+    by ``gather_to_numpy``, for the TP = 1 reference.  Each replicated
+    leaf's first gradient is also held to model rank 0's."""
+    from chainermn_tpu_torch.convert import (flatten, gather_to_numpy,
+                                             shard_from_jax)
+    from chainermn_tpu_torch.ops import collective as col
+    from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
+                                              make_hybrid_train_step,
+                                              param_leaves,
+                                              transformer_lm_specs)
+
+    params = init_tp_transformer_lm(torch.Generator().manual_seed(0),
+                                    max_len=TRAIN_SEQ, device="cpu", **TRAIN)
+    specs = transformer_lm_specs(params, "model")
+    local = shard_from_jax(params, specs, mesh, device=TP_DEVICE)
+    head_dim = TRAIN["d_model"] // TRAIN["n_heads"]
+    optimizer = torch.optim.Adam(param_leaves(local), lr=TP_ADAM_LR)
+    kept = _keep_first_grads(optimizer, local)
+    step = make_hybrid_train_step(_tp_loss(head_dim, "model"), optimizer,
+                                  local, mesh)
+    losses, ms = _train_run(torch, step, local, TP_PARITY_STEPS,
+                            _tp_train_tokens(torch))
+    rep = (0.0, None)          # replicated leaves: this rank vs rank 0
+    for (name, g), spec in zip(flatten(kept["grads"]).items(),
+                               flatten(specs).values()):
+        if any(spec):
+            continue
+        g0 = col.bcast(g.clone(), 0, mesh.axis("model"))
+        ratio = float(((g - g0).abs() / (1e-4 * g0.abs()
+                                         + 1e-4 * g0.abs().max()
+                                         + 1e-30)).max())
+        if ratio >= rep[0]:
+            rep = (ratio, name)
+    grads = gather_to_numpy(kept["grads"], specs, mesh)
+    gathered = gather_to_numpy(local, specs, mesh)
+    del step, local, kept, optimizer
+    torch.cuda.empty_cache()
+    return ({"losses": losses, "ms": ms, "replicated_grad_vs_rank0": rep},
+            (params, losses, grads, gathered))
+
+
+def _tp_ref_train(torch, params, tp2_losses, tp2_grads, gathered):
+    """The same 3 Adam steps at TP = 1 on the card: TP = 2's first-step
+    gradients against these (:func:`_grad_err`), and the largest parameter
+    difference from TP = 2's gathered params after the steps."""
+    import numpy as np
+
+    from chainermn_tpu_torch.convert import flatten, to_numpy
+    from chainermn_tpu_torch.parallel import (make_hybrid_shard_map_step,
+                                              param_leaves)
+
+    head_dim = TRAIN["d_model"] // TRAIN["n_heads"]
+    p = _tree_to(torch, params, TP_DEVICE)
+    optimizer = torch.optim.Adam(param_leaves(p), lr=TP_ADAM_LR)
+    kept = _keep_first_grads(optimizer, p)
+    step = make_hybrid_shard_map_step(_tp_loss(head_dim, None), optimizer, p)
+    losses, ms = _train_run(torch, step, p, TP_PARITY_STEPS,
+                            _tp_train_tokens(torch))
+    grad = _grad_err(flatten(tp2_grads), flatten(to_numpy(kept["grads"])))
+    ref, got = flatten(to_numpy(p)), flatten(gathered)
+    errs = {name: float(np.abs(got[name] - w).max())
+            for name, w in ref.items()}
+    worst = max(errs, key=errs.get)
+    del step, p, kept, optimizer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "param_max_abs_err": errs[worst],
+            "param_worst": worst, "grad_worst_ratio": grad[0],
+            "grad_worst": grad[1], "grad_worst_max_abs_err": grad[2],
+            "grad_worst_max_abs_ref": grad[3]}
+
+
+def _tp_leg_train_bf16(torch, mesh):
+    """bf16 at full width, SGD 1e-2 as the train phase: 2 warm-up and 10
+    timed steps at TP = 2, launch counts zeroed just before the timed
+    steps and read just after."""
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.convert import shard_from_jax
+    from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
+                                              make_hybrid_train_step,
+                                              param_leaves,
+                                              transformer_lm_specs)
+
+    params = init_tp_transformer_lm(torch.Generator().manual_seed(0),
+                                    max_len=TRAIN_SEQ, device="cpu", **TRAIN)
+    local = shard_from_jax(params, transformer_lm_specs(params, "model"),
+                           mesh, device=TP_DEVICE, dtype=torch.bfloat16)
+    del params
+    head_dim = TRAIN["d_model"] // TRAIN["n_heads"]
+    step = make_hybrid_train_step(
+        _tp_loss(head_dim, "model"),
+        torch.optim.SGD(param_leaves(local), lr=1e-2), local, mesh)
+    tokens = _tp_train_tokens(torch)
+    warm, _ = _train_run(torch, step, local, TP_BF16["warm"], tokens)
+    ops.reset_launch_counts()
+    losses, ms = _train_run(torch, step, local, TP_BF16["steps"], tokens)
+    launches = ops.launch_counts()
+    h = TRAIN["n_heads"] // 2
+    shapes = {"flash": [TRAIN_BATCH, TRAIN_SEQ, h, head_dim],
+              "ce": [TRAIN_BATCH * TRAIN_SEQ, TRAIN["vocab"] // 2,
+                     TRAIN["d_model"]]}
+    del step, local
+    torch.cuda.empty_cache()
+    return {"losses": warm + losses, "ms": ms, "launches": launches,
+            "shapes": shapes}
+
+
+def _tp_leg_serve(torch, mesh):
+    """fp32, the decode-bench LM sharded over two ranks: 8 requests (the
+    odd half sampled) through ``ServingEngine(mesh=...)``; rank 0 drives,
+    rank 1 follows.  Launch counts zeroed just before and read after."""
+    import numpy as np
+
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.convert import shard_from_jax
+    from chainermn_tpu_torch.parallel import transformer_lm_specs
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    cfg = TP_SERVE
+    params = _init_full(torch, "cpu", torch.float32, cfg["max_total"])
+    local = shard_from_jax(params, transformer_lm_specs(params, "model"),
+                           mesh, device=TP_DEVICE)
+    eng = ServingEngine(local, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                        max_total=cfg["max_total"],
+                        queue_capacity=cfg["requests"], mesh=mesh,
+                        device=TP_DEVICE)
+    prompts = np.random.RandomState(5).randint(
+        0, FULL["vocab"], (cfg["requests"], cfg["prompt"])).astype(np.int32)
+    sample = _half_sampled(cfg["requests"], 7)
+    tick_ms = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if eng.engine.leader:
+        tick = eng.engine.tick
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            nxt = tick(*a, **k)           # ends in a device-to-host read
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+            return nxt
+
+        eng.engine.tick = timed
+        try:      # the follower waits in follow() until the leader closes
+            handles, steps = _drive(eng, list(prompts), cfg["new"],
+                                    cfg["slots"], 2, sample)
+        finally:
+            eng.close()
+        rows = [h.tokens for h in handles]
+        done = sum(h.status == "done" for h in handles)
+        calls = None
+    else:
+        calls = eng.follow()
+        rows, done, steps = None, None, None
+    torch.cuda.synchronize()
+    res = {"launches": ops.launch_counts(), "wall_s": time.perf_counter() - t0,
+           "tick_ms": tick_ms, "done": done, "steps": steps,
+           "sampled": sorted(sample), "follower_calls": calls,
+           "shapes": {"decode": [cfg["slots"], FULL["n_heads"] // 2,
+                                 HEAD_DIM, cfg["max_total"]],
+                      "prefill_flash": [1, cfg["prompt"],
+                                        FULL["n_heads"] // 2, HEAD_DIM]}}
+    del eng, local
+    torch.cuda.empty_cache()
+    return res, (params, prompts, sample, rows)
+
+
+def _tp_choice_values(torch, params, prompt, row, sample_kw):
+    """TP = 1 on the card, teacher-forced on a TP = 2 row: the values the
+    token choice compares at each generated position (the logits, or a
+    sampled row's ``logits / T`` plus the noise TP = 2 draws: each shard's
+    ``(1, V/2)`` uniform from ``fold_in(fold_in(key, pos), rank)``)."""
+    import numpy as np
+
+    from chainermn_tpu_torch import prng
+    from chainermn_tpu_torch.parallel.decode import lm_prefill
+
+    s_p = len(prompt)
+    full = np.concatenate([prompt, np.asarray(row[:-1], np.int32)])
+    with torch.inference_mode():
+        h, _ = lm_prefill(params, torch.tensor(full[None], device=TP_DEVICE,
+                                               dtype=torch.long),
+                          len(full), head_dim=HEAD_DIM)
+        logits = (h[0, s_p - 1:].float() @ params["embed"].float().t()).cpu()
+    if not sample_kw:
+        return logits
+    half = logits.shape[1] // 2
+    noise = torch.stack([torch.cat([prng.gumbel(prng.fold_in(prng.fold_in(
+        sample_kw["rng"], s_p + t), r), (1, half))[0] for r in range(2)])
+        for t in range(len(row))])
+    return logits / sample_kw["temperature"] + noise
+
+
+def _tp_ref_serve(torch, params, prompts, sample, rows):
+    """Each TP = 2 row, position by position: the TP = 1 model's choice on
+    the card, or a near-tie (the two tokens' values within 1e-3)."""
+    p = _tree_to(torch, params, TP_DEVICE)
+    equal, near = 0, []
+    for i, row in enumerate(rows):
+        vals = _tp_choice_values(torch, p, prompts[i], row, sample.get(i))
+        ok = True
+        for t, tok in enumerate(row):
+            best = int(vals[t].argmax())
+            if best != tok:
+                gap = float(vals[t, best] - vals[t, tok])
+                if gap >= 1e-3:
+                    raise AssertionError(
+                        f"TP=2 serving row {i} step {t}: token {tok}, TP=1 "
+                        f"picks {best} by {gap} >= 1e-3")
+                near.append((i, t, gap))
+                ok = False
+        equal += ok
+    del p
+    torch.cuda.empty_cache()
+    return {"equal": equal, "near": near}
+
+
+def _tp_leg_beam(torch, mesh):
+    """fp32, the GQA model (4 KV heads: 2 a rank) sharded over two ranks:
+    beam 4 through ``make_lm_beam_generator(mesh, 'model')``."""
+    import numpy as np
+
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.convert import shard_from_jax
+    from chainermn_tpu_torch.parallel import (make_lm_beam_generator,
+                                              transformer_lm_specs)
+
+    cfg = TP_BEAM
+    params = _init_full(torch, "cpu", torch.float32,
+                        cfg["prompt"] + cfg["new"], n_kv_heads=GQA_KV_HEADS)
+    local = shard_from_jax(params, transformer_lm_specs(params, "model"),
+                           mesh, device=TP_DEVICE)
+    prompts = np.random.RandomState(10).randint(
+        0, FULL["vocab"], (cfg["batch"], cfg["prompt"])).astype(np.int32)
+    gen = make_lm_beam_generator(mesh, "model", head_dim=HEAD_DIM,
+                                 max_new_tokens=cfg["new"],
+                                 beam_size=cfg["beam_size"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = gen(local, prompts).cpu().numpy()
+    res = {"launches": ops.launch_counts(), "wall_s": time.perf_counter() - t0,
+           "shapes": {"kv_heads_per_rank": GQA_KV_HEADS // 2,
+                      "g": FULL["n_heads"] // GQA_KV_HEADS,
+                      "rows": cfg["batch"] * cfg["beam_size"]}}
+    del local, gen
+    torch.cuda.empty_cache()
+    return res, (params, prompts, toks)
+
+
+def _tp_ref_beam(torch, params, prompts, toks):
+    """TP = 1 beam 4 on the card: the best beams equal, or TP = 2's within
+    1e-3 of TP = 1's cumulative log-probability under the TP = 1 model."""
+    import numpy as np
+
+    from chainermn_tpu_torch.parallel import make_lm_beam_generator
+    from chainermn_tpu_torch.parallel.decode import lm_prefill
+
+    p = _tree_to(torch, params, TP_DEVICE)
+    ref = make_lm_beam_generator(
+        head_dim=HEAD_DIM, max_new_tokens=TP_BEAM["new"],
+        beam_size=TP_BEAM["beam_size"])(p, prompts).cpu().numpy()
+
+    def logprob(prompt, row):
+        full = np.concatenate([prompt, row])
+        with torch.inference_mode():
+            h, _ = lm_prefill(p, torch.tensor(full[None], device=TP_DEVICE,
+                                              dtype=torch.long),
+                              len(full), head_dim=HEAD_DIM)
+            logp = torch.log_softmax(h[0, len(prompt) - 1:-1].float()
+                                     @ p["embed"].float().t(), -1)
+        return float(logp.gather(1, torch.tensor(
+            row, device=TP_DEVICE, dtype=torch.long)[:, None]).sum())
+
+    equal, near = 0, []
+    for i in range(len(prompts)):
+        if (toks[i] == ref[i]).all():
+            equal += 1
+            continue
+        gap = abs(logprob(prompts[i], toks[i]) - logprob(prompts[i], ref[i]))
+        if gap >= 1e-3:
+            raise AssertionError(f"TP=2 beam row {i}: {toks[i].tolist()} vs "
+                                 f"TP=1 {ref[i].tolist()}, log-prob gap {gap}")
+        near.append((i, gap))
+    del p
+    torch.cuda.empty_cache()
+    return {"equal": equal, "near": near}
 
 
 def phase_resnet_parity(smoke):
@@ -3378,7 +4002,7 @@ def main():
                          ("serving", phase_serving), ("beam", phase_beam),
                          ("serving-gqa", phase_serving_gqa),
                          ("train-parity", phase_train_parity),
-                         ("train", phase_train),
+                         ("train", phase_train), ("tp", phase_tp),
                          ("resnet-parity", phase_resnet_parity),
                          ("resnet-train", phase_resnet_train),
                          ("resnet152-db", phase_resnet152_db),
@@ -3413,4 +4037,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())
