@@ -16,6 +16,9 @@ the LM's tensor and data parallelism over a ``('data', 'model')`` mesh):
   ``slice_index_of``), the collective matmuls, the
   LM (layer norm, RoPE, QKV, GQA, the vocab-parallel loss), the hybrid
   DP x TP training step, greedy / sampled / beam decoding at any TP width;
+  the strategies along one mesh axis: ring attention over the flash
+  kernels (their LSE cotangent in the backward), Ulysses, the
+  sequence-sharded LM, the MoE layer, the GPipe and 1F1B pipelines;
 * ``serving``: scheduler, slot pool, decode engine, ``ServingEngine``
   (at TP > 1: model rank 0 leads, the others follow its plan);
 * ``prng``: threefry ``PRNGKey`` / ``fold_in`` / ``uniform`` bit for bit;
@@ -54,6 +57,7 @@ the LM's tensor and data parallelism over a ``('data', 'model')`` mesh):
   its twins for the NF-ResNets, the convnets and ViT, ``mlp_from_jax``,
   ``seq2seq_from_jax``, the demo step's), npz;
 * CLIs: ``serve`` and ``train_transformer`` (``--tp``), ``train_hybrid``,
+  ``train_long_context`` (``--sp-impl ring|ulysses``), ``train_moe``,
   ``generate``, ``train_imagenet``, ``train``
   (the demo trainer), ``train_mnist`` (the MNIST example),
   ``train_seq2seq``, ``train_model_parallel`` and
@@ -88,7 +92,11 @@ _NAMES = {
                      "transformer_lm_specs", "shard_pytree",
                      "state_specs_like", "all_gather_matmul",
                      "matmul_reduce_scatter", "make_all_gather_matmul",
-                     "make_matmul_reduce_scatter"), "parallel"),
+                     "make_matmul_reduce_scatter", "make_moe_mlp", "moe_mlp",
+                     "make_pipeline", "pipeline_apply", "stack_stage_params",
+                     "make_ring_attention", "ring_attention",
+                     "make_ulysses_attention", "ulysses_attention"),
+                    "parallel"),
     **dict.fromkeys(("AllreducePersistent", "ObservationAggregator",
                      "create_multi_node_checkpointer", "multi_node_snapshot"),
                     "extensions"),
@@ -113,11 +121,7 @@ _NAMES = {
 # the JAX package's top-level names not ported yet: name -> ROADMAP.md
 # queue A item
 NOT_PORTED = {
-    **dict.fromkeys(("make_moe_mlp", "moe_mlp", "make_pipeline",
-                     "pipeline_apply", "stack_stage_params",
-                     "make_ring_attention", "ring_attention",
-                     "make_ulysses_attention", "ulysses_attention",
-                     "ErrorFeedbackState", "error_feedback_layout",
+    **dict.fromkeys(("ErrorFeedbackState", "error_feedback_layout",
                      "fold_error_feedback", "hierarchical_gradient_average",
                      "opt_state_partition_specs"), "A9"),
 }

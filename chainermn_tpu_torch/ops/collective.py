@@ -146,8 +146,8 @@ def all_gather(x, axis_name=DEFAULT_AXIS_NAME, axis: int = 0,
     x, dev = _staged(mesh, x.detach().contiguous())
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x, group=mesh.group)
-    out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
-    return out.to(dev)
+    parts = [p.to(dev) for p in parts]     # join on the caller's device
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
 
 
 @guarded("all_to_all")
@@ -169,10 +169,9 @@ def all_to_all(x, axis_name=DEFAULT_AXIS_NAME, split_axis: int = 0,
     send, dev = _staged(mesh, torch.stack(chunks).contiguous())
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=mesh.group)
-    parts = recv.unbind(0)
-    out = torch.cat(parts, dim=concat_axis) if tiled \
+    parts = recv.to(dev).unbind(0)         # join on the caller's device
+    return torch.cat(parts, dim=concat_axis) if tiled \
         else torch.stack(parts, dim=concat_axis)
-    return out.to(dev)
 
 
 @guarded("reduce_scatter")

@@ -201,20 +201,27 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
+def flash_attention_fwd(q, k, v, causal: bool = False):
+    """``(out, lse)`` without autograd: the CUDA kernel
+    (``csrc/flash_fwd.cu``) for CUDA tensors, :func:`flash_attention_plain`
+    for CPU tensors.  For callers that run their own backward through
+    :func:`flash_attention_bwd` (the ring of ``parallel.ring_attention``)."""
+    group = _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    return _flash_fwd_cuda(q, k, v, causal, group)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel (or plain version) with the fused backward as its
     gradient; ``lse`` is a differentiable output."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        group = _check(q, k, v)
-        if q.device.type == "cpu":
-            out, lse = flash_attention_plain(q, k, v, causal)
-        elif q.is_cuda:
-            out, lse = _flash_fwd_cuda(q, k, v, causal, group)
-        else:
-            raise ValueError(f"flash_attention runs on cuda or cpu, got "
-                             f"{q.device}")
+        out, lse = flash_attention_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.set_materialize_grads(False)

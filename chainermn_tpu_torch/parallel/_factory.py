@@ -12,11 +12,17 @@ replicates.  Both directions are differentiable under the replicated
 convention of the tensor-parallel layers: slicing's backward gathers the
 cotangent blocks of the sharded dimensions, and gathering's backward
 keeps this rank's block (every rank holds the same cotangent of a
-replicated result).
+replicated result).  With ``sum_grads=True`` the global face serves a
+per-rank function whose backward follows the local-loss convention of
+``functions/`` (the gradient of the sum of every rank's local loss; the
+sequence-parallel, MoE and pipeline strategies): a replicated argument's
+gradient is then summed over the ranks it is replicated on, and a
+replicated result's cotangent is split evenly over them.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional
 
 import torch
@@ -24,6 +30,8 @@ import torch
 from ..convert import tree_map
 from ..ops import collective as col
 from ..topology import DEFAULT_AXIS_NAME, Mesh, bound_axis, make_nd_mesh
+
+NEG_INF = -1e30
 
 
 class PartitionSpec:
@@ -104,26 +112,42 @@ def gather_block(x, spec, mesh):
     return x
 
 
+def _replicas(spec, mesh, sum_grads):
+    """The axes of ``mesh`` (size > 1) that ``spec`` replicates over, when
+    ``sum_grads``; none otherwise."""
+    if not sum_grads:
+        return []
+    named = set(spec)
+    return [mesh.axis(n) for n in mesh.axis_names
+            if n not in named and mesh.shape[n] > 1]
+
+
 class _Shard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, spec, mesh):
-        ctx.spec, ctx.mesh = spec, mesh
+    def forward(ctx, x, spec, mesh, sum_grads):
+        ctx.spec, ctx.mesh, ctx.sum_grads = spec, mesh, sum_grads
         return local_block(x, spec, mesh).clone()
 
     @staticmethod
     def backward(ctx, g):
-        return gather_block(g.contiguous(), ctx.spec, ctx.mesh), None, None
+        g = g.contiguous()
+        for axis in _replicas(ctx.spec, ctx.mesh, ctx.sum_grads):
+            g = col.psum(g, axis)
+        return gather_block(g, ctx.spec, ctx.mesh), None, None, None
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, spec, mesh):
-        ctx.spec, ctx.mesh = spec, mesh
+    def forward(ctx, x, spec, mesh, sum_grads):
+        ctx.spec, ctx.mesh, ctx.sum_grads = spec, mesh, sum_grads
         return gather_block(x, spec, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return local_block(g, ctx.spec, ctx.mesh).contiguous(), None, None
+        g = local_block(g, ctx.spec, ctx.mesh).contiguous()
+        for axis in _replicas(ctx.spec, ctx.mesh, ctx.sum_grads):
+            g = g / axis.size
+        return g, None, None, None
 
 
 def _spec_tree(spec, tree):
@@ -142,26 +166,42 @@ def _zip_map(fn, tree, specs):
     return fn(tree, specs)
 
 
-def shard(tree, specs, mesh):
+def shard(tree, specs, mesh, sum_grads: bool = False):
     """Differentiable: this rank's blocks of the global tensors ``tree``."""
-    return _zip_map(lambda x, s: _Shard.apply(x, s, mesh), tree, specs)
+    return _zip_map(lambda x, s: _Shard.apply(x, s, mesh, sum_grads), tree,
+                    specs)
 
 
-def gather(tree, specs, mesh):
+def gather(tree, specs, mesh, sum_grads: bool = False):
     """Differentiable: the global tensors from this rank's blocks."""
-    return _zip_map(lambda x, s: _Gather.apply(x, s, mesh), tree, specs)
+    return _zip_map(lambda x, s: _Gather.apply(x, s, mesh, sum_grads), tree,
+                    specs)
 
 
-def make_global_apply(kernel: Callable, mesh, in_specs, out_specs):
+def make_global_apply(kernel: Callable, mesh, in_specs, out_specs,
+                      sum_grads: bool = False):
     """``apply(*args)`` over global tensors: each arg sliced onto this rank
     by its in-spec (a pytree prefix), ``kernel`` run with ``mesh`` bound,
     the result gathered by ``out_specs``.  Every rank of the mesh calls it
-    with the same global arguments."""
+    with the same global arguments.  ``sum_grads``: ``kernel``'s backward
+    follows the local-loss convention (see the module docstring)."""
     def apply(*args):
         if len(args) != len(in_specs):
             raise TypeError(f"expected {len(in_specs)} args, got {len(args)}")
         with mesh:
-            local = [shard(a, s, mesh) for a, s in zip(args, in_specs)]
-            return gather(kernel(*local), out_specs, mesh)
+            local = [shard(a, s, mesh, sum_grads)
+                     for a, s in zip(args, in_specs)]
+            return gather(kernel(*local), out_specs, mesh, sum_grads)
 
     return apply
+
+
+def make_sp_attention(kernel: Callable, mesh, axis_name: Optional[str],
+                      causal: bool):
+    """Wrap a per-rank attention ``kernel(q, k, v, axis_name=...,
+    causal=...)`` into ``fn(q, k, v)`` over GLOBAL ``(B, S, H, D)``
+    tensors sequence-sharded over the mesh axis."""
+    mesh, ax = resolve_mesh_axis(mesh, axis_name)
+    spec = P(None, ax)              # shard the sequence axis
+    return make_global_apply(partial(kernel, axis_name=ax, causal=causal),
+                             mesh, (spec, spec, spec), spec)

@@ -30,9 +30,9 @@ from ..ops import collective as col
 from ._factory import P, make_global_apply, model_axis, resolve_mesh_axis
 
 
-def _post_shift(x, axis):
-    """Post one ring hop, this rank's ``x`` to rank ``i + 1``; returns
-    ``wait() -> the block from rank i - 1``."""
+def _post_shift(x, axis, offset: int = 1):
+    """Post one ring hop, this rank's ``x`` to rank ``i + offset``; returns
+    ``wait() -> the block from rank i - offset``."""
     staged = col.host_staged(axis, x)
     send = x.detach().contiguous()
     if staged:
@@ -40,9 +40,9 @@ def _post_shift(x, axis):
     recv = torch.empty_like(send)
     me, p = col.axis_index(axis), axis.size
     works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, col._peer(axis, (me + 1) % p),
+        dist.P2POp(dist.isend, send, col._peer(axis, (me + offset) % p),
                    axis.group),
-        dist.P2POp(dist.irecv, recv, col._peer(axis, (me - 1) % p),
+        dist.P2POp(dist.irecv, recv, col._peer(axis, (me - offset) % p),
                    axis.group)])
 
     bufs = (send, recv)             # both stay alive until the hop ends

@@ -72,7 +72,8 @@ def state_specs_like(optimizer, params, param_specs):
 
 
 def make_hybrid_shard_map_step(loss_fn: Callable, optimizer, params,
-                               mesh=None, data_axis: str = "data"):
+                               mesh=None, data_axis: str = "data",
+                               param_specs=None, has_aux: bool = False):
     """``step(params, local_batch) -> loss``: ``loss_fn(params,
     local_batch)`` under autograd with ``mesh`` bound (None: no mesh, one
     rank), ``backward``, the gradients averaged over ``data_axis`` when the
@@ -80,7 +81,14 @@ def make_hybrid_shard_map_step(loss_fn: Callable, optimizer, params,
     gradients are dropped (``zero_grad(set_to_none=True)``).  The returned
     loss is the mean over ``data_axis``, detached.  The leaves of
     ``params`` are marked as requiring gradients here and updated in place
-    by the optimizer, which must have been built over them."""
+    by the optimizer, which must have been built over them.
+
+    ``param_specs`` (a tree like ``params``): a leaf sharded over
+    ``data_axis`` (the experts of ``moe_mlp``) keeps its gradient local,
+    divided by the axis size (JAX: the gradient of the loss's mean of a
+    varying leaf); the others are averaged.  With ``has_aux``,
+    ``loss_fn`` returns ``(loss, aux)`` (a dict of scalars) and the step
+    ``(loss, aux)``, ``aux`` meaned over ``data_axis`` too."""
     leaves = param_leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
@@ -91,30 +99,43 @@ def make_hybrid_shard_map_step(loss_fn: Callable, optimizer, params,
     if mesh is not None and data_axis in mesh.axis_names \
             and mesh.shape[data_axis] > 1:
         data = mesh.axis(data_axis)
+    local = set()
+    if param_specs is not None:
+        local = {name for name, spec in flatten(param_specs).items()
+                 if data_axis in tuple(spec)}
+
+    def mean(x):
+        x = col._tree_map(lambda t: t.detach(), x)
+        return x if data is None else col.pmean(x, data)
 
     def step(params, batch):
         with mesh or contextlib.nullcontext():
-            loss = loss_fn(params, batch)
+            out = loss_fn(params, batch)
+            loss, aux = out if has_aux else (out, None)
             loss.backward()
             if data is not None:
-                gradient_average(param_leaves(params), data)
+                named = flatten(params)
+                gradient_average([t for n, t in named.items()
+                                  if n not in local], data)
+                for n in local:
+                    named[n].grad.div_(data.size)
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
-            loss = loss.detach()
-            return loss if data is None else col.pmean(loss, data)
+            return (mean(loss), mean(aux)) if has_aux else mean(loss)
 
     return step
 
 
 def make_hybrid_train_step(loss_fn: Callable, optimizer, params, mesh=None,
-                           data_axis: str = "data"):
+                           data_axis: str = "data", param_specs=None,
+                           has_aux: bool = False):
     """:func:`make_hybrid_shard_map_step` over the GLOBAL batch: ``step(
     params, batch)`` takes this rank's rows of each batch tensor (the
     leading axis sharded over ``data_axis``), then runs the step.
     ``params`` are this rank's shards, as the step updates them in
     place."""
     inner = make_hybrid_shard_map_step(loss_fn, optimizer, params, mesh,
-                                       data_axis)
+                                       data_axis, param_specs, has_aux)
     if mesh is None or data_axis not in mesh.axis_names:
         return inner
     rows = P(data_axis)

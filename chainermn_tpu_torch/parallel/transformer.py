@@ -20,6 +20,12 @@ materialising ``"xla"`` path or the fused cross-entropy kernels
 (``ops.fused_ce``) over this rank's ``V/P`` vocabulary rows, combined
 across the shards by a max and two sums.  :func:`block_with` is the one
 pre-norm block body, shared with ``decode.py``.
+
+The sequence-sharded LM (:func:`sp_block`, :func:`sp_transformer_lm_loss`)
+keeps the same params replicated and shards the SEQUENCE over the axis:
+attention by ``ring_attention`` or ``ulysses_attention``, the logits a
+plain fp32 product and ``log_softmax`` over the whole vocabulary, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from functools import partial
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention, resolve_attn_impl
@@ -35,9 +42,9 @@ from ..ops.fused_ce import fused_cross_entropy
 from ._factory import P, model_axis
 from .tensor_parallel import (axis_index, axis_size, column_parallel_dense,
                               copy_to_model, gather_seq_matmul,
-                              matmul_scatter_seq, pmax, reduce_from_model,
-                              row_parallel_dense, tp_mlp, tp_mlp_sp,
-                              vocab_parallel_embedding)
+                              matmul_f32, matmul_scatter_seq, pmax,
+                              reduce_from_model, row_parallel_dense, tp_mlp,
+                              tp_mlp_sp, vocab_parallel_embedding)
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -213,6 +220,84 @@ def tp_block_sp(x, params, *, head_dim: int, axis_name, causal: bool = True,
                             axis_name=axis_name, causal=causal,
                             attn_impl=attn_impl, positions=positions)
     return x + tp_mlp_sp(ln(x, "ln2"), params["mlp"], axis_name=axis_name)
+
+
+def sp_block(x, params, *, head_dim: int, axis_name, causal: bool = True,
+             attn_impl: str = "auto", sp_impl: str = "ring",
+             positions=None):
+    """Transformer block with the SEQUENCE sharded over ``axis_name``:
+    ``x (B, S/P, D)`` this rank's shard, ``params`` REPLICATED (the
+    :func:`tp_block` layout, unsharded).  Attention runs over ``sp_impl``:
+    ``"ring"`` (K/V rotate around the ring, any head count) or
+    ``"ulysses"`` (two all-to-alls; ``n_heads % P == 0``); LayerNorms and
+    the MLP act on the local positions.  ``positions``: this shard's
+    GLOBAL positions (RoPE), or None."""
+    from .ring_attention import ring_attention
+    from .ulysses import ulysses_attention
+
+    b, s_local, d = x.shape
+    a = params["attn"]
+    h = _layer_norm(x, params["ln1_scale"], params["ln1_bias"])
+    # replicated params: the projection gives every head (GQA: fewer KV
+    # heads ride the ring / the all-to-all)
+    q, k, v = _project_qkv(h, a, head_dim)
+    if positions is not None:
+        # RoPE at GLOBAL positions, before K/V leave this rank
+        q = apply_rope(q, positions)
+        k = apply_rope(k, positions)
+    if sp_impl == "ring":
+        ctx = ring_attention(q, k, v, axis_name, causal=causal,
+                             attn_impl=attn_impl)
+    elif sp_impl == "ulysses":
+        ctx = ulysses_attention(q, k, v, axis_name, causal=causal,
+                                attn_impl=attn_impl)
+    else:
+        raise ValueError(
+            f"sp_impl must be 'ring' or 'ulysses', got {sp_impl!r}")
+    attn_out = matmul_f32(ctx.reshape(b, s_local, d), a["wo"]).to(x.dtype)
+    x = x + attn_out + a["bo"]
+    h = _layer_norm(x, params["ln2_scale"], params["ln2_bias"])
+    mlp = params["mlp"]
+    y = F.gelu(matmul_f32(h, mlp["wi"]).to(x.dtype) + mlp["bi"],
+               approximate="tanh")
+    y = matmul_f32(y, mlp["wo"]).to(x.dtype)
+    return x + y + mlp["bo"]
+
+
+def sp_transformer_lm_loss(params, batch, *, head_dim: int, axis_name,
+                           causal: bool = True, attn_impl: str = "auto",
+                           sp_impl: str = "ring"):
+    """Per-token mean NLL of this rank's sequence shard.  ``batch``:
+    ``(inputs (B, S/P), targets (B, S/P))``, the ``(B, S)`` tokens shifted
+    globally BEFORE sharding over the sequence axis; params replicated.
+    Mean the loss over the axis and the gradients like data parallelism
+    (``make_hybrid_shard_map_step`` with ``data_axis=axis_name``)."""
+    inputs, targets = batch
+    s_local = inputs.shape[1]
+    s_global = axis_size(axis_name) * s_local
+    pos = axis_index(axis_name) * s_local + torch.arange(
+        s_local, device=inputs.device)
+    x = params["embed"][inputs.long()]
+    x = x * (params["embed"].shape[1] ** 0.5)
+    positions = None
+    if "pos_embed" in params:
+        max_len = params["pos_embed"].shape[0]
+        if s_global > max_len:
+            raise ValueError(
+                f"global sequence {s_global} exceeds pos_embed max_len "
+                f"{max_len}; re-init the model with max_len >= {s_global}")
+        x = x + params["pos_embed"][pos][None]
+    else:                       # RoPE: rotated inside attention
+        positions = pos
+    for blk in params["blocks"]:
+        x = sp_block(x, blk, head_dim=head_dim, axis_name=axis_name,
+                     causal=causal, attn_impl=attn_impl, sp_impl=sp_impl,
+                     positions=positions)
+    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    logits = matmul_f32(x, params["embed"].t())                # (B, S/P, V)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return nll.mean()
 
 
 def _vp_combine(m, l, picked, axis_name=None):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM training (also at TP = 2), ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -75,7 +75,15 @@ and prints no result line:
    256 and 1024 → 512 at 14²), the bf16 error also within tol x max
    |ref|; the three 3x3 and ten 1x1 shapes timed beside cuDNN's
    ``convolution_backward`` asked for dW alone or dX alone; then the bf16
-   ``conv3x3_dgrad`` of a dY whose base is not 16-byte aligned.
+   ``conv3x3_dgrad`` of a dY whose base is not 16-byte aligned.  The
+   flash kernels also at the sequence-parallel shapes (the ring's blocks
+   at SP = 2, (2, 4096, 8, 128), causal and whole, the backward with the
+   LSE cotangent and with GQA; Ulysses' (2, 8192, 4, 128), causal), and
+   ``bench.py :: bench_long_context``'s rows (``check_flash_long``: 1c /
+   2c at B 2, S 8,192 and 1d / 2d at B 1, S 16,384, 8 heads of 128,
+   causal, bf16): forward and backward against the plain versions run a
+   head at a time, timed beside the whole plain version where it fits
+   on the card and SDPA's forward and backward.
 3. ``parity``  — fp32, full width (d 1024, 8 layers, 16 heads, vocab
    32768), and a small RoPE model (d 256, 4 heads, 2 layers): 4 staggered
    requests through the port's ServingEngine on the card and on the CPU
@@ -147,7 +155,27 @@ and prints no result line:
    draw), or a near-tie under 1e-3, and the best beams equal or within
    1e-3 of log-probability; the decode, append, beam and flash launches of
    each rank.  A worker that fails fails the phase.
-10. ``resnet-parity`` — fp32, TF32 off: ResNet-50 at image 112 (stages 1-2
+10. ``sp`` — the sequence-sharded LM (``sp_transformer_lm_loss``) at the
+   train phase's widths with RoPE (d 1024, 8 layers, 8 heads of 128,
+   vocab 32,768; depth not cut), global S 8,192, B 2, SP = 2 as two
+   worker processes (``chip_smoke.py --sp-worker RANK DIR``) on this card
+   over a gloo group, as phase ``tp``: ring attention over the flash
+   kernels (each visiting K/V block a flash forward with its LSE, the
+   backward with the LSE cotangent) and Ulysses (two all-to-alls around
+   the flash kernels at the global S).  (a) fp32, 3 Adam steps (lr 1e-4)
+   at SP = 2 and at SP = 1 on the card: losses rtol 1e-4, the first
+   step's gradients per leaf rtol 1e-4 with atol 1e-4 x the leaf's max
+   |g|, the parameters atol 1e-4; (b) bf16, SGD
+   1e-2, 2 warm-up and 10 timed steps: losses within 2e-2 of SP = 1's,
+   step ms p50 / p99 and tokens/s (the gloo host wire's), each rank's
+   launches a step (ring: 8 and 16 of each flash kernel on ranks 0 and 1,
+   the causal ring skipping rank 0's later block; Ulysses: 8 and 8);
+   (c) ``train_moe`` at P = 2 (the JAX example's sizes, top-1 and top-2,
+   20 steps) on the card and on the CPU: losses and the largest expert
+   fraction rtol 1e-4; ``make_pipeline`` (remat off and on) and
+   ``make_pipeline_1f1b`` with ``tests/test_pipeline.py``'s stage, card
+   against CPU, rtol 1e-5 with atol 1e-5 x the largest entry.
+11. ``resnet-parity`` — fp32, TF32 off: ResNet-50 at image 112 (stages 1-2
    eligible for the conv kernels at 28² and 14²; the stride-2 and 7 x 7
    convs take cuDNN's backward), batch 4, ``conv_impl="pallas"``, card
    against CPU from the same random weights: the loss to rtol 1e-4, every
@@ -156,7 +184,7 @@ and prints no result line:
    (SGD 0.1, momentum 0.9, wd 1e-4, world 1; NCCL on the card, gloo on
    the CPU): losses rtol 1e-4, parameters and running statistics atol
    1e-4.
-11. ``resnet-train`` — bf16, ``bench.py``'s headline (ResNet-50, image
+12. ``resnet-train`` — bf16, ``bench.py``'s headline (ResNet-50, image
    224, batch 128, 1,000 classes, SGD 0.1 / momentum 0.9 / wd 1e-4
    through the multi-node optimizer) via ``train_imagenet.build_step`` at
    world 1 over a one-rank NCCL group, ``conv_impl="pallas"``: 2 warm-up
@@ -168,14 +196,14 @@ and prints no result line:
    same with ``conv_impl="xla"`` (cuDNN's backward) from the same
    weights: no conv-kernel launch, the first loss within 2e-2 of the
    pallas run's, the step times side by side.
-12. ``resnet152-db`` — BASELINE config #4: ResNet-152 with double
+13. ``resnet152-db`` — BASELINE config #4: ResNet-152 with double
    buffering (``build_step(arch="resnet152", double_buffering=True)``),
    bf16, 128 images per card (12.25 GiB at peak on an 80 GB H100), 10
    synchronised steps each with ``conv_impl="pallas"`` and ``"xla"``:
    step ms p50/p99, images/s, analytic MFU (3 x 11.5e9 FLOP per image over
    989 TFLOP/s), peak memory, beside ResNet-50's; exactly 45 ``conv_wgrad``
    and 45 ``conv_dgrad`` launches per pallas step.
-13. ``imagenet-parity`` — fp32 (TF32 off), card vs CPU from the same
+14. ``imagenet-parity`` — fp32 (TF32 off), card vs CPU from the same
    weights: NF-ResNet-50 at image 112, batch 4, ``conv_impl="pallas"``
    (skip gains 0.2; 16 1x1 and 6 3x3 launches of each conv kernel a
    backward), ViT-S/16 at image 64 (17 tokens), full depth, through the
@@ -194,7 +222,7 @@ and prints no result line:
    image 64, every loss rtol 1e-4; then the stalebn LAMB run at lr 0.1,
    every loss within max(1e-4, 4x the CPU's own change when its initial
    weights move by +1e-7 or by -1e-7).
-14. ``imagenet-train`` — bf16, image 224, batch 128, world 1 over a one-rank
+15. ``imagenet-train`` — bf16, image 224, batch 128, world 1 over a one-rank
    NCCL group, through ``train_imagenet.build_step``: NF-ResNet-50 with
    ``conv_impl="pallas"`` and ``"xla"`` and ViT-B/16 (``attn_impl="auto"``:
    the flash kernels; LAMB 1e-3), 2 warm-up and 10 timed steps each (step
@@ -203,13 +231,13 @@ and prints no result line:
    xla step, 12 flash forward and 12 flash backward calls a ViT step, the
    first xla loss within 2e-2 of the pallas one; then AlexNet, VGG-16 and
    GoogLeNet, 2 + 3 steps.  Losses must be finite.
-15. ``comm`` — every communicator method and in-step collective of the
+16. ``comm`` — every communicator method and in-step collective of the
    port's ``TorchDistCommunicator`` on the card at world 1 (the one-rank
    NCCL group the ResNet phases made, or a new one), against
    ``NaiveCommunicator(size=1)``: fp32 and int32 tensors, objects,
    ``split`` with one color (a new NCCL group) and ``send`` / ``recv``
    with ``source == dest``; data movement exact, sums rtol 1e-6.
-16. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
+17. ``trainer`` — ChainerMN's own loop (Trainer → StandardUpdater with the
    prefetch thread → ObservationAggregator / LogReport → the multi-node
    evaluator), each run on the card and again on the CPU from the same
    seeds (fp32, TF32 off): ``python -m chainermn_tpu_torch.train``'s run
@@ -228,7 +256,7 @@ and prints no result line:
    two spans' medians and the card line; the MNIST run also the device
    busy ms and idle share of a ``torch.profiler`` window over iterations
    10-19.  No hand-written kernel is on this path.
-17. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
+18. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
    (Trainer, the per-epoch evaluator, four greedy translations, BLEU):
    fp32 (TF32 off) at 512 units, 3 layers, vocabulary 4,096, 3 steps on
    the card and on the CPU, every loss rtol 1e-4 and the greedy tokens
@@ -238,13 +266,13 @@ and prints no result line:
    every step's span, step ms p50/p99, peak memory, and the device busy
    ms, ops and idle share of a
    ``torch.profiler`` window of 5 iterations.  No kernel launches.
-18. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
+19. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
    card): a ``MultiNodeChainList`` of config #5's two stages on rank 0
    joined by a self-edge, every ``functions`` call forward and backward,
    and ``MultiNodeBatchNormalization``, each against the CPU in fp32
    (elementwise rtol 1e-5, atol 1e-5 of the tensor's largest entry).
    World 2 is held over gloo by the tests.
-19. ``robustness`` — ResNet-50 at the headline size (bf16, image 224,
+20. ``robustness`` — ResNet-50 at the headline size (bf16, image 224,
    batch 128, ``conv_impl="pallas"``, ``train_imagenet.build_step``)
    through Trainer + StandardUpdater with a ``MultiNodeCheckpointer``
    (asynchronous, keep 2, a save every 4 iterations, through
@@ -268,12 +296,12 @@ and prints no result line:
    loss; and two gloo processes on the CPU training MNIST with SGD 0.1 to
    a world-2 generation, resumed at world 1 on the card (batch 256, the
    same global batch) within rtol 1e-4 of the CPU's own continuation.
-20. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+21. One ``{"kernels": [...]}`` line (launches summed over the main paths'
    runs: the two serving runs, the beam run, the timed LM training steps,
    the ``tp`` phase's ``(1, 1)`` steps and both ranks' bf16 steps, serving
-   and beam runs,
-   the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50 steps, the
-   timed ViT-B/16 steps and the robustness phase's ResNet-50 runs), the
+   and beam runs, phase ``sp``'s bf16 steps of both ranks (ring and
+   Ulysses), the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50
+   steps, the timed ViT-B/16 steps and the robustness phase's ResNet-50 runs), the
    card line, then the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -296,6 +324,7 @@ BEAM = dict(batch=8, prompt=512, new=512, beam_size=4)   # bench.py bench_decode
 # bench.py :: bench_transformer_lm's defaults
 TRAIN = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8)
 TRAIN_SEQ, TRAIN_BATCH = 1024, 8
+HEAD_DIM_TRAIN = TRAIN["d_model"] // TRAIN["n_heads"]
 # bench.py's headline: ResNet-50, image 224, batch 128 per card, 1,000 classes
 RESNET = dict(arch="resnet50", image=224, batch=128, classes=1000)
 RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9          # bench.py:3106, training ~3x fwd
@@ -574,6 +603,9 @@ def check_flash(smoke):
         (3, 33, 6, 2, 128, False, False),     # tail inside a tile, group 3
         (1, 1000, 2, 2, 64, False, False),    # long, non-causal
         (128, 197, 12, 12, 64, False, True),  # ViT-B/16 at 224
+        (2, 4096, 8, 8, 128, True, False),    # ring at SP = 2: the diagonal
+        (2, 4096, 8, 8, 128, False, False),   # ring at SP = 2: a whole block
+        (2, 8192, 4, 4, 128, True, False),    # Ulysses at SP = 2: a rank's heads
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
@@ -612,6 +644,97 @@ def check_flash(smoke):
             emit(dict(check="flash_fwd.time", max_abs_err=err, atol=TOL[dn],
                       kernel_ms=ms, plain_ms=plain, library_ms=lib,
                       library="SDPA", bound_ms=bound, bound_by=by, **shape))
+    check_flash_long(smoke)
+
+
+# bench.py :: bench_long_context's rows (B, S, H, hd; causal): 1c / 2c, 1d / 2d
+LONG_ROWS = {"c": (2, 8192, 8, 128), "d": (1, 16384, 8, 128)}
+
+
+def _by_head(torch, fn, *xs):
+    """``fn`` over one head at a time (every ``(B, S, H, D)`` argument
+    sliced on dim 2, every ``(B, H, S)`` one on dim 1), the results joined
+    back: the plain versions' answer at a size whose whole ``(B, H, S,
+    S)`` scores would not fit (MHA only)."""
+    def head(x, i):
+        return x[:, :, i:i + 1] if x.dim() == 4 else x[:, i:i + 1]
+
+    parts = [fn(*(head(x, i) for x in xs)) for i in range(xs[0].shape[2])]
+    return [torch.cat([p[j] for p in parts], 2 if parts[0][j].dim() == 4
+                      else 1) for j in range(len(parts[0]))]
+
+
+def _time_plain(smoke, fn, iters=3):
+    """The plain version's median ms, or None where it does not fit on
+    the card (it materialises the ``(B, H, S, S)`` fp32 scores)."""
+    torch = smoke.torch
+    try:
+        return smoke.time_ms(fn, iters=iters)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None
+
+
+def check_flash_long(smoke):
+    """The long-context rows in bf16, causal: the forward (1c, 1d) and the
+    backward (2c, 2d) against their plain versions (run a head at a time)
+    and timed beside the plain version, where it fits, and SDPA's forward
+    and backward."""
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                                         flash_attention_bwd_plain,
+                                         flash_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    dn = "bfloat16"
+    for row, (b, s, h, d) in LONG_ROWS.items():
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        ref = _by_head(torch, lambda *a: flash_attention_plain(
+            *a, causal=True), q, k, v)
+        torch.cuda.synchronize()
+        shape = dict(B=b, S=s, H=h, H_kv=h, D=d, causal=True)
+        err = smoke.compare(f"flash_fwd.out.1{row}", out, ref[0], dn, **shape)
+        smoke.compare(f"flash_fwd.lse.1{row}", lse, ref[1], dn, **shape)
+        del ref
+        ms = smoke.time_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain = _time_plain(smoke, lambda: flash_attention_plain(
+            q, k, v, causal=True))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        bound, by = _flash_bound(b, s, h, d, True, 2, dn)
+        emit(dict(check="flash_fwd.time", row=f"1{row}", max_abs_err=err,
+                  atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
+                  plain_fits=plain is not None, library_ms=lib,
+                  library="SDPA", bound_ms=bound, bound_by=by, **shape))
+        got = flash_attention_bwd(q, k, v, out, lse, do, True)
+        ref = _by_head(torch, lambda *a: flash_attention_bwd_plain(
+            *a, causal=True), q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        err = max(smoke.compare(f"flash_bwd.d{n}.2{row}", x, r, dn, **shape)
+                  for n, x, r in zip("qkv", got, ref))
+        del got, ref
+        ms = smoke.time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                       True))
+        plain = _time_plain(smoke, lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, do, True))
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib = smoke.time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        bound, by = _flash_bwd_bound(b, s, h, h, d, True, 2, dn)
+        emit(dict(check="flash_bwd.time", row=f"2{row}", max_abs_err=err,
+                  atol=TOL[dn], kernel_ms=ms, plain_ms=plain,
+                  plain_fits=plain is not None, library_ms=lib,
+                  library="SDPA backward", bound_ms=bound, bound_by=by,
+                  **shape))
+        del q, k, v, do, out, lse, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
 
 
 def _decode_bound(pos, b, s, d, elem, dtype_name, append):
@@ -903,6 +1026,10 @@ def check_flash_bwd(smoke):
         (2, 128, 4, 4, 128, False, True, False),   # LSE cotangent
         (2, 200, 4, 2, 64, True, True, "misaligned"),
         (128, 197, 12, 12, 64, False, False, True),  # ViT-B/16 at 224
+        (2, 4096, 8, 8, 128, True, True, False),   # ring at SP = 2: diagonal
+        (2, 4096, 8, 8, 128, False, True, False),  # ring: a whole block
+        (2, 4096, 8, 4, 128, False, True, False),  # ring, GQA
+        (2, 8192, 4, 4, 128, True, False, False),  # Ulysses at SP = 2
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
@@ -1999,7 +2126,11 @@ def _tp_mesh_1x1(smoke):
     torch.cuda.empty_cache()
 
 
-def _tp_two_ranks(smoke):
+def _two_workers(smoke, flag, timeout):
+    """Run ``chip_smoke.py FLAG RANK DIR`` as two processes on this card
+    (a gloo group through a ``FileStore`` in ``DIR``); returns each rank's
+    unpickled results and the wall seconds.  A worker that fails or
+    outlives ``timeout`` fails the phase; none is left running."""
     import os
     import pickle
     import tempfile
@@ -2007,18 +2138,18 @@ def _tp_two_ranks(smoke):
     torch = smoke.torch
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    tmp = Path(tempfile.mkdtemp(prefix="chainermn_tp_"))
+    tmp = Path(tempfile.mkdtemp(prefix="chainermn_workers_"))
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     t0 = time.monotonic()
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-worker", str(r),
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r),
          str(tmp)], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
     logs = ["", ""]
     try:
         for r, p in enumerate(procs):
-            logs[r] = p.communicate(timeout=TP_WORKER_TIMEOUT_S)[0]
+            logs[r] = p.communicate(timeout=timeout)[0]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2026,13 +2157,17 @@ def _tp_two_ranks(smoke):
                 p.wait()
     for r, p in enumerate(procs):
         if p.returncode != 0:
-            raise AssertionError(f"tp worker {r}: exit {p.returncode}\n"
+            raise AssertionError(f"{flag} {r}: exit {p.returncode}\n"
                                  f"{logs[r][-4000:]}")
     res = []
     for r in range(2):
         with open(tmp / f"rank{r}.pkl", "rb") as fh:
             res.append(pickle.load(fh))
-    wall = time.monotonic() - t0
+    return res, time.monotonic() - t0
+
+
+def _tp_two_ranks(smoke):
+    res, wall = _two_workers(smoke, "--tp-worker", TP_WORKER_TIMEOUT_S)
     for r in range(2):
         for leg in ("train_bf16", "serve", "beam"):
             smoke.add_launches(res[r][leg]["launches"])
@@ -2495,6 +2630,360 @@ def _tp_ref_beam(torch, params, prompts, toks):
     del p
     torch.cuda.empty_cache()
     return {"equal": equal, "near": near}
+
+
+SP = dict(seq=8192, batch=2, ranks=2)   # global S, B, the 'sp' axis
+SP_ADAM_LR, SP_PARITY_STEPS = 1e-4, 3
+SP_BF16 = dict(warm=2, steps=10)
+SP_MOE_STEPS = 20
+SP_PIPE = dict(batch=16, d=8, microbatches=4)  # tests/test_pipeline.py
+SP_WORKER_TIMEOUT_S = 600
+SP_IMPLS = ("ring", "ulysses")
+SP_DEVICE = "cuda"          # the card the legs run on
+
+
+def phase_sp(smoke):
+    """The sequence-sharded LM at ``bench_transformer_lm``'s widths with
+    RoPE (d 1024, 8 layers, 8 heads of 128, vocab 32,768), global S 8,192,
+    B 2, SP = 2 as two processes on this card over a gloo group (NCCL
+    refuses two ranks of one communicator on one device): ring attention
+    and Ulysses over the flash kernels, fp32 against SP = 1 and bf16 steps
+    timed (the gloo host wire's); then ``train_moe`` and the two pipelines
+    at P = 2, card against CPU."""
+    res, wall = _two_workers(smoke, "--sp-worker", SP_WORKER_TIMEOUT_S)
+    for r in range(2):
+        for impl in SP_IMPLS:
+            smoke.add_launches(res[r][f"{impl}_bf16"]["launches"])
+    _sp_report(smoke, res, wall)
+
+
+def _sp_loss(sp_impl, axis_name="sp"):
+    from functools import partial
+
+    from chainermn_tpu_torch.parallel import sp_transformer_lm_loss
+
+    return partial(sp_transformer_lm_loss,
+                   head_dim=TRAIN["d_model"] // TRAIN["n_heads"],
+                   axis_name=axis_name, attn_impl="flash", sp_impl=sp_impl)
+
+
+def _sp_tokens():
+    """``(inputs, targets)`` of a ``(B, S + 1)`` draw, shifted before any
+    sharding (host int64)."""
+    import numpy as np
+
+    t = np.random.RandomState(0).randint(
+        0, TRAIN["vocab"], (SP["batch"], SP["seq"] + 1)).astype(np.int64)
+    return t[:, :-1], t[:, 1:]
+
+
+def _sp_params(torch):
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+
+    return init_tp_transformer_lm(torch.Generator().manual_seed(0),
+                                  max_len=SP["seq"], pos_impl="rope",
+                                  device="cpu", **TRAIN)
+
+
+def _sp_batch(torch, mesh):
+    from chainermn_tpu_torch.parallel import P
+    from chainermn_tpu_torch.parallel._factory import local_block
+
+    return tuple(local_block(torch.as_tensor(t, device=SP_DEVICE),
+                             P(None, "sp"), mesh).contiguous()
+                 if mesh is not None else torch.as_tensor(t, device=SP_DEVICE)
+                 for t in _sp_tokens())
+
+
+def _sp_steps(torch, step, params, batch, n):
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, batch)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _sp_train(torch, params, mesh, sp_impl, dtype, optimizer, steps,
+              keep=False, warm=0):
+    """``warm`` then ``steps`` steps of the sequence-sharded LM on the card
+    (``mesh`` None: SP = 1) from ``params`` (host fp32), launch counts
+    zeroed between them; returns ``{"losses" (every step), "ms" (the
+    timed steps), "launches" (theirs), "grads" (the first step's, host
+    fp32, with ``keep``), "final" (the params after)}``."""
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.convert import flatten, to_numpy, tree_map
+    from chainermn_tpu_torch.parallel import (make_hybrid_shard_map_step,
+                                              param_leaves)
+
+    local = tree_map(_tree_to(torch, params, SP_DEVICE), lambda t: t.to(dtype))
+    opt = optimizer(param_leaves(local))
+    kept = _keep_first_grads(opt, local) if keep else None
+    step = make_hybrid_shard_map_step(
+        _sp_loss(sp_impl, "sp" if mesh is not None else None), opt, local,
+        mesh, data_axis="sp")
+    batch = _sp_batch(torch, mesh)
+    first, _ = _sp_steps(torch, step, local, batch, warm)
+    ops.reset_launch_counts()
+    losses, ms = _sp_steps(torch, step, local, batch, steps)
+    out = {"losses": first + losses, "ms": ms,
+           "launches": ops.launch_counts(),
+           "grads": flatten(to_numpy(kept["grads"])) if keep else None,
+           "final": flatten(to_numpy(local))}
+    del step, local, kept, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_worker(rank, tmp):
+    """One of the two SP = 2 processes of phase ``sp`` on ``cuda:0``: a
+    gloo group through a ``FileStore`` in ``tmp``, the legs, then (rank 0,
+    after the group is gone) the SP = 1 references on the card; pickles
+    its results to ``tmp/rank<r>.pkl``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.topology import make_nd_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    tmp = Path(tmp)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"),
+                                                         2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=180))
+    mesh = make_nd_mesh(("sp",), (SP["ranks"],))
+    params = _sp_params(torch)
+    out, keep = {"backend": dist.get_backend()}, {}
+    for impl in SP_IMPLS:
+        run = _sp_train(torch, params, mesh, impl, torch.float32, _sp_adam,
+                        SP_PARITY_STEPS, keep=True)
+        out[f"{impl}_fp32"] = {"losses": run["losses"], "ms": run["ms"]}
+        keep[impl] = (run["grads"], run["final"])
+    for impl in SP_IMPLS:
+        run = _sp_train(torch, params, mesh, impl, torch.bfloat16, _sp_sgd,
+                        SP_BF16["steps"], warm=SP_BF16["warm"])
+        out[f"{impl}_bf16"] = {k: run[k] for k in ("losses", "ms",
+                                                    "launches")}
+    out["moe"] = _sp_leg_moe()
+    out["pipe"] = _sp_leg_pipe(torch, mesh)
+    dist.destroy_process_group()
+    if rank == 0:
+        out["ref"] = _sp_ref(torch, params, keep)
+    with open(tmp / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    return 0
+
+
+def _sp_adam(leaves):
+    import torch
+
+    return torch.optim.Adam(leaves, lr=SP_ADAM_LR)
+
+
+def _sp_sgd(leaves):
+    import torch
+
+    return torch.optim.SGD(leaves, lr=1e-2)
+
+
+def _sp_ref(torch, params, keep):
+    """SP = 1 on the card: fp32, 3 Adam steps (losses; SP = 2's first-step
+    gradients per leaf by :func:`_grad_err`; the largest parameter
+    difference after the steps) and bf16, SGD, 2 + 10 steps (losses, step
+    ms)."""
+    import numpy as np
+
+    run = _sp_train(torch, params, None, "ring", torch.float32, _sp_adam,
+                    SP_PARITY_STEPS, keep=True)
+    out = {"fp32_losses": run["losses"], "fp32_ms": run["ms"]}
+    for impl, (g2, p2) in keep.items():
+        out[f"{impl}_grad"] = _grad_err(g2, run["grads"])
+        errs = {name: float(np.abs(p2[name] - w).max())
+                for name, w in run["final"].items()}
+        worst = max(errs, key=errs.get)
+        out[f"{impl}_param"] = (errs[worst], worst)
+    run = _sp_train(torch, params, None, "ring", torch.bfloat16, _sp_sgd,
+                    SP_BF16["steps"], warm=SP_BF16["warm"])
+    out["bf16_losses"], out["bf16_ms"] = run["losses"], run["ms"]
+    return out
+
+
+def _sp_leg_moe():
+    """``train_moe`` at P = 2 (the JAX example's sizes), top-1 and top-2,
+    ``SP_MOE_STEPS`` steps on the card and again on the CPU over the same
+    gloo group: each step's loss and maximum expert fraction."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch import train_moe
+
+    out = {}
+    for topk in (1, 2):
+        for dev in (SP_DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = train_moe.run(["--device", dev, "--steps",
+                                     str(SP_MOE_STEPS), "--router-topk",
+                                     str(topk)])
+            out[(topk, dev)] = {
+                "losses": res["losses"],
+                "max_frac": [a["max_frac"] for a in res["aux"]],
+                "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def _sp_leg_pipe(torch, mesh):
+    """``make_pipeline`` (``remat`` off and on) and ``make_pipeline_1f1b``
+    with ``tests/test_pipeline.py``'s dense + tanh stage, one stage a rank,
+    on the card and on the CPU: outputs and gradients."""
+    import numpy as np
+
+    from chainermn_tpu_torch.parallel import (make_pipeline,
+                                              make_pipeline_1f1b,
+                                              stack_stage_params)
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    rng = np.random.RandomState(0)
+    d = SP_PIPE["d"]
+    per = [{"w": rng.randn(d, d).astype(np.float32) * 0.5,
+            "b": rng.randn(d).astype(np.float32) * 0.1} for _ in range(2)]
+    x, r, tgt = (rng.randn(SP_PIPE["batch"], d).astype(np.float32)
+                 for _ in range(3))
+    out = {}
+    for dev in (SP_DEVICE, "cpu"):
+        res = {}
+        for remat in (False, True):
+            st = stack_stage_params([{k: torch.tensor(v, device=dev)
+                                      for k, v in p.items()} for p in per])
+            for t in st.values():
+                t.requires_grad_(True)
+            xt = torch.tensor(x, device=dev).requires_grad_(True)
+            y = make_pipeline(stage_fn, mesh, "sp",
+                              num_microbatches=SP_PIPE["microbatches"],
+                              remat=remat)(st, xt)
+            (y * torch.tensor(r, device=dev)).sum().backward()
+            res[f"gpipe{int(remat)}"] = [t.detach().cpu().numpy() for t in
+                                         (y, xt.grad, st["w"].grad,
+                                          st["b"].grad)]
+        st = stack_stage_params([{k: torch.tensor(v, device=dev)
+                                  for k, v in p.items()} for p in per])
+        loss, g = make_pipeline_1f1b(
+            stage_fn, lambda y, t: ((y - t) ** 2).mean(), mesh, "sp",
+            num_microbatches=SP_PIPE["microbatches"])(
+            st, torch.tensor(x, device=dev), torch.tensor(tgt, device=dev))
+        res["1f1b"] = [np.asarray(float(loss))] + [
+            g[k].cpu().numpy() for k in ("w", "b")]
+        out[dev] = res
+    return out
+
+
+def _close_ratio(got, want, rtol=1e-5):
+    """The largest ``|got - want| / (rtol·|want| + rtol·max|want|)``."""
+    import numpy as np
+
+    top = float(np.abs(want).max())
+    return float((np.abs(got - want)
+                  / (rtol * np.abs(want) + rtol * top + 1e-30)).max())
+
+
+def _sp_report(smoke, res, wall):
+    """Emit phase ``sp``'s lines and hold them to their bounds."""
+    r0 = res[0]
+    ref = r0["ref"]
+    bad = []
+    n_layers = TRAIN["n_layers"]
+    shapes = {"ring": [SP["batch"], SP["seq"] // 2, TRAIN["n_heads"],
+                       HEAD_DIM_TRAIN],
+              "ulysses": [SP["batch"], SP["seq"], TRAIN["n_heads"] // 2,
+                          HEAD_DIM_TRAIN]}
+    for impl in SP_IMPLS:
+        a = r0[f"{impl}_fp32"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       ref["fp32_losses"]))
+        g = ref[f"{impl}_grad"]
+        perr, pworst = ref[f"{impl}_param"]
+        emit({"check": f"sp.{impl}_fp32", "dtype": "float32", "sp": 2,
+              "backend": r0["backend"], "optimizer": f"adam {SP_ADAM_LR}",
+              "sp2_losses": a["losses"], "sp1_losses": ref["fp32_losses"],
+              "loss_max_rel_err": rel, "rtol": 1e-4,
+              "param_max_abs_err": perr, "param_worst": pworst,
+              "atol": 1e-4,
+              "first_grads": {"rtol": 1e-4,
+                              "atol": "1e-4 * max|g| of the leaf",
+                              "worst_leaf": g[1], "worst_err_over_bound": g[0],
+                              "worst_max_abs_err": g[2],
+                              "worst_max_abs_ref": g[3]},
+              "sp2_step_ms": a["ms"], "sp1_step_ms": ref["fp32_ms"],
+              "wire": TP_WIRE, **TRAIN, "S": SP["seq"], "B": SP["batch"],
+              "pos": "rope"})
+        if rel > 1e-4 or perr > 1e-4 or g[0] > 1:
+            bad.append(f"fp32 {impl} SP=2 vs SP=1: loss rel err {rel}, "
+                       f"param abs err {perr} ({pworst}), first gradients "
+                       f"{g[0]} times the bound ({g[1]})")
+        b = [r[f"{impl}_bf16"] for r in res]
+        per_step = [{k: v / SP_BF16["steps"] for k, v in x["launches"].items()
+                     if v} for x in b]
+        sp1 = ref["bf16_losses"]
+        brel = max(abs(x - y) / abs(y) for x, y in zip(b[0]["losses"], sp1))
+        ms = b[0]["ms"]
+        tok_s = SP["batch"] * SP["seq"] * len(ms) / (sum(ms) / 1e3)
+        emit({"check": f"sp.{impl}_bf16", "dtype": "bfloat16", "sp": 2,
+              "wire": TP_WIRE, "losses": b[0]["losses"], "sp1_losses": sp1,
+              "loss_max_rel_err_vs_sp1": brel, "rtol": TOL["bfloat16"],
+              "step_ms": ms, "step_ms_p50": _percentile(ms, 0.5),
+              "step_ms_p99": _percentile(ms, 0.99), "tokens_per_s": tok_s,
+              "sp1_step_ms_p50": _percentile(ref["bf16_ms"], 0.5),
+              "launches_per_step_by_rank": per_step,
+              "flash_shape": shapes[impl], **TRAIN, "S": SP["seq"],
+              "B": SP["batch"], "card": smoke.card})
+        losses = b[0]["losses"]
+        if not all(x == x and abs(x) < 1e9 for x in losses) \
+                or not losses[-1] < losses[0]:
+            bad.append(f"bf16 {impl} SP=2 losses not finite and falling: "
+                       f"{losses}")
+        if brel > TOL["bfloat16"]:
+            bad.append(f"bf16 {impl} SP=2 vs SP=1: rel err {brel}")
+        for r, ps in enumerate(per_step):
+            # causal ring: rank r runs its r full blocks and its diagonal
+            n = n_layers * (r + 1 if impl == "ring" else 1)
+            want = {"flash_fwd": n, "flash_bwd": n}
+            if ps != want:
+                bad.append(f"bf16 {impl} rank {r} launches a step: {ps}, "
+                           f"want {want}")
+    for topk in (1, 2):
+        card, cpu = r0["moe"][(topk, SP_DEVICE)], r0["moe"][(topk, "cpu")]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(
+            card["losses"] + card["max_frac"], cpu["losses"] + cpu["max_frac"]))
+        emit({"check": f"sp.train_moe_top{topk}", "dtype": "float32",
+              "ranks": 2, "steps": SP_MOE_STEPS,
+              "card_losses": card["losses"], "cpu_losses": cpu["losses"],
+              "card_max_frac": card["max_frac"],
+              "cpu_max_frac": cpu["max_frac"], "max_rel_err": rel,
+              "rtol": 1e-4, "card_wall_s": card["wall_s"],
+              "cpu_wall_s": cpu["wall_s"], "wire": TP_WIRE})
+        if rel > 1e-4:
+            bad.append(f"train_moe top-{topk} card vs CPU: rel err {rel}")
+    pipe = r0["pipe"]
+    ratios = {name: max(_close_ratio(g, w) for g, w in zip(
+        pipe[SP_DEVICE][name], pipe["cpu"][name])) for name in pipe["cpu"]}
+    emit({"check": "sp.pipeline", "dtype": "float32", "stages": 2,
+          **SP_PIPE, "worst_err_over_bound": ratios,
+          "bound": "rtol 1e-5 + 1e-5 * max|ref|"})
+    for name, ratio in ratios.items():
+        if ratio > 1:
+            bad.append(f"pipeline {name} card vs CPU: {ratio} times the "
+                       f"bound")
+    emit({"check": "sp.workers", "wall_s": wall, "card": smoke.card})
+    if bad:
+        raise AssertionError("; ".join(bad))
 
 
 def phase_resnet_parity(smoke):
@@ -4003,6 +4492,7 @@ def main():
                          ("serving-gqa", phase_serving_gqa),
                          ("train-parity", phase_train_parity),
                          ("train", phase_train), ("tp", phase_tp),
+                         ("sp", phase_sp),
                          ("resnet-parity", phase_resnet_parity),
                          ("resnet-train", phase_resnet_train),
                          ("resnet152-db", phase_resnet152_db),
@@ -4039,4 +4529,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sys.exit(sp_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())
