@@ -15,7 +15,8 @@ the LM's tensor and data parallelism over a ``('data', 'model')`` mesh):
   'model')`` mesh (``topology.make_nd_mesh``, ``make_multislice_mesh``,
   ``slice_index_of``), the collective matmuls, the
   LM (layer norm, RoPE, QKV, GQA, the vocab-parallel loss), the hybrid
-  DP x TP training step, greedy / sampled / beam decoding at any TP width;
+  DP x TP training step, ZeRO-1 and FSDP over the data axis, greedy /
+  sampled / beam decoding at any TP width;
   the strategies along one mesh axis: ring attention over the flash
   kernels (their LSE cotangent in the backward), Ulysses, the
   sequence-sharded LM, the MoE layer, the GPipe and 1F1B pipelines;
@@ -25,9 +26,10 @@ the LM's tensor and data parallelism over a ``('data', 'model')`` mesh):
 * data-parallel training: ``topology`` (process group, rank topology),
   ``communicators`` (``create_communicator``: NCCL / gloo, the naive
   oracle; every array and object collective, ``split``),
-  ``ops.collective`` (the in-step collectives), ``optimizers``
-  (``create_multi_node_optimizer``: bucketed gradient mean, bf16 / fp16
-  wire, double buffering), ``train`` (``make_train_step`` with gradient
+  ``ops.collective`` (the in-step collectives, the block-scaled int8
+  ring, the hierarchical mean), ``optimizers``
+  (``create_multi_node_optimizer``: bucketed gradient mean, bf16 / fp16 /
+  int8 wire, error feedback, double buffering), ``train`` (``make_train_step`` with gradient
   accumulation, ``make_flax_train_step``, ``make_demo_step``,
   ``shard_batch``),
   ``models`` (the ResNets with flax's BatchNorm, stalebn or affine norms,
@@ -106,8 +108,11 @@ _NAMES = {
                      "scatter_dataset", "scatter_index"), "datasets"),
     **dict.fromkeys(("accuracy_evaluator", "bleu_evaluator", "corpus_bleu",
                      "create_multi_node_evaluator"), "evaluators"),
-    **dict.fromkeys(("compressed_mean", "create_multi_node_optimizer",
-                     "gradient_average"), "optimizers"),
+    **dict.fromkeys(("ErrorFeedbackState", "compressed_mean",
+                     "create_multi_node_optimizer", "error_feedback_layout",
+                     "fold_error_feedback", "gradient_average",
+                     "hierarchical_gradient_average",
+                     "opt_state_partition_specs"), "optimizers"),
     **dict.fromkeys(("make_flax_train_step", "make_train_step", "replicate",
                      "shard_batch", "shard_batch_local"), "train"),
     **dict.fromkeys(("CommunicatorBase", "NaiveCommunicator",
@@ -119,12 +124,8 @@ _NAMES = {
 }
 
 # the JAX package's top-level names not ported yet: name -> ROADMAP.md
-# queue A item
-NOT_PORTED = {
-    **dict.fromkeys(("ErrorFeedbackState", "error_feedback_layout",
-                     "fold_error_feedback", "hierarchical_gradient_average",
-                     "opt_state_partition_specs"), "A9"),
-}
+# queue A item (none now)
+NOT_PORTED: dict = {}
 
 
 def __getattr__(name):

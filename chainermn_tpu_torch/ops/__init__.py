@@ -4,8 +4,10 @@ Every wrapper takes its plain version for a CPU tensor and launches its
 CUDA kernel for a CUDA tensor (or raises); each counts its launches in a
 plain integer attribute, ``<wrapper>.launches`` (the conv kernels also
 by kernel size, ``<wrapper>.launches_by_k``).  The in-step collectives
-of ``ops.collective`` (``psum``, ``pmean``, ``ppermute``, ...) resolve
-here on first use, as JAX's ``ops`` exports them.
+of ``ops.collective`` (``psum``, ``pmean``, ``ppermute``, ..., the int8
+ring ``quantized_ring_pmean`` with its quantizer and
+``hierarchical_pmean``) resolve here on first use, as JAX's ``ops``
+exports them.
 """
 
 import importlib
@@ -52,11 +54,10 @@ def reset_launch_counts() -> None:
 
 
 COLLECTIVES = ("all_gather", "all_to_all", "axis_index", "axis_size", "bcast",
-               "pmax", "pmean", "pmean_if_bound", "pmin", "ppermute", "psum",
+               "block_dequantize", "block_quantize", "choose_pipeline_depth",
+               "hierarchical_pmean", "pmax", "pmean", "pmean_if_bound",
+               "pmin", "ppermute", "psum", "quantized_ring_pmean",
                "reduce_scatter", "shift")
-# JAX's ops names of the int8 ring and the hierarchical mean: ROADMAP.md A9
-NOT_PORTED = ("block_dequantize", "block_quantize", "choose_pipeline_depth",
-              "hierarchical_pmean", "quantized_ring_pmean")
 
 
 def __getattr__(name):
@@ -65,9 +66,6 @@ def __getattr__(name):
                         name)
         globals()[name] = value
         return value
-    if name in NOT_PORTED:
-        raise AttributeError(f"chainermn_tpu_torch.ops.{name} is not ported "
-                             f"yet: see ROADMAP.md, queue A, A9")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

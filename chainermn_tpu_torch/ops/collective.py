@@ -1,10 +1,14 @@
 """In-step collectives over a process group.
 
-Counterpart of ``chainermn_tpu/ops/collective.py``'s plain collectives
+Counterpart of ``chainermn_tpu/ops/collective.py``: the plain collectives
 (``psum``, ``pmean``, ``pmax``, ``pmin``, ``pmean_if_bound``,
 ``all_gather``, ``all_to_all``, ``reduce_scatter``, ``ppermute``,
-``shift``, ``axis_index``, ``axis_size``, ``bcast``) and a copy of
-``collective_wire_cost``.  JAX calls them inside one SPMD program where
+``shift``, ``axis_index``, ``axis_size``, ``bcast``), the block-scaled
+int8 ring (``quantized_ring_pmean``, its quantizer ``block_quantize`` /
+``block_dequantize``), the two-tier ``hierarchical_pmean``, and copies of
+the cost model (``collective_wire_cost``, ``quantized_ring_cost``,
+``quantized_ring_static_groups``, ``choose_pipeline_depth``,
+``LEDGER_TO_PRIMITIVE``).  JAX calls them inside one SPMD program where
 ``axis_name`` is bound; here each rank is a process that calls them
 eagerly on its own tensor.  ``axis_name`` names an axis of the N-D mesh
 bound by ``with mesh:`` (:func:`~chainermn_tpu_torch.topology.make_nd_mesh`;
@@ -23,8 +27,7 @@ list or tuple of tensors, as JAX's take a pytree.  ``ppermute`` and
 ``shift`` post every send and receive of the permutation as one
 ``batch_isend_irecv`` (a ring of blocking sends deadlocks on NCCL); a
 pair from a rank to itself is a copy.  They are not differentiable: the
-``torch.autograd.Function`` forms are ROADMAP.md's A8 (``functions/``),
-and the int8 ring and ``hierarchical_pmean`` are A9.
+``torch.autograd.Function`` forms are in ``functions/``.
 
 Each collective carries the collective guard of
 :mod:`chainermn_tpu_torch.health` (:func:`~chainermn_tpu_torch.health.guarded`):
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -46,6 +50,28 @@ from ..topology import DEFAULT_AXIS_NAME, Mesh, bound_axis, make_mesh
 # reduce_scatter_single; older torch has only the former
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
+
+
+#: Ledger op -> the collective primitive its wire leg is: the JAX
+#: package's join key between its comm ledger and its traced program,
+#: copied for the cost model.  ``None`` marks the quantized ring, a
+#: composite whose cost is :func:`quantized_ring_cost`.
+LEDGER_TO_PRIMITIVE = {
+    "psum": "psum",
+    "pmean": "psum",
+    "pmax": "pmax",
+    "pmin": "pmin",
+    "pmean_if_bound": "psum",
+    "all_gather": "all_gather",
+    "all_to_all": "all_to_all",
+    "reduce_scatter": "psum_scatter",
+    "ppermute": "ppermute",
+    "shift": "ppermute",
+    "bcast": "all_gather",
+    "hierarchical_pmean": "psum",
+    "quantized_ring_pmean": None,
+    "grad_allreduce_ad": "psum",
+}
 
 
 def collective_wire_cost(primitive: str, payload_bytes: int,
@@ -249,7 +275,282 @@ def bcast(x, root: int = 0, axis_name=DEFAULT_AXIS_NAME):
     return _tree_map(one, x)
 
 
-__all__ = ["all_gather", "all_to_all", "axis_index", "axis_size", "bcast",
-           "collective_wire_cost", "host_staged", "pmax", "pmean",
-           "pmean_if_bound", "pmin",
-           "ppermute", "psum", "reduce_scatter", "shift"]
+#: One fp32 scale per this many elements: the per-block error is at most
+#: ``blockmax/254`` (int8), and the scales are 4 bytes per 256 of payload.
+DEFAULT_QUANT_BLOCK = 256
+
+
+def _ring_layout(n_elements: int, axis_size: int, block: int,
+                 pipeline: int):
+    """``(chunk_len, eff_block, nb_sub, k)``: the one layout that the ring
+    and its cost model share.  Each rank owns a chunk of ``chunk_len = k
+    · nb_sub · eff_block`` elements (``n`` padded up to ``p ·
+    chunk_len``): ``k`` pipeline sub-chunks of ``nb_sub`` quantization
+    blocks each; ``eff_block`` shrinks to the raw chunk for a small
+    leaf."""
+    p = max(1, int(axis_size))
+    raw = -(-max(1, int(n_elements)) // p)       # ceil(n / p)
+    eff_block = max(1, min(int(block), raw))
+    k = max(1, int(pipeline))
+    nb_sub = -(-raw // (k * eff_block))          # blocks per sub-chunk
+    return k * nb_sub * eff_block, eff_block, nb_sub, k
+
+
+def _dtype(d) -> torch.dtype:
+    """A torch dtype from its torch, numpy or string spelling."""
+    if isinstance(d, torch.dtype):
+        return d
+    try:
+        name = np.dtype(d).name
+    except TypeError:
+        name = str(d)
+    dt = getattr(torch, name.replace("torch.", ""), None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"not a dtype: {d!r}")
+    return dt
+
+
+def _int_wire(wire_dtype) -> torch.dtype:
+    wire = _dtype(wire_dtype)
+    if wire.is_floating_point or wire.is_complex or wire == torch.bool:
+        raise ValueError(f"wire_dtype must be an integer type, got "
+                         f"{str(wire).replace('torch.', '')}")
+    return wire
+
+
+def quantized_ring_cost(n_elements: int, axis_size: int, wire_dtype="int8",
+                        block: int = DEFAULT_QUANT_BLOCK,
+                        pipeline: int = 1) -> dict:
+    """Wire cost of :func:`quantized_ring_pmean` per rank: ``{
+    "ledger_bytes"`` (``n`` times the wire's item size), ``"wire_bytes"``
+    (the reduce-scatter hops' and the gather ring's payload),
+    ``"scale_bytes"`` (the in-band fp32 block scales of both phases),
+    ``"messages"`` (``k`` a hop over ``P-1`` hops, then ``P-1`` for the
+    gather)``}``."""
+    p = int(axis_size)
+    item = _dtype(wire_dtype).itemsize
+    n = int(n_elements)
+    if p <= 1:
+        return {"ledger_bytes": 0, "wire_bytes": 0, "scale_bytes": 0,
+                "messages": 0}
+    chunk, _, nb_sub, k = _ring_layout(n, p, block, pipeline)
+    nb = k * nb_sub                              # scale blocks per chunk
+    rs_bytes = (p - 1) * chunk * item            # k packed msgs per hop
+    ag_bytes = (p - 1) * chunk * item            # tiled all_gather ring
+    scales = 2 * (p - 1) * nb * 4                # in-band, both phases
+    return {"ledger_bytes": n * item, "wire_bytes": rs_bytes + ag_bytes,
+            "scale_bytes": scales, "messages": k * (p - 1) + (p - 1)}
+
+
+def quantized_ring_static_groups(n_elements: int, axis_size: int,
+                                 axis_name: str = DEFAULT_AXIS_NAME,
+                                 wire_dtype="int8",
+                                 block: int = DEFAULT_QUANT_BLOCK,
+                                 pipeline: int = 1) -> dict:
+    """The ring's collectives as ``primitive@axis -> payload bytes``
+    groups (the payload of each call is its input, scales included)."""
+    p = int(axis_size)
+    if p <= 1:
+        return {}
+    item = _dtype(wire_dtype).itemsize
+    chunk, _, nb_sub, k = _ring_layout(n_elements, p, block, pipeline)
+    nb = k * nb_sub
+    return {f"ppermute@{axis_name}": (p - 1) * (chunk * item + nb * 4),
+            f"all_gather@{axis_name}": chunk * item + nb * 4}
+
+
+def choose_pipeline_depth(chunk_bytes: int, bw_bytes_per_s: float = 1.8e11,
+                          alpha_s: float = 1e-6,
+                          dequant_bytes_per_s: float = 4e11,
+                          candidates=(1, 2, 4, 8)) -> int:
+    """The ring's pipeline depth ``k`` from a per-hop cost model: a hop of
+    ``k`` sub-chunks costs ``k·alpha + max(T, D) + min(T, D)/k``, ``T``
+    the chunk's transfer and ``D`` its dequant + accumulate (the JAX
+    package's defaults: a TPU v5e link, not measured here)."""
+    chunk_bytes = max(0, int(chunk_bytes))
+    t = chunk_bytes / float(bw_bytes_per_s)
+    d = chunk_bytes / float(dequant_bytes_per_s)
+
+    def hop_cost(k):
+        return k * float(alpha_s) + max(t, d) + min(t, d) / k
+
+    return min(candidates, key=hop_cost)
+
+
+def _quant_rows(vb, wire, qmax):
+    """Per-row (block) symmetric quantization of ``vb`` (..., B): ``q =
+    round(v / scale)`` (half to even) clipped to ``±qmax``, ``scale =
+    max(blockmax, 1e-30) · (1/qmax)``.  The reciprocal is what XLA makes
+    of the division by the constant ``qmax`` in JAX's compiled ring."""
+    scale = vb.abs().amax(-1).clamp_min(1e-30) * (1.0 / qmax)
+    q = torch.round(vb / scale.unsqueeze(-1)).clamp_(-qmax, qmax).to(wire)
+    return q, scale
+
+
+def block_quantize(v, wire_dtype="int8", block: int = DEFAULT_QUANT_BLOCK):
+    """``(q, scales)``: ``v`` flattened, zero-padded to a multiple of the
+    effective block (``min(block, n)``) and quantized per block with one
+    fp32 scale each (:func:`_quant_rows`): the error is at most
+    ``blockmax/254`` a block for int8.  The ring's quantizer and the
+    error-feedback residual's."""
+    wire = _int_wire(wire_dtype)
+    qmax = float(torch.iinfo(wire).max)
+    flat = v.reshape(-1).float()
+    n = flat.numel()
+    eff = max(1, min(int(block), n))
+    flat = torch.nn.functional.pad(flat, (0, (-n) % eff))
+    return _quant_rows(flat.view(-1, eff), wire, qmax)
+
+
+def block_dequantize(q, scales, shape=None, n_elements=None):
+    """The inverse of :func:`block_quantize`: fp32 values cut to
+    ``n_elements`` (or ``prod(shape)``) and reshaped to ``shape``."""
+    flat = (q.float() * scales.unsqueeze(-1)).reshape(-1)
+    if shape is not None and n_elements is None:
+        n_elements = int(np.prod(shape)) if len(shape) else 1
+    if n_elements is not None:
+        flat = flat[:n_elements]
+    return flat.reshape(shape) if shape is not None else flat
+
+
+def _pack(q, scale, wire):
+    """One message: the payload, then the fp32 scales' little-endian bytes
+    as wire words (JAX's ``bitcast_convert_type``)."""
+    return torch.cat([q.reshape(-1),
+                      scale.contiguous().view(wire).reshape(-1)])
+
+
+def _unpack(msg, nb, eff):
+    q = msg[:nb * eff].view(nb, eff)
+    return q, msg[nb * eff:].clone().view(torch.float32)
+
+
+def _dequant_add(q, scale, acc):
+    """``q · scale + acc`` rounded once, as the fused multiply-add that XLA
+    compiles JAX's dequant-accumulate into: the int8 × fp32 product is
+    exact in fp64, and so is nearly every sum (a double rounding needs an
+    ``acc`` below 2^-29 of the product at an fp32 midpoint)."""
+    return (q.double() * scale.double().unsqueeze(-1)
+            + acc.double()).float()
+
+
+def _ring_hop(msgs, mesh, me, p):
+    """Each message to rank ``me + 1`` and one of the same size from rank
+    ``me - 1``, all in one ``batch_isend_irecv`` (message ``j`` on tag
+    ``j``), staged through host memory on a gloo group."""
+    dev = msgs[0].device
+    staged = host_staged(mesh, msgs[0])
+    send = [m.cpu() if staged else m.contiguous() for m in msgs]
+    recv = [torch.empty_like(m) for m in send]
+    ops = []
+    for j, (s, r) in enumerate(zip(send, recv)):
+        ops.append(dist.P2POp(dist.isend, s, _peer(mesh, (me + 1) % p),
+                              mesh.group, tag=j))
+        ops.append(dist.P2POp(dist.irecv, r, _peer(mesh, (me - 1) % p),
+                              mesh.group, tag=j))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [r.to(dev) for r in recv]
+
+
+def _ring_one(leaf, mesh, wire, qmax, block, pipeline):
+    p = mesh.size
+    me = dist.get_rank(mesh.group)
+    flat = leaf.detach().reshape(-1).float()
+    n = flat.numel()
+    chunk_len, eff, nb_sub, k = _ring_layout(n, p, block, pipeline)
+    chunks = torch.nn.functional.pad(flat, (0, p * chunk_len - n)).view(
+        p, k, nb_sub, eff)
+    # reduce-scatter: rank i starts by forwarding chunk i - 1, so hop s
+    # carries the running sum of chunk i - 1 - s and rank i finishes its
+    # own chunk i; each hop requantizes the running sum per block
+    send = chunks[(me - 1) % p]
+    for s in range(p - 1):
+        q, scale = _quant_rows(send, wire, qmax)   # (k, nb_sub, B), (k, nb_sub)
+        got = _ring_hop([_pack(q[j], scale[j], wire) for j in range(k)],
+                        mesh, me, p)
+        nxt = chunks[(me - s - 2) % p]
+        send = torch.stack([_dequant_add(*_unpack(got[j], nb_sub, eff),
+                                         nxt[j]) for j in range(k)])
+    # gather: one quantization of the finished chunk, one tiled all-gather
+    # of the packed message; rank r's row is chunk r
+    nb = k * nb_sub
+    q, scale = _quant_rows(send.reshape(nb, eff), wire, qmax)
+    ga = all_gather(_pack(q, scale, wire), mesh, axis=0,
+                    tiled=True).view(p, -1)
+    gq = ga[:, :nb * eff].reshape(p, nb, eff)
+    gs = ga[:, nb * eff:].contiguous().view(torch.float32)
+    full = (gq.float() * gs.unsqueeze(-1)).reshape(-1)
+    # XLA compiles JAX's division by the constant p to this product
+    out = full[:n] * (1.0 / p)
+    return out.reshape(leaf.shape).to(leaf.dtype)
+
+
+@guarded("quantized_ring_pmean")
+def quantized_ring_pmean(x, axis_name=DEFAULT_AXIS_NAME, wire_dtype="int8",
+                         block: int = DEFAULT_QUANT_BLOCK,
+                         pipeline: int = 1):
+    """The cross-rank mean with block-scaled ``wire_dtype`` (int8) hops:
+    JAX's hand-scheduled ring, hop for hop.
+
+    * Reduce-scatter over ``P-1`` hops: each carries the running sum of
+      one chunk, requantized per block of ``block`` elements (one fp32
+      scale each, shrunk to the chunk for a small leaf), as ``pipeline``
+      sub-chunk messages (:func:`_ring_layout`), the scales in-band behind
+      each payload; the receiver dequantizes and adds its own chunk.
+    * Gather: the finished chunk quantized once more and one tiled
+      all-gather of the packed message.
+
+    Each leaf of ``x`` (a tensor, or a dict / list / tuple of them) is its
+    own ring (:func:`~chainermn_tpu_torch.optimizers.compressed_mean`
+    buckets a gradient list into one flat call); each comes back in its
+    own dtype.  At one rank ``x`` itself is returned.  For gradients, not
+    activations: the error compounds to about ``P/254`` of the leaf's
+    largest entry."""
+    mesh = _mesh(axis_name)
+    if mesh.size == 1:
+        return x
+    wire = _int_wire(wire_dtype)
+    qmax = float(torch.iinfo(wire).max)
+    return _tree_map(lambda v: _ring_one(v, mesh, wire, qmax, block,
+                                         pipeline), x)
+
+
+def _bound(axis_name):
+    """The 1-D mesh of a bound axis name (or a Mesh); an unbound name
+    raises ``NameError``, as JAX does outside its axis."""
+    if isinstance(axis_name, Mesh):
+        return axis_name
+    mesh = bound_axis(axis_name)
+    if mesh is None:
+        raise NameError(f"unbound axis name {axis_name!r}: call inside "
+                        f"`with mesh:` of a mesh that has it")
+    return mesh
+
+
+@guarded("hierarchical_pmean")
+def hierarchical_pmean(x, chip_axis="chip", slice_axis="slice",
+                       dcn_dtype=None):
+    """The two-tier mean over a ``('slice', 'chip')`` mesh
+    (:func:`~chainermn_tpu_torch.topology.make_multislice_mesh`): the mean
+    over ``chip_axis`` (within a host), then over ``slice_axis`` (across
+    hosts, once).  ``dcn_dtype`` (e.g. ``"bfloat16"``) casts only the
+    slice leg.  Both axes must be bound (``with mesh:``) or be meshes."""
+    chip, slc = _bound(chip_axis), _bound(slice_axis)
+
+    def one(v):
+        local = pmean(v, chip)
+        if dcn_dtype is not None:
+            return pmean(local.to(_dtype(dcn_dtype)), slc).to(v.dtype)
+        return pmean(local, slc)
+
+    return _tree_map(one, x)
+
+
+__all__ = ["DEFAULT_QUANT_BLOCK", "LEDGER_TO_PRIMITIVE", "all_gather",
+           "all_to_all", "axis_index", "axis_size", "bcast",
+           "block_dequantize", "block_quantize", "choose_pipeline_depth",
+           "collective_wire_cost", "hierarchical_pmean", "host_staged",
+           "pmax", "pmean", "pmean_if_bound", "pmin", "ppermute", "psum",
+           "quantized_ring_cost", "quantized_ring_pmean",
+           "quantized_ring_static_groups", "reduce_scatter", "shift"]

@@ -28,6 +28,13 @@ gradient:
 
 Every decay and trust ratio covers every parameter (optax's masks default
 to all of them).
+
+A parameter that is this rank's block of a leaf sharded over a data axis
+(ZeRO-1 and FSDP, :mod:`chainermn_tpu_torch.parallel.hybrid`) gets the
+norms of the WHOLE leaf, as JAX's GSPMD computes them: each sum of squares
+that runs over the sharded dim is summed over the axis's ranks first.
+:func:`shard_norms` names those parameters to an optimizer (and to the
+ones it wraps).
 """
 
 from __future__ import annotations
@@ -52,17 +59,39 @@ def linear_schedule(init_value: float, end_value: float,
     return schedule
 
 
-def _norm(x, dims=None):
+def _norm(x, dims=None, shard=None):
     """The L2 norm (over ``dims``, kept) as the square root of a sum of
     squares: torch's CPU ``vector_norm`` of a 2.4M-element leaf is off by
-    ~4e-5, its ``sum`` by ~2e-8."""
-    if dims is None:
-        return x.square().sum().sqrt()
-    return x.square().sum(dims, keepdim=True).sqrt()
+    ~4e-5, its ``sum`` by ~2e-8.  ``shard``, ``(mesh, dim)``: ``x`` is this
+    rank's block along ``dim`` of a leaf sharded over ``mesh``, and a sum
+    over ``dim`` is summed over the mesh's ranks."""
+    sq = x.square().sum() if dims is None \
+        else x.square().sum(dims, keepdim=True)
+    if shard is not None and (dims is None or shard[1] in dims):
+        from .ops import collective as col
+
+        sq = col.psum(sq, shard[0])
+    return sq.sqrt()
 
 
-def _trust_ratio(p, u, coefficient):
-    pn, un = _norm(p), _norm(u)
+def shard_norms(optimizer, shards) -> None:
+    """Tell ``optimizer`` and every optimizer it wraps that each parameter
+    of ``shards`` (``{param: (mesh, dim)}``) is this rank's block along
+    ``dim`` of a leaf sharded over ``mesh``: their layer-wise norms (LARS
+    and LAMB's trust ratios, AGC's unit norms) then cover the whole leaf.
+    Elementwise optimizers (SGD, Adam) ignore it."""
+    by_id = {id(p): v for p, v in shards.items()}
+    while optimizer is not None:
+        optimizer._shards = by_id
+        optimizer = getattr(optimizer, "optimizer", None)
+
+
+def _shard_of(optimizer, p):
+    return getattr(optimizer, "_shards", {}).get(id(p))
+
+
+def _trust_ratio(p, u, coefficient, shard=None):
+    pn, un = _norm(p, shard=shard), _norm(u, shard=shard)
     ratio = coefficient * pn / un
     return torch.where((pn == 0) | (un == 0), torch.ones_like(ratio), ratio)
 
@@ -85,7 +114,7 @@ class Lars(torch.optim.Optimizer):
                     continue
                 u = p.grad + group["weight_decay"] * p
                 u = -group["lr"] * (u * _trust_ratio(
-                    p, u, group["trust_coefficient"]))
+                    p, u, group["trust_coefficient"], _shard_of(self, p)))
                 state = self.state[p]
                 if "trace" not in state:
                     state["trace"] = torch.zeros_like(p)
@@ -125,7 +154,8 @@ class Lamb(torch.optim.Optimizer):
                             for b in (b1, b2))
                 u = (mu / bc1) / (torch.sqrt(nu / bc2) + group["eps"])
                 u = u + group["weight_decay"] * p
-                p.add_(-group["lr"] * (u * _trust_ratio(p, u, 1.0)))
+                p.add_(-group["lr"] * (u * _trust_ratio(
+                    p, u, 1.0, _shard_of(self, p))))
 
 
 class _Wrapper:
@@ -210,9 +240,13 @@ class AdaptiveGradClip(_Wrapper):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                dims = unit_dims(p.shape, id(p) in self._transposed)
-                g_norm = _norm(p.grad, dims)
-                max_norm = self.clipping * _norm(p, dims).clamp_min(
+                shard = _shard_of(self, p)
+                shape = list(p.shape)        # the whole leaf's
+                if shard is not None:
+                    shape[shard[1]] *= shard[0].size
+                dims = unit_dims(shape, id(p) in self._transposed)
+                g_norm = _norm(p.grad, dims, shard)
+                max_norm = self.clipping * _norm(p, dims, shard).clamp_min(
                     self.eps)
                 clipped = p.grad * (max_norm / g_norm.clamp_min(1e-6))
                 p.grad = torch.where(g_norm < max_norm, p.grad, clipped)

@@ -29,8 +29,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .optimizers import (_INT8, MultiNodeOptimizer, _grads_of,
-                         compressed_mean, gradient_average)
+from .optimizers import (MultiNodeOptimizer, _grads_of, compressed_mean,
+                         gradient_average)
 from .topology import DEFAULT_AXIS_NAME, make_mesh
 
 
@@ -114,13 +114,21 @@ def make_train_step(loss_fn: Callable, optimizer, mesh=None,
     cross-rank gradient mean.  ``grad_accum_steps > 1`` splits this rank's
     rows into that many microbatches, their gradients summed in fp32 and
     divided by the count before the ONE cross-rank mean and update; a batch
-    it does not divide raises.  ``error_feedback`` (the int8 wire's
-    residual) is not ported yet."""
+    it does not divide raises.  ``allreduce_grad_dtype="int8"`` means the
+    gradients through the block-scaled int8 ring.  ``error_feedback=True``
+    (an optimizer of ``create_multi_node_optimizer(...,
+    error_feedback=True)``): the optimizer owns the wire, and the local
+    gradients reach it uncorrected; it excludes ``grad_reduce``."""
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got "
                          f"{grad_accum_steps}")
-    if error_feedback:
-        raise NotImplementedError(_INT8)
+    if error_feedback and grad_reduce is not None:
+        raise ValueError("error_feedback=True and grad_reduce are exclusive "
+                         "(the optimizer owns the wire collective under EF)")
+    if error_feedback and not getattr(optimizer, "error_feedback", False):
+        raise ValueError("error_feedback=True needs the optimizer of "
+                         "create_multi_node_optimizer(..., "
+                         "error_feedback=True): it owns the wire collective")
     mesh = mesh or make_mesh(axis_name)
     params = [p for g in optimizer.param_groups for p in g["params"]]
 

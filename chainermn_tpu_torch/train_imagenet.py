@@ -14,14 +14,20 @@ clips the mean gradients unit-wise ahead of the optimizer, as the example
 chains them.  Without ``--data-dir`` it trains on synthetic records; with
 it, on a :func:`~chainermn_tpu_torch.runtime.write_file_dataset`
 directory, written with synthetic records first if it is empty.  Prints
-the loss, the accuracy and the throughput, as the example does.  ``--fsdp``
-and the int8 wire are refused (ROADMAP.md, queue A item 9).
+the loss, the accuracy and the throughput, as the example does.
+``--allreduce-grad-dtype int8`` means the gradients through the
+block-scaled int8 ring.  ``--fsdp`` shards the parameters, gradients and
+optimizer state ``1/P`` a rank (``parallel.make_fsdp_train_step``; the
+model runs through ``torch.func.functional_call`` on the gathered leaves)
+and takes a BatchNorm-free arch, e.g. ``--arch vit_s16``.
 
 Run:  python -m chainermn_tpu_torch.train_imagenet --arch resnet50
       torchrun --nproc-per-node 4 -m chainermn_tpu_torch.train_imagenet \\
           --arch nf_resnet50 --conv-impl pallas --optimizer lars --agc 0.01
       python -m chainermn_tpu_torch.train_imagenet --device cpu \\
           --arch resnet18 --image-size 32 --batchsize 8 --steps 3
+      torchrun --nproc-per-node 2 -m chainermn_tpu_torch.train_imagenet \\
+          --fsdp --arch vit_s16 --optimizer lamb --agc 0.01
 """
 
 import argparse
@@ -33,7 +39,10 @@ import time
 ARCH_CHOICES = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
                 "nf_resnet50", "nf_resnet101", "nf_resnet152", "alex",
                 "googlenet", "vgg16", "vit_ti16", "vit_s16", "vit_b16")
-_LATER = "is not ported yet: see ROADMAP.md, queue A item 9"
+# the JAX example's words
+FSDP_WIRE = ("--fsdp handles gradient reduction itself (GSPMD "
+             "reduce-scatter); --allreduce-grad-dtype/--double-buffering "
+             "do not apply")
 
 
 def arch_kwargs(arch, image_size=224, conv_impl="xla", norm="bn"):
@@ -58,16 +67,20 @@ def arch_kwargs(arch, image_size=224, conv_impl="xla", norm="bn"):
 
 
 def make_optimizer(model, optimizer="sgd", lr=0.1, momentum=0.9,
-                   weight_decay=1e-4, warmup_steps=0, agc=0.0):
-    """The JAX example's chain over ``model.parameters()``: SGD (decayed
-    weights, then momentum), LARS or LAMB, at ``lr`` or warmed up linearly
-    from 0 over ``warmup_steps``, behind adaptive gradient clipping when
-    ``agc`` > 0."""
+                   weight_decay=1e-4, warmup_steps=0, agc=0.0, params=None,
+                   transposed=None):
+    """The JAX example's chain over ``model.parameters()`` (or ``params``,
+    the linear weights among them ``transposed``): SGD (decayed weights,
+    then momentum), LARS or LAMB, at ``lr`` or warmed up linearly from 0
+    over ``warmup_steps``, behind adaptive gradient clipping when ``agc``
+    > 0."""
     import torch
 
     from chainermn_tpu_torch import optim
 
-    params = list(model.parameters())
+    params = list(model.parameters() if params is None else params)
+    if transposed is None:
+        transposed = optim.linear_weights(model)
     if optimizer == "lars":
         opt = optim.Lars(params, lr, weight_decay=weight_decay,
                          momentum=momentum)
@@ -82,8 +95,7 @@ def make_optimizer(model, optimizer="sgd", lr=0.1, momentum=0.9,
         opt = optim.Scheduled(opt, optim.linear_schedule(0.0, lr,
                                                          warmup_steps))
     if agc:
-        opt = optim.AdaptiveGradClip(opt, agc,
-                                     transposed=optim.linear_weights(model))
+        opt = optim.AdaptiveGradClip(opt, agc, transposed=transposed)
     return opt
 
 
@@ -92,23 +104,29 @@ def build_step(arch="resnet50", image_size=224, conv_impl="xla",
                num_classes=1000, lr=0.1, momentum=0.9, weight_decay=1e-4,
                communicator="xla", device="cuda", seed=0, preprocess=None,
                optimizer="sgd", warmup_steps=0, agc=0.0, norm="bn",
-               variables=None, dtype=None):
+               variables=None, dtype=None, fsdp=False, error_feedback=False):
     """``(step, model, comm)``: at its defaults ``bench.py :: build_step``'s
     recipe, the repo's headline configuration (ResNet-50, image 224, SGD
     0.1 with momentum 0.9 and weight decay 1e-4 through the multi-node
     optimizer, 1,000 classes; ``bench.py`` feeds it 128 images per card);
     the other arguments are the example's flags.  ``variables`` (flax's
     ``{"params", "batch_stats"}`` as numpy) replace the seeded weights;
-    ``dtype`` is the compute dtype (the model's default, bf16, if None).
+    ``dtype`` is the compute dtype (the model's default, bf16, if None);
+    ``error_feedback`` adds the int8 wire's residual.
     ``step(model, batch) -> (loss, {"accuracy": ...})`` takes this rank's
     rows (images NHWC, integer labels) on ``comm.device``; the model is
-    rank 0's on every rank."""
+    rank 0's on every rank.  With ``fsdp`` (:func:`fsdp_step`) the step
+    trains this rank's blocks, ``step.params``, and ``step.gather()``
+    returns the whole parameters by name."""
     from chainermn_tpu_torch.communicators import create_communicator
     from chainermn_tpu_torch.convert import resnet_from_jax
     from chainermn_tpu_torch.models import ARCHS, cross_entropy_loss
     from chainermn_tpu_torch.optimizers import create_multi_node_optimizer
     from chainermn_tpu_torch.train import make_flax_train_step, replicate
 
+    if fsdp and (allreduce_grad_dtype or double_buffering):
+        # these knobs live in the replicated-DP wrapper
+        raise SystemExit(FSDP_WIRE)
     kw = arch_kwargs(arch, image_size, conv_impl, norm)
     if dtype is not None:
         kw["dtype"] = dtype
@@ -118,22 +136,77 @@ def build_step(arch="resnet50", image_size=224, conv_impl="xla",
     if variables is not None:
         resnet_from_jax(variables, model)
     replicate(model, comm)
-    opt = create_multi_node_optimizer(
-        make_optimizer(model, optimizer, lr, momentum, weight_decay,
-                       warmup_steps, agc),
-        comm, double_buffering=double_buffering,
-        allreduce_grad_dtype=allreduce_grad_dtype)
 
     def loss_and_metrics(logits, batch):
         labels = batch[1].long()
         return cross_entropy_loss(logits, labels), {
             "accuracy": (logits.argmax(-1) == labels).float().mean()}
 
+    def chain(**over):
+        return make_optimizer(model, optimizer, lr, momentum, weight_decay,
+                              warmup_steps, agc, **over)
+
+    if fsdp:
+        return fsdp_step(model, comm, arch, chain, loss_and_metrics,
+                         preprocess), model, comm
+    opt = create_multi_node_optimizer(
+        chain(), comm, double_buffering=double_buffering,
+        allreduce_grad_dtype=allreduce_grad_dtype,
+        error_feedback=error_feedback)
     step = make_flax_train_step(model, loss_and_metrics, opt,
                                 mesh=comm.mesh,
                                 allreduce_grad_dtype=allreduce_grad_dtype,
                                 preprocess=preprocess)
     return step, model, comm
+
+
+def fsdp_step(model, comm, arch, chain, loss_and_metrics, preprocess=None):
+    """The example's ``--fsdp`` path: ``model``'s parameters cut into this
+    rank's blocks by ``zero1_specs`` (the ``nn.Linear`` weights by their
+    JAX layout), the optimizer ``chain(params=..., transposed=...)`` over
+    the blocks, and ``make_fsdp_train_step`` over ``model`` run by
+    ``torch.func.functional_call`` on the gathered leaves.  The module's
+    own parameters are released: the blocks are the model.  A BatchNorm
+    arch (running statistics) exits, as the example does."""
+    import torch
+
+    from chainermn_tpu_torch.optim import linear_weights
+    from chainermn_tpu_torch.parallel import (init_fsdp_params,
+                                              init_fsdp_state,
+                                              make_fsdp_train_step,
+                                              zero1_specs)
+
+    if any(True for _ in model.buffers()):
+        raise SystemExit(f"--fsdp needs a BatchNorm-free arch (got {arch}); "
+                         f"try --arch vit_s16")
+    full = dict(model.named_parameters())
+    linear = {id(w) for w in linear_weights(model)}
+    flipped = [n for n, t in full.items() if id(t) in linear]
+    specs = zero1_specs(full, comm.mesh, transposed=flipped)
+    blocks = init_fsdp_params(full, comm.mesh, transposed=flipped)
+    opt = init_fsdp_state(lambda leaves: chain(
+        params=leaves, transposed=[blocks[n] for n in flipped]),
+        blocks, comm.mesh, specs)
+    for t in full.values():
+        t.data = t.data.new_empty(0)
+
+    def fsdp_loss(params, batch):
+        if preprocess is not None:
+            batch = preprocess(batch)
+        logits = torch.func.functional_call(model, params, (batch[0],))
+        return loss_and_metrics(logits, batch)
+
+    raw = make_fsdp_train_step(fsdp_loss, opt, blocks, comm.mesh, specs,
+                               has_aux=True)
+
+    def step(module, batch):
+        if module is not model:
+            raise ValueError("the step was built for another module")
+        module.train()
+        return raw(blocks, batch)
+
+    step.optimizer, step.params, step.gather = opt, blocks, raw.gather
+    return step
 
 
 def synthetic_batch(n, image_size, num_classes=1000, seed=0):
@@ -175,7 +248,7 @@ def _parser():
     parser.add_argument("--allreduce-grad-dtype", default=None,
                         choices=["bfloat16", "float16", "float32", "int8"],
                         help="wire dtype of the cross-card gradient mean "
-                             "(int8 is not ported yet)")
+                             "(int8: the block-scaled quantized ring)")
     parser.add_argument("--conv-impl", default="xla",
                         choices=["xla", "pallas"],
                         help="(NF-)ResNet conv backward: 'xla' = F.conv2d's "
@@ -196,19 +269,16 @@ def _parser():
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions over gloo)")
     parser.add_argument("--fsdp", action="store_true",
-                        help=f"ZeRO-3 sharding: {_LATER}")
+                        help="ZeRO-3: params, grads and optimizer state all "
+                             "sharded 1/P (BatchNorm-free archs only: use "
+                             "a ViT, e.g. --arch vit_s16)")
     return parser
 
 
 def _check(parser, args):
-    """The JAX example's flag checks, and the two refusals."""
+    """The JAX example's flag checks."""
     from chainermn_tpu_torch.models import ARCHS
 
-    if args.fsdp:
-        parser.error(f"--fsdp {_LATER} (ZeRO / FSDP)")
-    if args.allreduce_grad_dtype == "int8":
-        parser.error(f"--allreduce-grad-dtype int8 {_LATER} (the quantized "
-                     f"ring)")
     try:
         arch_kwargs(args.arch, args.image_size, args.conv_impl, args.norm)
     except ValueError as e:
@@ -222,13 +292,14 @@ def _check(parser, args):
                      f"{missing} not in {sorted(ARCHS)}")
 
 
-def run(argv=None, variables=None, dtype=None):
+def run(argv=None, variables=None, dtype=None, error_feedback=False):
     """``python -m chainermn_tpu_torch.train_imagenet``'s run: the
     warm-up step, then ``--steps`` steps.  ``variables`` (flax's, as
     numpy) replace the seeded initial weights; ``dtype`` is the compute
-    dtype (the model's default, bf16, if None).  Returns ``{"losses":
+    dtype (the model's default, bf16, if None); ``error_feedback`` adds the
+    int8 wire's residual (``build_step``'s).  Returns ``{"losses":
     [the warm-up step's, then each step's], "accuracy", "images_per_s",
-    ...}``."""
+    ..., "model", "step"}``."""
     parser = _parser()
     args = parser.parse_args(argv)
     _check(parser, args)
@@ -255,7 +326,8 @@ def run(argv=None, variables=None, dtype=None):
         communicator=args.communicator, device=args.device,
         preprocess=normalize_on_card, optimizer=args.optimizer,
         warmup_steps=args.warmup_steps, agc=args.agc, norm=args.norm,
-        variables=variables, dtype=dtype)
+        variables=variables, dtype=dtype, fsdp=args.fsdp,
+        error_feedback=error_feedback)
     device = comm.device
     n_cards = comm.size
     global_batch = args.batchsize * n_cards
@@ -307,7 +379,8 @@ def run(argv=None, variables=None, dtype=None):
         print(f"throughput: {ips:.1f} images/sec total, "
               f"{ips / n_cards:.1f} images/sec/card", flush=True)
     return {"arch": args.arch, "cards": n_cards, "losses": losses,
-            "accuracy": acc, "images_per_s": ips}
+            "accuracy": acc, "images_per_s": ips, "model": model,
+            "step": step}
 
 
 def main(argv=None):

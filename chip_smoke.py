@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -36,11 +36,13 @@ and prints no result line:
    shape (B 8, S 1024, H 8, hd 128, causal) and the prefill (B 8, S 512,
    H 16, hd 64) timed beside SDPA, then serving's B 1 prefill (the 64-row
    blocks), ragged S, GQA, S 1, a q whose base is not 16-byte aligned, and
-   ViT-B/16's attention (B 128, S 197, H 12, hd 64, non-causal), timed.
+   ViT-B/16's attention (B 128, S 197, H 12, hd 64, non-causal) and
+   ViT-S/16's at one FSDP rank's rows (B 32, H 6), timed.
    The training kernels: the flash
    backward (B 8, S 1024, H 8, hd 128, causal; hd 64, group 2, a ragged S
    of 77, the LSE cotangent, bases not 16-byte aligned; ViT-B/16's
-   non-causal B 128, S 197, H 12, hd 64, timed beside SDPA's backward)
+   non-causal B 128, S 197, H 12, hd 64 and ViT-S/16's B 32, H 6, timed
+   beside SDPA's backward)
    and the fused
    cross-entropy (T 8192, V 32768,
    D 1024; ragged T and V; targets out of range; for the bf16 gradients,
@@ -175,6 +177,31 @@ and prints no result line:
    fraction rtol 1e-4; ``make_pipeline`` (remat off and on) and
    ``make_pipeline_1f1b`` with ``tests/test_pipeline.py``'s stage, card
    against CPU, rtol 1e-5 with atol 1e-5 x the largest entry.
+10b. ``zero-wire`` — the sharded data-parallel state and the gradient
+   wire as two worker processes (``chip_smoke.py --zero-worker RANK
+   DIR``) on this card over a gloo group, as phase ``tp``: (a) ZeRO-1
+   (``make_zero1_train_step``) on the LM at the train phase's widths,
+   global batch 8 (4 rows a rank): fp32, 3 Adam steps (lr 1e-4) against
+   the unsharded step on the card over the same 8 rows (losses rtol 1e-4,
+   parameters atol 1e-4), each Adam moment half its leaf; bf16, SGD 1e-2,
+   2 + 3 steps (step ms, each rank's launches a step: 8 of each flash
+   kernel and one of each CE kernel); (b) ``train_imagenet --fsdp --arch
+   vit_s16 --optimizer lamb --lr 1e-3 --agc 0.01`` at 224, fp32, global
+   batch 64, the warm-up step and 2 more, against the same CLI at world 1
+   (losses rtol 1e-4, the gathered parameters atol 1e-4; 12 + 12 flash
+   launches a step and rank at (32, 197, 6, 64)); (c) ResNet-50 through
+   ``train_imagenet`` at 224, global batch 128, pallas, bf16, on the fp32,
+   int8, int8 + error feedback wires and, double-buffered, fp32 and int8
+   + error feedback: each int8 leg's losses within 5e-2 of its fp32 leg's
+   and its parameters different from them (11 launches of each conv
+   kernel a step and rank); (d) the int8 ring on a gradient-like vector
+   of ResNet-50's 25,557,032 entries on the card and on the CPU (entries
+   that differ, and by how many steps of the final block scale) and
+   against the exact mean (at most the two quantizations' ``blockmax /
+   254`` over P); (e) ``hierarchical_pmean`` on the ``(1, 2)`` multislice
+   mesh against the flat mean (fp32 equal, the bf16 slice leg within
+   2^-8).  The times are the gloo host wire's; each leg's seconds are
+   printed.
 11. ``resnet-parity`` — fp32, TF32 off: ResNet-50 at image 112 (stages 1-2
    eligible for the conv kernels at 28² and 14²; the stride-2 and 7 x 7
    convs take cuDNN's backward), batch 4, ``conv_impl="pallas"``, card
@@ -300,7 +327,8 @@ and prints no result line:
    runs: the two serving runs, the beam run, the timed LM training steps,
    the ``tp`` phase's ``(1, 1)`` steps and both ranks' bf16 steps, serving
    and beam runs, phase ``sp``'s bf16 steps of both ranks (ring and
-   Ulysses), the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50
+   Ulysses), phase ``zero-wire``'s ZeRO-1 bf16 steps, FSDP run and int8
+   ResNet-50 run of both ranks, the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50
    steps, the timed ViT-B/16 steps and the robustness phase's ResNet-50 runs), the
    card line, then the result line ``{"ok": true, "device": {...}}``.
 """
@@ -603,6 +631,7 @@ def check_flash(smoke):
         (3, 33, 6, 2, 128, False, False),     # tail inside a tile, group 3
         (1, 1000, 2, 2, 64, False, False),    # long, non-causal
         (128, 197, 12, 12, 64, False, True),  # ViT-B/16 at 224
+        (32, 197, 6, 6, 64, False, True),     # ViT-S/16 FSDP, a rank's rows
         (2, 4096, 8, 8, 128, True, False),    # ring at SP = 2: the diagonal
         (2, 4096, 8, 8, 128, False, False),   # ring at SP = 2: a whole block
         (2, 8192, 4, 4, 128, True, False),    # Ulysses at SP = 2: a rank's heads
@@ -1026,6 +1055,7 @@ def check_flash_bwd(smoke):
         (2, 128, 4, 4, 128, False, True, False),   # LSE cotangent
         (2, 200, 4, 2, 64, True, True, "misaligned"),
         (128, 197, 12, 12, 64, False, False, True),  # ViT-B/16 at 224
+        (32, 197, 6, 6, 64, False, False, True),   # ViT-S/16 FSDP, a rank
         (2, 4096, 8, 8, 128, True, True, False),   # ring at SP = 2: diagonal
         (2, 4096, 8, 8, 128, False, True, False),  # ring: a whole block
         (2, 4096, 8, 4, 128, False, True, False),  # ring, GQA
@@ -2986,6 +3016,463 @@ def _sp_report(smoke, res, wall):
         raise AssertionError("; ".join(bad))
 
 
+ZW_WORKER_TIMEOUT_S = 600
+ZW_DEVICE = "cuda"          # the card the legs run on
+ZERO_LM = dict(batch=8, adam_lr=1e-4, steps=3, sgd_lr=1e-2, warm=2, timed=3)
+# LAMB at the imagenet-train phase's ViT rate (1e-3), fp32 compute
+FSDP_VIT = ["--fsdp", "--arch", "vit_s16", "--optimizer", "lamb", "--lr",
+            "1e-3", "--agc", "0.01", "--image-size", "224", "--steps", "2",
+            "--dataset-size", "64"]
+FSDP_VIT_GLOBAL = 64        # images a step, 32 a rank at P = 2
+INT8_R50 = ["--arch", "resnet50", "--image-size", "224", "--batchsize",
+            "64", "--steps", "2", "--conv-impl", "pallas",
+            "--dataset-size", "128"]
+# wire legs of INT8_R50: name -> (extra flags, error feedback, the fp32
+# leg it is held against)
+INT8_LEGS = {"fp32": ([], False, None),
+             "fp32_db": (["--double-buffering"], False, None),
+             "int8": (["--allreduce-grad-dtype", "int8"], False, "fp32"),
+             "int8_ef": (["--allreduce-grad-dtype", "int8"], True, "fp32"),
+             "int8_ef_db": (["--allreduce-grad-dtype", "int8",
+                             "--double-buffering"], True, "fp32_db")}
+R50_PARAMS = 25_557_032     # the gradient vector of the ring and mean legs
+
+
+def phase_zero_wire(smoke):
+    """ZeRO-1, FSDP and the int8 wire with two processes on this card over
+    a gloo group (``chip_smoke.py --zero-worker RANK DIR``, phase ``tp``'s
+    mechanism; the times are the gloo host wire's): (a) ZeRO-1 on the LM
+    at the train widths (global B 8, 4 a rank), fp32 3 Adam steps against
+    the unsharded step on the card and bf16 2 + 3 SGD steps; (b) ``python
+    -m chainermn_tpu_torch.train_imagenet --fsdp`` on ViT-S/16 at 224
+    (LAMB, AGC, fp32, global batch 64) against the same CLI at world 1;
+    (c) the int8 wire through ``train_imagenet`` on ResNet-50 at 224
+    (global batch 128, pallas): int8, error feedback and the combined
+    double-buffered mode against the fp32 wire; the ring on the card
+    against the ring on the CPU and the exact mean; ``hierarchical_pmean``
+    on the ``(1, 2)`` multislice mesh against the flat mean."""
+    res, wall = _two_workers(smoke, "--zero-worker", ZW_WORKER_TIMEOUT_S)
+    for r in range(2):
+        for leg in ("zero1_bf16", "fsdp", "int8"):
+            smoke.add_launches(res[r][leg]["launches"])
+    _zw_report(smoke, res, wall)
+
+
+def zero_worker(rank, tmp):
+    """One of the two processes of phase ``zero-wire`` on ``cuda:0``: a
+    gloo group through a ``FileStore`` in ``tmp``, the legs, then (rank 0,
+    after the group is gone) the world-1 references on the card; pickles
+    its results to ``tmp/rank<r>.pkl``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from chainermn_tpu_torch.topology import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    tmp = Path(tmp)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"),
+                                                         2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=180))
+    mesh = make_mesh()
+    out, keep, legs_s = {"backend": dist.get_backend()}, {}, {}
+
+    def leg(name, fn, *args):
+        t0 = time.monotonic()
+        result = fn(*args)
+        legs_s[name] = time.monotonic() - t0
+        return result
+
+    out["zero1_fp32"], keep["zero1"] = leg("zero1_fp32", _zw_zero1_fp32,
+                                           torch, mesh, rank)
+    out["zero1_bf16"] = leg("zero1_bf16", _zw_zero1_bf16, torch, mesh, rank)
+    out["fsdp"], keep["fsdp"] = leg("fsdp", _zw_fsdp, torch, rank)
+    out["int8"] = leg("int8", _zw_int8, torch)
+    out["ring"] = leg("ring", _zw_ring, torch, mesh, rank)
+    out["hier"] = leg("hier", _zw_hier, torch, mesh, rank)
+    dist.destroy_process_group()
+    if rank == 0:
+        torch.cuda.empty_cache()
+        out["ref"] = leg("ref", _zw_ref, torch, keep)
+    out["legs_s"] = legs_s
+    with open(tmp / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    return 0
+
+
+def _zw_lm(torch, dtype):
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+
+    return init_tp_transformer_lm(torch.Generator().manual_seed(0),
+                                  max_len=TRAIN_SEQ, dtype=dtype,
+                                  device=ZW_DEVICE, **TRAIN)
+
+
+def _zw_tokens(torch, rank=None):
+    """The global batch of token rows (B 8, S + 1), or rank ``rank``'s
+    half."""
+    import numpy as np
+
+    t = np.random.RandomState(0).randint(
+        0, TRAIN["vocab"], (ZERO_LM["batch"], TRAIN_SEQ + 1))
+    if rank is not None:
+        half = ZERO_LM["batch"] // 2
+        t = t[rank * half:(rank + 1) * half]
+    return torch.as_tensor(t, device=ZW_DEVICE)
+
+
+def _zw_host(torch, params):
+    from chainermn_tpu_torch.convert import flatten
+
+    return {k: t.detach().float().cpu().numpy()
+            for k, t in flatten(params).items()}
+
+
+def _zw_zero1_fp32(torch, mesh, rank):
+    """fp32, 3 Adam steps of ZeRO-1 on the LM: the losses, each Adam
+    moment's size over its leaf's, and (kept) the final params on the
+    host."""
+    from functools import partial
+
+    from chainermn_tpu_torch.convert import flatten
+    from chainermn_tpu_torch.parallel import (init_zero1_state,
+                                              make_zero1_train_step)
+
+    params = _zw_lm(torch, torch.float32)
+    opt = init_zero1_state(partial(torch.optim.Adam,
+                                   lr=ZERO_LM["adam_lr"]), params, mesh)
+    step = make_zero1_train_step(_tp_loss(HEAD_DIM_TRAIN, None), opt,
+                                 params, mesh)
+    tokens = _zw_tokens(torch, rank)
+    losses, ms = _sp_steps(torch, step, params, (tokens,), ZERO_LM["steps"])
+    leaves = list(flatten(params).values())
+    fractions = sorted({
+        st[k].numel() / leaf.numel()
+        for leaf, q in zip(leaves, opt.param_groups[0]["params"])
+        for st in (opt.state[q],) for k in ("exp_avg", "exp_avg_sq")})
+    keep = _zw_host(torch, params) if rank == 0 else None
+    del step, opt, params
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "moment_fractions": fractions}, keep
+
+
+def _zw_zero1_bf16(torch, mesh, rank):
+    from functools import partial
+
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.parallel import (init_zero1_state,
+                                              make_zero1_train_step)
+
+    params = _zw_lm(torch, torch.bfloat16)
+    opt = init_zero1_state(partial(torch.optim.SGD, lr=ZERO_LM["sgd_lr"]),
+                           params, mesh)
+    step = make_zero1_train_step(_tp_loss(HEAD_DIM_TRAIN, None), opt,
+                                 params, mesh)
+    batch = (_zw_tokens(torch, rank),)
+    first, _ = _sp_steps(torch, step, params, batch, ZERO_LM["warm"])
+    ops.reset_launch_counts()
+    losses, ms = _sp_steps(torch, step, params, batch, ZERO_LM["timed"])
+    launches = ops.launch_counts()
+    del step, opt, params
+    torch.cuda.empty_cache()
+    return {"losses": first + losses, "ms": ms, "launches": launches}
+
+
+def _zw_cli(torch, argv, error_feedback=False, dtype=None):
+    """``train_imagenet.run(argv)`` on the card (compute ``dtype``: the
+    model's bf16 if None), its launches counted from 0; returns the result
+    and the launches."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch import ops, train_imagenet
+
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_imagenet.run(["--device", ZW_DEVICE, *argv],
+                                 error_feedback=error_feedback, dtype=dtype)
+    torch.cuda.synchronize()
+    return res, ops.launch_counts()
+
+
+def _zw_fsdp(torch, rank):
+    """``train_imagenet --fsdp`` on ViT-S/16 at P = 2, fp32: the losses,
+    the launches, the shapes of some of this rank's blocks and (kept on
+    rank 0) the gathered params on the host."""
+    t0 = time.monotonic()
+    res, launches = _zw_cli(torch, FSDP_VIT + [
+        "--batchsize", str(FSDP_VIT_GLOBAL // 2)], dtype=torch.float32)
+    wall = time.monotonic() - t0
+    step = res["step"]
+    whole = step.gather()                    # every rank gathers
+    keep = ({k: t.float().cpu().numpy() for k, t in whole.items()}
+            if rank == 0 else None)
+    local = {k: list(t.shape) for k, t in step.params.items()
+             if k in ("patch_embed.kernel", "_Block_0.Dense_0.weight",
+                      "_Block_0._MHSA_0.qkv.kernel")}
+    out = {"losses": res["losses"], "launches": launches, "local": local,
+           "wall_s": wall}
+    del res, step, whole
+    torch.cuda.empty_cache()
+    return out, keep
+
+
+def _zw_int8(torch):
+    """ResNet-50 through ``train_imagenet`` on each wire of
+    :data:`INT8_LEGS` (the warm-up step and 2 more, bf16, pallas): the
+    losses, each int8 leg's largest parameter difference from its fp32
+    leg's and the int8 leg's launches."""
+    out, fp32 = {}, {}
+    for name, (extra, ef, against) in INT8_LEGS.items():
+        t0 = time.monotonic()
+        res, launches = _zw_cli(torch, INT8_R50 + extra, error_feedback=ef)
+        params = {k: t.detach().float().clone()
+                  for k, t in res["model"].named_parameters()}
+        diff = None
+        if against is None:
+            fp32[name] = params
+        else:
+            diff = max(float((params[k] - fp32[against][k]).abs().max())
+                       for k in params)
+        out[name] = {"losses": res["losses"], "param_diff_vs_fp32": diff,
+                     "against": against, "wall_s": time.monotonic() - t0}
+        if name == "int8":
+            out["launches"] = launches
+        del res, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zw_vectors(torch):
+    """Both ranks' gradient-like vectors of ResNet-50's size: normal
+    entries scaled by a log-normal spread, each rank's from its own seed,
+    on the card."""
+    out = []
+    for r in range(2):
+        g = torch.Generator(device=ZW_DEVICE).manual_seed(100 + r)
+        x = torch.randn(R50_PARAMS, generator=g, device=ZW_DEVICE)
+        out.append(x * torch.randn(R50_PARAMS, generator=g,
+                                   device=ZW_DEVICE).exp())
+    return out
+
+
+def _zw_ring(torch, mesh, rank):
+    """The int8 ring on this rank's vector on the card and on its host
+    copy (the same gloo group): the entries that differ and by how many
+    of the final block's quantization steps; the card's error against the
+    exact mean over the bound of its two quantizations (the sent chunk's
+    and the gathered sum's, ``blockmax/254`` each, over P)."""
+    from chainermn_tpu_torch.ops import quantized_ring_pmean
+    from chainermn_tpu_torch.ops.collective import DEFAULT_QUANT_BLOCK
+
+    xs = _zw_vectors(torch)
+    t0 = time.monotonic()
+    card = quantized_ring_pmean(xs[rank], mesh)
+    torch.cuda.synchronize()
+    card_ms = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    host = quantized_ring_pmean(xs[rank].cpu(), mesh)
+    host_ms = (time.monotonic() - t0) * 1e3
+    host = host.to(ZW_DEVICE)
+    b = DEFAULT_QUANT_BLOCK
+    n = R50_PARAMS
+
+    def blocks(v):
+        return torch.nn.functional.pad(v, (0, (-n) % b)).view(-1, b)
+
+    # one step of the output is the final scale over P: blockmax / 127
+    step = blocks(host).abs().amax(1, keepdim=True) / 127.0
+    diff = blocks(card - host).abs()
+    steps = float((diff / step.clamp_min(1e-30)).max())
+    # chunk c's first quantization is of rank (c + 1) % 2's entries
+    chunk = -(-n // 2)
+    chunk = -(-chunk // b) * b
+    idx = torch.arange(n, device=ZW_DEVICE)
+    sender = torch.where(idx < chunk, xs[1], xs[0])
+    exact = (xs[0].double() + xs[1].double()) / 2
+    e1 = blocks(sender).abs().amax(1, keepdim=True) / 254.0
+    e2 = (blocks((xs[0] + xs[1]).float()).abs().amax(1, keepdim=True)
+          + e1) / 254.0
+    # the slack covers fp32 rounding of the scales, quotients and sums
+    bound = (e1 + e2) / 2 * (1 + 2.0 ** -10) \
+        + blocks(exact.abs().float()) * 2.0 ** -22
+    err = blocks((card.double() - exact).float()).abs()
+    out = {"n": n, "block": b, "differ": int((card != host).sum()),
+           "max_steps": steps, "err_over_bound": float((err / bound).max()),
+           "max_abs_err": float(err.max()), "card_ms": card_ms,
+           "host_ms": host_ms}
+    del xs, card, host, sender, exact, idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zw_hier(torch, mesh, rank):
+    """``hierarchical_pmean`` on the ``(1, 2)`` multislice mesh (both ranks
+    on this host) against the flat mean: fp32 bit for bit, the bf16 slice
+    leg within bf16 rounding."""
+    from chainermn_tpu_torch.ops import hierarchical_pmean, pmean
+    from chainermn_tpu_torch.topology import make_multislice_mesh
+
+    x = _zw_vectors(torch)[rank]
+    ms = make_multislice_mesh()
+    flat = pmean(x, mesh)
+    with ms:
+        t0 = time.monotonic()
+        got = hierarchical_pmean(x)
+        torch.cuda.synchronize()
+        fp32_ms = (time.monotonic() - t0) * 1e3
+        bf = hierarchical_pmean(x, dcn_dtype="bfloat16")
+    rel = float(((bf - flat).abs() / flat.abs().clamp_min(1e-30)).max())
+    out = {"mesh": dict(ms.shape), "fp32_differ": int((got != flat).sum()),
+           "bf16_max_rel_err": rel, "bf16_rtol": 2.0 ** -8,
+           "fp32_ms": fp32_ms}
+    del x, flat, got, bf
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zw_ref(torch, keep):
+    """World 1 on the card (rank 0, the gloo group gone): the unsharded
+    LM, 3 fp32 Adam steps on the global batch against ZeRO-1's losses and
+    params; the FSDP CLI at batch 64 against P = 2's gathered params."""
+    import numpy as np
+
+    from chainermn_tpu_torch.parallel import (make_hybrid_shard_map_step,
+                                              param_leaves)
+
+    params = _zw_lm(torch, torch.float32)
+    step = make_hybrid_shard_map_step(
+        _tp_loss(HEAD_DIM_TRAIN, None),
+        torch.optim.Adam(param_leaves(params), lr=ZERO_LM["adam_lr"]),
+        params)
+    losses, ms = _sp_steps(torch, step, params, (_zw_tokens(torch),),
+                           ZERO_LM["steps"])
+    want = _zw_host(torch, params)
+    worst = max(((float(np.abs(keep["zero1"][k] - w).max()), k)
+                 for k, w in want.items()))
+    out = {"zero1_losses": losses, "zero1_ms": ms, "zero1_param": worst}
+    del step, params
+    torch.cuda.empty_cache()
+    res, _ = _zw_cli(torch, FSDP_VIT + ["--batchsize", str(FSDP_VIT_GLOBAL)],
+                     dtype=torch.float32)
+    got = {k: t.float().cpu().numpy() for k, t in res["step"].gather().items()}
+    out["fsdp_losses"] = res["losses"]
+    out["fsdp_param"] = max(((float(np.abs(keep["fsdp"][k] - w).max()), k)
+                             for k, w in got.items()))
+    del res
+    if torch.distributed.is_initialized():    # the CLI's one-rank group
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def _zw_report(smoke, res, wall):
+    """Emit phase ``zero-wire``'s lines and hold them to their bounds."""
+    r0 = res[0]
+    ref = r0["ref"]
+    bad = []
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    z = r0["zero1_fp32"]
+    zrel = rel(z["losses"], ref["zero1_losses"])
+    fractions = [x["zero1_fp32"]["moment_fractions"] for x in res]
+    emit({"check": "zero_wire.zero1_fp32", "dtype": "float32", "ranks": 2,
+          "optimizer": f"adam {ZERO_LM['adam_lr']}",
+          "p2_losses": z["losses"], "p1_losses": ref["zero1_losses"],
+          "loss_max_rel_err": zrel, "rtol": 1e-4,
+          "param_max_abs_err": ref["zero1_param"][0],
+          "param_worst": ref["zero1_param"][1], "atol": 1e-4,
+          "adam_moment_fraction_of_leaf_by_rank": fractions,
+          "p2_step_ms": z["ms"], "p1_step_ms": ref["zero1_ms"],
+          "wire": TP_WIRE, **TRAIN, "S": TRAIN_SEQ, "B": ZERO_LM["batch"]})
+    if zrel > 1e-4 or ref["zero1_param"][0] > 1e-4:
+        bad.append(f"ZeRO-1 fp32 vs world 1: loss rel err {zrel}, param "
+                   f"{ref['zero1_param']}")
+    if any(f != [0.5] for f in fractions):
+        bad.append(f"ZeRO-1 Adam moments are not half of each leaf: "
+                   f"{fractions}")
+    zb = [x["zero1_bf16"] for x in res]
+    per_step = [{k: v / ZERO_LM["timed"] for k, v in x["launches"].items()
+                 if v} for x in zb]
+    ms = zb[0]["ms"]
+    emit({"check": "zero_wire.zero1_bf16", "dtype": "bfloat16", "ranks": 2,
+          "wire": TP_WIRE, "losses": zb[0]["losses"], "step_ms": ms,
+          "step_ms_p50": _percentile(ms, 0.5),
+          "tokens_per_s": ZERO_LM["batch"] * TRAIN_SEQ * len(ms)
+          / (sum(ms) / 1e3), "launches_per_step_by_rank": per_step,
+          **TRAIN, "S": TRAIN_SEQ, "B": ZERO_LM["batch"],
+          "card": smoke.card})
+    losses = zb[0]["losses"]
+    if not all(x == x and abs(x) < 1e9 for x in losses) \
+            or not losses[-1] < losses[0]:
+        bad.append(f"ZeRO-1 bf16 losses not finite and falling: {losses}")
+    want = {"flash_fwd": TRAIN["n_layers"], "flash_bwd": TRAIN["n_layers"],
+            "ce_stats": 1, "ce_dh": 1, "ce_dtable": 1}
+    if any(ps != want for ps in per_step):
+        bad.append(f"ZeRO-1 bf16 launches a step {per_step}, want {want}")
+    f = [x["fsdp"] for x in res]
+    frel = rel(f[0]["losses"], ref["fsdp_losses"])
+    fl = [{k: v / 3 for k, v in x["launches"].items() if v} for x in f]
+    emit({"check": "zero_wire.fsdp_vit_s16", "dtype": "float32", "ranks": 2,
+          "cli": "train_imagenet " + " ".join(FSDP_VIT), "global_batch":
+          FSDP_VIT_GLOBAL, "p2_losses": f[0]["losses"],
+          "p1_losses": ref["fsdp_losses"], "loss_max_rel_err": frel,
+          "rtol": 1e-4, "param_max_abs_err": ref["fsdp_param"][0],
+          "param_worst": ref["fsdp_param"][1], "atol": 1e-4,
+          "blocks_rank0": f[0]["local"], "launches_per_step_by_rank": fl,
+          "flash_shape": [FSDP_VIT_GLOBAL // 2, 197, 6, 64],
+          "wall_s": [x["wall_s"] for x in f], "wire": TP_WIRE})
+    if frel > 1e-4 or ref["fsdp_param"][0] > 1e-4:
+        bad.append(f"FSDP ViT-S/16 vs world 1: loss rel err {frel}, param "
+                   f"{ref['fsdp_param']}")
+    if any(x != {"flash_fwd": 12, "flash_bwd": 12} for x in fl):
+        bad.append(f"FSDP ViT-S/16 launches a step {fl}")
+    q = r0["int8"]
+    for name in INT8_LEGS:
+        leg = q[name]
+        row = {"check": f"zero_wire.resnet50_{name}", "dtype": "bfloat16",
+               "ranks": 2, "global_batch": 128, "losses": leg["losses"],
+               "wall_s": leg["wall_s"]}
+        if leg["against"] is not None:
+            base = q[leg["against"]]["losses"]
+            gap = max(abs(x - y) for x, y in zip(leg["losses"], base))
+            row.update(fp32_leg=leg["against"], fp32_wire_losses=base,
+                       loss_max_abs_gap=gap, bound=5e-2,
+                       param_max_abs_diff_vs_fp32=leg["param_diff_vs_fp32"])
+            if gap > 5e-2 or not leg["param_diff_vs_fp32"] > 0:
+                bad.append(f"ResNet-50 {name}: loss gap {gap} (bound 5e-2), "
+                           f"param diff {leg['param_diff_vs_fp32']}")
+        emit(row)
+    ql = [{k: v / 3 for k, v in x["int8"]["launches"].items() if v}
+          for x in res]
+    emit({"check": "zero_wire.resnet50_int8_launches",
+          "launches_per_step_by_rank": ql})
+    if any(x != {"conv_wgrad": RESNET_CONV_LAUNCHES,
+                 "conv_dgrad": RESNET_CONV_LAUNCHES} for x in ql):
+        bad.append(f"ResNet-50 int8 launches a step {ql}")
+    for r, x in enumerate(res):
+        ring = x["ring"]
+        emit({"check": "zero_wire.ring", "rank": r, **ring,
+              "card": smoke.card})
+        if ring["err_over_bound"] > 1:
+            bad.append(f"ring rank {r}: {ring['err_over_bound']} times its "
+                       f"bound")
+        h = x["hier"]
+        emit({"check": "zero_wire.hierarchical_pmean", "rank": r, **h})
+        if h["fp32_differ"] or h["bf16_max_rel_err"] > h["bf16_rtol"]:
+            bad.append(f"hierarchical_pmean rank {r}: {h}")
+    emit({"check": "zero_wire.workers", "wall_s": wall,
+          "legs_s_by_rank": [x["legs_s"] for x in res], "card": smoke.card})
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 def phase_resnet_parity(smoke):
     """fp32 (TF32 off), card vs CPU from the same weights: ResNet-50 at image
     112 (stages 1-2 eligible at 28² and 14², the stride-2 and 7x7 convs
@@ -4492,7 +4979,7 @@ def main():
                          ("serving-gqa", phase_serving_gqa),
                          ("train-parity", phase_train_parity),
                          ("train", phase_train), ("tp", phase_tp),
-                         ("sp", phase_sp),
+                         ("sp", phase_sp), ("zero-wire", phase_zero_wire),
                          ("resnet-parity", phase_resnet_parity),
                          ("resnet-train", phase_resnet_train),
                          ("resnet152-db", phase_resnet152_db),
@@ -4531,4 +5018,6 @@ if __name__ == "__main__":
         sys.exit(tp_worker(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--sp-worker"]:
         sys.exit(sp_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--zero-worker"]:
+        sys.exit(zero_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

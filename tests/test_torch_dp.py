@@ -163,13 +163,6 @@ def test_bucket_round_trips_shapes_and_dtypes():
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_int8_wire_and_error_feedback_name_the_roadmap(comm1):
-    sgd = torch.optim.SGD([torch.zeros(2, requires_grad=True)], lr=0.1)
-    for kw in ({"allreduce_grad_dtype": "int8"}, {"error_feedback": True}):
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
-            create_multi_node_optimizer(sgd, comm1, **kw)
-
-
 def _initial_variables():
     jm = JAX_ARCHS["resnet18"](num_classes=CLASSES, dtype=jnp.float32,
                                stem_strides=1, conv_impl="pallas")

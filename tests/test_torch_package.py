@@ -35,7 +35,8 @@ PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "_torch_comm_worker.py",
     ROOT / "tests" / "_torch_trainer_worker.py",
     ROOT / "tests" / "_torch_functions_worker.py",
-    ROOT / "tests" / "_torch_example_worker.py"]
+    ROOT / "tests" / "_torch_example_worker.py",
+    ROOT / "tests" / "_torch_zero_worker.py"]
 # the communicator and Trainer slice: each must be among PORT_FILES
 TRAINER_SLICE = ["communicators/base.py", "communicators/naive.py",
                  "communicators/torch_dist.py", "ops/collective.py",
@@ -163,16 +164,6 @@ def test_dp_entry_points_default_to_cuda_and_raise_without_it():
         ARCHS["resnet18"]()
     with pytest.raises(RuntimeError, match="cuda"):
         imagenet_main(["--arch", "resnet18", "--steps", "1"])
-
-
-@pytest.mark.parametrize("argv", [
-    ["--fsdp"], ["--allreduce-grad-dtype", "int8"]])
-def test_imagenet_cli_refuses_unported_paths(argv, capsys):
-    from chainermn_tpu_torch.train_imagenet import main
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu", *argv])
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "queue A item 9" in err
 
 
 def test_imagenet_cli_trains_from_a_data_dir_without_jax(tmp_path):
@@ -440,8 +431,8 @@ def test_importing_the_package_imports_no_submodule():
 
 
 def test_ops_reexports_the_in_step_collectives():
-    """JAX's ``ops`` exports its collectives; the port's resolves each it
-    has to ``ops.collective`` and names A9 for the int8 ring's."""
+    """JAX's ``ops`` exports its collectives; the port's resolves each to
+    ``ops.collective``, the int8 ring's and the hierarchical mean's too."""
     import chainermn_tpu.ops as jops
 
     from chainermn_tpu_torch import ops
@@ -452,11 +443,7 @@ def test_ops_reexports_the_in_step_collectives():
                                          fromlist=["x"]))
                  and callable(getattr(jops, n))}
     for name in jax_names:
-        if name in ops.NOT_PORTED:
-            with pytest.raises(AttributeError, match="A9"):
-                getattr(ops, name)
-        else:
-            assert getattr(ops, name) is getattr(collective, name), name
+        assert getattr(ops, name) is getattr(collective, name), name
     assert {"psum", "pmean", "pmax", "pmin", "all_gather", "all_to_all",
             "ppermute", "shift", "axis_index", "axis_size", "bcast"} <= \
         set(ops.COLLECTIVES)

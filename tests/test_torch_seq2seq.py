@@ -44,6 +44,18 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
 from test_torch_model_parallel import launch_example  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch in one thread: the suite runs beside other test workers on the
+    same cores, where a multi-threaded pool over the LSTM's small ops
+    oversubscribes them (the 150-step training fixture took 660 s under
+    the suite's 6 workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 VOCAB = 12
 SRC_LEN = TGT_LEN = 8
 

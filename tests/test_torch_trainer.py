@@ -796,8 +796,9 @@ def test_grad_accum_refuses_what_jax_refuses(comm1):
         step(model, batch)
     with pytest.raises(ValueError, match=">= 1"):
         make_train_step(loss, opt, grad_accum_steps=0)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        make_train_step(loss, opt, error_feedback=True)
+    with pytest.raises(ValueError, match="exclusive"):
+        make_train_step(loss, opt, error_feedback=True,
+                        grad_reduce=lambda g: g)
 
 
 # ---- evaluators at world 1 ----

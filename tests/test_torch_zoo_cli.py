@@ -14,8 +14,8 @@ new flag: the NF-ResNet (``--conv-impl pallas``), ViT and AlexNet archs,
 The NF-ResNet and ViT cases run at a cut depth (one block a stage, two
 layers), set in both registries, as the flags' paths do not depend on it.
 Tolerance: every step's loss rtol 1e-4.  Then the example's flag checks
-(the refusals of ``--fsdp`` and the int8 wire are in
-``test_torch_package.py``).
+(``--fsdp`` and the int8 wire are in ``test_torch_zero.py`` and
+``test_torch_quantized.py``).
 """
 
 from functools import partial
