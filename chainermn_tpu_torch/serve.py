@@ -18,6 +18,19 @@ N ranks with the model sharded over them (``ServingEngine(mesh=...)``):
 rank 0 runs the queue and the scheduler and prints the summary, ranks 1 to
 N-1 follow its plan, and the other ranks stop after training.
 
+``--replicas N`` stands up N engines on the card behind the serving
+router (``serving.build_fleet``: prefix-affine, least-loaded dispatch and
+SLO-aware shedding); the summary then carries the ``router/*`` keys and
+each replica's goodput.  ``--metrics-out`` streams the JSONL metrics
+(``serving_step`` records and a ``serving_summary``, or the router's
+``router_rejection`` / ``router_summary``), ``--prom-out`` writes a
+Prometheus textfile at the end, ``--trace-out`` turns the tracer on and
+writes its Chrome trace, ``--flight-dump-dir`` arms the flight recorder's
+crash bundles (SIGTERM / SIGUSR1 / an uncaught exception), and
+``--ttft-slo-ms`` / ``--tps-slo`` attach the burn-rate tracker (its
+status lands in the summary).  The engines run with JAX's defaults: the
+prefix cache and a 32 MiB host spill tier.
+
 The model is random-init from ``--seed`` (or loaded with ``--params`` from
 a ``convert.save_npz`` file) before training; ``--train-steps 0`` serves
 it untrained.  ``--kv-heads`` makes it a GQA model.  ``--temperature T``
@@ -27,6 +40,8 @@ the same noise).
 
 Run:  python -m chainermn_tpu_torch.serve --device cuda
       torchrun --nproc-per-node 2 -m chainermn_tpu_torch.serve --tp 2
+      python -m chainermn_tpu_torch.serve --device cuda --replicas 2 \\
+          --metrics-out serve.jsonl --prom-out serve.prom
       python -m chainermn_tpu_torch.serve --device cuda --dtype bfloat16 \\
           --vocab 32768 --d-model 1024 --n-heads 16 --n-layers 8 \\
           --n-slots 8 --max-total 1024 --requests 16 --prompt-len 512 \\
@@ -131,20 +146,58 @@ def run(argv=None, params=None):
     parser.add_argument("--steps-budget", type=int, default=None,
                         help="hard cap on engine iterations (the run exits "
                              "cleanly with whatever finished)")
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="serving replicas behind the router: N "
+                             "engines, least-loaded prefix-affine "
+                             "dispatch, SLO-aware shedding; 1 = the "
+                             "single-engine path")
+    parser.add_argument("--metrics-out", default=None,
+                        help="JSONL metrics stream (serving_step records + "
+                             "serving_summary roll-up)")
+    parser.add_argument("--prom-out", default=None,
+                        help="Prometheus textfile with the serving gauges")
+    parser.add_argument("--trace-out", default=None,
+                        help="enable the tracer; Chrome-trace JSON with the "
+                             "per-request serving spans/instants")
+    parser.add_argument("--flight-dump-dir", default=None,
+                        help="enable the flight recorder's crash bundles: "
+                             "SIGTERM/SIGUSR1/uncaught exceptions dump a "
+                             "debug bundle into this directory")
+    parser.add_argument("--ttft-slo-ms", type=float, default=None,
+                        help="TTFT SLO target; enables the multi-window "
+                             "burn-rate tracker")
+    parser.add_argument("--tps-slo", type=float, default=None,
+                        help="tokens/sec SLO target for the burn tracker")
     args = parser.parse_args(argv)
+    if args.replicas > 1 and args.tp > 1:
+        raise SystemExit("--replicas > 1 with --tp > 1 is not ported: "
+                         "each replica's model ranks would follow their "
+                         "own leader (ROADMAP.md, queue A, A11)")
 
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from chainermn_tpu_torch import observability as obs
     from chainermn_tpu_torch import prng
     from chainermn_tpu_torch._device import resolve_device
     from chainermn_tpu_torch.convert import load_npz, shard_from_jax
     from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
                                               transformer_lm_specs)
-    from chainermn_tpu_torch.serving import AdmissionError, ServingEngine
+    from chainermn_tpu_torch.serving import (AdmissionError, ServingEngine,
+                                             build_fleet)
     from chainermn_tpu_torch.topology import (dp_tp_mesh, init_distributed,
                                               make_nd_mesh)
+
+    if args.trace_out:
+        obs.enable()
+    # the flight recorder: always on (a bounded ring); crash bundles and
+    # signal handlers only with a dump directory
+    obs.install_tracer_tee()
+    if args.flight_dump_dir:
+        from chainermn_tpu_torch import global_except_hook
+        obs.install_signal_handlers(args.flight_dump_dir)
+        global_except_hook.add_hook()
 
     device = resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
@@ -171,13 +224,32 @@ def run(argv=None, params=None):
     serve_mesh = make_nd_mesh(("model",), (args.tp,), range(args.tp))
     if serve_mesh.coords is None:
         return None
-    eng = ServingEngine(params, head_dim=head_dim, n_slots=args.n_slots,
-                        max_total=max_total,
-                        queue_capacity=args.queue_capacity,
-                        mesh=serve_mesh, device=device)
-    if not eng.engine.leader:
-        eng.follow()
-        return None
+    writer = None
+    if args.metrics_out and serve_mesh.coords[0] == 0:
+        from chainermn_tpu_torch.observability.export import MetricsWriter
+        writer = MetricsWriter(args.metrics_out)
+    slo = None
+    if args.ttft_slo_ms is not None or args.tps_slo is not None:
+        from chainermn_tpu_torch.observability.slo import SLOTracker
+        slo = SLOTracker(ttft_target_ms=args.ttft_slo_ms,
+                         tokens_per_sec_target=args.tps_slo)
+    eng_kwargs = dict(head_dim=head_dim, n_slots=args.n_slots,
+                      max_total=max_total,
+                      queue_capacity=args.queue_capacity, device=device)
+    router = eng = None
+    if args.replicas > 1:
+        # one SLO tracker for the fleet (every replica burns one budget);
+        # the router owns the JSONL writer
+        router = build_fleet(params, args.replicas, slo=slo,
+                             metrics_writer=writer, **eng_kwargs)
+        service = router
+    else:
+        eng = ServingEngine(params, mesh=serve_mesh, metrics_writer=writer,
+                            slo=slo, **eng_kwargs)
+        if not eng.engine.leader:
+            eng.follow()
+            return None
+        service = eng
 
     test = make_corpus(np.random.RandomState(99), args.requests, total_len,
                        vocab)
@@ -194,8 +266,8 @@ def run(argv=None, params=None):
 
     def submit(i):
         try:
-            handles[i] = eng.submit(prompts[i], args.max_new_tokens,
-                                    **sample_kw.get(i, {}))
+            handles[i] = service.submit(prompts[i], args.max_new_tokens,
+                                        **sample_kw.get(i, {}))
         except AdmissionError as e:
             rejected[i] = e.to_dict()
             print(f"request {i} rejected: {e}", file=sys.stderr)
@@ -208,17 +280,32 @@ def run(argv=None, params=None):
         budget = args.steps_budget
 
         def busy():
+            if router is not None:
+                return any(not rep.idle for rep in router.replicas)
             return eng.scheduler.queue_depth > 0 or eng.pool.busy_count > 0
 
         while (budget is None or steps < budget) and (nxt < args.requests
                                                       or busy()):
-            eng.step()
+            service.step()
             steps += 1
             if nxt < args.requests and steps % max(args.stagger_every, 1) == 0:
                 submit(nxt)
                 nxt += 1
+        metrics = service.metrics()
+        if router is not None:
+            goodput = {rep.name: rep.engine.goodput.report()
+                       for rep in router.replicas}
+        else:
+            goodput = eng.goodput.report()
+        if writer is not None:
+            service.finalize_metrics()
+            writer.close()
+        if args.prom_out:
+            service.write_prometheus(args.prom_out)
+        if args.trace_out:
+            obs.export_chrome_trace(args.trace_out)
     finally:
-        eng.close()
+        service.close()
 
     per_request, correct = [], []
     for i in range(args.requests):
@@ -242,10 +329,10 @@ def run(argv=None, params=None):
             correct.append(acc)
         per_request.append(row)
 
-    metrics = eng.metrics()
     summary = {
         "schema": "chainermn_tpu.serve.v1",
         "engine_steps": steps,
+        "replicas": args.replicas,
         "device": str(device),
         "dtype": args.dtype,
         "tp": args.tp,
@@ -254,7 +341,10 @@ def run(argv=None, params=None):
         "mean_continuation_accuracy": (
             round(float(np.mean(correct)), 3) if correct else None),
         "metrics": {k: round(float(v), 3) for k, v in metrics.items()},
+        "goodput": goodput,
     }
+    if slo is not None:
+        summary["slo"] = slo.status()
     return summary
 
 

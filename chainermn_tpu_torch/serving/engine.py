@@ -14,6 +14,11 @@ leave between ticks:
   with its own key salted by the position it generates), K/V appended per
   row.
 
+* **copy_prefix** — the prefix cache's copy-on-extend: the whole source
+  slot row of every layer copied into the destination slot in place
+  (``copy_``, on the pool's device), then ``pos[dst]`` set to the matched
+  length; the prompt's uncached suffix then feeds through the tick.
+
 The salts are ``lm_generate``'s, so a sampled request is token-exact
 against ``lm_generate(rng=key)`` at B = 1.
 
@@ -27,11 +32,18 @@ Tensor parallelism: with ``mesh``, the params are this rank's shards
 rank's KV heads.  JAX runs one controller; here every model rank is a
 process.  Model rank 0 leads: before each device call it broadcasts the
 call's plan over the model group (:meth:`DecodeEngine.publish`: a
-prefill's prompt, slot, key and temperature; a slot reset; a tick's
-tokens, keys and temperatures; the stop), and the other ranks run
+prefill's prompt, slot, key and temperature; a slot's new position; a
+tick's tokens, keys and temperatures; a prefix copy; a spill's pack, drop
+and restore; the stop), and the other ranks run
 :meth:`DecodeEngine.follow`, which executes exactly those calls, in that
 order, and reads nothing else.  So every rank enters every collective of
-the same call with the same slots.
+the same call with the same slots, and every pool change (a copy, a
+restore, the position ``uncache`` resets) lands on every rank.  Under
+the host spill tier each rank keeps its own columns' payloads: the
+leader's store decides, and a follower packs (``spill``), drops
+(``unspill``) and lands (``restore``) its own under the leader's plan.
+A restore's outcome is agreed over the model group: a CRC refusal on any
+rank refuses it on every rank, and all of them re-prefill.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import torch.distributed as dist
 
 from ..ops import collective as col
 from ..parallel.decode import _kv_heads, _next_token, lm_decode_tick, lm_prefill
+from .transfer import SPILL_AXIS, SPILL_OP, KvTransferPlane
 
 
 class DecodeEngine:
@@ -64,6 +77,11 @@ class DecodeEngine:
         self.leader = self._axis is None or col.axis_index(self._axis) == 0
         self.prefill_calls = 0
         self.tick_calls = 0
+        self.prefix_copies = 0
+        # the spill tier's slab format; a follower keeps its own columns'
+        # payloads here, keyed by the leader's spilled sequence
+        self.kv_plane = KvTransferPlane()
+        self._spilled = {}
 
     # ---- the plan: model rank 0 leads, the others follow ----
     def publish(self, op) -> None:
@@ -88,8 +106,10 @@ class DecodeEngine:
             kind, args = box[0]
             if kind == "stop":
                 return n
-            {"prefill": self._prefill, "reset": self._reset,
-             "tick": self._tick}[kind](*args)
+            {"prefill": self._prefill, "pos": self._set_pos,
+             "tick": self._tick, "copy": self._copy, "spill": self._spill,
+             "unspill": self._unspill,
+             "restore": self._restore}[kind](*args)
             n += 1
 
     def stop(self) -> None:
@@ -99,11 +119,95 @@ class DecodeEngine:
 
     def reset_slot(self, slot: int) -> None:
         """Set ``slot``'s write position to 0 (on every model rank)."""
-        self.publish(("reset", (slot,)))
-        self._reset(slot)
+        self.publish(("pos", (int(slot), 0)))
+        self._set_pos(slot, 0)
 
-    def _reset(self, slot):
-        self.pool.pos[slot] = 0
+    def _set_pos(self, slot, pos):
+        self.pool.pos[slot] = pos
+
+    # ---- the prefix cache's copy-on-extend ----
+    def copy_prefix(self, src_slot: int, dst_slot: int,
+                    prefix_len: int) -> None:
+        """Copy ``src_slot``'s K/V slab into ``dst_slot`` and set
+        ``pos[dst_slot] = prefix_len``, so the occupant's next write lands
+        at the first uncached position.  The whole row of every layer is
+        copied: rows past ``prefix_len`` are stale but lie above the
+        occupant's ``pos``, so the copy needs no length."""
+        if not (0 < int(prefix_len) <= self.pool.max_total):
+            raise ValueError(f"prefix_len {prefix_len} out of range (0, "
+                             f"{self.pool.max_total}]")
+        self.publish(("copy", (int(src_slot), int(dst_slot),
+                               int(prefix_len))))
+        self._copy(src_slot, dst_slot, prefix_len)
+
+    def _copy(self, src, dst, prefix_len):
+        self.prefix_copies += 1
+        with torch.inference_mode():
+            for kc, vc in self.pool.caches:
+                kc[dst].copy_(kc[src])
+                vc[dst].copy_(vc[src])
+        self.pool.pos[dst] = int(prefix_len)
+
+    # ---- the host spill tier on the followers ----
+    def spill_followers(self, slot: int, length: int, meta) -> None:
+        """Leader, after its own slab went into the spill store: each
+        follower packs its own columns of ``slot``'s rows ``[0, length)``
+        under ``meta["seq"]``."""
+        self.publish(("spill", (int(slot), int(length), dict(meta))))
+
+    def _spill(self, slot, length, meta):
+        self._spilled[tuple(meta["seq"])] = self.kv_plane.pack(
+            self.pool, slot, length, meta)
+
+    def unspill_followers(self, seq) -> None:
+        """Leader: its store dropped ``seq``; the followers drop theirs."""
+        self.publish(("unspill", (tuple(int(t) for t in seq),)))
+
+    def _unspill(self, seq):
+        self._spilled.pop(tuple(seq), None)
+
+    def restore(self, payload: bytes, slot: int, seq,
+                prefix_len: int) -> None:
+        """Land a spilled slab in ``slot`` on every rank (the leader's
+        ``payload``, each follower its own under ``seq``) and set
+        ``pos[slot] = prefix_len``.  Raises :class:`ValueError` when any
+        rank refused its payload (CRC, schema, shape) and
+        :class:`RuntimeError` when any rank failed otherwise; then no
+        rank's ``pos`` moved and the request re-prefills."""
+        seq = tuple(int(t) for t in seq)
+        self.publish(("restore", (int(slot), seq, int(prefix_len))))
+        errs = [e for e in self._restore(slot, seq, prefix_len, payload)
+                if e is not None]
+        if errs:
+            refused = [msg for kind, msg in errs if kind == "refused"]
+            if refused:
+                raise ValueError(refused[0])
+            raise RuntimeError(errs[0][1])
+
+    def _restore(self, slot, seq, prefix_len, payload=None):
+        """Land this rank's payload; returns every rank's error (or
+        None), agreed over the model group."""
+        if payload is None:
+            payload = self._spilled.get(tuple(seq))
+        old_pos = int(self.pool.pos[slot])
+        err = None
+        try:
+            if payload is None:
+                raise ValueError(f"no spilled payload for a {len(seq)}-"
+                                 f"token prefix on this rank")
+            self.kv_plane.unpack_into(payload, self.pool, slot,
+                                      ledger_op=SPILL_OP,
+                                      ledger_axis=SPILL_AXIS)
+        except ValueError as e:
+            err = ("refused", str(e))
+        except Exception as e:  # noqa: BLE001 — agreed, then re-raised
+            err = ("failed", repr(e))
+        errs = [err]
+        if self._axis is not None and self._axis.size > 1:
+            errs = [None] * self._axis.size
+            dist.all_gather_object(errs, err, group=self._axis.group)
+        self.pool.pos[slot] = old_pos if any(errs) else int(prefix_len)
+        return errs
 
     def prefill_into_slot(self, prompt_tokens, slot: int, rng=None,
                           temperature: float = 0.0) -> int:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving, beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier and the router), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -103,7 +103,9 @@ and prints no result line:
    request must finish ``done``.  The launch counts, zeroed just before
    this run and read just after, must be exactly one decode-attention
    launch a layer a tick (its K/V append folded in) and one append and one
-   flash forward a layer a prefill.  Then ``lm_generate`` at B 8, prompt
+   flash forward a layer a prefill (the prefix cache is on, as in JAX's
+   engine, but the random prompts share no two-token prefix: no hit, no
+   restore, which the run checks).  Then ``lm_generate`` at B 8, prompt
    512, 64 new tokens: 8 x 63 decode launches, 8 appends, 8 flash
    forwards.
 5. ``beam`` — bf16, ``bench.py :: bench_decode``'s full width: beam 4,
@@ -116,6 +118,30 @@ and prints no result line:
    of phase 4 with the odd half of the requests sampled at temperature
    0.7; every request ``done``, the beam kernel launched 8 times on every
    tick and the decode kernel never.
+6b. ``serving-prefix`` — the prefix cache, the host spill tier and the
+   router at the decode-bench width (bf16, 8 slots, max_total 1024).
+   (a) 16 requests of one 448-token system prompt plus a distinct
+   64-token tail, 64 new tokens each, the first alone, then waves of 7,
+   7 and 1 (each run to idle): with the cache off (16 prefills), then on
+   (launch counts zeroed just before, read just after): every request
+   ``done``, 1 prefill and 15 prefix copies (``serving/prefix/hits``
+   15), exactly 8 flash forward and 8 append launches (the one miss's
+   prefill) and 8 decode launches a tick; TTFT p50/p99 of the hits and
+   the misses, the ``prefix_copy`` ms (synchronised), tick p50/p99 and
+   tokens/s of both runs.  (b) 2 slots and a spill budget of two slabs:
+   prompts A, B, C (512 tokens, 16 new) and D sharing A's first 480
+   tokens; C's admission spills A's donation, D restores it (the slot's
+   rows after the restore byte-equal to the payload's), then the same
+   with one bit of A's payload flipped: refused, ``crc_refusals`` 1, D
+   prefills; pack and restore ms and the bytes.  (c) ``build_fleet(params,
+   2)``, two engines on the card: two prefix families alternate (each
+   run to idle) onto replica0 / replica1, 2 prefix hits on each, 4
+   affinity dispatches; a burst with no step fills both queues and the
+   next submit is refused ``queue_full`` with ``retry_after_ms`` and
+   ``queue_depth`` 4.  (d) fp32 at 2 layers (full width otherwise): the
+   shared-prefix (8 requests) and spill schedules with the cache on and
+   off, on the card and on the CPU: tokens equal or a CPU near-tie
+   under 1e-3, the hits and restores equal.
 7. ``train-parity`` — fp32, d 1024, 2 layers, 8 heads, vocab 32768, S 256,
    B 2, flash attention and the fused CE, TF32 off: the gradient of every
    parameter at the initial weights, card against CPU, to a relative norm
@@ -150,7 +176,8 @@ and prints no result line:
    backward, one of each CE kernel, at flash (8, 1024, 4, 128) and CE
    (8192, 16384, 1024)); (c) fp32 serving of the decode-bench LM (16 heads
    of 64, prompt 512, cache 1024; depth not cut) through
-   ``ServingEngine(mesh=...)``, 8 requests, the odd half sampled, and the
+   ``ServingEngine(mesh=...)`` (JAX's defaults: the prefix cache and the
+   spill tier on), 8 requests, the odd half sampled, and the
    GQA model (4 KV heads) through beam 4 (B 2, prompt 128, 16 new): each
    TP = 2 token equal to the TP = 1 model's choice on the card at its
    position (a sampled row with TP = 2's noise: each shard's ``(1, V/2)``
@@ -324,7 +351,8 @@ and prints no result line:
    a world-2 generation, resumed at world 1 on the card (batch 256, the
    same global batch) within rtol 1e-4 of the CPU's own continuation.
 21. One ``{"kernels": [...]}`` line (launches summed over the main paths'
-   runs: the two serving runs, the beam run, the timed LM training steps,
+   runs: the two serving runs, the serving-prefix cache-on run, the beam
+   run, the timed LM training steps,
    the ``tp`` phase's ``(1, 1)`` steps and both ranks' bf16 steps, serving
    and beam runs, phase ``sp``'s bf16 steps of both ranks (ring and
    Ulysses), phase ``zero-wire``'s ZeRO-1 bf16 steps, FSDP run and int8
@@ -1774,7 +1802,14 @@ def _serve_run(smoke, label, params, seed, sample=None):
     done = sum(h.status == "done" for h in handles)
     m = eng.metrics()
     n_tok = sum(len(h.tokens) for h in handles)
+    # the prefix cache is on (JAX's default), but these random prompts
+    # share no two-token prefix: no hit, so the launch counts stay
+    if m["serving/prefix/hits"] or m["serving/spill/restores"]:
+        raise AssertionError(f"{label}: prefix hits or restores on random "
+                             f"prompts: {m}")
     emit({"check": label, "dtype": "bfloat16", "requests": n_req,
+          "prefix_hits": m["serving/prefix/hits"],
+          "spills": m["serving/spill/spills"],
           "sampled": sorted(sample or {}), "done": done, "steps": steps,
           "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
           "ms_per_token": wall * 1e3 / n_tok,
@@ -1920,6 +1955,364 @@ def phase_serving_gqa(smoke):
     if wrong or not launches["cache_append"] or not launches["flash_fwd"]:
         raise AssertionError(f"GQA serving launches (got, want): {wrong}; "
                              f"{launches}")
+
+
+PREFIX_SERVE = dict(prefix=448, suffix=64, new=64, requests=16,
+                    waves=(1, 7, 7, 1), max_total=1024, slots=8)
+PREFIX_SPILL = dict(prompt=512, shared=480, new=16, slots=2)
+PREFIX_ROUTER = dict(prefix=448, suffix=64, new=16, slots=4, queue=2)
+PREFIX_PARITY = dict(n_layers=2, new=16)
+
+
+def _prefix_prompts(seed, n, prefix, suffix, vocab):
+    """``n`` prompts of one common ``prefix``-token system prompt plus a
+    distinct ``suffix``-token tail each (their first tokens differ, so no
+    two share more than the system prompt)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, vocab, prefix)
+    firsts = rng.choice(vocab, n, replace=False)
+    return [np.concatenate([system, [firsts[i]],
+                            rng.randint(0, vocab, suffix - 1)]
+                           ).astype(np.int32) for i in range(n)]
+
+
+def _waves(eng, prompts, new, waves):
+    """Submit the prompts in ``waves``, each run to idle before the next:
+    the first request alone, then waves no larger than the free slots
+    beside the cached one."""
+    handles, i = [], 0
+    for w in waves:
+        handles += [eng.submit(p, new) for p in prompts[i:i + w]]
+        i += w
+        eng.run()
+    return handles
+
+
+def _timed_calls(torch, obj, names, sync=False):
+    """Wrap ``obj``'s methods ``names``: each call's wall ms (after a device
+    sync where ``sync``) lands in the returned lists."""
+    out = {n: [] for n in names}
+    for n in names:
+        fn = getattr(obj, n)
+
+        def wrapper(*a, _fn=fn, _sink=out[n], **k):
+            t0 = time.perf_counter()
+            res = _fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            _sink.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        setattr(obj, n, wrapper)
+    return out
+
+
+def _prefix_leg_shared(smoke, params):
+    """bf16, full width: the 16-request shared-system-prompt schedule with
+    the prefix cache off (every request prefills), then on (one prefill,
+    15 prefix copies), launch counts zeroed just before the cache-on run
+    and read just after."""
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    cfg = PREFIX_SERVE
+    n_layers = FULL["n_layers"]
+    prompts = _prefix_prompts(21, cfg["requests"], cfg["prefix"],
+                              cfg["suffix"], FULL["vocab"])
+    rows = {}
+    for cache in (False, True):
+        eng = ServingEngine(params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                            max_total=cfg["max_total"],
+                            queue_capacity=cfg["requests"],
+                            prefix_cache=cache, spill_bytes=0,
+                            device="cuda")
+        times = _timed_calls(torch, eng.engine,
+                             ("tick", "prefill_into_slot"))
+        times.update(_timed_calls(torch, eng.engine, ("copy_prefix",),
+                                  sync=True))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = _waves(eng, prompts, cfg["new"], cfg["waves"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        m = eng.metrics()
+        ticks = len(times["tick"])
+        hit = [h.ttft_ms for h in handles if h._req.prefix_len > 0]
+        miss = [h.ttft_ms for h in handles if h._req.prefix_len == 0]
+        n_tok = sum(len(h.tokens) for h in handles)
+        row = {"check": "serving_prefix.shared", "prefix_cache": cache,
+               "dtype": "bfloat16", "requests": len(handles),
+               "waves": list(cfg["waves"]), "prompt": cfg["prefix"]
+               + cfg["suffix"], "shared": cfg["prefix"], "new": cfg["new"],
+               "done": sum(h.status == "done" for h in handles),
+               "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+               "ticks": ticks, "tick_ms_p50": _percentile(times["tick"], 0.5),
+               "tick_ms_p99": _percentile(times["tick"], 0.99),
+               "prefill_ms_p50": (_percentile(times["prefill_into_slot"], 0.5)
+                                  if times["prefill_into_slot"] else None),
+               "prefix_copy_ms_p50": (_percentile(times["copy_prefix"], 0.5)
+                                      if times["copy_prefix"] else None),
+               "hits": len(hit), "misses": len(miss),
+               "ttft_hit_ms_p50": _percentile(hit, 0.5) if hit else None,
+               "ttft_hit_ms_p99": _percentile(hit, 0.99) if hit else None,
+               "ttft_miss_ms_p50": _percentile(miss, 0.5) if miss else None,
+               "ttft_miss_ms_p99": _percentile(miss, 0.99) if miss else None,
+               "prefix_copies": eng.engine.prefix_copies,
+               "prefill_calls": eng.engine.prefill_calls,
+               "launches": launches,
+               "prefix_metrics": {k: v for k, v in m.items()
+                                  if k.startswith("serving/prefix/")}}
+        emit(row)
+        eng.close()
+        if row["done"] != cfg["requests"]:
+            raise AssertionError(f"serving_prefix.shared cache={cache}: "
+                                 f"{row['done']} of {cfg['requests']} done")
+        # the schedule: without the cache every request prefills; with it
+        # only the first does, and every later one copies a cached slot
+        n_miss = 1 if cache else cfg["requests"]
+        want = {"flash_fwd": n_layers * n_miss,
+                "cache_append": n_layers * n_miss,
+                "decode_attend": n_layers * ticks, "beam_attend": 0}
+        wrong = {n: (launches[n], w) for n, w in want.items()
+                 if launches[n] != w}
+        counts = (row["prefix_copies"], row["prefill_calls"],
+                  m.get("serving/prefix/hits", 0.0))
+        want_counts = ((cfg["requests"] - 1, 1, cfg["requests"] - 1)
+                       if cache else (0, cfg["requests"], 0.0))
+        if wrong or counts != want_counts:
+            raise AssertionError(f"serving_prefix.shared cache={cache}: "
+                                 f"launches (got, want) {wrong}; copies, "
+                                 f"prefills, hits {counts} vs {want_counts}")
+        if cache:
+            smoke.add_launches(launches)
+        rows[cache] = [h.tokens for h in handles]
+    return rows
+
+
+def _prefix_leg_spill(smoke, params, corrupt):
+    """bf16, full width, 2 slots, a spill budget of two slabs: requests A,
+    B, C with distinct prompts (C's admission scavenges A's donation into
+    the spill tier), then D, sharing A's first ``shared`` tokens: a device
+    miss that restores A's slab (or, with A's payload corrupted by one
+    bit, is refused and prefills)."""
+    import pickle
+
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.serving import ServingEngine
+    from chainermn_tpu_torch.serving.transfer import slab_nbytes
+
+    cfg = PREFIX_SPILL
+    rng = np.random.RandomState(31)
+    vocab = FULL["vocab"]
+    prompts = [rng.randint(0, vocab, cfg["prompt"]).astype(np.int32)
+               for _ in range(3)]
+    tail = rng.randint(0, vocab, cfg["prompt"] - cfg["shared"])
+    tail[0] = (prompts[0][cfg["shared"]] + 1) % vocab
+    prompts.append(np.concatenate([prompts[0][:cfg["shared"]], tail]
+                                  ).astype(np.int32))
+    length = cfg["prompt"] + cfg["new"] - 1        # a donation's rows
+    slab = slab_nbytes(FULL["n_layers"], length, FULL["d_model"], "bfloat16")
+    budget = 2 * (slab + (1 << 16))                # two payloads
+    eng = ServingEngine(params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                        max_total=cfg["prompt"] + cfg["new"],
+                        queue_capacity=4, spill_bytes=budget, device="cuda")
+    times = _timed_calls(torch, eng._spill_plane, ("pack",))
+    restore = eng.engine.restore
+    landed = []
+
+    def checked_restore(payload, slot, seq, n):
+        t0 = time.perf_counter()
+        restore(payload, slot, seq, n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows = pickle.loads(payload)["rows"]
+        same = all(
+            k[slot, :n].view(torch.int16).cpu().numpy().tobytes()
+            == np.ascontiguousarray(kr[:n]).tobytes()
+            and v[slot, :n].view(torch.int16).cpu().numpy().tobytes()
+            == np.ascontiguousarray(vr[:n]).tobytes()
+            for (k, v), (kr, vr) in zip(eng.pool.caches, rows))
+        landed.append({"ms": ms, "rows": n, "byte_equal": same})
+
+    eng.engine.restore = checked_restore
+    handles = []
+    for i, p in enumerate(prompts):
+        if i == 3 and corrupt:
+            seq = next(s for s, _ in eng.spill.entries()
+                       if s[:cfg["shared"]] == tuple(prompts[0][:cfg["shared"]]))
+            data = pickle.loads(eng.spill.get(seq))
+            k, v = data["rows"][0]
+            k = np.array(k, copy=True)
+            k.view(np.uint8).flat[0] ^= 1
+            data["rows"][0] = (k, v)
+            eng.spill.put(seq, len(seq), pickle.dumps(data))
+        handles.append(eng.submit(p, cfg["new"]))
+        eng.run()
+    sp = eng.spill.stats()
+    row = {"check": "serving_prefix.spill", "corrupt": corrupt,
+           "dtype": "bfloat16", "slots": cfg["slots"], "prompt": cfg["prompt"],
+           "shared": cfg["shared"], "new": cfg["new"],
+           "slab_bytes": slab, "budget_bytes": budget,
+           "done": sum(h.status == "done" for h in handles),
+           "pack_ms": times["pack"], "restores": landed,
+           "prefill_calls": eng.engine.prefill_calls,
+           "spill": sp}
+    emit(row)
+    eng.close()
+    if row["done"] != len(prompts):
+        raise AssertionError(f"serving_prefix.spill: {row}")
+    if corrupt:
+        ok = (sp["crc_refusals"] == 1 and sp["restores"] == 0
+              and row["prefill_calls"] == 4)
+    else:
+        ok = (sp["restores"] >= 1 and landed and all(
+            r["byte_equal"] for r in landed) and row["prefill_calls"] == 3)
+    if not ok:
+        raise AssertionError(f"serving_prefix.spill corrupt={corrupt}: "
+                             f"{row}")
+
+
+def _prefix_leg_router(smoke, params):
+    """``build_fleet(params, 2)``: two engines on the one card.  Families
+    X and Y alternate, each drained before the next: X lands on replica0,
+    Y on replica1 (the tie's round-robin), and every later request of a
+    family on its replica by affinity (2 hits each).  Then a burst with
+    no step fills both queues, and the next submit is refused
+    ``queue_full`` with ``retry_after_ms`` and ``queue_depth``."""
+    import numpy as np
+
+    from chainermn_tpu_torch.serving import AdmissionError, build_fleet
+
+    cfg = PREFIX_ROUTER
+    fams = [_prefix_prompts(41 + f, 4, cfg["prefix"], cfg["suffix"],
+                            FULL["vocab"]) for f in range(2)]
+    router = build_fleet(params, 2, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                         max_total=cfg["prefix"] + cfg["suffix"] + cfg["new"],
+                         queue_capacity=cfg["queue"], device="cuda")
+    went = []
+    for i in range(6):
+        before = dict(router._dispatched_by)
+        h = router.submit(fams[i % 2][i // 2], cfg["new"])
+        went.append(next(k for k, v in router._dispatched_by.items()
+                         if v != before[k]))
+        router.run()
+        if h.status != "done":
+            raise AssertionError(f"router request {i}: {h.status}")
+    hits = [int(r.engine.metrics()["serving/prefix/hits"])
+            for r in router.replicas]
+    affinity = router.metrics()["router/affinity_dispatches_total"]
+    burst, rejected = [], None
+    for i in range(2 * cfg["queue"] + 1):
+        try:
+            burst.append(router.submit(fams[i % 2][3], cfg["new"]))
+        except AdmissionError as e:
+            rejected = e.to_dict()
+    router.run()
+    row = {"check": "serving_prefix.router", "replicas": 2, "went": went,
+           "hits": hits, "affinity_dispatches": affinity,
+           "burst_done": sum(h.status == "done" for h in burst),
+           "rejection": rejected,
+           "rejected": router.rejection_counters()}
+    emit(row)
+    router.close()
+    want_went = ["replica0", "replica1"] * 3
+    if (went != want_went or hits != [2, 2] or affinity != 4.0
+            or rejected is None or rejected["reason"] != "queue_full"
+            or rejected.get("retry_after_ms", 0) < 1.0
+            or rejected.get("queue_depth") != 2 * cfg["queue"]
+            or row["burst_done"] != 2 * cfg["queue"]):
+        raise AssertionError(f"serving_prefix.router: {row}")
+
+
+def _prefix_leg_parity(smoke):
+    """fp32 at a reduced depth (2 layers, the full width otherwise): the
+    shared-prefix schedule and the spill schedule with the cache on and
+    off, on the card and on the CPU; each card row equals the CPU's (the
+    same cache setting, and the cache-off one), or first differs at a
+    CPU near-tie < 1e-3."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    cfg = PREFIX_PARITY
+    shape = dict(FULL, n_layers=cfg["n_layers"])
+    max_total, s_p, shared_len = (PREFIX_SERVE["max_total"],
+                                  PREFIX_SPILL["prompt"],
+                                  PREFIX_SPILL["shared"])
+    params = init_tp_transformer_lm(torch.Generator().manual_seed(3),
+                                    max_len=max_total, dtype=torch.float32,
+                                    device="cpu", **shape)
+    shared = _prefix_prompts(51, 8, PREFIX_SERVE["prefix"],
+                             PREFIX_SERVE["suffix"], FULL["vocab"])
+    rng = np.random.RandomState(52)
+    spill = [rng.randint(0, FULL["vocab"], s_p).astype(np.int32)
+             for _ in range(3)]
+    spill.append(np.concatenate([spill[0][:shared_len], rng.randint(
+        0, FULL["vocab"], s_p - shared_len)]).astype(np.int32))
+    schedules = {
+        "shared": (shared, dict(n_slots=8, max_total=max_total,
+                                spill_bytes=0), (1, 7)),
+        "spill": (spill, dict(n_slots=2, max_total=s_p + cfg["new"],
+                              spill_bytes=64 << 20), (1, 1, 1, 1))}
+    for name, (prompts, kw, waves) in schedules.items():
+        rows = {}
+        for dev in ("cuda", "cpu"):
+            for cache in (True, False):
+                eng = ServingEngine(params, head_dim=HEAD_DIM,
+                                    queue_capacity=8, prefix_cache=cache,
+                                    device=dev, **kw)
+                handles = _waves(eng, prompts, cfg["new"], waves)
+                if not all(h.status == "done" for h in handles):
+                    raise AssertionError(f"prefix parity {name} {dev}")
+                rows[dev, cache] = [h.tokens for h in handles]
+                if cache:
+                    m = eng.metrics()
+                    rows[dev, "hits"] = (m["serving/prefix/hits"],
+                                         m.get("serving/spill/restores"))
+                eng.close()
+        result = {"check": "serving_prefix.parity", "schedule": name,
+                  "dtype": "float32", "n_layers": cfg["n_layers"],
+                  "hits_restores": rows["cuda", "hits"]}
+        for card_cache, cpu_cache in ((True, True), (False, False),
+                                      (True, False)):
+            label = f"prefix_{name}_card{int(card_cache)}_cpu{int(cpu_cache)}"
+            equal, near = _near_ties(
+                label, rows["cuda", card_cache], rows["cpu", cpu_cache],
+                lambda i, t, c=cpu_cache: _cpu_choice_values(
+                    params, HEAD_DIM, prompts[i], rows["cpu", c][i], t,
+                    None))
+            result[label] = {"equal": equal, "near_ties": len(near)}
+        emit(result)
+        if rows["cuda", "hits"] != rows["cpu", "hits"]:
+            raise AssertionError(f"prefix parity {name}: hits / restores "
+                                 f"card {rows['cuda', 'hits']} vs CPU "
+                                 f"{rows['cpu', 'hits']}")
+
+
+def phase_serving_prefix(smoke):
+    """The prefix cache with copy-on-extend, the spill tier and the
+    router at the decode-bench LM's full width (bf16), then fp32 parity
+    at 2 layers."""
+    torch = smoke.torch
+
+    params = _init_full(torch, "cuda", torch.bfloat16,
+                        PREFIX_SERVE["max_total"])
+    _prefix_leg_shared(smoke, params)
+    for corrupt in (False, True):
+        _prefix_leg_spill(smoke, params, corrupt)
+    _prefix_leg_router(smoke, params)
+    del params
+    torch.cuda.empty_cache()
+    _prefix_leg_parity(smoke)
 
 
 def _tree_to(torch, params, device):
@@ -4977,6 +5370,7 @@ def main():
         for name, fn in (("kernels", phase_kernels), ("parity", phase_parity),
                          ("serving", phase_serving), ("beam", phase_beam),
                          ("serving-gqa", phase_serving_gqa),
+                         ("serving-prefix", phase_serving_prefix),
                          ("train-parity", phase_train_parity),
                          ("train", phase_train), ("tp", phase_tp),
                          ("sp", phase_sp), ("zero-wire", phase_zero_wire),

@@ -19,7 +19,12 @@ what this rank got to ``OUT_DIR/rank<r>.pkl``:
   schedule of :func:`serve_schedule`, and a leader that raises
   (:func:`leader_raises`);
 * ``cli``: ``train_transformer``, ``train_hybrid``, ``generate`` and
-  ``serve`` with ``--tp 2``, each from JAX's initial params.
+  ``serve`` with ``--tp 2``, each from JAX's initial params;
+* ``prefix``: on a ``('model',)`` mesh of the world,
+  ``ServingEngine(mesh=...)`` with the prefix cache and the spill tier on
+  through :func:`prefix_schedule` (prefix hits, a spill, a restore),
+  then again with the last rank's own spilled payloads corrupted (its CRC
+  refusal must reach every rank, and the request re-prefills).
 
 Imports no JAX.
 """
@@ -282,7 +287,9 @@ def decode_results(world, inputs):
         host = case["params"]
         local = shard_from_jax(host, transformer_lm_specs(host, AX), mesh,
                                device="cpu")
-        eng = ServingEngine(local, mesh=mesh, device="cpu", **case["kw"])
+        # built as the test builds JAX's engine: no prefix cache, no spill
+        eng = ServingEngine(local, mesh=mesh, device="cpu",
+                            prefix_cache=False, spill_bytes=0, **case["kw"])
         if not eng.engine.leader:
             eng.follow()
             out[name] = None
@@ -334,6 +341,71 @@ def leader_raises(mesh, serving):
     return res
 
 
+def prefix_schedule(eng, prompts, max_new):
+    """A shared-prefix schedule that spills and restores on a 2-slot pool:
+    request 0 alone, 1-2 together (prefix hits on 0's donation), 3-5 one
+    at a time (distinct prompts scavenge, and spill, the cached slots),
+    then 6 (0's family again: a spill restore) and 7 (a hit on 6's
+    donation)."""
+    handles = [eng.submit(prompts[0], max_new[0])]
+    eng.run(steps_budget=200)
+    handles += [eng.submit(prompts[i], max_new[i]) for i in (1, 2)]
+    eng.run(steps_budget=200)
+    for i in range(3, len(prompts)):
+        handles.append(eng.submit(prompts[i], max_new[i]))
+        eng.run(steps_budget=200)
+    return handles
+
+
+class _CorruptOnRead(dict):
+    """A follower's spilled payloads, each read back with one byte of its
+    last K/V row flipped (the CRC stamp left as packed)."""
+
+    def get(self, key, default=None):
+        payload = super().get(key, default)
+        if payload is None:
+            return payload
+        data = pickle.loads(payload)
+        k, v = data["rows"][-1]
+        v = np.array(v, copy=True)
+        v.view(np.uint8).flat[-1] ^= 1
+        data["rows"][-1] = (k, v)
+        return pickle.dumps(data, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def prefix_results(world, inputs):
+    from chainermn_tpu_torch.convert import shard_from_jax
+    from chainermn_tpu_torch.parallel import transformer_lm_specs
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    mesh = make_nd_mesh((AX,), (world,))
+    case = inputs["prefix"]
+    host = case["params"]
+    local = shard_from_jax(host, transformer_lm_specs(host, AX), mesh,
+                           device="cpu")
+    out = {}
+    for corrupt in (False, True):
+        eng = ServingEngine(local, mesh=mesh, device="cpu", **case["kw"])
+        if corrupt and dist.get_rank() == world - 1:
+            eng.engine._spilled = _CorruptOnRead()
+        if not eng.engine.leader:
+            out[corrupt] = ("followed", eng.follow(),
+                            eng.engine.prefix_copies,
+                            eng.engine.prefill_calls)
+            continue
+        try:
+            hs = prefix_schedule(eng, case["prompts"], case["max_new"])
+        finally:
+            eng.close()
+        m = eng.metrics()
+        out[corrupt] = ([(h.status, h.tokens) for h in hs],
+                        {k: v for k, v in m.items()
+                         if k.startswith(("serving/prefix/",
+                                          "serving/spill/"))},
+                        eng.engine.prefix_copies, eng.engine.prefill_calls)
+    return out
+
+
 def cli_results(inputs):
     from chainermn_tpu_torch import generate, serve, train_hybrid
     from chainermn_tpu_torch import train_transformer
@@ -364,6 +436,7 @@ def main(suite, rank, world, store_file, out_dir):
     out = {"layers": lambda: layers_results(world),
            "lm": lambda: lm_results(world, inputs),
            "decode": lambda: decode_results(world, inputs),
+           "prefix": lambda: prefix_results(world, inputs),
            "cli": lambda: cli_results(inputs)}[suite]()
     with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as fh:
         pickle.dump(out, fh)
