@@ -21,9 +21,18 @@ N-1 follow its plan, and the other ranks stop after training.
 ``--replicas N`` stands up N engines on the card behind the serving
 router (``serving.build_fleet``: prefix-affine, least-loaded dispatch and
 SLO-aware shedding); the summary then carries the ``router/*`` keys and
-each replica's goodput.  ``--metrics-out`` streams the JSONL metrics
-(``serving_step`` records and a ``serving_summary``, or the router's
-``router_rejection`` / ``router_summary``), ``--prom-out`` writes a
+each replica's goodput.  ``--disagg P:D`` serves through the
+disaggregated fleet instead (``serving.build_disagg_fleet``: P prefill
+workers, D decode workers, the KV-transfer plane between them over
+``--transport local`` (a row copy on the card) or ``lanes`` (pack, object
+lane, unpack, the slab bytes booked in the comm ledger)); the summary
+carries ``disagg``, the ``disagg/*`` keys and every worker's goodput.
+``--tenants`` bills even requests to the paid tenant ``gold`` and odd ones
+to the budgeted best-effort ``free`` (a router topology only).
+``--metrics-out`` streams the JSONL metrics (``serving_step`` records and
+a ``serving_summary``, the router's ``router_rejection`` /
+``router_summary``, or the fleet's ``disagg_summary``), ``--prom-out``
+writes a
 Prometheus textfile at the end, ``--trace-out`` turns the tracer on and
 writes its Chrome trace, ``--flight-dump-dir`` arms the flight recorder's
 crash bundles (SIGTERM / SIGUSR1 / an uncaught exception), and
@@ -42,6 +51,8 @@ Run:  python -m chainermn_tpu_torch.serve --device cuda
       torchrun --nproc-per-node 2 -m chainermn_tpu_torch.serve --tp 2
       python -m chainermn_tpu_torch.serve --device cuda --replicas 2 \\
           --metrics-out serve.jsonl --prom-out serve.prom
+      python -m chainermn_tpu_torch.serve --device cuda --disagg 1:2 \\
+          --transport lanes --tenants
       python -m chainermn_tpu_torch.serve --device cuda --dtype bfloat16 \\
           --vocab 32768 --d-model 1024 --n-heads 16 --n-layers 8 \\
           --n-slots 8 --max-total 1024 --requests 16 --prompt-len 512 \\
@@ -151,6 +162,21 @@ def run(argv=None, params=None):
                              "engines, least-loaded prefix-affine "
                              "dispatch, SLO-aware shedding; 1 = the "
                              "single-engine path")
+    parser.add_argument("--disagg", default=None, metavar="P:D",
+                        help="disaggregated topology: P prefill workers + D "
+                             "decode workers with the KV-transfer plane "
+                             "between them (e.g. --disagg 1:2); mutually "
+                             "exclusive with --replicas > 1")
+    parser.add_argument("--transport", default="local",
+                        choices=["local", "lanes"],
+                        help="disagg KV-transfer transport: 'local' = a row "
+                             "copy between the pools on the card, 'lanes' = "
+                             "the object lanes (ledger-booked bytes)")
+    parser.add_argument("--tenants", action="store_true",
+                        help="two-tenant QoS demo: even requests bill to "
+                             "tenant 'gold' (paid), odd to 'free' "
+                             "(best_effort, budgeted); needs a router "
+                             "topology (--replicas/--disagg)")
     parser.add_argument("--metrics-out", default=None,
                         help="JSONL metrics stream (serving_step records + "
                              "serving_summary roll-up)")
@@ -173,6 +199,29 @@ def run(argv=None, params=None):
         raise SystemExit("--replicas > 1 with --tp > 1 is not ported: "
                          "each replica's model ranks would follow their "
                          "own leader (ROADMAP.md, queue A, A11)")
+    if args.tenants and args.replicas <= 1 and not args.disagg:
+        raise SystemExit("--tenants needs a router topology (--replicas N "
+                         "/ --disagg P:D) — the tenant plane lives at the "
+                         "router's admission gate")
+    n_p = n_d = 0
+    if args.disagg:
+        if args.replicas > 1:
+            raise SystemExit("--disagg and --replicas > 1 are mutually "
+                             "exclusive topologies")
+        try:
+            n_p, n_d = (int(x) for x in args.disagg.split(":"))
+        except ValueError:
+            raise SystemExit(f"--disagg wants P:D (e.g. 1:2), got "
+                             f"{args.disagg!r}")
+        if n_p < 1 or n_d < 1:
+            raise SystemExit(f"--disagg needs at least one worker per "
+                             f"role, got {args.disagg!r}")
+        if args.tp > 1:
+            raise SystemExit("--disagg with --tp > 1 is not ported: each "
+                             "model rank is a process following its "
+                             "leader's plan, and every worker of the fleet "
+                             "would need its own leader (ROADMAP.md, queue "
+                             "A, A11)")
 
     import numpy as np
     import torch
@@ -185,6 +234,7 @@ def run(argv=None, params=None):
     from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
                                               transformer_lm_specs)
     from chainermn_tpu_torch.serving import (AdmissionError, ServingEngine,
+                                             TenantTable, build_disagg_fleet,
                                              build_fleet)
     from chainermn_tpu_torch.topology import (dp_tp_mesh, init_distributed,
                                               make_nd_mesh)
@@ -236,12 +286,27 @@ def run(argv=None, params=None):
     eng_kwargs = dict(head_dim=head_dim, n_slots=args.n_slots,
                       max_total=max_total,
                       queue_capacity=args.queue_capacity, device=device)
-    router = eng = None
-    if args.replicas > 1:
+    tenancy = None
+    if args.tenants:
+        tenancy = TenantTable()
+        tenancy.register("gold", "paid")
+        # the best-effort tenant carries a modest concurrency budget so
+        # the demo shows budget sheds under the staggered burst
+        tenancy.register("free", "best_effort",
+                         max_inflight=max(args.n_slots // 2, 1))
+    router = eng = disagg = None
+    if args.disagg:
+        disagg = build_disagg_fleet(
+            params, n_p, n_d, transport_mode=args.transport, slo=slo,
+            metrics_writer=writer, tenancy=tenancy,
+            bundle_dir=args.flight_dump_dir, **eng_kwargs)
+        service = disagg
+    elif args.replicas > 1:
         # one SLO tracker for the fleet (every replica burns one budget);
         # the router owns the JSONL writer
         router = build_fleet(params, args.replicas, slo=slo,
-                             metrics_writer=writer, **eng_kwargs)
+                             metrics_writer=writer, tenancy=tenancy,
+                             **eng_kwargs)
         service = router
     else:
         eng = ServingEngine(params, mesh=serve_mesh, metrics_writer=writer,
@@ -265,9 +330,12 @@ def run(argv=None, params=None):
                      for i in range(args.requests)}
 
     def submit(i):
+        tenant_kw = {}
+        if tenancy is not None:
+            tenant_kw = {"tenant": "gold" if i % 2 == 0 else "free"}
         try:
             handles[i] = service.submit(prompts[i], args.max_new_tokens,
-                                        **sample_kw.get(i, {}))
+                                        **tenant_kw, **sample_kw.get(i, {}))
         except AdmissionError as e:
             rejected[i] = e.to_dict()
             print(f"request {i} rejected: {e}", file=sys.stderr)
@@ -280,6 +348,9 @@ def run(argv=None, params=None):
         budget = args.steps_budget
 
         def busy():
+            if disagg is not None:
+                return (any(not w.idle for w in disagg.prefill_workers)
+                        or any(not w.idle for w in disagg.decode_workers))
             if router is not None:
                 return any(not rep.idle for rep in router.replicas)
             return eng.scheduler.queue_depth > 0 or eng.pool.busy_count > 0
@@ -292,7 +363,15 @@ def run(argv=None, params=None):
                 submit(nxt)
                 nxt += 1
         metrics = service.metrics()
-        if router is not None:
+        if disagg is not None:
+            # per-worker wall-clock partitions: the prefill ledgers carry
+            # the transfer bucket, the decode ledgers the ticks
+            goodput = dict(
+                {w.name: w.goodput.report()
+                 for w in disagg.prefill_workers},
+                **{w.name: w.engine.goodput.report()
+                   for w in disagg.decode_workers})
+        elif router is not None:
             goodput = {rep.name: rep.engine.goodput.report()
                        for rep in router.replicas}
         else:
@@ -333,6 +412,7 @@ def run(argv=None, params=None):
         "schema": "chainermn_tpu.serve.v1",
         "engine_steps": steps,
         "replicas": args.replicas,
+        "disagg": args.disagg,
         "device": str(device),
         "dtype": args.dtype,
         "tp": args.tp,
@@ -345,6 +425,8 @@ def run(argv=None, params=None):
     }
     if slo is not None:
         summary["slo"] = slo.status()
+    if tenancy is not None:
+        summary["tenancy"] = tenancy.state()
     return summary
 
 

@@ -1,18 +1,23 @@
 """Continuous-batching serving: scheduler, slot pool, decode engine,
-frontend, prefix cache, host spill tier, replicas and the router.
+frontend, prefix cache, host spill tier, replicas, the router and the
+disaggregated prefill / decode fleet.
 
 Counterpart of ``chainermn_tpu/serving``: one engine on one card (or its
 model ranks at TP > 1), the radix-trie prefix cache with copy-on-extend,
-the bounded host spill tier, and N in-process replicas behind
-:class:`ServingRouter`.  JAX's names that this package does not have yet
-(the disaggregated fleet, the cross-process fleet and its workers, the
-autoscaler, the fleet cache index, the model registry, the scenario
-engine) are in :data:`NOT_PORTED` and raise naming their ROADMAP.md
-queue item.
+the bounded host spill tier, N in-process replicas behind
+:class:`ServingRouter`, and the role-split fleet behind
+:class:`DisaggRouter` (prefill workers, decode workers and the KV-transfer
+plane between them, at TP = 1).  JAX's names that this package does not
+have yet (the cross-process fleet and its workers, the autoscaler, the
+fleet cache index, the model registry, the scenario engine) are in
+:data:`NOT_PORTED` and raise naming their ROADMAP.md queue item.
 """
 
 from .autoscale import derive_retry_after_ms
 from .cache_pool import CachePool, SlotAllocator
+# request_wire resolves here too; JAX's __all__ leaves it to disagg
+from .disagg import (DecodeWorker, DisaggRouter, PrefillWorker,  # noqa: F401
+                     build_disagg_fleet, request_wire)
 from .engine import DecodeEngine
 from .frontend import RequestHandle, ServingEngine
 from .lanes import FileLaneStore
@@ -24,18 +29,18 @@ from .spill import HostSpillStore
 from .tenancy import DegradationLadder, Tenant, TenantTable
 from .transfer import KvTransferPlane
 
-__all__ = ["AdmissionError", "CachePool", "DecodeEngine",
-           "DegradationLadder", "FileLaneStore", "HostSpillStore",
-           "KvTransferPlane", "PrefixCache", "PrefixEntry", "Replica",
-           "Request", "RequestHandle", "Scheduler", "ServingEngine",
-           "ServingRouter", "SlotAllocator", "Tenant", "TenantTable",
+__all__ = ["AdmissionError", "CachePool", "DecodeEngine", "DecodeWorker",
+           "DegradationLadder", "DisaggRouter", "FileLaneStore",
+           "HostSpillStore", "KvTransferPlane", "PrefillWorker",
+           "PrefixCache", "PrefixEntry", "Replica", "Request",
+           "RequestHandle", "Scheduler", "ServingEngine", "ServingRouter",
+           "SlotAllocator", "Tenant", "TenantTable", "build_disagg_fleet",
            "build_fleet", "derive_retry_after_ms"]
 
 #: JAX's serving names not ported yet: name -> ROADMAP.md queue A item
-#: (A11 steps 2 and 3).
+#: (A11 step 3).
 NOT_PORTED = dict.fromkeys(
     ("AutoscalePolicy", "FleetAutoscaler", "FleetCacheIndex", "IndexRecord",
-     "DisaggRouter", "PrefillWorker", "DecodeWorker", "build_disagg_fleet",
      "WorkerRuntime", "FleetRouter", "WorkerClient", "build_proc_fleet",
      "build_local_fleet", "submit_with_retry", "rolling_upgrade",
      "ModelRegistry", "ModelVariant", "SCENARIO_SCHEMA", "build_scenario",

@@ -7,8 +7,14 @@ leave between ticks:
 
 * **prefill_into_slot** — full-prompt forward (``lm_prefill``), the first
   token (greedy, or sampled with the request's key salted by the prompt
-  length) from the last prompt position, and a copy of the prompt's K/V
-  slab into the slot's rows of the pool.
+  length) from the last REAL prompt position, and a copy of the prompt's
+  K/V slab into the slot's rows of the pool.  ``prefill_bucket > 1``
+  right-pads prompts to bucket multiples, as JAX does to bound its
+  compiled program family (``prefill_compiles`` counts the distinct padded
+  lengths): causal attention never lets a real token see a pad, and pad
+  rows in the cache sit above ``pos``, where the per-row mask and the
+  occupant's own later writes keep them unreachable.  The default is 1
+  (no padding): padding changes the flash forward's reduction length.
 * **tick** — one token for EVERY slot (``lm_decode_tick`` with the
   per-row position vector + ``_next_token``, each slot greedy or sampled
   with its own key salted by the position it generates), K/V appended per
@@ -54,6 +60,7 @@ import torch.distributed as dist
 
 from ..ops import collective as col
 from ..parallel.decode import _kv_heads, _next_token, lm_decode_tick, lm_prefill
+from .scheduler import AdmissionError
 from .transfer import SPILL_AXIS, SPILL_OP, KvTransferPlane
 
 
@@ -63,9 +70,10 @@ class DecodeEngine:
     ``mesh``, ``params`` are this rank's shards over ``axis_name``."""
 
     def __init__(self, params, pool, mesh=None, axis_name: str = "model", *,
-                 head_dim: int):
+                 head_dim: int, prefill_bucket: int = 1):
         self.head_dim = int(head_dim)
         self.pool = pool
+        self.prefill_bucket = max(int(prefill_bucket), 1)
         self.device = pool.device
         self.n_kv_heads = _kv_heads(params, head_dim)
         self.rope = "pos_embed" not in params
@@ -76,6 +84,7 @@ class DecodeEngine:
         self._axis = None if mesh is None else mesh.axis(axis_name)
         self.leader = self._axis is None or col.axis_index(self._axis) == 0
         self.prefill_calls = 0
+        self._padded_lens = set()
         self.tick_calls = 0
         self.prefix_copies = 0
         # the spill tier's slab format; a follower keeps its own columns'
@@ -209,39 +218,80 @@ class DecodeEngine:
         self.pool.pos[slot] = old_pos if any(errs) else int(prefix_len)
         return errs
 
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct padded prompt lengths prefilled: the size of JAX's
+        compiled prefill family, which the goodput ledgers book as
+        ``compile``."""
+        return len(self._padded_lens)
+
+    def padded_len(self, s_real: int) -> int:
+        """``s_real`` rounded up to a multiple of ``prefill_bucket``."""
+        b = self.prefill_bucket
+        return ((int(s_real) + b - 1) // b) * b
+
+    def check_padded_fit(self, prompt_len: int,
+                         capacity: str = "per-slot") -> None:
+        """Admission's bucket-aware bound: raise ``AdmissionError`` (reason
+        ``too_long``) when the PADDED prompt overruns the slot or the
+        learned positions (the scheduler knows raw lengths only)."""
+        s_pad = self.padded_len(prompt_len)
+        cap = self.pool.max_total
+        if self.max_positions is not None:
+            cap = min(cap, self.max_positions)
+        if s_pad > cap:
+            raise AdmissionError(
+                "too_long",
+                f"prompt {prompt_len} pads to {s_pad} (prefill_bucket "
+                f"{self.prefill_bucket}), exceeding {capacity} capacity "
+                f"{cap}")
+
     def prefill_into_slot(self, prompt_tokens, slot: int, rng=None,
                           temperature: float = 0.0) -> int:
         """Prefill ``prompt_tokens (S,)`` into ``slot``: writes the K/V slab
-        into the pool's caches, sets ``pool.pos[slot]`` and returns the first
-        generated token (position ``S``: greedy, or sampled with ``rng`` at
-        ``temperature > 0``)."""
+        (at the padded length) into the pool's caches, sets
+        ``pool.pos[slot] = S`` and returns the first generated token
+        (position ``S``: greedy, or sampled with ``rng`` at ``temperature >
+        0``)."""
         prompt = np.asarray(prompt_tokens, np.int64).reshape(1, -1)
-        s_p = prompt.shape[1]
-        if s_p > self.pool.max_total:
-            raise ValueError(f"prompt length {s_p} exceeds pool max_total "
-                             f"{self.pool.max_total}")
+        s_real = prompt.shape[1]
+        s_pad = self.padded_len(s_real)
+        if s_pad > self.pool.max_total:
+            raise ValueError(
+                f"padded prompt length {s_pad} exceeds pool max_total "
+                f"{self.pool.max_total}")
+        if self.max_positions is not None and s_pad > self.max_positions:
+            raise ValueError(
+                f"padded prompt length {s_pad} exceeds the learned "
+                f"pos_embed max_len {self.max_positions}")
+        if s_pad > s_real:
+            prompt = np.pad(prompt, ((0, 0), (0, s_pad - s_real)))
         rng = None if rng is None else np.asarray(rng, np.uint32)
-        self.publish(("prefill", (prompt, slot, rng, float(temperature))))
-        return self._prefill(prompt, slot, rng, float(temperature))
+        self.publish(("prefill", (prompt, s_real, slot, rng,
+                                  float(temperature))))
+        return self._prefill(prompt, s_real, slot, rng, float(temperature))
 
-    def _prefill(self, prompt, slot, rng, temperature):
-        s_p = prompt.shape[1]
+    def _prefill(self, prompt, s_real, slot, rng, temperature):
+        s_pad = prompt.shape[1]
         self.prefill_calls += 1
+        self._padded_lens.add(s_pad)
         with torch.inference_mode():
             h, slabs = lm_prefill(self._params,
                                   torch.tensor(prompt, device=self.device),
-                                  s_p, head_dim=self.head_dim,
+                                  s_pad, head_dim=self.head_dim,
                                   axis_name=self._axis)
             keys = None if rng is None else rng[None]
-            tok = _next_token(self._params["embed"], h[:, -1], keys,
+            # the first token comes from the last REAL position, salted
+            # with its position s_real (lm_generate's)
+            tok = _next_token(self._params["embed"], h[:, s_real - 1], keys,
                               np.array([temperature], np.float32),
-                              torch.tensor([s_p], device=self.device),
+                              torch.tensor([s_real], device=self.device),
                               axis_name=self._axis)
             for (kc, vc), (ks, vs) in zip(self.pool.caches, slabs):
-                kc[slot, :s_p].copy_(ks[0])
-                vc[slot, :s_p].copy_(vs[0])
+                kc[slot, :s_pad].copy_(ks[0])
+                vc[slot, :s_pad].copy_(vs[0])
             first = int(tok[0])
-        self.pool.pos[slot] = s_p
+        self.pool.pos[slot] = s_real
         return first
 
     def tick(self, last_tokens: np.ndarray, keys=None,

@@ -48,9 +48,13 @@ engine over its shards; model rank 0 submits, schedules and steps it, and
 every device call it makes (prefill, tick, prefix copy, a position reset,
 a spill's pack / drop / restore) is broadcast as a plan to the other
 ranks, which call :meth:`ServingEngine.follow` and run those calls until
-the leader's :meth:`close` (in a ``finally``).  Not in this slice:
-prefill length buckets (``prefill_bucket``) and the disaggregated
-inject face (``install_request``).
+the leader's :meth:`close` (in a ``finally``).
+
+``prefill_bucket`` pads prompts to bucket multiples (the padded length is
+what admission holds against the slot and the learned positions), and
+:meth:`ServingEngine.install_request` is the disaggregated fleet's inject
+face: a request whose K/V another pool's prefill wrote and the transfer
+plane landed in a reserved slot joins the tick here.
 """
 
 from __future__ import annotations
@@ -155,14 +159,15 @@ class ServingEngine:
     ``max_total`` bounds each slot's sequence (prompt + generated); a
     request that cannot fit is rejected at submit (``AdmissionError``,
     reason ``too_long``), as is any submit while the bounded queue is full
-    (``queue_full``).  ``prefix_cache``, ``min_prefix_len`` and
-    ``spill_bytes`` (0 turns the spill tier off) are JAX's, with JAX's
-    defaults.
+    (``queue_full``).  ``prefill_bucket``, ``prefix_cache``,
+    ``min_prefix_len`` and ``spill_bytes`` (0 turns the spill tier off)
+    are JAX's, with JAX's defaults.
     """
 
     def __init__(self, params, *, head_dim: int, n_slots: int = 4,
                  max_total: int = 128, mesh=None, axis_name: str = "model",
                  queue_capacity: int = 16, max_prefills_per_tick: int = 1,
+                 prefill_bucket: int = 1,
                  metrics_writer=None, stats_capacity: int = 1024,
                  slo: Optional[SLOTracker] = None,
                  recent_capacity: int = 64, prefix_cache: bool = True,
@@ -174,7 +179,8 @@ class ServingEngine:
         self.pool = CachePool(n_slots, max_total, len(params["blocks"]),
                               n_kv * head_dim, params["embed"].dtype, dev)
         self.engine = DecodeEngine(params, self.pool, mesh, axis_name,
-                                   head_dim=head_dim)
+                                   head_dim=head_dim,
+                                   prefill_bucket=prefill_bucket)
         self.scheduler = Scheduler(
             queue_capacity, max_total,
             max_prefills_per_tick=max_prefills_per_tick,
@@ -274,6 +280,7 @@ class ServingEngine:
                         cat="serving_request", request=req.id,
                         prompt_len=req.prompt_len)
         try:
+            self.engine.check_padded_fit(req.prompt_len)
             self.scheduler.submit(req, now)
         except AdmissionError as e:
             with self._lock:
@@ -570,6 +577,30 @@ class ServingEngine:
         self._slot_keys[slot] = (req.rng if req.rng is not None
                                  else np.zeros(2, np.uint32))
         self._slot_temps[slot] = np.float32(req.temperature)
+
+    # ---- the disaggregated inject face ----
+    def install_request(self, req: Request, slot: int, tokens) -> None:
+        """Adopt an already-prefilled request whose K/V slab the transfer
+        plane just landed in ``slot`` (the caller committed the reservation
+        and set ``pool.pos[slot]``): install its sampling operands, emit the
+        tokens the prefill side produced (the first stamps TTFT and
+        streams), and tick it from the next step.  This engine never ran a
+        prefill for ``req``."""
+        req.slot = slot
+        req.status = "running"
+        now = time.monotonic()
+        req.timestamps.setdefault("prefill_start", now)
+        self._set_slot_sampling(slot, req)
+        obs.instant("serving/request/installed", cat="serving",
+                    request=req.id, slot=slot, trace_id=req.trace_id)
+        _flight.note("serving", event="installed", request=req.id,
+                     trace_id=req.trace_id, slot=slot,
+                     pos=int(self.pool.pos[slot]))
+        for tok in tokens:
+            self._emit(req, int(tok), now)
+        with self._lock:
+            self._running[slot] = req
+        self._maybe_evict(req, now)
 
     def _finish_tracing(self, req: Request, reason: str) -> None:
         """Close the request's async flow and note the terminal event."""
@@ -884,6 +915,7 @@ class ServingEngine:
             "tokens_emitted": self._tokens_emitted,
             "rejected": self._rejected,
             "prefill_calls": self.engine.prefill_calls,
+            "prefill_compiles": self.engine.prefill_compiles,
             "tick_calls": self.engine.tick_calls,
             "prefix_copies": self.engine.prefix_copies,
             "goodput": self.goodput.report(),

@@ -1,23 +1,35 @@
-"""The KV-transfer plane's slab format, and the in-process lane store.
+"""KV-transfer plane: ship a finished prefill's KV slab between pools.
 
-Counterpart of ``chainermn_tpu/serving/transfer.py``, the part the host
-spill tier needs: :meth:`KvTransferPlane.pack` serialises a slot's
-written rows ``[0, length)`` with a CRC32 over their raw bytes (the
-``chainermn_tpu.kv_transfer.v1`` wire dict), and
-:meth:`KvTransferPlane.unpack_into` verifies the stamp before anything
-touches the pool, then lands the rows in a destination slot through
-:meth:`KvTransferPlane.inject_program` and books the slab bytes in the
-comm ledger.  The rows travel as numpy arrays of their raw bits: a
-bfloat16 row is its 16-bit pattern (``uint16``; numpy has no bfloat16),
-so the CRC hashes exactly the bytes the card holds, and an fp32 slab's
-CRC equals JAX's over the same numbers.
+Counterpart of ``chainermn_tpu/serving/transfer.py``, the disaggregation
+primitive: a prefill worker computes a prompt's K/V slab into a staging
+slot of its own :class:`~chainermn_tpu_torch.serving.cache_pool.CachePool`,
+and this plane moves the slab, with the request metadata riding with it,
+into a decode worker's reserved slot.  Two transports, one contract:
 
-The device halves are plain slot-row copies (``copy_``), as JAX computes
-them outside any Pallas kernel; a pool on the card copies on the card.
+* **Same process** (:meth:`KvTransferPlane.transfer_local`): every layer's
+  K and V row of the source slot, rows ``[0, min(src.max_total,
+  dst.max_total))``, copied into the destination slot (``copy_``, on the
+  pools' card), and ``pos`` set on the destination.  JAX computes it as a
+  ``dynamic_update_slice`` outside any Pallas kernel; here it is plain
+  torch too.  One "program" per pool pair, keyed as JAX keys its compiled
+  ones.
+* **Object lanes** (:meth:`pack` -> :meth:`lane_put` / :meth:`lane_get`
+  -> :meth:`unpack_into`): the slab's written rows ``[0, length)`` are
+  serialised with the request wire dict and a CRC32 over their raw bytes
+  (the ``chainermn_tpu.kv_transfer.v1`` wire dict), shipped over a
+  put / get / delete store under ``lane_call``'s retry discipline (a
+  terminal fault raises :class:`~chainermn_tpu_torch.communicators.base
+  .DcnLaneError` naming the lane), then checked before anything touches
+  the pool and landed in the destination slot.  Each landing books its
+  raw slab bytes as a noted ``kv_transfer_lane@dcn`` comm-ledger row: the
+  number :func:`transfer_cost` predicts.  The rows travel as numpy arrays
+  of their raw bits: a bfloat16 row is its 16-bit pattern (``uint16``;
+  numpy has no bfloat16), so the CRC hashes exactly the bytes the card
+  holds, and an fp32 slab's CRC equals JAX's over the same numbers.
+
 Rows above ``length`` in the destination keep whatever they held: they
 sit above the occupant's ``pos`` and are unreachable (the masking
-argument of ``cache_pool.py``).  ``transfer_local``, the object-lane
-faces and ``transfer_cost`` are ROADMAP.md's A11 step 2.
+argument of ``cache_pool.py``), so neither copy needs a length operand.
 """
 
 from __future__ import annotations
@@ -26,7 +38,7 @@ import pickle
 import threading
 import time
 import zlib
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -80,14 +92,73 @@ def slab_crc32(rows) -> int:
 def slab_nbytes(n_layers: int, length: int, kv_dim: int, dtype) -> int:
     """RAW K/V payload bytes of one slab: 2 (K and V) x layers x written
     rows x kv_dim x itemsize (pickle framing excluded).  ``dtype``: a
-    torch dtype or its name (``'bfloat16'``)."""
-    if not isinstance(dtype, torch.dtype):
-        dtype = getattr(torch, str(dtype).replace("torch.", ""))
-    return 2 * int(n_layers) * int(length) * int(kv_dim) * dtype.itemsize
+    torch dtype, its name (``'bfloat16'``) or a numpy dtype."""
+    return 2 * int(n_layers) * int(length) * int(kv_dim) * _itemsize(dtype)
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    named = getattr(torch, str(dtype).replace("torch.", ""), None)
+    if isinstance(named, torch.dtype):
+        return named.itemsize
+    return np.dtype(dtype).itemsize
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+#: The pools' cache layout in JAX's spec language: each model rank holds
+#: its own KV heads' columns, axis 2 over the model axis.
+CACHE_SPEC = (None, None, "model")
+
+
+def _shard_axis_of(spec, axis_name: str) -> Optional[int]:
+    """The logical axis a cache spec shards over ``axis_name`` (None:
+    replicated), the glue into ``reshard_cost``'s spec language."""
+    for i, s in enumerate(tuple(spec)):
+        names = s if isinstance(s, tuple) else (s,)
+        if axis_name in [n for n in names if n is not None]:
+            return i
+    return None
+
+
+def transfer_cost(n_layers: int, length: int, kv_dim: int, dtype, *,
+                  mode: str, axis_size: int = 1,
+                  src_spec: Optional[int] = 2,
+                  dst_spec: Optional[int] = 2,
+                  copy_rows: Optional[int] = None) -> Dict[str, Any]:
+    """Static prediction of one transfer's comm-ledger booking, the
+    number the runtime reproduces byte for byte.
+
+    ``mode="local"``: the same-process copy, per K or V row the
+    :func:`~chainermn_tpu_torch.parallel.reshard.reshard_cost` of the
+    ``(1, copy_rows, kv_dim)`` block between the two pools' cache specs
+    (zero when they match, one all_to_all a row otherwise).
+    ``mode="lanes"``: :func:`slab_nbytes` of the written rows, booked as
+    one noted ``kv_transfer_lane@dcn`` row a transfer."""
+    if mode == "lanes":
+        nbytes = slab_nbytes(n_layers, length, kv_dim, dtype)
+        return {"mode": mode, "primitive": LANE_OP,
+                "ledger_bytes": nbytes, "wire_bytes": nbytes,
+                "messages": 1}
+    if mode != "local":
+        raise ValueError(f"mode must be 'local' or 'lanes', got {mode!r}")
+    from ..parallel.reshard import reshard_cost
+
+    rows = int(copy_rows if copy_rows is not None else length)
+    total = {"mode": mode, "primitive": None, "ledger_bytes": 0,
+             "wire_bytes": 0, "messages": 0}
+    for _ in range(2 * int(n_layers)):
+        c = reshard_cost((1, rows, int(kv_dim)), dtype, src_spec,
+                         dst_spec, axis_size)
+        total["ledger_bytes"] += c["ledger_bytes"]
+        total["wire_bytes"] += c["wire_bytes"]
+        total["messages"] += c["messages"]
+        if c["primitive"]:
+            total["primitive"] = c["primitive"]
+    return total
 
 
 class InProcessLaneStore:
@@ -128,9 +199,101 @@ class InProcessLaneStore:
 
 
 class KvTransferPlane:
-    """Packs slot slabs into ``kv_transfer.v1`` payloads and lands them in
-    a pool (the object-lane transport is A11 step 2)."""
+    """The transfer-plane object a disaggregated fleet shares.
 
+    ``transport``: the object lane (put / get / delete) of the lanes path,
+    :class:`InProcessLaneStore` by default; a deployment passes a
+    communicator's (``CommunicatorBase.kv_lane_transport()``).
+    ``lane_config``: ``lane_call``'s retry and timeout settings.  The
+    same-process path needs no transport."""
+
+    def __init__(self, transport=None, lane_config=None):
+        self.transport = transport or InProcessLaneStore()
+        self.lane_config = lane_config
+        self._programs: Dict[Any, Callable] = {}      # local copies
+        self._inject_programs: Dict[Any, Callable] = {}
+        # host-side counters (the fleet's metrics read these)
+        self.transfers = 0
+        self.lane_transfers = 0
+        self.bytes_moved = 0            # ledger-convention slab bytes
+        self.last_transfer_ms = 0.0
+
+    # ---- same process: one program per pool pair ----
+    @staticmethod
+    def _sig(pool):
+        return (pool.n_layers, pool.n_slots, pool.max_total, pool.kv_dim,
+                _dtype_name(pool.caches[0][0].dtype))
+
+    def _local_key(self, src_pool, dst_pool):
+        return (self._sig(src_pool), self._sig(dst_pool),
+                str(src_pool.device), str(dst_pool.device))
+
+    def _build_local(self, src_pool, dst_pool) -> Callable:
+        if src_pool.device != dst_pool.device:
+            raise ValueError(
+                "local transfer needs src and dst pools on ONE device; "
+                "cross-device transfers go over the object lanes "
+                "(pack/unpack_into)")
+        if src_pool.kv_dim != dst_pool.kv_dim \
+                or src_pool.n_layers != dst_pool.n_layers:
+            raise ValueError(
+                f"pool shape mismatch: src (layers={src_pool.n_layers}, "
+                f"kv_dim={src_pool.kv_dim}) vs dst "
+                f"(layers={dst_pool.n_layers}, kv_dim={dst_pool.kv_dim})")
+        copy_rows = min(src_pool.max_total, dst_pool.max_total)
+
+        def copy(src_caches, dst_caches, src_slot: int,
+                 dst_slot: int) -> None:
+            with torch.inference_mode():
+                for (ks, vs), (kd, vd) in zip(src_caches, dst_caches):
+                    kd[dst_slot, :copy_rows].copy_(ks[src_slot, :copy_rows])
+                    vd[dst_slot, :copy_rows].copy_(vs[src_slot, :copy_rows])
+
+        return copy
+
+    def local_program(self, src_pool, dst_pool) -> Callable:
+        """The (src pool, dst pool) copy ``prog(src_caches, dst_caches,
+        src_slot, dst_slot)``, built once per pool-shape pair."""
+        key = self._local_key(src_pool, dst_pool)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = self._build_local(src_pool,
+                                                           dst_pool)
+            from ..observability import flight as _flight
+            _flight.note("compile", program="serving_kv_transfer",
+                         family_size=len(self._programs))
+        return prog
+
+    def transfer_local(self, src_pool, src_slot: int, dst_pool,
+                       dst_slot: int, length: int) -> Dict[str, Any]:
+        """Copy slot ``src_slot``'s slab into ``dst_slot`` of a pool on the
+        same card and set ``dst_pool.pos[dst_slot] = length``.  The copy
+        is enqueued on the current CUDA stream, behind whatever wrote the
+        source rows there.  Returns the transfer's stats row (mode, ms,
+        ledger bytes, length)."""
+        copy_rows = min(src_pool.max_total, dst_pool.max_total)
+        if not (0 < int(length) <= copy_rows):
+            raise ValueError(
+                f"transfer length {length} out of range (0, {copy_rows}] "
+                f"(src max_total {src_pool.max_total}, dst "
+                f"{dst_pool.max_total})")
+        prog = self.local_program(src_pool, dst_pool)
+        t0 = time.monotonic()
+        prog(src_pool.caches, dst_pool.caches, int(src_slot), int(dst_slot))
+        dst_pool.pos[dst_slot] = int(length)
+        ms = (time.monotonic() - t0) * 1e3
+        self.transfers += 1
+        self.last_transfer_ms = ms
+        spec = _shard_axis_of(CACHE_SPEC, "model")
+        cost = transfer_cost(
+            src_pool.n_layers, length, src_pool.kv_dim,
+            src_pool.caches[0][0].dtype, mode="local", axis_size=1,
+            src_spec=spec, dst_spec=spec, copy_rows=copy_rows)
+        return {"mode": "local", "ms": ms,
+                "ledger_bytes": cost["ledger_bytes"],
+                "length": int(length)}
+
+    # ---- object lanes: pack -> lane -> unpack_into ----
     def pack(self, src_pool, src_slot: int, length: int,
              meta: Dict[str, Any]) -> bytes:
         """Serialise slot ``src_slot``'s written rows ``[0, length)`` plus
@@ -162,26 +325,58 @@ class KvTransferPlane:
             "rows": rows,
         }, protocol=pickle.HIGHEST_PROTOCOL)
 
+    def lane_put(self, tag: str, payload: bytes) -> None:
+        """Publish a packed slab on the object lane under ``lane_call``'s
+        retry discipline; a terminal fault names the lane
+        (``kv_transfer/put/<tag>``)."""
+        from ..communicators.base import lane_call
+
+        lane_call(f"kv_transfer/put/{tag}",
+                  lambda: self.transport.put(tag, payload),
+                  self.lane_config)
+
+    def lane_get(self, tag: str, timeout_s: float = 10.0) -> bytes:
+        from ..communicators.base import lane_call
+
+        return lane_call(
+            f"kv_transfer/get/{tag}",
+            lambda: self.transport.get(tag, timeout_s),
+            self.lane_config)
+
+    def lane_delete(self, tag: str) -> None:
+        from ..communicators.base import lane_call
+
+        lane_call(f"kv_transfer/gc/{tag}",
+                  lambda: self.transport.delete(tag), self.lane_config)
+
     def inject_program(self, dst_pool) -> Callable:
-        """The slab write that lands a transfer: ``inject(rows, dst_slot,
-        dtype)`` copies each layer's host rows ``(length, kv_dim)``, the raw
-        bits of ``dtype``, into the slot's first ``length`` rows (one
+        """The slab write that lands a transfer, built once per pool
+        shape: ``inject(caches, rows, dst_slot, dtype)`` copies each
+        layer's host rows ``(length, kv_dim)``, the raw bits of ``dtype``,
+        into the slot's first ``length`` rows of ``caches`` (one
         host-to-device copy of the stacked slab, cast to the pool's dtype,
         then a row copy a layer).  Each tensor-parallel rank writes its own
         KV columns."""
-        caches = dst_pool.caches
+        key = self._sig(dst_pool) + (str(dst_pool.device),)
+        prog = self._inject_programs.get(key)
+        if prog is None:
+            device = dst_pool.device
 
-        def inject(rows, dst_slot: int, dtype: torch.dtype) -> None:
-            stacked = np.stack([a for kv in rows for a in kv])
-            slab = _device_rows(stacked, dtype).to(
-                device=dst_pool.device, dtype=caches[0][0].dtype)
-            length = slab.shape[1]
-            with torch.inference_mode():
-                for i, (kc, vc) in enumerate(caches):
-                    kc[dst_slot, :length].copy_(slab[2 * i])
-                    vc[dst_slot, :length].copy_(slab[2 * i + 1])
+            def inject(caches, rows, dst_slot: int,
+                       dtype: torch.dtype) -> None:
+                stacked = np.stack([a for kv in rows for a in kv])
+                slab = _device_rows(stacked, dtype).to(
+                    device=device, dtype=caches[0][0].dtype)
+                length = slab.shape[1]
+                with torch.inference_mode():
+                    for i, (kc, vc) in enumerate(caches):
+                        kc[dst_slot, :length].copy_(slab[2 * i])
+                        vc[dst_slot, :length].copy_(slab[2 * i + 1])
 
-        return inject
+            prog = self._inject_programs[key] = inject
+            from ..observability import flight as _flight
+            _flight.note("compile", program="serving_kv_inject")
+        return prog
 
     def unpack_into(self, payload: bytes, dst_pool, dst_slot: int, *,
                     ledger_op: str = LANE_OP,
@@ -190,8 +385,9 @@ class KvTransferPlane:
         its length.  The schema, shape and CRC32 are checked before
         anything touches the pool: a corrupt or foreign slab raises
         :class:`ValueError`.  With the tracer on, the RAW slab bytes are
-        booked as a noted ``ledger_op@ledger_axis`` ledger row.  Returns
-        the wire dict's ``meta`` and the transfer's stats."""
+        booked as a noted ``ledger_op@ledger_axis`` ledger row (the spill
+        tier's restores book ``kv_spill_restore@host``).  Returns the wire
+        dict's ``meta`` and the transfer's stats."""
         t0 = time.monotonic()
         data = pickle.loads(payload)
         if data.get("schema") != WIRE_SCHEMA:
@@ -218,13 +414,17 @@ class KvTransferPlane:
                     f"{int(want_crc):#010x}, rows hash {got_crc:#010x}) "
                     f"— the slab was corrupted in transit/storage and "
                     f"must re-prefill, never serve")
-        self.inject_program(dst_pool)(data["rows"], dst_slot,
-                                      getattr(torch, data["dtype"]))
+        self.inject_program(dst_pool)(dst_pool.caches, data["rows"],
+                                      dst_slot, getattr(torch, data["dtype"]))
         dst_pool.pos[dst_slot] = length
 
         nbytes = slab_nbytes(data["n_layers"], length, data["kv_dim"],
                              data["dtype"])
         ms = (time.monotonic() - t0) * 1e3
+        self.transfers += 1
+        self.lane_transfers += 1
+        self.bytes_moved += nbytes
+        self.last_transfer_ms = ms
         from ..observability import comm as _comm
         from ..observability import trace as _trace
         if _trace.get_tracer().enabled:
@@ -234,3 +434,13 @@ class KvTransferPlane:
         return {"mode": "lanes", "ms": ms, "ledger_bytes": nbytes,
                 "wire_payload_bytes": len(payload), "length": length,
                 "meta": data["meta"]}
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "transfers": float(self.transfers),
+            "lane_transfers": float(self.lane_transfers),
+            "bytes_moved": float(self.bytes_moved),
+            "last_transfer_ms": float(self.last_transfer_ms),
+            "programs": float(len(self._programs)
+                              + len(self._inject_programs)),
+        }

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier and the router), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router and the disaggregated prefill / decode fleet), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -142,6 +142,27 @@ and prints no result line:
    shared-prefix (8 requests) and spill schedules with the cache on and
    off, on the card and on the CPU: tokens equal or a CPU near-tie
    under 1e-3, the hits and restores equal.
+6c. ``serving-disagg`` — disaggregated prefill / decode serving at the
+   decode-bench width (bf16, prompt 512, 64 new, cache 1024): a 1:1
+   ``build_disagg_fleet`` (2 staging slots, 8 decode slots) takes 16
+   requests submitted at once over the ``local`` transport (a row copy
+   between the pools) and then the ``lanes`` one (pack, object lane,
+   unpack), each once under ``run()`` (launch counts zeroed just before,
+   read just after) and once under ``start()`` / ``stop()`` (one driver
+   thread per role: tokens/s, TTFT p50 / p99, the decode tick gap p50 /
+   p99, transfer ms p50 / p99, the prefill worker's goodput buckets),
+   beside the fused ``ServingEngine`` (cache and spill off) run both ways
+   on the same 16 requests.  Held: 16 transfers a run, no prefill on the
+   decode worker and no tick on the prefill worker, 8 flash forward and 8
+   append launches a prefill and 8 decode launches a tick, lanes
+   ``bytes_moved`` 16 x ``slab_nbytes(8, 512, 1024, bf16)`` =
+   268,435,456, every allocator drained, and every request's tokens the
+   fused engine's (or first different at a near-tie < 1e-3 of the card's
+   logits).  Then the GQA model (4 KV heads) over the lanes, 8 requests of
+   16 new tokens (8 beam launches and 8 appends a tick, on rows the plane
+   landed; tokens against the fused GQA engine), and fp32 at 2 layers
+   (full width otherwise; 8 requests, prompt 256, 16 new) on both
+   transports, card against CPU: tokens equal or a CPU near-tie < 1e-3.
 7. ``train-parity`` — fp32, d 1024, 2 layers, 8 heads, vocab 32768, S 256,
    B 2, flash attention and the fused CE, TF32 off: the gradient of every
    parameter at the initial weights, card against CPU, to a relative norm
@@ -171,7 +192,7 @@ and prints no result line:
    at TP = 1 on the card, losses rtol 1e-4 and the parameters gathered by
    ``gather_to_numpy`` atol 1e-4 (the key bias apart: its exact gradient
    is zero, and Adam turns the rounding noise there into +-lr steps);
-   (b) bf16 at full width, SGD 1e-2, 2 warm-up and 10 timed steps: step
+   (b) bf16 at full width, SGD 1e-2, 1 warm-up and 3 timed steps: step
    ms p50 / p99 and each rank's launches a step (8 flash forward, 8 flash
    backward, one of each CE kernel, at flash (8, 1024, 4, 128) and CE
    (8192, 16384, 1024)); (c) fp32 serving of the decode-bench LM (16 heads
@@ -195,7 +216,7 @@ and prints no result line:
    at SP = 2 and at SP = 1 on the card: losses rtol 1e-4, the first
    step's gradients per leaf rtol 1e-4 with atol 1e-4 x the leaf's max
    |g|, the parameters atol 1e-4; (b) bf16, SGD
-   1e-2, 2 warm-up and 10 timed steps: losses within 2e-2 of SP = 1's,
+   1e-2, 1 warm-up and 3 timed steps: losses within 2e-2 of SP = 1's,
    step ms p50 / p99 and tokens/s (the gloo host wire's), each rank's
    launches a step (ring: 8 and 16 of each flash kernel on ranks 0 and 1,
    the causal ring skipping rank 0's later block; Ulysses: 8 and 8);
@@ -207,12 +228,12 @@ and prints no result line:
 10b. ``zero-wire`` — the sharded data-parallel state and the gradient
    wire as two worker processes (``chip_smoke.py --zero-worker RANK
    DIR``) on this card over a gloo group, as phase ``tp``: (a) ZeRO-1
-   (``make_zero1_train_step``) on the LM at the train phase's widths,
-   global batch 8 (4 rows a rank): fp32, 3 Adam steps (lr 1e-4) against
-   the unsharded step on the card over the same 8 rows (losses rtol 1e-4,
-   parameters atol 1e-4), each Adam moment half its leaf; bf16, SGD 1e-2,
-   2 + 3 steps (step ms, each rank's launches a step: 8 of each flash
-   kernel and one of each CE kernel); (b) ``train_imagenet --fsdp --arch
+   (``make_zero1_train_step``) on the LM at the train phase's widths and
+   4 layers (``ZW_LM``), global batch 8 (4 rows a rank): fp32, 3 Adam
+   steps (lr 1e-4) against the unsharded step on the card over the same 8
+   rows (losses rtol 1e-4, parameters atol 1e-4), each Adam moment half
+   its leaf; bf16, SGD 1e-2, 1 + 3 steps (step ms, each rank's launches a
+   step: 4 of each flash kernel and one of each CE kernel); (b) ``train_imagenet --fsdp --arch
    vit_s16 --optimizer lamb --lr 1e-3 --agc 0.01`` at 224, fp32, global
    batch 64, the warm-up step and 2 more, against the same CLI at world 1
    (losses rtol 1e-4, the gathered parameters atol 1e-4; 12 + 12 flash
@@ -338,7 +359,7 @@ and prints no result line:
    the two U runs agree bit for bit, else lie within their spread;
    exactly 11 launches of each conv kernel a step in every run.  The same
    with double buffering (``stale_grads`` come back too).  A timing leg
-   (24 steps, six saves) prints the bytes a generation, ``save()``'s
+   (16 steps, four saves) prints the bytes a generation, ``save()``'s
    blocking ms, the writer's ms, ``maybe_load``'s ms and the step ms p50
    with a write in flight beside p50 without.  Then three groups side by
    side, in subprocesses: ``train_mnist_checkpoint --unit 1000`` killed at
@@ -351,7 +372,8 @@ and prints no result line:
    a world-2 generation, resumed at world 1 on the card (batch 256, the
    same global batch) within rtol 1e-4 of the CPU's own continuation.
 21. One ``{"kernels": [...]}`` line (launches summed over the main paths'
-   runs: the two serving runs, the serving-prefix cache-on run, the beam
+   runs: the two serving runs, the serving-prefix cache-on run, the
+   serving-disagg ``run()`` legs (local, lanes, GQA), the beam
    run, the timed LM training steps,
    the ``tp`` phase's ``(1, 1)`` steps and both ranks' bf16 steps, serving
    and beam runs, phase ``sp``'s bf16 steps of both ranks (ring and
@@ -380,6 +402,9 @@ BEAM = dict(batch=8, prompt=512, new=512, beam_size=4)   # bench.py bench_decode
 # bench.py :: bench_transformer_lm's defaults
 TRAIN = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8)
 TRAIN_SEQ, TRAIN_BATCH = 1024, 8
+# the LM of phase zero-wire: the train widths (so every kernel runs at its
+# per-layer shapes) at half the depth
+ZW_LM = dict(TRAIN, n_layers=4)
 HEAD_DIM_TRAIN = TRAIN["d_model"] // TRAIN["n_heads"]
 # bench.py's headline: ResNet-50, image 224, batch 128 per card, 1,000 classes
 RESNET = dict(arch="resnet50", image=224, batch=128, classes=1000)
@@ -2315,6 +2340,303 @@ def phase_serving_prefix(smoke):
     _prefix_leg_parity(smoke)
 
 
+DISAGG = dict(requests=16, prompt=512, new=64, max_total=1024, slots=8,
+              staging=2)
+DISAGG_GQA = dict(requests=8, new=16)
+DISAGG_PARITY = dict(n_layers=2, requests=8, prompt=256, new=16, slots=4)
+
+
+def _disagg_prompts(seed, n, s_p):
+    import numpy as np
+
+    return list(np.random.RandomState(seed).randint(
+        0, FULL["vocab"], (n, s_p)).astype(np.int32))
+
+
+def _drive_all(service, prompts, new, threads):
+    """Submit every prompt at once and serve them: under ``run()`` (one
+    thread, deterministic), or ``start()`` / ``stop()`` (the service's
+    driver threads).  Returns the handles and the wall seconds."""
+    t0 = time.perf_counter()
+    if threads:
+        service.start()
+    try:
+        handles = [service.submit(p, new) for p in prompts]
+        if threads:
+            for h in handles:
+                if not h.wait(timeout=300):
+                    raise AssertionError(f"request {h.id} not finished in "
+                                         f"300 s: {h.status}")
+        else:
+            service.run()
+    finally:
+        if threads:
+            service.stop()
+    return handles, time.perf_counter() - t0
+
+
+def _card_choice_values(params, prompt, tokens, t):
+    """The card's logits (fp32 upcast of the model's dtype) behind token
+    ``t`` of a greedy request."""
+    import numpy as np
+    import torch
+
+    from chainermn_tpu_torch.parallel.decode import lm_prefill
+
+    ctx = np.concatenate([prompt, np.asarray(tokens[:t], np.int32)])
+    dev = params["embed"].device
+    with torch.inference_mode():
+        h, _ = lm_prefill(params, torch.tensor(ctx[None], dtype=torch.long,
+                                               device=dev),
+                          len(ctx), head_dim=HEAD_DIM)
+        return (h[0, -1].float() @ params["embed"].float().t()).cpu()
+
+
+def _disagg_fleet(params, transport, staging, slots, max_total, dev):
+    from chainermn_tpu_torch.serving import build_disagg_fleet
+
+    return build_disagg_fleet(params, 1, 1, head_dim=HEAD_DIM,
+                              max_total=max_total, n_slots=slots,
+                              staging_slots=staging, queue_capacity=32,
+                              transport_mode=transport, device=dev)
+
+
+def _disagg_check_roles(label, fleet, n_req):
+    """transfers, the role split and every allocator drained."""
+    m = fleet.metrics()
+    pw, dw = fleet.prefill_workers[0], fleet.decode_workers[0]
+    bad = []
+    if m["disagg/transfers_total"] != n_req:
+        bad.append(f"transfers {m['disagg/transfers_total']}, want {n_req}")
+    if dw.engine.engine.prefill_calls or pw.engine.tick_calls:
+        bad.append(f"role split: decode prefills "
+                   f"{dw.engine.engine.prefill_calls}, prefill ticks "
+                   f"{pw.engine.tick_calls}")
+    for alloc in (pw.pool.allocator, dw.engine.pool.allocator):
+        alloc.check_invariants()
+        if alloc.busy_count or alloc.reserved_count:
+            bad.append(f"allocator not drained: busy {alloc.busy_count}, "
+                       f"reserved {alloc.reserved_count}")
+    if dw.inbox:
+        bad.append(f"{len(dw.inbox)} transfers left in the inbox")
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    return m
+
+
+def _disagg_leg_bf16(smoke, params):
+    """bf16, the decode-bench width: the fused engine (cache and spill
+    off) and the 1:1 fleet over each transport take the same 16 requests,
+    each once under ``run()`` (tokens and launch counts) and once under
+    ``start()`` / ``stop()`` (times)."""
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.serving import ServingEngine
+    from chainermn_tpu_torch.serving.transfer import slab_nbytes
+
+    cfg = DISAGG
+    n_layers = FULL["n_layers"]
+    prompts = _disagg_prompts(61, cfg["requests"], cfg["prompt"])
+    slab = slab_nbytes(n_layers, cfg["prompt"], FULL["d_model"], "bfloat16")
+    # first use of the shapes (the library loads, the allocator's pools)
+    # outside the measured runs
+    warm = ServingEngine(params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                         max_total=cfg["max_total"], prefix_cache=False,
+                         spill_bytes=0, device="cuda")
+    _drive_all(warm, prompts[:2], 4, False)
+    warm.close()
+    rows, tokens = {}, {}
+    for name in ("fused", "local", "lanes"):
+        for threads in (False, True):
+            if name == "fused":
+                service = ServingEngine(
+                    params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                    max_total=cfg["max_total"], queue_capacity=32,
+                    prefix_cache=False, spill_bytes=0, device="cuda")
+            else:
+                service = _disagg_fleet(params, name, cfg["staging"],
+                                        cfg["slots"], cfg["max_total"],
+                                        "cuda")
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            handles, wall = _drive_all(service, prompts, cfg["new"], threads)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            if any(h.status != "done" or len(h.tokens) != cfg["new"]
+                   for h in handles):
+                raise AssertionError(f"disagg {name} threads={threads}: "
+                                     f"{[h.status for h in handles]}")
+            ttft = [h.ttft_ms for h in handles]
+            n_tok = sum(len(h.tokens) for h in handles)
+            row = {"check": "serving_disagg.bf16", "service": name,
+                   "drive": "start/stop" if threads else "run",
+                   "dtype": "bfloat16", **cfg, "wall_s": wall,
+                   "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                   "ttft_ms_p50": _percentile(ttft, 0.5),
+                   "ttft_ms_p99": _percentile(ttft, 0.99),
+                   "card": smoke.card}
+            m = service.metrics()
+            if name == "fused":
+                row.update(tick_gap_ms_p50=m.get("serving/tick_gap_p50_ms"),
+                           tick_gap_ms_p99=m.get("serving/tick_gap_p99_ms"),
+                           ticks=service.engine.tick_calls,
+                           goodput=service.goodput.report())
+            else:
+                m = _disagg_check_roles(f"disagg {name}", service,
+                                        cfg["requests"])
+                pw, dw = service.prefill_workers[0], service.decode_workers[0]
+                row.update(
+                    tick_gap_ms_p50=m.get("disagg/decode_tick_gap_p50_ms"),
+                    tick_gap_ms_p99=m.get("disagg/decode_tick_gap_p99_ms"),
+                    transfer_ms_p50=m.get("disagg/transfer_p50_ms"),
+                    transfer_ms_p99=m.get("disagg/transfer_p99_ms"),
+                    ticks=dw.engine.engine.tick_calls,
+                    plane=service.plane.stats(),
+                    prefill_goodput=pw.goodput.report(),
+                    decode_goodput=dw.engine.goodput.report(),
+                    requeued=m["disagg/requeued_total"])
+                if name == "lanes" and service.plane.bytes_moved \
+                        != cfg["requests"] * slab:
+                    raise AssertionError(
+                        f"lanes bytes {service.plane.bytes_moved}, want "
+                        f"{cfg['requests']} x {slab}")
+            if not threads:
+                ticks = row["ticks"]
+                want = {"flash_fwd": n_layers * cfg["requests"],
+                        "cache_append": n_layers * cfg["requests"],
+                        "decode_attend": n_layers * ticks, "beam_attend": 0}
+                wrong = {k: (launches[k], w) for k, w in want.items()
+                         if launches[k] != w}
+                row["launches"] = launches
+                if wrong:
+                    raise AssertionError(f"disagg {name} launches (got, "
+                                         f"want): {wrong}")
+                if name != "fused":
+                    smoke.add_launches(launches)
+                tokens[name] = [h.tokens for h in handles]
+            else:
+                tokens[name, "threads"] = [h.tokens for h in handles]
+            emit(row)
+            rows[name, threads] = row
+            service.close()
+    # the fleets serve the fused engine's tokens (the same kernels at the
+    # same shapes), or differ first at a near-tie of the card's logits
+    for name in ("local", "lanes"):
+        for key in (name, (name, "threads")):
+            equal, near = _near_ties(
+                f"disagg_{key}", tokens[key], tokens["fused"],
+                lambda i, t: _card_choice_values(params, prompts[i],
+                                                 tokens["fused"][i], t))
+            emit({"check": "serving_disagg.tokens_vs_fused",
+                  "service": name,
+                  "drive": "start/stop" if key != name else "run",
+                  "equal": equal,
+                  "near_ties": len(near), "dtype": "bfloat16"})
+    return rows
+
+
+def _disagg_leg_gqa(smoke):
+    """bf16, the GQA model (4 KV heads) over the lanes: the beam kernel
+    ticks on rows another pool's prefill wrote."""
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    cfg = dict(DISAGG, **DISAGG_GQA)
+    n_layers = FULL["n_layers"]
+    params = _init_full(torch, "cuda", torch.bfloat16, cfg["max_total"],
+                        n_kv_heads=GQA_KV_HEADS)
+    prompts = _disagg_prompts(62, cfg["requests"], cfg["prompt"])
+    fused = ServingEngine(params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                          max_total=cfg["max_total"], queue_capacity=32,
+                          prefix_cache=False, spill_bytes=0, device="cuda")
+    want_tokens = [h.tokens for h in _drive_all(fused, prompts, cfg["new"],
+                                                False)[0]]
+    fused.close()
+    fleet = _disagg_fleet(params, "lanes", cfg["staging"], cfg["slots"],
+                          cfg["max_total"], "cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    handles, wall = _drive_all(fleet, prompts, cfg["new"], False)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _disagg_check_roles("disagg gqa", fleet, cfg["requests"])
+    ticks = fleet.decode_workers[0].engine.engine.tick_calls
+    got = [h.tokens for h in handles]
+    equal, near = _near_ties(
+        "disagg_gqa", got, want_tokens,
+        lambda i, t: _card_choice_values(params, prompts[i], want_tokens[i],
+                                         t))
+    emit({"check": "serving_disagg.gqa", "dtype": "bfloat16",
+          "kv_heads": GQA_KV_HEADS, **cfg, "transport": "lanes",
+          "wall_s": wall, "ticks": ticks, "launches": launches,
+          "equal_to_fused": equal, "near_ties": len(near),
+          "bytes_moved": fleet.plane.bytes_moved, "card": smoke.card})
+    fleet.close()
+    want = {"beam_attend": n_layers * ticks, "decode_attend": 0,
+            "flash_fwd": n_layers * cfg["requests"],
+            "cache_append": n_layers * (cfg["requests"] + ticks)}
+    wrong = {k: (launches[k], w) for k, w in want.items()
+             if launches[k] != w}
+    if wrong:
+        raise AssertionError(f"disagg GQA launches (got, want): {wrong}")
+    smoke.add_launches(launches)
+
+
+def _disagg_leg_parity(smoke):
+    """fp32 at 2 layers (the full width otherwise): the 1:1 fleet over each
+    transport on the card and on the CPU, the same requests; each card row
+    equals the CPU's, or first differs at a CPU near-tie < 1e-3."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+
+    cfg = DISAGG_PARITY
+    max_total = cfg["prompt"] + cfg["new"]
+    params = init_tp_transformer_lm(
+        torch.Generator().manual_seed(4), max_len=max_total,
+        dtype=torch.float32, device="cpu",
+        **dict(FULL, n_layers=cfg["n_layers"]))
+    prompts = _disagg_prompts(63, cfg["requests"], cfg["prompt"])
+    for transport in ("local", "lanes"):
+        rows = {}
+        for dev in ("cuda", "cpu"):
+            fleet = _disagg_fleet(params, transport, 2, cfg["slots"],
+                                  max_total, dev)
+            handles, _ = _drive_all(fleet, prompts, cfg["new"], False)
+            _disagg_check_roles(f"disagg parity {transport} {dev}", fleet,
+                                cfg["requests"])
+            if not all(h.status == "done" for h in handles):
+                raise AssertionError(f"disagg parity {transport} {dev}")
+            rows[dev] = [h.tokens for h in handles]
+            fleet.close()
+        equal, near = _near_ties(
+            f"disagg_parity_{transport}", rows["cuda"], rows["cpu"],
+            lambda i, t: _cpu_choice_values(params, HEAD_DIM,
+                                            np.asarray(prompts[i]),
+                                            rows["cpu"][i], t, None))
+        emit({"check": "serving_disagg.parity", "transport": transport,
+              "dtype": "float32", **cfg, "equal": equal,
+              "near_ties": len(near)})
+
+
+def phase_serving_disagg(smoke):
+    """Disaggregated prefill / decode serving at the decode-bench LM's
+    full width (bf16): the 1:1 fleet over the local and the lanes
+    transports beside the fused engine, the GQA model over the lanes, then
+    fp32 card-vs-CPU parity at 2 layers on both transports."""
+    torch = smoke.torch
+
+    params = _init_full(torch, "cuda", torch.bfloat16, DISAGG["max_total"])
+    _disagg_leg_bf16(smoke, params)
+    del params
+    torch.cuda.empty_cache()
+    _disagg_leg_gqa(smoke)
+    torch.cuda.empty_cache()
+    _disagg_leg_parity(smoke)
+
+
 def _tree_to(torch, params, device):
     from chainermn_tpu_torch.convert import tree_map
 
@@ -2474,7 +2796,7 @@ def phase_train(smoke):
 # ---------------------------------------------------------------------------
 
 TP_ADAM_LR, TP_PARITY_STEPS = 1e-4, 3
-TP_BF16 = dict(warm=2, steps=10)
+TP_BF16 = dict(warm=1, steps=3)
 TP_SERVE = dict(requests=8, prompt=512, new=16, max_total=1024, slots=8)
 TP_BEAM = dict(batch=2, prompt=128, new=16, beam_size=4)
 TP_WORKER_TIMEOUT_S = 600
@@ -3057,7 +3379,7 @@ def _tp_ref_beam(torch, params, prompts, toks):
 
 SP = dict(seq=8192, batch=2, ranks=2)   # global S, B, the 'sp' axis
 SP_ADAM_LR, SP_PARITY_STEPS = 1e-4, 3
-SP_BF16 = dict(warm=2, steps=10)
+SP_BF16 = dict(warm=1, steps=3)
 SP_MOE_STEPS = 20
 SP_PIPE = dict(batch=16, d=8, microbatches=4)  # tests/test_pipeline.py
 SP_WORKER_TIMEOUT_S = 600
@@ -3218,7 +3540,7 @@ def _sp_sgd(leaves):
 def _sp_ref(torch, params, keep):
     """SP = 1 on the card: fp32, 3 Adam steps (losses; SP = 2's first-step
     gradients per leaf by :func:`_grad_err`; the largest parameter
-    difference after the steps) and bf16, SGD, 2 + 10 steps (losses, step
+    difference after the steps) and bf16, SGD, 1 + 3 steps (losses, step
     ms)."""
     import numpy as np
 
@@ -3411,7 +3733,7 @@ def _sp_report(smoke, res, wall):
 
 ZW_WORKER_TIMEOUT_S = 600
 ZW_DEVICE = "cuda"          # the card the legs run on
-ZERO_LM = dict(batch=8, adam_lr=1e-4, steps=3, sgd_lr=1e-2, warm=2, timed=3)
+ZERO_LM = dict(batch=8, adam_lr=1e-4, steps=3, sgd_lr=1e-2, warm=1, timed=3)
 # LAMB at the imagenet-train phase's ViT rate (1e-3), fp32 compute
 FSDP_VIT = ["--fsdp", "--arch", "vit_s16", "--optimizer", "lamb", "--lr",
             "1e-3", "--agc", "0.01", "--image-size", "224", "--steps", "2",
@@ -3435,8 +3757,9 @@ def phase_zero_wire(smoke):
     """ZeRO-1, FSDP and the int8 wire with two processes on this card over
     a gloo group (``chip_smoke.py --zero-worker RANK DIR``, phase ``tp``'s
     mechanism; the times are the gloo host wire's): (a) ZeRO-1 on the LM
-    at the train widths (global B 8, 4 a rank), fp32 3 Adam steps against
-    the unsharded step on the card and bf16 2 + 3 SGD steps; (b) ``python
+    at the train widths and 4 layers (global B 8, 4 a rank), fp32 3 Adam
+    steps against the unsharded step on the card and bf16 1 + 3 SGD steps;
+    (b) ``python
     -m chainermn_tpu_torch.train_imagenet --fsdp`` on ViT-S/16 at 224
     (LAMB, AGC, fp32, global batch 64) against the same CLI at world 1;
     (c) the int8 wire through ``train_imagenet`` on ResNet-50 at 224
@@ -3503,7 +3826,7 @@ def _zw_lm(torch, dtype):
 
     return init_tp_transformer_lm(torch.Generator().manual_seed(0),
                                   max_len=TRAIN_SEQ, dtype=dtype,
-                                  device=ZW_DEVICE, **TRAIN)
+                                  device=ZW_DEVICE, **ZW_LM)
 
 
 def _zw_tokens(torch, rank=None):
@@ -3783,7 +4106,7 @@ def _zw_report(smoke, res, wall):
           "param_worst": ref["zero1_param"][1], "atol": 1e-4,
           "adam_moment_fraction_of_leaf_by_rank": fractions,
           "p2_step_ms": z["ms"], "p1_step_ms": ref["zero1_ms"],
-          "wire": TP_WIRE, **TRAIN, "S": TRAIN_SEQ, "B": ZERO_LM["batch"]})
+          "wire": TP_WIRE, **ZW_LM, "S": TRAIN_SEQ, "B": ZERO_LM["batch"]})
     if zrel > 1e-4 or ref["zero1_param"][0] > 1e-4:
         bad.append(f"ZeRO-1 fp32 vs world 1: loss rel err {zrel}, param "
                    f"{ref['zero1_param']}")
@@ -3799,13 +4122,14 @@ def _zw_report(smoke, res, wall):
           "step_ms_p50": _percentile(ms, 0.5),
           "tokens_per_s": ZERO_LM["batch"] * TRAIN_SEQ * len(ms)
           / (sum(ms) / 1e3), "launches_per_step_by_rank": per_step,
-          **TRAIN, "S": TRAIN_SEQ, "B": ZERO_LM["batch"],
+          **ZW_LM, "S": TRAIN_SEQ, "B": ZERO_LM["batch"],
           "card": smoke.card})
     losses = zb[0]["losses"]
     if not all(x == x and abs(x) < 1e9 for x in losses) \
             or not losses[-1] < losses[0]:
         bad.append(f"ZeRO-1 bf16 losses not finite and falling: {losses}")
-    want = {"flash_fwd": TRAIN["n_layers"], "flash_bwd": TRAIN["n_layers"],
+    want = {"flash_fwd": ZW_LM["n_layers"],
+            "flash_bwd": ZW_LM["n_layers"],
             "ce_stats": 1, "ce_dh": 1, "ce_dtable": 1}
     if any(ps != want for ps in per_step):
         bad.append(f"ZeRO-1 bf16 launches a step {per_step}, want {want}")
@@ -4907,7 +5231,7 @@ def phase_model_parallel(smoke):
 
 ROBUST_EVERY = 4           # the checkpointer's save cadence, iterations
 ROBUST_STEPS = 8           # leg U's uninterrupted steps
-ROBUST_TIMING_STEPS = 24   # the timing leg: six saves, four of them warm
+ROBUST_TIMING_STEPS = 16   # the timing leg: four saves, two of them warm
 MNIST_UNIT = 1000
 DEMO_STEPS = 600           # long enough for SIGTERM to land mid-run
 
@@ -5110,7 +5434,7 @@ def _comm():
 
 
 def _resnet_timing_leg(smoke, tmp):
-    """24 steps, a save every 4 (six generations, the pinned buffers warm
+    """16 steps, a save every 4 (four generations, the pinned buffers warm
     from the third): save()'s blocking ms, the writer's ms and bytes, and
     the step ms p50 with a write in flight beside p50 without."""
     torch = smoke.torch
@@ -5330,18 +5654,25 @@ def phase_robustness(smoke):
 
     torch = smoke.torch
     tmp = Path(tempfile.mkdtemp(prefix="chainermn_robustness_"))
+    legs_s, t0 = {}, time.monotonic()
     for db in (False, True):
         _resnet_resume_leg(smoke, tmp, db)
+        legs_s[f"resume_db{int(db)}"] = time.monotonic() - t0
+        t0 = time.monotonic()
     _resnet_timing_leg(smoke, tmp)
     torch.cuda.synchronize()
+    legs_s["timing"] = time.monotonic() - t0
+    t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         futs = {name: pool.submit(fn, tmp) for name, fn in
                 (("mnist", _cli_mnist_kill_resume),
                  ("demo", _cli_demo_preempt),
                  ("elastic", _cli_elastic))}
         rows = {name: f.result() for name, f in futs.items()}
+    legs_s["subprocesses"] = time.monotonic() - t0
     for row in rows.values():
         emit({**row, "card": smoke.card})
+    emit({"check": "robustness.legs_s", **legs_s})
 
 
 def main():
@@ -5371,6 +5702,7 @@ def main():
                          ("serving", phase_serving), ("beam", phase_beam),
                          ("serving-gqa", phase_serving_gqa),
                          ("serving-prefix", phase_serving_prefix),
+                         ("serving-disagg", phase_serving_disagg),
                          ("train-parity", phase_train_parity),
                          ("train", phase_train), ("tp", phase_tp),
                          ("sp", phase_sp), ("zero-wire", phase_zero_wire),
