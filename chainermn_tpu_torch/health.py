@@ -52,8 +52,9 @@ tensor: the window bounds the collective's completion, at the price of
 one stream synchronisation per guarded call (nothing without a guard).
 Under gloo the call blocks until done and no synchronisation is needed.
 
-The JAX package also writes leases, fences and epochs into its causal
-journal; the journal is ROADMAP.md's A12.
+Beats, lease releases, minted epochs and fences go into the causal
+journal (``observability/journal.py``) when one is configured: a beat's
+HLC stamp rides in its lease, so the reader's judgment orders after it.
 """
 
 from __future__ import annotations
@@ -126,6 +127,7 @@ class HeartbeatPublisher:
     def beat(self, **state) -> Optional[Dict[str, Any]]:
         """Publish one lease; returns it (None once released)."""
         from .communicators.base import lane_call
+        from .observability import journal as _journal
 
         with self._lock:
             if self._released:
@@ -133,6 +135,13 @@ class HeartbeatPublisher:
             self.seq += 1
             lease = make_lease(self.worker, self.role, self.epoch,
                                self.seq, **state)
+            if _journal.enabled():
+                # the HLC rides in the lease payload so the reader's
+                # judgment merges the publisher's clock: every beat
+                # happens-before the supervision decision it feeds
+                lease["hlc"] = _journal.wire_emit(
+                    "beat", worker=self.worker, epoch=self.epoch,
+                    lseq=self.seq)
             payload = pickle.dumps(lease,
                                    protocol=pickle.HIGHEST_PROTOCOL)
             lane_call(f"health/{self.worker}/beat",
@@ -153,12 +162,15 @@ class HeartbeatPublisher:
         reader sees an explicit departure, not a missed window.
         Latches the publisher: later beats are refused."""
         from .communicators.base import lane_call
+        from .observability import journal as _journal
 
         with self._lock:
             self._released = True
             lane_call(f"health/{self.worker}/release",
                       lambda: self.store.delete(f"lease/{self.worker}"),
                       self.lane_config)
+            _journal.emit("lease_release", worker=self.worker,
+                          epoch=self.epoch)
 
 
 class LeaseTable:
@@ -234,10 +246,13 @@ class EpochFence:
         self.refusals: Dict[str, int] = {}   # kind -> refused count
 
     def new_epoch(self, worker: str) -> int:
+        from .observability import journal as _journal
+
         with self._lock:
             e = self._epoch.get(worker, 0) + 1
             self._epoch[worker] = e
             self._fenced[worker] = False
+        _journal.emit("epoch_minted", worker=worker, epoch=e)
         return e
 
     def set_epoch(self, worker: str, epoch: int) -> int:
@@ -255,8 +270,12 @@ class EpochFence:
             return int(epoch)
 
     def fence(self, worker: str) -> None:
+        from .observability import journal as _journal
+
         with self._lock:
             self._fenced[worker] = True
+            epoch = self._epoch.get(worker)
+        _journal.emit("fence", worker=worker, epoch=epoch)
 
     def current(self, worker: str) -> Optional[int]:
         with self._lock:

@@ -1,10 +1,12 @@
 """Observability carried over so far: the span tracer (``trace``), the
 flight recorder (``flight``: the event ring and the debug bundles), the
-comm ledger (``comm``), the Prometheus textfile and the JSONL metrics
-stream with the health snapshot (``export``), and goodput, SLO burn-rate
-tracking and the latency reservoir (``slo``)."""
+causal fleet journal (``journal``: HLC-stamped per-process files, their
+happens-before merge and renderings), the comm ledger (``comm``), the
+Prometheus textfile and the JSONL metrics stream with the health snapshot
+(``export``), and goodput, SLO burn-rate tracking and the latency
+reservoir (``slo``)."""
 
-from . import comm, flight, trace
+from . import comm, flight, journal, trace
 from .comm import CommAccountant, get_accountant
 from .export import (SCHEMA as METRICS_SCHEMA, MetricsWriter,
                      health_snapshot, parse_prometheus_text, prometheus_text,
@@ -41,7 +43,7 @@ __all__ = ["CommAccountant", "FlightRecorder", "GoodputLedger",
            "export_chrome_trace", "find_bundles", "flight",
            "get_accountant", "get_flight_recorder", "get_tracer",
            "health_snapshot", "install_signal_handlers",
-           "install_tracer_tee", "instant", "note", "now_us",
+           "install_tracer_tee", "instant", "journal", "note", "now_us",
            "parse_prometheus_text", "percentile_of", "prometheus_text",
            "read_bundle", "read_metrics_jsonl", "register_provider",
            "reset", "reset_all", "set_crash_dump_dir", "set_gauge",

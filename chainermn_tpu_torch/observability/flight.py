@@ -136,9 +136,9 @@ _CRASH_DUMP_DIR: Optional[str] = None
 _LAST_BUNDLE: Optional[str] = None
 _tee_installed = False
 
-#: A callable every module-level note tees into, when set (the JAX
-#: package's causal journal registers here; the journal is ROADMAP.md's
-#: A12).  note() stays one attribute load + None check without it.
+#: A callable every module-level note tees into, when set (the causal
+#: journal, ``journal.configure``, registers here).  note() stays one
+#: attribute load + None check without it.
 _JOURNAL_TEE: Optional[Callable[[str, Dict[str, Any]], None]] = None
 
 

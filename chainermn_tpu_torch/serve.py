@@ -27,6 +27,14 @@ workers, D decode workers, the KV-transfer plane between them over
 ``--transport local`` (a row copy on the card) or ``lanes`` (pack, object
 lane, unpack, the slab bytes booked in the comm ledger)); the summary
 carries ``disagg``, the ``disagg/*`` keys and every worker's goodput.
+``--fleet-procs N`` spawns N engine workers as separate processes over the
+file lanes in ``--lane-dir`` (``serving.build_proc_fleet``: each worker on
+the card, supervised by the heartbeat / lease plane with in-flight
+failover and zombie fencing); ``--disagg P:D --procs`` runs the role-split
+workers as processes the same way.  The load generator retries a rejected
+submit (``serving.submit_with_retry``: ``--submit-retries`` attempts,
+honoring ``retry_after_ms``), the run ends with a graceful rolling drain,
+and the summary's ``fleet_exit_codes`` holds every worker's exit code.
 ``--tenants`` bills even requests to the paid tenant ``gold`` and odd ones
 to the budgeted best-effort ``free`` (a router topology only).
 ``--metrics-out`` streams the JSONL metrics (``serving_step`` records and
@@ -53,6 +61,8 @@ Run:  python -m chainermn_tpu_torch.serve --device cuda
           --metrics-out serve.jsonl --prom-out serve.prom
       python -m chainermn_tpu_torch.serve --device cuda --disagg 1:2 \\
           --transport lanes --tenants
+      python -m chainermn_tpu_torch.serve --device cuda --fleet-procs 2
+      python -m chainermn_tpu_torch.serve --device cuda --disagg 1:1 --procs
       python -m chainermn_tpu_torch.serve --device cuda --dtype bfloat16 \\
           --vocab 32768 --d-model 1024 --n-heads 16 --n-layers 8 \\
           --n-slots 8 --max-total 1024 --requests 16 --prompt-len 512 \\
@@ -63,6 +73,7 @@ Run:  python -m chainermn_tpu_torch.serve --device cuda
 import argparse
 import json
 import sys
+import time
 
 
 def make_corpus(rng, n, seq_len, vocab):
@@ -172,11 +183,33 @@ def run(argv=None, params=None):
                         help="disagg KV-transfer transport: 'local' = a row "
                              "copy between the pools on the card, 'lanes' = "
                              "the object lanes (ledger-booked bytes)")
+    parser.add_argument("--fleet-procs", type=int, default=0,
+                        help="cross-PROCESS fleet: spawn N engine workers "
+                             "as separate processes over the file lanes, "
+                             "supervised by the heartbeat/lease health "
+                             "plane with in-flight failover; mutually "
+                             "exclusive with --replicas > 1 / --disagg")
+    parser.add_argument("--procs", action="store_true",
+                        help="with --disagg P:D: run the role workers as "
+                             "separate PROCESSES over the lanes instead of "
+                             "in-process")
+    parser.add_argument("--lane-dir", default=None,
+                        help="directory for the cross-process file lanes "
+                             "(default: a fresh temp dir)")
+    parser.add_argument("--beat-interval-s", type=float, default=0.05,
+                        help="worker heartbeat interval; the router "
+                             "declares death after miss_beats=4 missed "
+                             "beats (detection window = beat * (4+1))")
+    parser.add_argument("--submit-retries", type=int, default=3,
+                        help="client-side submit attempts: shed/full "
+                             "rejections honor retry_after_ms with "
+                             "jittered backoff before giving up "
+                             "machine-readably (submit_with_retry)")
     parser.add_argument("--tenants", action="store_true",
                         help="two-tenant QoS demo: even requests bill to "
                              "tenant 'gold' (paid), odd to 'free' "
                              "(best_effort, budgeted); needs a router "
-                             "topology (--replicas/--disagg)")
+                             "topology (--replicas/--disagg/--fleet-procs)")
     parser.add_argument("--metrics-out", default=None,
                         help="JSONL metrics stream (serving_step records + "
                              "serving_summary roll-up)")
@@ -199,10 +232,11 @@ def run(argv=None, params=None):
         raise SystemExit("--replicas > 1 with --tp > 1 is not ported: "
                          "each replica's model ranks would follow their "
                          "own leader (ROADMAP.md, queue A, A11)")
-    if args.tenants and args.replicas <= 1 and not args.disagg:
+    if args.tenants and args.replicas <= 1 and not args.disagg \
+            and not args.fleet_procs:
         raise SystemExit("--tenants needs a router topology (--replicas N "
-                         "/ --disagg P:D) — the tenant plane lives at the "
-                         "router's admission gate")
+                         "/ --disagg P:D / --fleet-procs N) — the tenant "
+                         "plane lives at the router's admission gate")
     n_p = n_d = 0
     if args.disagg:
         if args.replicas > 1:
@@ -222,6 +256,15 @@ def run(argv=None, params=None):
                              "leader's plan, and every worker of the fleet "
                              "would need its own leader (ROADMAP.md, queue "
                              "A, A11)")
+    procs = bool(args.fleet_procs or (args.disagg and args.procs))
+    if procs:
+        if args.fleet_procs and (args.replicas > 1 or args.disagg):
+            raise SystemExit("--fleet-procs is mutually exclusive with "
+                             "--replicas > 1 / --disagg")
+        if args.tp > 1:
+            raise SystemExit("a worker-process fleet with --tp > 1 is not "
+                             "ported: every worker would need its own "
+                             "model ranks (ROADMAP.md, queue A, A11)")
 
     import numpy as np
     import torch
@@ -235,7 +278,8 @@ def run(argv=None, params=None):
                                               transformer_lm_specs)
     from chainermn_tpu_torch.serving import (AdmissionError, ServingEngine,
                                              TenantTable, build_disagg_fleet,
-                                             build_fleet)
+                                             build_fleet, build_proc_fleet,
+                                             submit_with_retry)
     from chainermn_tpu_torch.topology import (dp_tp_mesh, init_distributed,
                                               make_nd_mesh)
 
@@ -294,8 +338,27 @@ def run(argv=None, params=None):
         # the demo shows budget sheds under the staggered burst
         tenancy.register("free", "best_effort",
                          max_inflight=max(args.n_slots // 2, 1))
-    router = eng = disagg = None
-    if args.disagg:
+    router = eng = disagg = fleet = None
+    fleet_exit_codes = None
+    if procs:
+        # every worker a separate process over the file lanes, on this
+        # run's device, supervised by the lease plane
+        import tempfile
+        topology = ({"engine": args.fleet_procs} if args.fleet_procs
+                    else {"prefill": n_p, "decode": n_d})
+        lane_dir = args.lane_dir or tempfile.mkdtemp(
+            prefix="chainermn_tpu_lanes_")
+        fleet = build_proc_fleet(
+            params, topology, lane_dir, head_dim=head_dim,
+            beat_interval_s=args.beat_interval_s,
+            bundle_dir=args.flight_dump_dir, device=device.type,
+            worker_kwargs=dict(n_slots=args.n_slots, max_total=max_total,
+                               queue_capacity=args.queue_capacity),
+            slo=slo, metrics_writer=writer, tenancy=tenancy)
+        print(f"fleet: spawned {topology} worker process(es), lanes at "
+              f"{lane_dir}", file=sys.stderr)
+        service = fleet
+    elif args.disagg:
         disagg = build_disagg_fleet(
             params, n_p, n_d, transport_mode=args.transport, slo=slo,
             metrics_writer=writer, tenancy=tenancy,
@@ -329,16 +392,29 @@ def run(argv=None, params=None):
                          "rng": prng.fold_in(base_key, i)}
                      for i in range(args.requests)}
 
+    # client-side honor of retry_after_ms: a rejected submit backs off
+    # (jittered, bounded) and retries before giving up machine-readably;
+    # while it waits the service keeps being driven, so the backlog the
+    # rejection named can drain
+    def driving_sleep(seconds):
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            service.step()
+
     def submit(i):
         tenant_kw = {}
         if tenancy is not None:
             tenant_kw = {"tenant": "gold" if i % 2 == 0 else "free"}
         try:
-            handles[i] = service.submit(prompts[i], args.max_new_tokens,
-                                        **tenant_kw, **sample_kw.get(i, {}))
+            handles[i] = submit_with_retry(
+                service.submit, prompts[i], args.max_new_tokens,
+                max_attempts=max(args.submit_retries, 1),
+                sleep=driving_sleep, **tenant_kw, **sample_kw.get(i, {}))
         except AdmissionError as e:
             rejected[i] = e.to_dict()
-            print(f"request {i} rejected: {e}", file=sys.stderr)
+            print(f"request {i} rejected after "
+                  f"{max(args.submit_retries, 1)} attempt(s): {e}",
+                  file=sys.stderr)
 
     try:     # the followers wait in follow() until the leader closes
         first_wave = min(args.n_slots, args.requests)
@@ -348,6 +424,8 @@ def run(argv=None, params=None):
         budget = args.steps_budget
 
         def busy():
+            if fleet is not None:
+                return fleet.busy
             if disagg is not None:
                 return (any(not w.idle for w in disagg.prefill_workers)
                         or any(not w.idle for w in disagg.decode_workers))
@@ -362,8 +440,20 @@ def run(argv=None, params=None):
             if nxt < args.requests and steps % max(args.stagger_every, 1) == 0:
                 submit(nxt)
                 nxt += 1
+        if fleet is not None:
+            # graceful rolling drain: in-flight work finishes, nothing
+            # sheds, every worker exits 0
+            for name in list(fleet.workers):
+                if fleet.workers[name].state in ("starting", "live"):
+                    fleet.drain(name)
+                    fleet.wait_drained(name, timeout_s=60)
+            fleet_exit_codes = fleet.shutdown()
+            print(f"fleet: drained; worker exit codes {fleet_exit_codes}",
+                  file=sys.stderr)
         metrics = service.metrics()
-        if disagg is not None:
+        if fleet is not None:
+            goodput = fleet.goodput.report()
+        elif disagg is not None:
             # per-worker wall-clock partitions: the prefill ledgers carry
             # the transfer bucket, the decode ledgers the ticks
             goodput = dict(
@@ -384,6 +474,8 @@ def run(argv=None, params=None):
         if args.trace_out:
             obs.export_chrome_trace(args.trace_out)
     finally:
+        if fleet is not None and fleet_exit_codes is None:
+            fleet.shutdown()         # every worker reaped, or killed
         service.close()
 
     per_request, correct = [], []
@@ -413,6 +505,9 @@ def run(argv=None, params=None):
         "engine_steps": steps,
         "replicas": args.replicas,
         "disagg": args.disagg,
+        "fleet_procs": args.fleet_procs or (
+            len(fleet.workers) if fleet is not None else 0),
+        "fleet_exit_codes": fleet_exit_codes,
         "device": str(device),
         "dtype": args.dtype,
         "tp": args.tp,

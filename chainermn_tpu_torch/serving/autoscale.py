@@ -4,8 +4,10 @@
 queued / recent tokens-per-second, clamped and jittered, so clients back
 off in proportion to real congestion.  The router's rejections carry it.
 
-The autoscaler itself (``AutoscalePolicy``, ``FleetAutoscaler``) drives
-the cross-process fleet and is ROADMAP.md's A11 step 3: its names are in
+The autoscaler itself (``AutoscalePolicy``, ``FleetAutoscaler`` and the
+spawn factories) drives the cross-process fleet
+(:class:`~chainermn_tpu_torch.serving.fleet.FleetRouter` has its
+attachment point) and is ROADMAP.md's A11 step 3b: its names are in
 :data:`NOT_PORTED` and raise naming the queue item.
 """
 

@@ -24,17 +24,25 @@ ticking: its ``pos`` drifts upward above the donated prefix (the tick
 advances every slot), and its garbage writes land there, clamped to
 ``max_total - 1`` by the append, inside its own row; the rows below the
 prefix length stay intact.  ``cache`` leaves ``pos`` alone and
-``uncache`` resets it.  The allocator's journal emits come with
-``health.py``'s (ROADMAP.md's A12).
+``uncache`` resets it.  Every allocator transition goes into the causal
+journal (a ``slot`` event naming the op, the allocator and the slot) when
+one is configured, as in JAX's allocator.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..observability import journal as _journal
+
+#: Distinguishes interleaved allocators in one process's journal (an
+#: in-process fleet runs several engines, each with its own pool).
+_ALLOC_IDS = itertools.count()
 
 
 class SlotAllocator:
@@ -58,6 +66,13 @@ class SlotAllocator:
         # every state transition is a compound read-then-write, and
         # admission races donation across the driver and caller threads
         self._lock = threading.Lock()
+        # the JAX package's conformance monitor replays these against its
+        # slot-lifecycle model; op=init carries the universe size
+        self._aid = next(_ALLOC_IDS)
+        self._jemit("init", n_slots=self.n_slots)
+
+    def _jemit(self, op: str, **fields) -> None:
+        _journal.emit("slot", op=op, alloc=self._aid, **fields)
 
     def acquire(self) -> Optional[int]:
         """Lowest free slot index, or None when the pool is saturated."""
@@ -66,6 +81,7 @@ class SlotAllocator:
                 return None
             slot = self._free.pop(0)
             self._busy.add(slot)
+        self._jemit("acquire", slot=slot)
         return slot
 
     def release(self, slot: int) -> None:
@@ -79,6 +95,7 @@ class SlotAllocator:
             # deterministic
             self._free.append(slot)
             self._free.sort()
+        self._jemit("release", slot=slot)
 
     # ---- transfer-destination reservations: free -> reserved -> busy ----
     def reserve(self) -> Optional[int]:
@@ -91,6 +108,7 @@ class SlotAllocator:
                 return None
             slot = self._free.pop(0)
             self._reserved.add(slot)
+        self._jemit("reserve", slot=slot)
         return slot
 
     def commit_reservation(self, slot: int) -> None:
@@ -103,6 +121,7 @@ class SlotAllocator:
                     f"reserved={sorted(self._reserved)}")
             self._reserved.remove(slot)
             self._busy.add(slot)
+        self._jemit("commit_reservation", slot=slot)
 
     def cancel_reservation(self, slot: int) -> None:
         """The transfer failed: return the held slot to the free list."""
@@ -115,6 +134,7 @@ class SlotAllocator:
             self._reserved.remove(slot)
             self._free.append(slot)
             self._free.sort()
+        self._jemit("cancel_reservation", slot=slot)
 
     # ---- prefix-cache faces: busy -> cached(rc) -> free ----
     def cache(self, slot: int) -> None:
@@ -126,6 +146,7 @@ class SlotAllocator:
                                  f"busy={sorted(self._busy)}")
             self._busy.remove(slot)
             self._cached[slot] = 0
+        self._jemit("cache", slot=slot)
 
     def retain(self, slot: int) -> int:
         """Pin a cached slot for one more in-flight reader."""
@@ -135,6 +156,7 @@ class SlotAllocator:
                                  f"cached={sorted(self._cached)}")
             self._cached[slot] += 1
             rc = self._cached[slot]
+        self._jemit("retain", slot=slot)
         return rc
 
     def unretain(self, slot: int) -> int:
@@ -147,6 +169,7 @@ class SlotAllocator:
                                  f"(double unretain)")
             self._cached[slot] -= 1
             rc = self._cached[slot]
+        self._jemit("unretain", slot=slot)
         return rc
 
     def uncache(self, slot: int) -> None:
@@ -163,6 +186,7 @@ class SlotAllocator:
             del self._cached[slot]
             self._free.append(slot)
             self._free.sort()
+        self._jemit("uncache", slot=slot)
 
     def refcount(self, slot: int) -> Optional[int]:
         return self._cached.get(slot)

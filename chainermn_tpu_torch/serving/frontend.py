@@ -195,7 +195,8 @@ class ServingEngine:
                 release_slot=self.pool.unretain,
                 evict_slot=self._uncache_slot,
                 min_prefix_len=min_prefix_len,
-                on_evict=self._maybe_spill)
+                on_insert=self._on_prefix_insert,
+                on_evict=self._on_prefix_evict)
         # the host-RAM spill tier: a scavenged rc==0 prefix slot spills
         # its CRC-stamped slab into a bounded LRU host store; a later
         # matching prompt restores it instead of prefilling
@@ -206,6 +207,14 @@ class ServingEngine:
             self.spill = HostSpillStore(capacity_bytes=int(spill_bytes),
                                         on_evict=self._on_spill_evict)
             self._spill_plane = self.engine.kv_plane
+        # the fleet worker's hooks: it announces this engine's cache
+        # lifecycle over the mailbox wire so the router's fleet index can
+        # route remote pulls here.  ``on_cache_insert(entry)``,
+        # ``on_cache_evict(entry, spilled)``, ``on_spill_evict(seq,
+        # length)``
+        self.on_cache_insert = None
+        self.on_cache_evict = None
+        self.on_spill_evict = None
         self.metrics_writer = metrics_writer
         self._running: Dict[int, Request] = {}   # slot -> request
         self._lock = threading.Lock()            # guards _running + stats
@@ -677,7 +686,19 @@ class ServingEngine:
                 return
         self._release(slot)
 
-    # ---- the spill tier ----
+    # ---- the cache lifecycle: the spill tier and the fleet hooks ----
+    def _on_prefix_insert(self, entry) -> None:
+        if self.on_cache_insert is not None:
+            self.on_cache_insert(entry)
+
+    def _on_prefix_evict(self, entry) -> None:
+        """Fires before the evicted entry's slot returns to the free
+        list: spill its K/V into the host tier, then tell the fleet hook
+        whether the eviction demoted (spilled) or dropped the prefix."""
+        spilled = self._maybe_spill(entry)
+        if self.on_cache_evict is not None:
+            self.on_cache_evict(entry, spilled)
+
     def _maybe_spill(self, entry) -> bool:
         """The prefix cache's pre-eviction hook: before the entry's slot
         is freed, pack its K/V into the spill tier."""
@@ -704,6 +725,8 @@ class ServingEngine:
 
     def _on_spill_evict(self, seq, length) -> None:
         self.engine.unspill_followers(seq)
+        if self.on_spill_evict is not None:
+            self.on_spill_evict(seq, length)
 
     def _try_restore(self, req: Request, slot: int) -> int:
         """Restore a spilled prefix into the request's own slot; returns

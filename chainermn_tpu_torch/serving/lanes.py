@@ -1,21 +1,40 @@
-"""The directory-backed object lane and the non-blocking lane read.
+"""Cross-process object lanes and mailboxes for the serving fleet.
 
-Counterpart of the part of ``chainermn_tpu/serving/lanes.py`` that
-training robustness needs: :class:`FileLaneStore` (the ``put(tag, bytes)``
-/ ``get(tag, timeout_s)`` / ``delete(tag)`` face over a shared
-directory, usable by unrelated processes: atomic tmp-then-rename
-publishes, so a reader sees a payload completely or not at all) and
-:func:`lane_try_get`.  The self-healing gang polls its leases through
-them.  The mailboxes above the store, and the fleet that uses them, are
-ROADMAP.md's A11.
+Counterpart of ``chainermn_tpu/serving/lanes.py``.  :class:`FileLaneStore`
+is the elastic wire: the ``put(tag, bytes)`` / ``get(tag, timeout_s)`` /
+``delete(tag)`` face over a shared directory, usable by unrelated
+processes (atomic tmp-then-rename publishes, so a reader sees a payload
+completely or not at all).  The self-healing gang polls its leases
+through it and :func:`lane_try_get`; the serving fleet's worker processes
+speak to their router over it.
+
+On top of any lane store, :class:`MailboxSender` / :class:`MailboxReceiver`
+make an ordered, at-most-once message channel.  Every mailbox has exactly
+one writer object (the router writes each worker's control inbox, each
+worker its own outbox), so a sender-side sequence counter and a
+receiver-side cursor give a total order without collectives; the sender
+serialises its own threads (router client threads and the supervisor share
+one control-mailbox sender) under a lock.  Messages are pickled dicts
+stamped with ``MSG_SCHEMA``: a receiver refuses a payload it cannot
+interpret.  Every store operation goes through
+:func:`~chainermn_tpu_torch.communicators.base.lane_call`, so retries,
+back-off and fault injection follow the lanes' discipline, and a permanent
+fault raises ``DcnLaneError`` naming ``worker_lane/<mailbox>/<op>``.  With
+the causal journal on, each send and receive is journaled and the send's
+HLC stamp rides in the message (``observability/journal.py``).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import tempfile
+import threading
 import time
-from typing import Optional
+from typing import Any, Dict, Optional
+
+#: Wire schema of one mailbox message (the JAX package's: both speak it).
+MSG_SCHEMA = "chainermn_tpu.worker_lane.v1"
 
 
 def _safe_tag(tag: str) -> str:
@@ -138,3 +157,120 @@ def lane_try_get(store, lane: str, tag: str,
             return None
 
     return lane_call(lane, _try, config)
+
+
+def _msg_journal_fields(msg: Dict[str, Any]) -> Dict[str, Any]:
+    """The identity fields a journaled mailbox event carries: enough to
+    thread one request's causal story across processes (trace id, the
+    worker and epoch the protocol stamps) without copying payloads."""
+    out: Dict[str, Any] = {}
+    trace_id = msg.get("trace_id")
+    if trace_id is None and isinstance(msg.get("req"), dict):
+        trace_id = msg["req"].get("trace_id")
+    if trace_id is not None:
+        out["trace_id"] = trace_id
+    for k in ("worker", "epoch"):
+        if msg.get(k) is not None:
+            out[k] = msg[k]
+    return out
+
+
+class MailboxSender:
+    """The single writer of one named mailbox (ordered, at-most-once).
+
+    ``seq`` persists only in this sender — the single-writer contract
+    makes it the mailbox's total order.  "Single writer" means one
+    SENDER OBJECT, not one thread: the router's control mailboxes are
+    written from client threads (submit) and the supervisor thread
+    (failover, drain) through the same sender, so :meth:`send` holds a
+    lock across the seq read, the put, and the increment — two
+    concurrent sends minting the same seq would have the second put
+    silently overwrite the first message.  A re-created sender for a
+    live mailbox (e.g. a restarted router) must pass the old cursor via
+    ``start_seq`` or use a fresh mailbox name (a new worker epoch gets
+    a new mailbox in the fleet wiring, which is what fencing wants
+    anyway: a zombie's stale mailbox is simply never read again).
+    """
+
+    def __init__(self, store, name: str, config=None, start_seq: int = 0):
+        self.store = store
+        self.name = str(name)
+        self.config = config
+        self.seq = int(start_seq)
+        self._lock = threading.Lock()
+
+    def send(self, msg: Dict[str, Any]) -> int:
+        """Publish one message; returns its sequence number.
+        Thread-safe: concurrent sends serialize and get distinct seqs."""
+        from ..communicators.base import lane_call
+        from ..observability import journal as _journal
+
+        with self._lock:
+            seq = self.seq
+            wire = dict(msg, schema=MSG_SCHEMA, seq=seq)
+            if _journal.enabled():
+                # the HLC rides as one extra field in the worker_lane.v1
+                # dict: the stamp is the journaled send event's own, so
+                # the receiver's merge orders the receive strictly after
+                # this line in the fleet timeline
+                wire["hlc"] = _journal.wire_emit(
+                    "mbx_send", mailbox=self.name, mseq=seq,
+                    msg_kind=msg.get("kind"),
+                    **_msg_journal_fields(msg))
+            payload = pickle.dumps(wire,
+                                   protocol=pickle.HIGHEST_PROTOCOL)
+            tag = f"mbx/{self.name}/{seq}"
+            lane_call(f"worker_lane/{self.name}/send",
+                      lambda: self.store.put(tag, payload), self.config)
+            self.seq = seq + 1
+        return seq
+
+
+class MailboxReceiver:
+    """The single reader of one named mailbox: consumes messages in
+    sequence order, deleting each behind the cursor (at-most-once)."""
+
+    def __init__(self, store, name: str, config=None):
+        self.store = store
+        self.name = str(name)
+        self.config = config
+        self.next_seq = 0
+
+    def recv(self) -> Optional[Dict[str, Any]]:
+        """Next message, or None when the mailbox is empty."""
+        tag = f"mbx/{self.name}/{self.next_seq}"
+        payload = lane_try_get(self.store,
+                               f"worker_lane/{self.name}/recv", tag,
+                               self.config)
+        if payload is None:
+            return None
+        msg = pickle.loads(payload)
+        if msg.get("schema") != MSG_SCHEMA:
+            raise ValueError(
+                f"refusing worker-lane message with schema "
+                f"{msg.get('schema')!r} on mailbox {self.name!r} "
+                f"(this receiver speaks {MSG_SCHEMA})")
+        from ..observability import journal as _journal
+        if _journal.enabled():
+            # merge the sender's HLC so cross-process causality is
+            # captured on the existing wire (send happens-before recv)
+            _journal.recv_emit(
+                msg.get("hlc"), "mbx_recv", mailbox=self.name,
+                mseq=self.next_seq, msg_kind=msg.get("kind"),
+                **_msg_journal_fields(msg))
+        from ..communicators.base import lane_call
+        lane_call(f"worker_lane/{self.name}/gc",
+                  lambda: self.store.delete(tag), self.config)
+        self.next_seq += 1
+        return msg
+
+    def drain(self, limit: int = 256):
+        """Every pending message up to ``limit`` (bounded so a flooding
+        peer cannot wedge the caller's loop)."""
+        out = []
+        for _ in range(int(limit)):
+            msg = self.recv()
+            if msg is None:
+                break
+            out.append(msg)
+        return out

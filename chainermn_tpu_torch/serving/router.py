@@ -68,8 +68,9 @@ class RouterBase:
     trace-id minting, uniformly-shaped machine-readable rejections, the
     SLO-burn shed gate, the drain-aware ``retry_after_ms`` derivation,
     and the tenant plane — one implementation behind the replica fleet
-    (:class:`ServingRouter`) and, in JAX's package, the disaggregated and
-    cross-process fleets, so every rejection anywhere in the serving
+    (:class:`ServingRouter`), the disaggregated fleet
+    (``disagg.py::DisaggRouter``) and the cross-process fleet
+    (``fleet.py::FleetRouter``), so every rejection anywhere in the serving
     stack carries the same ``AdmissionError.to_dict()``
     wire shape, per-reason counters, and JSONL/flight/tracer emissions.
 

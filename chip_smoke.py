@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router and the disaggregated prefill / decode fleet), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet and the cross-process fleet), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -163,6 +163,28 @@ and prints no result line:
    landed; tokens against the fused GQA engine), and fp32 at 2 layers
    (full width otherwise; 8 requests, prompt 256, 16 new) on both
    transports, card against CPU: tokens equal or a CPU near-tie < 1e-3.
+6d. ``serving-fleet`` — the cross-process fleet (worker processes over the
+   file lanes behind the supervised ``FleetRouter``) at the decode-bench
+   width (bf16, prompt 512, 64 new, cache 1024, 8 slots a worker).  (1)
+   ``python -m chainermn_tpu_torch.serve --fleet-procs 2`` and ``--disagg
+   1:1 --procs`` as subprocesses (16 corpus requests, ``--train-steps
+   0``): exit codes ``{"engine0": 0, "engine1": 0}`` and ``{"prefill0":
+   0, "decode0": 0}``, each worker's ready line naming ``device=cuda``,
+   shed rate 0, no failover, tokens the fused engine's (or a near-tie).
+   (2) ``build_proc_fleet({"engine": 2})`` with each worker run through
+   ``chip_smoke.py --fleet-worker DIR`` (``serving.worker.main`` that
+   writes its launch counts, engine metrics and plane call times at
+   exit): serving-disagg's 16 requests at once (tokens/s, TTFT p50 / p99,
+   each worker's tick gap p50 / p99, spawn-to-live seconds), 8 flash
+   forward + 8 append launches a prefill and 8 decode launches a tick in
+   the children, no shed, no failover; then the in-process
+   ``build_fleet(params, 2)`` on the same requests.  (3) The 1:1 process
+   split over the file lanes (launches per role, no prefill on the decode
+   worker, slab pack / put / get / unpack ms p50 / p99).  (4) engine0
+   SIGKILLed mid-run: every request ends exactly once, at least one
+   failover, the survivor exits 0.  (5) fp32 at 2 layers: the card's
+   process fleet against the CPU's ``build_local_fleet``, tokens equal or
+   a CPU near-tie < 1e-3.
 7. ``train-parity`` — fp32, d 1024, 2 layers, 8 heads, vocab 32768, S 256,
    B 2, flash attention and the fused CE, TF32 off: the gradient of every
    parameter at the initial weights, card against CPU, to a relative norm
@@ -2635,6 +2657,542 @@ def phase_serving_disagg(smoke):
     _disagg_leg_gqa(smoke)
     torch.cuda.empty_cache()
     _disagg_leg_parity(smoke)
+
+
+FLEET = dict(requests=16, prompt=512, new=64, max_total=1024, slots=8,
+             queue=32, staging=2)
+FLEET_PARITY = dict(n_layers=2, requests=8, prompt=256, new=16, slots=4)
+FLEET_TIMEOUT_S = 300       # a fleet leg's bound: spawn to the last exit
+FLEET_CLI = ["--dtype", "bfloat16", "--vocab", str(FULL["vocab"]),
+             "--d-model", str(FULL["d_model"]), "--n-heads",
+             str(FULL["n_heads"]), "--n-layers", str(FULL["n_layers"]),
+             "--n-slots", str(FLEET["slots"]), "--max-total",
+             str(FLEET["max_total"]), "--requests", str(FLEET["requests"]),
+             "--prompt-len", str(FLEET["prompt"]), "--max-new-tokens",
+             str(FLEET["new"]), "--train-steps", "0"]
+
+
+def _fleet_cli_ref(smoke):
+    """The serve CLI's model (``--seed 0``, random init on the CPU in bf16,
+    moved to the card) and its corpus prompts; the fused engine's tokens
+    for them under the CLI's staggered schedule."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+    from chainermn_tpu_torch.serve import make_corpus
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    cfg = FLEET
+    params = init_tp_transformer_lm(
+        torch.Generator().manual_seed(0), max_len=cfg["max_total"],
+        dtype=torch.bfloat16, device="cpu", **FULL)
+    params = _tree_to(torch, params, "cuda")
+    test = make_corpus(np.random.RandomState(99), cfg["requests"],
+                       cfg["prompt"] + cfg["new"], FULL["vocab"])
+    prompts = list(test[:, :cfg["prompt"]])
+    eng = ServingEngine(params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                        max_total=cfg["max_total"], device="cuda")
+    handles, _ = _drive(eng, prompts, cfg["new"], cfg["slots"], 2)
+    eng.close()
+    return params, prompts, [h.tokens for h in handles]
+
+
+def _fleet_leg_cli(smoke):
+    """Leg 1: ``serve --fleet-procs 2`` and ``serve --disagg 1:1 --procs``
+    as subprocesses through the CLI (side by side): exit codes, every
+    worker on the card, no shed, no failover, tokens the fused engine's
+    (or a near-tie)."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # each CLI leads its own process group: a CLI that outlives the bound
+    # is killed with its workers
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "chainermn_tpu_torch.serve", "--device",
+         "cuda", *FLEET_CLI, *extra], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+        for name, extra in (("fleet", ["--fleet-procs", "2"]),
+                            ("disagg", ["--disagg", "1:1", "--procs"]))}
+    try:
+        params, prompts, want = _fleet_cli_ref(smoke)
+        outs = {name: _finish(p, f"serve {name}", timeout=FLEET_TIMEOUT_S)
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            try:
+                os.killpg(p.pid, signal.SIGKILL)   # stragglers, if any
+            except ProcessLookupError:
+                pass
+            p.wait()
+    codes = {"fleet": {"engine0": 0, "engine1": 0},
+             "disagg": {"prefill0": 0, "decode0": 0}}
+    for name, (out, err) in outs.items():
+        s = _last_json(out)
+        m = s["metrics"]
+        ready = [ln for ln in err.splitlines() if "worker]" in ln
+                 and ln.endswith("ready")]
+        got = [r.get("tokens") for r in s["requests"]]
+        row = {"check": "serving_fleet.cli", "service": name,
+               "fleet_exit_codes": s["fleet_exit_codes"],
+               "shed_rate": m["fleet/shed_rate"],
+               "redispatched": m["fleet/redispatched_total"],
+               "dead_workers": m["fleet/dead_workers"],
+               "tokens_per_s": m["fleet/tokens_per_sec"],
+               "ttft_ms_p50": m.get("fleet/ttft_p50_ms"),
+               "ttft_ms_p99": m.get("fleet/ttft_p99_ms"),
+               "ready": ready, "card": smoke.card}
+        if (s["fleet_exit_codes"] != codes[name] or m["fleet/shed_rate"]
+                or m["fleet/redispatched_total"] or m["fleet/dead_workers"]
+                or len(ready) != 2
+                or not all("device=cuda" in ln for ln in ready)
+                or any(r["status"] != "done" for r in s["requests"])):
+            raise AssertionError(f"serve {name}: {row}\n{err[-4000:]}")
+        equal, near = _near_ties(
+            f"fleet_cli_{name}", got, want,
+            lambda i, t: _card_choice_values(params, prompts[i], want[i], t))
+        emit(dict(row, equal_to_fused=equal, near_ties=len(near)))
+
+
+def fleet_worker(out_dir, argv):
+    """``chip_smoke.py --fleet-worker DIR ARGS``: the fleet's worker entry
+    (``serving.worker.main(ARGS)``) that also writes, at exit, its
+    kernel launch counts, its engine's metrics and the host ms of the
+    transfer plane's calls, of each outbound mailbox message and of each
+    engine step to ``DIR/<name>.json``."""
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.serving import frontend, lanes, transfer, worker
+
+    op_ms, runtimes, metrics = {}, [], []
+
+    def timed(cls, name, key):
+        fn = getattr(cls, name)
+
+        def wrapped(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                op_ms.setdefault(key, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        setattr(cls, name, wrapped)
+
+    for name in ("pack", "lane_put", "lane_get", "unpack_into"):
+        timed(transfer.KvTransferPlane, name, name)
+    timed(lanes.MailboxSender, "send", "mailbox_send")
+    timed(frontend.ServingEngine, "step", "engine_step")
+    run, close = worker.WorkerRuntime.run, frontend.ServingEngine.close
+
+    def keep(self, *a, **k):
+        runtimes.append(self)
+        return run(self, *a, **k)
+
+    def snapshot(self):
+        metrics.append(self.metrics())
+        close(self)
+
+    worker.WorkerRuntime.run = keep
+    frontend.ServingEngine.close = snapshot
+    rc = worker.main(argv)
+    rt = runtimes[0]
+    eng = rt.engine.engine if rt.engine is not None else rt.dec_engine
+    with open(Path(out_dir) / f"{rt.name}.json", "w") as f:
+        json.dump({"name": rt.name, "role": rt.role, "rc": rc,
+                   "launches": ops.launch_counts(),
+                   "prefills": eng.prefill_calls, "ticks": eng.tick_calls,
+                   "metrics": metrics[0] if metrics else {},
+                   "op_ms": op_ms}, f)
+    return rc
+
+
+def _fleet_up(smoke, params, topology, worker_kwargs, report_dir=None):
+    """``build_proc_fleet`` on the card (the smoke's worker entry when
+    ``report_dir`` is given); waits until every worker is live and
+    returns the router and the spawn-to-live seconds of each worker."""
+    import tempfile
+
+    from chainermn_tpu_torch.serving import build_proc_fleet
+
+    lane_dir = tempfile.mkdtemp(prefix="chainermn_fleet_")
+    cmd = (None if report_dir is None else
+           [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-worker",
+            str(report_dir)])
+    t0 = time.monotonic()
+    router = build_proc_fleet(params, topology, lane_dir, head_dim=HEAD_DIM,
+                              device="cuda", worker_kwargs=worker_kwargs,
+                              worker_cmd=cmd)
+    built = time.monotonic() - t0
+    live = {}
+    try:
+        while len(live) < len(router.workers):
+            router.step()
+            for name, wc in router.workers.items():
+                if wc.state == "live" and name not in live:
+                    live[name] = time.monotonic() - t0
+                if wc.state in ("dead", "drained"):
+                    raise AssertionError(f"fleet worker {name} {wc.state} "
+                                         f"before its first lease")
+            if time.monotonic() - t0 > FLEET_TIMEOUT_S:
+                raise AssertionError(f"fleet not live in {FLEET_TIMEOUT_S}"
+                                     f" s: {live}")
+            time.sleep(0.002)
+    except BaseException:
+        router.shutdown(timeout_s=10)
+        router.close()
+        raise
+    return router, {"lane_dir": lane_dir, "build_s": built,
+                    "spawn_to_live_s": live}
+
+
+def _fleet_down(router, info, want_codes):
+    """Drain every live worker, reap every process (a worker that outlives
+    the timeout is killed and fails the leg), remove the lanes."""
+    import shutil
+
+    try:
+        for name, wc in list(router.workers.items()):
+            if wc.state in ("starting", "live"):
+                router.drain(name)
+                if not router.wait_drained(name, timeout_s=60):
+                    raise AssertionError(f"fleet worker {name} not drained "
+                                         f"in 60 s")
+    finally:
+        codes = router.shutdown(timeout_s=60)
+        router.close()
+        shutil.rmtree(info["lane_dir"], ignore_errors=True)
+    if codes != want_codes:
+        raise AssertionError(f"fleet exit codes {codes}, want {want_codes}")
+    return codes
+
+
+def _fleet_serve(router, prompts, new):
+    """Submit every prompt at once to the started router and wait."""
+    router.start()
+    t0 = time.perf_counter()
+    try:
+        handles = [router.submit(p, new) for p in prompts]
+        for h in handles:
+            if not h.wait(timeout=FLEET_TIMEOUT_S):
+                raise AssertionError(f"fleet request {h.id} not finished: "
+                                     f"{h.status}")
+    finally:
+        router.stop()
+    return handles, time.perf_counter() - t0
+
+
+def _fleet_op_stats(report):
+    """Count, p50, p99 and sum (ms) of each timed call of a worker."""
+    return {op: {"n": len(v), "p50": _percentile(v, 0.5),
+                 "p99": _percentile(v, 0.99), "sum": sum(v)}
+            for op, v in report["op_ms"].items()}
+
+
+def _fleet_reports(report_dir):
+    return {p.stem: json.loads(p.read_text())
+            for p in sorted(Path(report_dir).glob("*.json"))}
+
+
+def _fleet_row(smoke, label, handles, wall, router):
+    m = router.metrics()
+    n_tok = sum(len(h.tokens) for h in handles)
+    return {"check": f"serving_fleet.{label}", "dtype": "bfloat16",
+            **FLEET, "wall_s": wall, "tokens": n_tok,
+            "tokens_per_s": n_tok / wall,
+            "ttft_ms_p50": _percentile([h.ttft_ms for h in handles], 0.5),
+            "ttft_ms_p99": _percentile([h.ttft_ms for h in handles], 0.99),
+            "shed_rate": m["fleet/shed_rate"],
+            "redispatched": m["fleet/redispatched_total"],
+            "dead_workers": m["fleet/dead_workers"], "card": smoke.card}
+
+
+def _fleet_check_clean(row):
+    if row["shed_rate"] or row["redispatched"] or row["dead_workers"]:
+        raise AssertionError(f"{row['check']}: a clean run shed or failed "
+                             f"over: {row}")
+
+
+def _fleet_check_launches(label, reports, prefill_names, tick_names):
+    """8 flash forward + 8 append launches a prefill on the prefilling
+    workers, 8 decode launches a tick on the ticking ones, nothing else."""
+    n_layers = FULL["n_layers"]
+    wrong = {}
+    for name, rep in reports.items():
+        want = {"flash_fwd": 0, "cache_append": 0, "decode_attend": 0,
+                "beam_attend": 0}
+        if name in prefill_names:
+            want["flash_fwd"] = want["cache_append"] = \
+                n_layers * rep["prefills"]
+        if name in tick_names:
+            want["decode_attend"] = n_layers * rep["ticks"]
+        got = rep["launches"]
+        bad = {k: (got[k], w) for k, w in want.items() if got[k] != w}
+        if bad or rep["rc"] != 0:
+            wrong[name] = dict(bad, rc=rep["rc"])
+    if wrong:
+        raise AssertionError(f"{label} launches (got, want): {wrong}")
+
+
+def _fleet_leg_engines(smoke, params, prompts, want):
+    """Leg 2: ``build_proc_fleet({"engine": 2})`` on the card with each
+    worker's launch counts and tick gaps gathered from its process; then
+    the in-process ``build_fleet(params, 2)`` on the same requests."""
+    import tempfile
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.serving import build_fleet
+
+    cfg = FLEET
+    report_dir = Path(tempfile.mkdtemp(prefix="chainermn_fleet_reports_"))
+    router, info = _fleet_up(smoke, params, {"engine": 2},
+                             dict(n_slots=cfg["slots"],
+                                  max_total=cfg["max_total"],
+                                  queue_capacity=cfg["queue"]), report_dir)
+    try:
+        handles, wall = _fleet_serve(router, prompts, cfg["new"])
+        row = _fleet_row(smoke, "procs", handles, wall, router)
+    finally:
+        _fleet_down(router, info, {"engine0": 0, "engine1": 0})
+    reports = _fleet_reports(report_dir)
+    _fleet_check_launches("fleet procs", reports, set(reports), set(reports))
+    for rep in reports.values():
+        smoke.add_launches(rep["launches"])
+    row.update(build_s=info["build_s"],
+               spawn_to_live_s=info["spawn_to_live_s"], workers={
+        n: {"prefills": r["prefills"], "ticks": r["ticks"],
+            "tick_gap_ms_p50": r["metrics"].get("serving/tick_gap_p50_ms"),
+            "tick_gap_ms_p99": r["metrics"].get("serving/tick_gap_p99_ms"),
+            "host_ms": _fleet_op_stats(r),
+            "launches": r["launches"]} for n, r in reports.items()})
+    got = [h.tokens for h in handles]
+    equal, near = _near_ties(
+        "fleet_procs", got, want,
+        lambda i, t: _card_choice_values(params, prompts[i], want[i], t))
+    emit(dict(row, equal_to_fused=equal, near_ties=len(near)))
+    _fleet_check_clean(row)
+    if sum(r["prefills"] for r in reports.values()) != cfg["requests"]:
+        raise AssertionError(f"fleet procs prefills: {row['workers']}")
+    # the in-process router: two engines in this process, one driver
+    # thread each, on the one card
+    fleet = build_fleet(params, 2, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                        max_total=cfg["max_total"],
+                        queue_capacity=cfg["queue"], device="cuda")
+    torch.cuda.synchronize()
+    handles, wall = _drive_all(fleet, prompts, cfg["new"], True)
+    n_tok = sum(len(h.tokens) for h in handles)
+    got = [h.tokens for h in handles]
+    equal, near = _near_ties(
+        "fleet_inprocess", got, want,
+        lambda i, t: _card_choice_values(params, prompts[i], want[i], t))
+    emit({"check": "serving_fleet.in_process_router", "dtype": "bfloat16",
+          **cfg, "wall_s": wall, "tokens": n_tok,
+          "tokens_per_s": n_tok / wall,
+          "ttft_ms_p50": _percentile([h.ttft_ms for h in handles], 0.5),
+          "ttft_ms_p99": _percentile([h.ttft_ms for h in handles], 0.99),
+          "replicas": {rep.name: {
+              "tick_gap_ms_p50": rep.engine.metrics().get(
+                  "serving/tick_gap_p50_ms"),
+              "tick_gap_ms_p99": rep.engine.metrics().get(
+                  "serving/tick_gap_p99_ms")} for rep in fleet.replicas},
+          "equal_to_fused": equal, "near_ties": len(near),
+          "card": smoke.card})
+    fleet.close()
+
+
+def _fleet_leg_disagg(smoke, params, prompts, want):
+    """Leg 3: ``build_proc_fleet({"prefill": 1, "decode": 1})``: slabs over
+    the file lanes between two processes on the card; launch counts,
+    the decode tick gap and the plane's call times from each process."""
+    import tempfile
+
+    cfg = FLEET
+    report_dir = Path(tempfile.mkdtemp(prefix="chainermn_fleet_reports_"))
+    router, info = _fleet_up(smoke, params, {"prefill": 1, "decode": 1},
+                             dict(n_slots=cfg["slots"],
+                                  max_total=cfg["max_total"],
+                                  queue_capacity=cfg["queue"],
+                                  staging_slots=cfg["staging"]), report_dir)
+    try:
+        handles, wall = _fleet_serve(router, prompts, cfg["new"])
+        row = _fleet_row(smoke, "disagg_procs", handles, wall, router)
+    finally:
+        _fleet_down(router, info, {"prefill0": 0, "decode0": 0})
+    reports = _fleet_reports(report_dir)
+    _fleet_check_launches("disagg procs", reports, {"prefill0"},
+                          {"decode0"})
+    for rep in reports.values():
+        smoke.add_launches(rep["launches"])
+    pw, dw = reports["prefill0"], reports["decode0"]
+    host = {n: _fleet_op_stats(r) for n, r in reports.items()}
+    ops_ms = {op: st for h in host.values() for op, st in h.items()
+              if op in ("pack", "lane_put", "lane_get", "unpack_into")}
+    row.update(build_s=info["build_s"],
+               spawn_to_live_s=info["spawn_to_live_s"],
+               prefills=pw["prefills"], decode_prefills=dw["prefills"],
+               ticks=dw["ticks"],
+               tick_gap_ms_p50=dw["metrics"].get("serving/tick_gap_p50_ms"),
+               tick_gap_ms_p99=dw["metrics"].get("serving/tick_gap_p99_ms"),
+               slab_ms=ops_ms,
+               host_ms={n: {op: st for op, st in h.items()
+                            if op not in ops_ms} for n, h in host.items()})
+    got = [h.tokens for h in handles]
+    equal, near = _near_ties(
+        "fleet_disagg_procs", got, want,
+        lambda i, t: _card_choice_values(params, prompts[i], want[i], t))
+    emit(dict(row, equal_to_fused=equal, near_ties=len(near)))
+    _fleet_check_clean(row)
+    if pw["prefills"] != cfg["requests"] or dw["prefills"] or \
+            ops_ms.get("unpack_into", {}).get("n") != cfg["requests"]:
+        raise AssertionError(f"disagg procs role split: {row}")
+
+
+def _fleet_leg_kill(smoke, params, prompts, want):
+    """Leg 4: SIGKILL engine0 mid-run; the router detects it within the
+    lease window and fails its requests over to engine1: every request
+    ends exactly once (done, or a machine-readable shed), at least one
+    failover."""
+    import os
+    import signal
+
+    cfg = FLEET
+    router, info = _fleet_up(smoke, params, {"engine": 2},
+                             dict(n_slots=cfg["slots"],
+                                  max_total=cfg["max_total"],
+                                  queue_capacity=cfg["queue"]))
+    try:
+        router.start()
+        handles = [router.submit(p, cfg["new"]) for p in prompts]
+        t0 = time.monotonic()
+        while router.metrics()["fleet/tokens_total"] < 4 * cfg["requests"]:
+            if time.monotonic() - t0 > FLEET_TIMEOUT_S:
+                raise AssertionError("kill leg: no progress")
+            time.sleep(0.005)
+        os.kill(router.workers["engine0"].proc.pid, signal.SIGKILL)
+        for h in handles:
+            if not h.wait(timeout=FLEET_TIMEOUT_S):
+                raise AssertionError(f"kill leg: request {h.id} never "
+                                     f"ended: {h.status}")
+        router.stop()
+        m = router.metrics()
+        det = router.last_detection or {}
+        ends = {"done": sum(h.status == "done" for h in handles),
+                "shed": sum(h.finish_reason == "shed" for h in handles)}
+        row = {"check": "serving_fleet.kill", "dtype": "bfloat16", **cfg,
+               "ends": ends, "redispatched": m["fleet/redispatched_total"],
+               "shed_inflight": m["fleet/shed_inflight_total"],
+               "results": router._results,
+               "detection_ms": m.get("fleet/detection_ms"),
+               "lease_window_ms": router.lease_window_s * 1e3,
+               "failover_ttft_ms_p99": m.get("fleet/failover_ttft_p99_ms"),
+               "dead": det.get("worker"), "card": smoke.card}
+    finally:
+        _fleet_down(router, info,
+                    {"engine0": -signal.SIGKILL, "engine1": 0})
+    done = [i for i, h in enumerate(handles) if h.status == "done"]
+    equal, near = _near_ties(
+        "fleet_kill", [handles[i].tokens for i in done],
+        [want[i] for i in done],
+        lambda j, t: _card_choice_values(params, prompts[done[j]],
+                                         want[done[j]], t))
+    emit(dict(row, equal_to_fused=equal, near_ties=len(near)))
+    if (ends["done"] + ends["shed"] != cfg["requests"]
+            or row["results"] + row["shed_inflight"] != cfg["requests"]
+            or row["redispatched"] < 1 or row["dead"] != "engine0"
+            or any(h.status == "done" and len(h.tokens) != cfg["new"]
+                   for h in handles)):
+        raise AssertionError(f"kill leg: {row}")
+
+
+def _fleet_leg_parity(smoke):
+    """Leg 5: fp32 at 2 layers (the full width otherwise): the process
+    fleet of 2 engines on the card against the local fleet of 2 engines
+    on the CPU, the same requests: tokens equal, or first different at a
+    CPU near-tie < 1e-3."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+    from chainermn_tpu_torch.serving import build_local_fleet
+
+    cfg = FLEET_PARITY
+    max_total = cfg["prompt"] + cfg["new"]
+    params = init_tp_transformer_lm(
+        torch.Generator().manual_seed(4), max_len=max_total,
+        dtype=torch.float32, device="cpu",
+        **dict(FULL, n_layers=cfg["n_layers"]))
+    prompts = _disagg_prompts(64, cfg["requests"], cfg["prompt"])
+    kw = dict(n_slots=cfg["slots"], max_total=max_total, queue_capacity=16)
+    router, info = _fleet_up(smoke, params, {"engine": 2}, kw)
+    try:
+        handles, _ = _fleet_serve(router, prompts, cfg["new"])
+        card = [h.tokens for h in handles]
+    finally:
+        _fleet_down(router, info, {"engine0": 0, "engine1": 0})
+    router, runtimes = build_local_fleet(
+        params, {"engine": 2}, head_dim=HEAD_DIM,
+        worker_kwargs=dict(kw, device="cpu"))
+    try:
+        handles = [router.submit(p, cfg["new"]) for p in prompts]
+        t0 = time.monotonic()
+        while any(h.status not in ("done", "evicted") for h in handles):
+            if time.monotonic() - t0 > FLEET_TIMEOUT_S:
+                raise AssertionError("CPU local fleet hung")
+            for rt in runtimes:
+                rt.step()
+            router.step()
+        cpu = [h.tokens for h in handles]
+    finally:
+        for rt in runtimes:
+            rt.finished = True
+            if rt.engine is not None:
+                rt.engine.close()
+        router.close()
+    equal, near = _near_ties(
+        "fleet_parity", card, cpu,
+        lambda i, t: _cpu_choice_values(params, HEAD_DIM,
+                                        np.asarray(prompts[i]), cpu[i], t,
+                                        None))
+    emit({"check": "serving_fleet.parity", "dtype": "float32", **cfg,
+          "equal": equal, "near_ties": len(near)})
+
+
+def phase_serving_fleet(smoke):
+    """The cross-process serving fleet at the decode-bench LM's full width
+    (bf16): the serve CLI's ``--fleet-procs 2`` and ``--disagg 1:1
+    --procs``, the process fleet of 2 engines (the workers' launch counts,
+    tick gaps and cold starts) beside the in-process router, the 1:1
+    process split over the file lanes, a SIGKILLed engine worker, then
+    fp32 at 2 layers, the card's process fleet against the CPU's local
+    fleet."""
+    torch = smoke.torch
+    from chainermn_tpu_torch.serving import ServingEngine
+
+    legs_s, t0 = {}, time.monotonic()
+    _fleet_leg_cli(smoke)
+    torch.cuda.empty_cache()
+    legs_s["cli"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    cfg = FLEET
+    params = _init_full(torch, "cuda", torch.bfloat16, cfg["max_total"])
+    prompts = _disagg_prompts(61, cfg["requests"], cfg["prompt"])
+    fused = ServingEngine(params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                          max_total=cfg["max_total"], queue_capacity=32,
+                          prefix_cache=False, spill_bytes=0, device="cuda")
+    want = [h.tokens for h in
+            _drive_all(fused, prompts, cfg["new"], False)[0]]
+    fused.close()
+    for name, leg in (("engines", _fleet_leg_engines),
+                      ("disagg", _fleet_leg_disagg),
+                      ("kill", _fleet_leg_kill)):
+        leg(smoke, params, prompts, want)
+        legs_s[name] = time.monotonic() - t0
+        t0 = time.monotonic()
+    del params
+    torch.cuda.empty_cache()
+    _fleet_leg_parity(smoke)
+    legs_s["parity"] = time.monotonic() - t0
+    emit({"check": "serving_fleet.legs_s", **legs_s})
 
 
 def _tree_to(torch, params, device):
@@ -5703,6 +6261,7 @@ def main():
                          ("serving-gqa", phase_serving_gqa),
                          ("serving-prefix", phase_serving_prefix),
                          ("serving-disagg", phase_serving_disagg),
+                         ("serving-fleet", phase_serving_fleet),
                          ("train-parity", phase_train_parity),
                          ("train", phase_train), ("tp", phase_tp),
                          ("sp", phase_sp), ("zero-wire", phase_zero_wire),
@@ -5746,4 +6305,6 @@ if __name__ == "__main__":
         sys.exit(sp_worker(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--zero-worker"]:
         sys.exit(zero_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(fleet_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())
