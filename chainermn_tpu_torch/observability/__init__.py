@@ -3,8 +3,9 @@ flight recorder (``flight``: the event ring and the debug bundles), the
 causal fleet journal (``journal``: HLC-stamped per-process files, their
 happens-before merge and renderings), the comm ledger (``comm``), the
 Prometheus textfile and the JSONL metrics stream with the health snapshot
-(``export``), and goodput, SLO burn-rate tracking and the latency
-reservoir (``slo``)."""
+(``export``), goodput, SLO burn-rate tracking and the latency
+reservoir (``slo``), and the live ``/statusz`` / ``/metricsz`` /
+``/requestz`` / ``/debugz`` server (``introspect``)."""
 
 from . import comm, flight, journal, trace
 from .comm import CommAccountant, get_accountant
@@ -16,6 +17,7 @@ from .flight import (FlightRecorder, dump_bundle, find_bundles,
                      install_tracer_tee, note, read_bundle,
                      register_provider, set_crash_dump_dir,
                      unregister_provider)
+from .introspect import StatusServer, start_status_server
 from .slo import (GoodputLedger, RateMeter, ReservoirSample, SLOTracker,
                   percentile_of)
 from .trace import (Tracer, add_counter, async_event, complete_event,
@@ -37,7 +39,8 @@ def reset_all() -> None:
 
 __all__ = ["CommAccountant", "FlightRecorder", "GoodputLedger",
            "METRICS_SCHEMA", "MetricsWriter", "RateMeter",
-           "ReservoirSample", "SLOTracker", "Tracer", "add_counter",
+           "ReservoirSample", "SLOTracker", "StatusServer", "Tracer",
+           "add_counter",
            "async_event", "comm", "comm_report", "complete_event",
            "disable", "dump_bundle", "enable", "enabled",
            "export_chrome_trace", "find_bundles", "flight",
@@ -47,5 +50,6 @@ __all__ = ["CommAccountant", "FlightRecorder", "GoodputLedger",
            "parse_prometheus_text", "percentile_of", "prometheus_text",
            "read_bundle", "read_metrics_jsonl", "register_provider",
            "reset", "reset_all", "set_crash_dump_dir", "set_gauge",
-           "shard_path", "span", "trace", "traced", "unregister_provider",
+           "shard_path", "span", "start_status_server", "trace", "traced",
+           "unregister_provider",
            "write_prometheus_textfile"]

@@ -12,11 +12,16 @@ still decoding).  Prompts come from the same arithmetic-progression corpus
 as the JAX CLI.  Prints one ``chainermn_tpu.serve.v1`` summary JSON line
 on stdout (per-request outcomes + the serving metrics).
 
-``--tp N`` (launched by ``torchrun``; N must divide the world size) trains
-on the ``(world/N, N)`` ``('data', 'model')`` mesh and serves on the first
-N ranks with the model sharded over them (``ServingEngine(mesh=...)``):
-rank 0 runs the queue and the scheduler and prints the summary, ranks 1 to
-N-1 follow its plan, and the other ranks stop after training.
+``--tp N`` (launched by ``torchrun``, or by ``--devices``; N must divide
+the world size) trains on the ``(world/N, N)`` ``('data', 'model')`` mesh
+and serves on the first N ranks with the model sharded over them: rank 0
+hosts the service (the engine, or the router with every replica, or the
+role-split fleet with every worker), runs its queues and prints the
+summary, ranks 1 to N-1 build the same service and follow its plan, and
+the other ranks stop after training.  ``--devices N`` is the JAX CLI's
+flag: it forces the CPU and starts the N ranks itself, over gloo, as
+``torchrun --nproc-per-node N ... --device cpu`` would (so ``--devices 2
+--tp 2 --disagg 1:1`` runs in one command).
 
 ``--replicas N`` stands up N engines on the card behind the serving
 router (``serving.build_fleet``: prefix-affine, least-loaded dispatch and
@@ -35,6 +40,11 @@ workers as processes the same way.  The load generator retries a rejected
 submit (``serving.submit_with_retry``: ``--submit-retries`` attempts,
 honoring ``retry_after_ms``), the run ends with a graceful rolling drain,
 and the summary's ``fleet_exit_codes`` holds every worker's exit code.
+``--autoscale MIN:MAX`` (with ``--fleet-procs``) attaches the load-driven
+autoscaler: a scale-up spawns worker processes on the run's device, a
+scale-down always drains; its decisions land as ``autoscale_decision``
+flight events and under ``autoscale`` in the summary.  A worker-process
+fleet at ``--tp > 1`` is refused (ROADMAP.md, queue A, A11 step 3c).
 ``--tenants`` bills even requests to the paid tenant ``gold`` and odd ones
 to the budgeted best-effort ``free`` (a router topology only).
 ``--metrics-out`` streams the JSONL metrics (``serving_step`` records and
@@ -45,7 +55,9 @@ Prometheus textfile at the end, ``--trace-out`` turns the tracer on and
 writes its Chrome trace, ``--flight-dump-dir`` arms the flight recorder's
 crash bundles (SIGTERM / SIGUSR1 / an uncaught exception), and
 ``--ttft-slo-ms`` / ``--tps-slo`` attach the burn-rate tracker (its
-status lands in the summary).  The engines run with JAX's defaults: the
+status lands in the summary), and ``--statusz-port`` serves ``/statusz``,
+``/metricsz``, ``/requestz`` and ``/debugz`` while the run lasts (0 picks
+a free port, printed to stderr).  The engines run with JAX's defaults: the
 prefix cache and a 32 MiB host spill tier.
 
 The model is random-init from ``--seed`` (or loaded with ``--params`` from
@@ -57,6 +69,9 @@ the same noise).
 
 Run:  python -m chainermn_tpu_torch.serve --device cuda
       torchrun --nproc-per-node 2 -m chainermn_tpu_torch.serve --tp 2
+      python -m chainermn_tpu_torch.serve --devices 2 --tp 2 --disagg 1:1
+      python -m chainermn_tpu_torch.serve --device cuda --fleet-procs 1 \
+          --autoscale 1:2 --statusz-port 0
       python -m chainermn_tpu_torch.serve --device cuda --replicas 2 \\
           --metrics-out serve.jsonl --prom-out serve.prom
       python -m chainermn_tpu_torch.serve --device cuda --disagg 1:2 \\
@@ -72,6 +87,7 @@ Run:  python -m chainermn_tpu_torch.serve --device cuda
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -129,6 +145,10 @@ def run(argv=None, params=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
+    parser.add_argument("--devices", type=int, default=0,
+                        help="start N ranks on the CPU over gloo (0 = "
+                             "leave the launch alone: one process, or "
+                             "torchrun's)")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--tp", type=int, default=1,
@@ -205,6 +225,13 @@ def run(argv=None, params=None):
                              "rejections honor retry_after_ms with "
                              "jittered backoff before giving up "
                              "machine-readably (submit_with_retry)")
+    parser.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                        help="with --fleet-procs: attach the load-driven "
+                             "autoscaler (scale-up spawns worker "
+                             "processes, scale-down always drains; e.g. "
+                             "--autoscale 1:4); decisions land as "
+                             "autoscale_decision flight events and in the "
+                             "summary")
     parser.add_argument("--tenants", action="store_true",
                         help="two-tenant QoS demo: even requests bill to "
                              "tenant 'gold' (paid), odd to 'free' "
@@ -218,6 +245,11 @@ def run(argv=None, params=None):
     parser.add_argument("--trace-out", default=None,
                         help="enable the tracer; Chrome-trace JSON with the "
                              "per-request serving spans/instants")
+    parser.add_argument("--statusz-port", type=int, default=None,
+                        help="start the live introspection HTTP server "
+                             "(/statusz /metricsz /requestz /debugz) on "
+                             "this port; 0 picks a free port (printed to "
+                             "stderr)")
     parser.add_argument("--flight-dump-dir", default=None,
                         help="enable the flight recorder's crash bundles: "
                              "SIGTERM/SIGUSR1/uncaught exceptions dump a "
@@ -228,10 +260,14 @@ def run(argv=None, params=None):
     parser.add_argument("--tps-slo", type=float, default=None,
                         help="tokens/sec SLO target for the burn tracker")
     args = parser.parse_args(argv)
-    if args.replicas > 1 and args.tp > 1:
-        raise SystemExit("--replicas > 1 with --tp > 1 is not ported: "
-                         "each replica's model ranks would follow their "
-                         "own leader (ROADMAP.md, queue A, A11)")
+    if args.devices:
+        if args.devices < 1 or args.devices % args.tp:
+            raise SystemExit(f"--tp {args.tp} does not divide "
+                             f"{args.devices} devices")
+        if "RANK" not in os.environ:
+            return _launch_ranks(list(sys.argv[1:] if argv is None
+                                      else argv), args.devices, params)
+        args.device = "cpu"
     if args.tenants and args.replicas <= 1 and not args.disagg \
             and not args.fleet_procs:
         raise SystemExit("--tenants needs a router topology (--replicas N "
@@ -250,12 +286,23 @@ def run(argv=None, params=None):
         if n_p < 1 or n_d < 1:
             raise SystemExit(f"--disagg needs at least one worker per "
                              f"role, got {args.disagg!r}")
-        if args.tp > 1:
-            raise SystemExit("--disagg with --tp > 1 is not ported: each "
-                             "model rank is a process following its "
-                             "leader's plan, and every worker of the fleet "
-                             "would need its own leader (ROADMAP.md, queue "
-                             "A, A11)")
+    autoscale_range = None
+    if args.autoscale:
+        # validated before build_proc_fleet: failing after the spawn would
+        # leak orphaned worker processes on the SystemExit
+        if not args.fleet_procs:
+            raise SystemExit("--autoscale drives the cross-process "
+                             "fleet: combine it with --fleet-procs N")
+        try:
+            autoscale_range = tuple(
+                int(x) for x in args.autoscale.split(":"))
+        except ValueError:
+            raise SystemExit(f"--autoscale wants MIN:MAX (e.g. 1:4), "
+                             f"got {args.autoscale!r}")
+        if len(autoscale_range) != 2 \
+                or not 1 <= autoscale_range[0] <= autoscale_range[1]:
+            raise SystemExit(f"--autoscale needs 1 <= MIN <= MAX, "
+                             f"got {args.autoscale!r}")
     procs = bool(args.fleet_procs or (args.disagg and args.procs))
     if procs:
         if args.fleet_procs and (args.replicas > 1 or args.disagg):
@@ -264,7 +311,8 @@ def run(argv=None, params=None):
         if args.tp > 1:
             raise SystemExit("a worker-process fleet with --tp > 1 is not "
                              "ported: every worker would need its own "
-                             "model ranks (ROADMAP.md, queue A, A11)")
+                             "group of model ranks with its own leader "
+                             "(ROADMAP.md, queue A, A11 step 3c)")
 
     import numpy as np
     import torch
@@ -328,7 +376,7 @@ def run(argv=None, params=None):
         slo = SLOTracker(ttft_target_ms=args.ttft_slo_ms,
                          tokens_per_sec_target=args.tps_slo)
     eng_kwargs = dict(head_dim=head_dim, n_slots=args.n_slots,
-                      max_total=max_total,
+                      max_total=max_total, mesh=serve_mesh,
                       queue_capacity=args.queue_capacity, device=device)
     tenancy = None
     if args.tenants:
@@ -338,7 +386,7 @@ def run(argv=None, params=None):
         # the demo shows budget sheds under the staggered burst
         tenancy.register("free", "best_effort",
                          max_inflight=max(args.n_slots // 2, 1))
-    router = eng = disagg = fleet = None
+    router = eng = disagg = fleet = autoscaler = None
     fleet_exit_codes = None
     if procs:
         # every worker a separate process over the file lanes, on this
@@ -357,6 +405,22 @@ def run(argv=None, params=None):
             slo=slo, metrics_writer=writer, tenancy=tenancy)
         print(f"fleet: spawned {topology} worker process(es), lanes at "
               f"{lane_dir}", file=sys.stderr)
+        if autoscale_range is not None:
+            from chainermn_tpu_torch.serving.autoscale import (
+                AutoscalePolicy, FleetAutoscaler, proc_spawn_factory)
+            lo, hi = autoscale_range
+            autoscaler = FleetAutoscaler(
+                fleet,
+                proc_spawn_factory(
+                    lane_dir, os.path.join(lane_dir, "fleet_params.pkl"),
+                    beat_interval_s=args.beat_interval_s,
+                    bundle_dir=args.flight_dump_dir, device=device.type),
+                policies=[AutoscalePolicy(
+                    role=role, min_workers=lo, max_workers=hi)
+                    for role in topology],
+                metrics_writer=writer)
+            print(f"autoscale: {args.autoscale} attached (scale-down is "
+                  f"always a drain)", file=sys.stderr)
         service = fleet
     elif args.disagg:
         disagg = build_disagg_fleet(
@@ -372,12 +436,14 @@ def run(argv=None, params=None):
                              **eng_kwargs)
         service = router
     else:
-        eng = ServingEngine(params, mesh=serve_mesh, metrics_writer=writer,
-                            slo=slo, **eng_kwargs)
-        if not eng.engine.leader:
-            eng.follow()
-            return None
+        eng = ServingEngine(params, metrics_writer=writer, slo=slo,
+                            **eng_kwargs)
         service = eng
+    if not (eng.engine.leader if eng is not None else service.leader):
+        # a model rank of the service: run its leader's device calls
+        service.follow()
+        return None
+    statusz = None
 
     test = make_corpus(np.random.RandomState(99), args.requests, total_len,
                        vocab)
@@ -417,6 +483,11 @@ def run(argv=None, params=None):
                   file=sys.stderr)
 
     try:     # the followers wait in follow() until the leader closes
+        if args.statusz_port is not None:
+            statusz = obs.start_status_server(
+                args.statusz_port, extra_gauges=service.metrics,
+                requests_fn=service.requests_table,
+                dump_dir=args.flight_dump_dir)
         first_wave = min(args.n_slots, args.requests)
         for i in range(first_wave):
             submit(i)
@@ -440,6 +511,10 @@ def run(argv=None, params=None):
             if nxt < args.requests and steps % max(args.stagger_every, 1) == 0:
                 submit(nxt)
                 nxt += 1
+        if autoscaler is not None:
+            # latched off first: the below-min rule would re-spawn what
+            # the drain takes down
+            autoscaler.stop()
         if fleet is not None:
             # graceful rolling drain: in-flight work finishes, nothing
             # sheds, every worker exits 0
@@ -474,6 +549,10 @@ def run(argv=None, params=None):
         if args.trace_out:
             obs.export_chrome_trace(args.trace_out)
     finally:
+        if autoscaler is not None:
+            autoscaler.stop()
+        if statusz is not None:
+            statusz.stop()
         if fleet is not None and fleet_exit_codes is None:
             fleet.shutdown()         # every worker reaped, or killed
         service.close()
@@ -522,13 +601,64 @@ def run(argv=None, params=None):
         summary["slo"] = slo.status()
     if tenancy is not None:
         summary["tenancy"] = tenancy.state()
+    if autoscaler is not None:
+        summary["autoscale"] = autoscaler.state()
     return summary
+
+
+def _launch_ranks(argv, n, params=None):
+    """``--devices N``: run this CLI as N ranks on the CPU over gloo
+    (``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``, a free
+    port on localhost) and return rank 0's summary.  In-process ``params``
+    travel to the ranks as a ``convert.save_npz`` file."""
+    import socket
+    import subprocess
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tmp = None
+    argv = list(argv) + ["--device", "cpu"]
+    if params is not None:
+        from chainermn_tpu_torch.convert import save_npz
+        tmp = tempfile.TemporaryDirectory(prefix="chainermn_tpu_serve_")
+        path = os.path.join(tmp.name, "params.npz")
+        save_npz(path, params)
+        argv += ["--params", path]
+    procs = []
+    try:
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "chainermn_tpu_torch.serve", *argv],
+                env=env, text=True,
+                stdout=subprocess.PIPE if r == 0 else subprocess.DEVNULL))
+        out = procs[0].communicate()[0]
+        codes = [procs[0].returncode] + [p.wait() for p in procs[1:]]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if tmp is not None:
+            tmp.cleanup()
+    if any(codes):
+        raise SystemExit(f"--devices {n}: the ranks exited {codes}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def main(argv=None):
     summary = run(argv)
     if summary is not None:
-        print(json.dumps(summary))
+        print(json.dumps(summary), flush=True)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        # a process group left to the interpreter's exit can abort it
+        # (its threads are torn down unjoined)
+        dist.destroy_process_group()
     return 0
 
 

@@ -50,9 +50,23 @@ a reserved slot is invisible to ``free_count``, so a decode worker's
 admission arithmetic never hands an in-flight transfer's slot to anyone
 else.
 
-Tensor parallelism: JAX runs a fleet on one mesh in one process; the
-port's TP > 1 is one process a model rank, each following its leader's
-plan, so a fleet at TP > 1 is refused (ROADMAP.md, queue A, A11).
+Tensor parallelism (``mesh=`` with a model axis > 1; ``params`` this
+rank's shards): JAX runs the fleet on one mesh in one process.  Here every
+model rank is a process, and the fleet has ONE leader: model rank 0 hosts
+the router and every worker, and all the workers' engines share one
+:class:`~chainermn_tpu_torch.serving.engine.ModelPlan`, so each prefill,
+tick, position reset and transfer is announced naming its engine and then
+run, as one step under the plan's lock (the role threads of
+:meth:`DisaggRouter.start` never interleave their collectives).  The other
+ranks build the same fleet and call :meth:`DisaggRouter.follow`.  The
+``local`` transport is a row copy on every rank, each its own columns; the
+``lanes`` transport gathers the ranks' columns into one global slab before
+the pack (its bytes and CRC are those of JAX's global pool, the ledger row
+is booked once, on the leader) and, after the leader checked it, lands
+each rank's columns.  A cancelled reservation resets the slot's position
+on every rank; requeues, sheds and a lost worker change only the leader's
+host state.  :meth:`DisaggRouter.close` releases the followers once, also
+when a worker's close raises.
 """
 
 from __future__ import annotations
@@ -77,20 +91,6 @@ from .frontend import RequestHandle, ServingEngine, _request_row
 from .router import RouterBase
 from .scheduler import AdmissionError, Request, Scheduler
 from .transfer import KvTransferPlane
-
-
-def _refuse_tp(mesh, axis_name: str) -> None:
-    """A mesh whose model axis spans more than one rank is not ported."""
-    if mesh is None:
-        return
-    size = (mesh.shape[axis_name] if hasattr(mesh, "shape")
-            else mesh.size)
-    if size > 1:
-        raise NotImplementedError(
-            f"disaggregated serving at TP = {size} is not ported: each "
-            f"model rank is a process following its leader's plan, and "
-            f"every worker of a fleet would need its own leader "
-            f"(ROADMAP.md, queue A, A11)")
 
 
 def request_wire(req: Request, first_tokens) -> Dict[str, Any]:
@@ -129,17 +129,16 @@ class PrefillWorker:
                  n_slots: int = 2, max_total: int = 128, mesh=None,
                  axis_name: str = "model", queue_capacity: int = 16,
                  max_prefills_per_tick: int = 1,
-                 prefill_bucket: int = 1, device="cuda"):
-        _refuse_tp(mesh, axis_name)
+                 prefill_bucket: int = 1, device="cuda", plan=None):
         dev = resolve_device(device)
         self.name = str(name)
         params = tree_map(params, lambda t: t.to(dev))
         n_kv = _kv_heads(params, head_dim)
         self.pool = CachePool(n_slots, max_total, len(params["blocks"]),
                               n_kv * head_dim, params["embed"].dtype, dev)
-        self.engine = DecodeEngine(params, self.pool, None, axis_name,
+        self.engine = DecodeEngine(params, self.pool, mesh, axis_name,
                                    head_dim=head_dim,
-                                   prefill_bucket=prefill_bucket)
+                                   prefill_bucket=prefill_bucket, plan=plan)
         self.scheduler = Scheduler(
             queue_capacity, max_total,
             max_prefills_per_tick=max_prefills_per_tick,
@@ -302,18 +301,17 @@ class DecodeWorker:
                  n_slots: int = 4, max_total: int = 128, mesh=None,
                  axis_name: str = "model",
                  slo: Optional[SLOTracker] = None,
-                 stats_capacity: int = 1024, device="cuda"):
-        _refuse_tp(mesh, axis_name)
+                 stats_capacity: int = 1024, device="cuda", plan=None):
         self.name = str(name)
         self.inbox: deque = deque()   # append / popleft are GIL-atomic
         # no spill tier: JAX's decode worker has none (and it would need
         # the prefix cache, which is off)
         self.engine = ServingEngine(
             params, head_dim=head_dim, n_slots=n_slots,
-            max_total=max_total, axis_name=axis_name,
+            max_total=max_total, mesh=mesh, axis_name=axis_name,
             queue_capacity=1, max_prefills_per_tick=1,
             prefix_cache=False, spill_bytes=0, slo=slo,
-            stats_capacity=stats_capacity, device=device)
+            stats_capacity=stats_capacity, device=device, plan=plan)
 
     def load(self) -> Dict[str, Any]:
         eng = self.engine
@@ -616,15 +614,15 @@ class DisaggRouter(RouterBase):
         if self.transport_mode == "lanes":
             tag = f"{req.trace_id}.slab"
             try:
-                payload = self.plane.pack(
-                    pw.pool, src_slot, length,
+                payload = pw.engine.pack_slab(
+                    self.plane, src_slot, length,
                     meta=request_wire(req, [first_tok]))
                 self.plane.lane_put(tag, payload)
             except DcnLaneError as e:
                 # the wall is booked by the caller (PrefillWorker.step
                 # brackets this whole method as "transfer")
                 pw.pool.release(src_slot)
-                dw.engine.pool.cancel_reservation(dst)
+                self._cancel_reservation(dw, dst)
                 self._on_transfer_fault(pw, req, e)
                 return False
             # the slab is host bytes on the lane now: the staging slot
@@ -651,7 +649,7 @@ class DisaggRouter(RouterBase):
             if entry["mode"] == "lanes":
                 got = self.plane.lane_get(entry["tag"],
                                           self.lane_timeout_s)
-                stats = self.plane.unpack_into(got, dw.engine.pool, dst)
+                stats = dw.engine.engine.land_slab(self.plane, got, dst)
                 # GC after a successful landing is best effort: a delete
                 # fault must not kill the publisher (the slab arrived) nor
                 # cancel a reservation whose slab is in the caches
@@ -665,9 +663,8 @@ class DisaggRouter(RouterBase):
                 # behind the prefill that wrote the staging rows: the
                 # prefill thread read that prefill's first token back
                 # before it published this entry
-                stats = self.plane.transfer_local(
-                    pw.pool, entry["src_slot"], dw.engine.pool, dst,
-                    length)
+                stats = dw.engine.engine.copy_slab_from(
+                    pw.engine, entry["src_slot"], dst, length, self.plane)
                 pw.pool.release(entry["src_slot"])
         except DcnLaneError as e:
             if entry["mode"] == "lanes":
@@ -677,7 +674,7 @@ class DisaggRouter(RouterBase):
                     self.plane.lane_delete(entry["tag"])
                 except DcnLaneError:
                     pass
-            dw.engine.pool.cancel_reservation(dst)
+            self._cancel_reservation(dw, dst)
             self._on_transfer_fault(pw, req, e)
             return False
         # end-to-end latency for the p50 / p99 metric only: the wall was
@@ -700,6 +697,13 @@ class DisaggRouter(RouterBase):
                      ledger_bytes=stats["ledger_bytes"],
                      ms=round(ms, 3))
         return True
+
+    @staticmethod
+    def _cancel_reservation(dw: DecodeWorker, slot: int) -> None:
+        """Give a reserved slot back, its position reset on every model
+        rank (a follower's mirror keeps no allocator, only positions)."""
+        dw.engine.engine.reset_slot(slot)
+        dw.engine.pool.cancel_reservation(slot)
 
     def _on_transfer_fault(self, pw: PrefillWorker, req: Request,
                            err: DcnLaneError) -> None:
@@ -917,18 +921,36 @@ class DisaggRouter(RouterBase):
                 self._land_transfer(dw, dw.inbox.popleft())
 
     def close(self) -> None:
-        self.stop()
-        if self._threads:
-            # a wedged driver still owns its engine
-            return
-        for dw in self.decode_workers:
-            dw.engine.close()
+        try:
+            self.stop()
+            if self._threads:
+                # a wedged driver still owns its engine
+                return
+            for dw in self.decode_workers:
+                dw.engine.close()
+            self._unregister()
+        finally:
+            # the followers are released once, also on an error path
+            self._release_followers()
+
+    def _unregister(self) -> None:
         # identity-guarded: a newer fleet's registrations survive
         for name, fn in (("disagg_router", self.introspect_state),
                          ("disagg_prefill", self._prefill_state),
                          ("disagg_decode", self._decode_state)):
             if _flight._PROVIDERS.get(name) == fn:
                 _flight.unregister_provider(name)
+
+    def _decode_engines(self) -> list:
+        return ([pw.engine for pw in self.prefill_workers]
+                + [dw.engine.engine for dw in self.decode_workers])
+
+    def _retire(self) -> None:
+        for pw in self.prefill_workers:
+            pw.pool.caches = []
+        for dw in self.decode_workers:
+            dw.engine.retire()
+        self._unregister()
 
     def reset_stats(self) -> None:
         with self._lock:
@@ -1076,15 +1098,21 @@ def build_disagg_fleet(params, n_prefill: int, n_decode: int, *,
     """Stand up a P:D disaggregated fleet on one card, the ``serve
     --disagg P:D`` face.  ``n_slots`` sizes each decode worker's pool,
     ``staging_slots`` each prefill worker's staging pool.  The params move
-    to ``device`` once and every worker shares those tensors.
+    to ``device`` once and every worker shares those tensors.  With
+    ``mesh=`` (``params`` this rank's shards), every rank of the model
+    axis calls this alike; the workers share one plan, and the ranks other
+    than 0 then call ``follow()`` on the fleet.
 
     ``comm``: a :class:`~chainermn_tpu_torch.communicators.base
     .CommunicatorBase` whose ``kv_lane_transport()`` backs the lanes
     transport (its process group's store); without it the lanes run over
     a private in-process store."""
-    _refuse_tp(mesh, axis_name)
     dev = resolve_device(device)
     params = tree_map(params, lambda t: t.to(dev))
+    plan = None
+    if mesh is not None:
+        from .engine import ModelPlan
+        plan = ModelPlan(mesh.axis(axis_name))
     if comm is not None and transport_mode == "lanes" \
             and "plane" not in router_kwargs:
         router_kwargs["plane"] = KvTransferPlane(
@@ -1092,14 +1120,15 @@ def build_disagg_fleet(params, n_prefill: int, n_decode: int, *,
     prefills = [
         PrefillWorker(f"prefill{i}", params, head_dim=head_dim,
                       n_slots=staging_slots, max_total=max_total,
-                      axis_name=axis_name, queue_capacity=queue_capacity,
+                      mesh=mesh, axis_name=axis_name,
+                      queue_capacity=queue_capacity,
                       max_prefills_per_tick=max_prefills_per_tick,
-                      prefill_bucket=prefill_bucket, device=dev)
+                      prefill_bucket=prefill_bucket, device=dev, plan=plan)
         for i in range(int(n_prefill))]
     decodes = [
         DecodeWorker(f"decode{i}", params, head_dim=head_dim,
-                     n_slots=n_slots, max_total=max_total,
-                     axis_name=axis_name, slo=slo, device=dev)
+                     n_slots=n_slots, max_total=max_total, mesh=mesh,
+                     axis_name=axis_name, slo=slo, device=dev, plan=plan)
         for i in range(int(n_decode))]
     return DisaggRouter(prefills, decodes, transport_mode=transport_mode,
                         slo=slo, metrics_writer=metrics_writer,

@@ -50,9 +50,29 @@ leader's store decides, and a follower packs (``spill``), drops
 (``unspill``) and lands (``restore``) its own under the leader's plan.
 A restore's outcome is agreed over the model group: a CRC refusal on any
 rank refuses it on every rank, and all of them re-prefill.
+
+A fleet of engines at TP > 1 (the router's replicas, the role-split
+fleet's workers) shares ONE :class:`ModelPlan`: each op names the engine
+it is for (its index in the plan, the same on every rank because every
+rank builds the same fleet in the same order), model rank 0 hosts the
+router and every engine, and the other ranks run one fleet-level
+:meth:`ModelPlan.follow` loop.  Announcing an op and running its device
+call is one step under the plan's lock, so driver threads of several
+engines never interleave their collectives.  The role-split fleet's
+transfers are plan ops too: a row copy between two engines' pools
+(:meth:`DecodeEngine.copy_slab_from`, each rank its own columns), and the
+lanes' pack (:meth:`DecodeEngine.pack_slab`: the ranks' columns gathered
+to one global slab, so its bytes and CRC are those of JAX's global pool)
+and landing (:meth:`DecodeEngine.land_slab`: the leader checks the global
+slab, then every rank writes its own columns).  The followers mirror only
+device state (caches and positions); the allocators, queues and
+reservations live on the leader.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
@@ -61,16 +81,79 @@ import torch.distributed as dist
 from ..ops import collective as col
 from ..parallel.decode import _kv_heads, _next_token, lm_decode_tick, lm_prefill
 from .scheduler import AdmissionError
-from .transfer import SPILL_AXIS, SPILL_OP, KvTransferPlane
+from .transfer import SPILL_AXIS, SPILL_OP, KvTransferPlane, _host_rows
+
+
+class ModelPlan:
+    """The plan channel of one model group: model rank 0 broadcasts each
+    device call of its engines, the other ranks run them.  ``axis``: the
+    model axis' 1-D mesh (None: one rank, nothing to broadcast).  Engines
+    :meth:`register` in construction order; an op names its engine by
+    that index."""
+
+    def __init__(self, axis):
+        self.axis = axis
+        self.leader = axis is None or col.axis_index(axis) == 0
+        self.broadcasting = axis is not None and axis.size > 1
+        # held from an op's broadcast to the end of its device call: one
+        # op at a time on the model group, whatever thread announces it
+        self.lock = threading.RLock()
+        self.engines = []
+        self.stopped = False
+
+    def register(self, engine) -> int:
+        self.engines.append(engine)
+        return len(self.engines) - 1
+
+    def publish(self, eid, op) -> None:
+        """Leader: broadcast ``op`` for engine ``eid`` over the model
+        group (a no-op on one rank, and on a follower)."""
+        if not (self.leader and self.broadcasting):
+            return
+        with self.lock:
+            if self.stopped:
+                raise RuntimeError("the model plan is stopped: its "
+                                   "followers have left")
+            dist.broadcast_object_list(
+                [(eid, op)], src=col._peer(self.axis, 0),
+                group=self.axis.group)
+
+    def follow(self) -> int:
+        """Follower: receive and run the leader's ops, each on the engine
+        it names, until the stop; returns the number of ops run."""
+        if self.leader:
+            raise RuntimeError("model rank 0 leads; follow() is for the "
+                               "other ranks of the model axis")
+        n = 0
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=col._peer(self.axis, 0),
+                                       group=self.axis.group)
+            eid, (kind, args) = box[0]
+            if kind == "stop":
+                self.stopped = True
+                return n
+            self.engines[eid]._ops[kind](*args)
+            n += 1
+
+    def stop(self) -> None:
+        """Leader: release the followers from :meth:`follow`, once (later
+        calls are no-ops)."""
+        with self.lock:
+            if not self.stopped:
+                self.publish(None, ("stop", ()))
+                self.stopped = True
 
 
 class DecodeEngine:
     """Device half of the serving engine: owns the params (on the pool's
     device) and runs prefill and tick over the :class:`CachePool`.  With
-    ``mesh``, ``params`` are this rank's shards over ``axis_name``."""
+    ``mesh``, ``params`` are this rank's shards over ``axis_name``.
+    ``plan``: the fleet's shared :class:`ModelPlan` (default: one of this
+    engine's own)."""
 
     def __init__(self, params, pool, mesh=None, axis_name: str = "model", *,
-                 head_dim: int, prefill_bucket: int = 1):
+                 head_dim: int, prefill_bucket: int = 1, plan=None):
         self.head_dim = int(head_dim)
         self.pool = pool
         self.prefill_bucket = max(int(prefill_bucket), 1)
@@ -82,7 +165,15 @@ class DecodeEngine:
         self._params = params
         # the model axis' 1-D mesh, which the layers reduce over
         self._axis = None if mesh is None else mesh.axis(axis_name)
-        self.leader = self._axis is None or col.axis_index(self._axis) == 0
+        self._owns_plan = plan is None
+        self.plan = ModelPlan(self._axis) if plan is None else plan
+        self.leader = self.plan.leader
+        self.eid = self.plan.register(self)
+        self._ops = {"prefill": self._prefill, "pos": self._set_pos,
+                     "tick": self._tick, "copy": self._copy,
+                     "spill": self._spill, "unspill": self._unspill,
+                     "restore": self._restore, "xfer": self._xfer,
+                     "pack": self._pack, "land": self._land}
         self.prefill_calls = 0
         self._padded_lens = set()
         self.tick_calls = 0
@@ -94,42 +185,33 @@ class DecodeEngine:
 
     # ---- the plan: model rank 0 leads, the others follow ----
     def publish(self, op) -> None:
-        """Leader: broadcast ``op`` (the next device call) over the model
-        group; a no-op without one, and on a follower, which only
-        receives."""
-        if self.leader and self._axis is not None and self._axis.size > 1:
-            dist.broadcast_object_list(
-                [op], src=col._peer(self._axis, 0), group=self._axis.group)
+        """Leader: broadcast ``op`` (the next device call) for this engine
+        over the model group; a no-op without one, and on a follower,
+        which only receives."""
+        self.plan.publish(self.eid, op)
+
+    def _call(self, kind, *args):
+        """Leader: announce ``kind(*args)`` and run it, as one step of the
+        plan (no other thread's op between the two)."""
+        with self.plan.lock:
+            self.publish((kind, args))
+            return self._ops[kind](*args)
 
     def follow(self) -> int:
-        """Follower: receive and run the leader's calls until its stop;
-        returns the number of calls run."""
-        if self.leader:
-            raise RuntimeError("model rank 0 leads; follow() is for the "
-                               "other ranks of the model axis")
-        n = 0
-        while True:
-            box = [None]
-            dist.broadcast_object_list(box, src=col._peer(self._axis, 0),
-                                       group=self._axis.group)
-            kind, args = box[0]
-            if kind == "stop":
-                return n
-            {"prefill": self._prefill, "pos": self._set_pos,
-             "tick": self._tick, "copy": self._copy, "spill": self._spill,
-             "unspill": self._unspill,
-             "restore": self._restore}[kind](*args)
-            n += 1
+        """Follower: run the leader's calls (every engine's of a shared
+        plan) until its stop; returns the number of calls run."""
+        return self.plan.follow()
 
     def stop(self) -> None:
         """Leader: release the followers from :meth:`follow` (a no-op on
-        a follower)."""
-        self.publish(("stop", ()))
+        a follower, and for an engine of a fleet's shared plan, which the
+        fleet releases once)."""
+        if self._owns_plan:
+            self.plan.stop()
 
     def reset_slot(self, slot: int) -> None:
         """Set ``slot``'s write position to 0 (on every model rank)."""
-        self.publish(("pos", (int(slot), 0)))
-        self._set_pos(slot, 0)
+        self._call("pos", int(slot), 0)
 
     def _set_pos(self, slot, pos):
         self.pool.pos[slot] = pos
@@ -145,9 +227,7 @@ class DecodeEngine:
         if not (0 < int(prefix_len) <= self.pool.max_total):
             raise ValueError(f"prefix_len {prefix_len} out of range (0, "
                              f"{self.pool.max_total}]")
-        self.publish(("copy", (int(src_slot), int(dst_slot),
-                               int(prefix_len))))
-        self._copy(src_slot, dst_slot, prefix_len)
+        self._call("copy", int(src_slot), int(dst_slot), int(prefix_len))
 
     def _copy(self, src, dst, prefix_len):
         self.prefix_copies += 1
@@ -184,9 +264,10 @@ class DecodeEngine:
         :class:`RuntimeError` when any rank failed otherwise; then no
         rank's ``pos`` moved and the request re-prefills."""
         seq = tuple(int(t) for t in seq)
-        self.publish(("restore", (int(slot), seq, int(prefix_len))))
-        errs = [e for e in self._restore(slot, seq, prefix_len, payload)
-                if e is not None]
+        with self.plan.lock:
+            self.publish(("restore", (int(slot), seq, int(prefix_len))))
+            errs = [e for e in self._restore(slot, seq, prefix_len, payload)
+                    if e is not None]
         if errs:
             refused = [msg for kind, msg in errs if kind == "refused"]
             if refused:
@@ -267,9 +348,8 @@ class DecodeEngine:
         if s_pad > s_real:
             prompt = np.pad(prompt, ((0, 0), (0, s_pad - s_real)))
         rng = None if rng is None else np.asarray(rng, np.uint32)
-        self.publish(("prefill", (prompt, s_real, slot, rng,
-                                  float(temperature))))
-        return self._prefill(prompt, s_real, slot, rng, float(temperature))
+        return self._call("prefill", prompt, s_real, slot, rng,
+                          float(temperature))
 
     def _prefill(self, prompt, s_real, slot, rng, temperature):
         s_pad = prompt.shape[1]
@@ -301,9 +381,8 @@ class DecodeEngine:
         position, and return the next token per slot.  ``keys (n_slots,
         2)`` and ``temps (n_slots,)`` are the slots' sampling operands
         (``None``, or temperatures <= 0: greedy)."""
-        last_tokens = np.asarray(last_tokens, np.int64)
-        self.publish(("tick", (last_tokens, keys, temps)))
-        return self._tick(last_tokens, keys, temps)
+        return self._call("tick", np.asarray(last_tokens, np.int64), keys,
+                          temps)
 
     def _tick(self, last_tokens, keys, temps):
         self.tick_calls += 1
@@ -323,3 +402,73 @@ class DecodeEngine:
             out = nxt.cpu().numpy()
         self.pool.pos = self.pool.pos + 1
         return out
+
+    # ---- the role-split fleet's transfers, as plan ops ----
+    def copy_slab_from(self, src: "DecodeEngine", src_slot: int,
+                       dst_slot: int, length: int, plane: KvTransferPlane):
+        """The ``local`` transport: copy ``src``'s slot ``src_slot`` into
+        this engine's ``dst_slot`` and set its position to ``length``, on
+        every model rank (each its own columns).  ``plane`` books the
+        leader's counters; returns its stats row."""
+        with self.plan.lock:
+            self.publish(("xfer", (src.eid, int(src_slot), int(dst_slot),
+                                   int(length))))
+            return plane.transfer_local(src.pool, src_slot, self.pool,
+                                        dst_slot, length)
+
+    def _xfer(self, src_eid, src_slot, dst_slot, length):
+        self.kv_plane.transfer_local(self.plan.engines[src_eid].pool,
+                                     src_slot, self.pool, dst_slot, length)
+
+    def pack_slab(self, plane: KvTransferPlane, slot: int, length: int,
+                  meta) -> bytes:
+        """The ``lanes`` transport's pack: slot ``slot``'s rows ``[0,
+        length)`` and ``meta`` as one ``kv_transfer.v1`` payload.  At TP >
+        1 every rank's columns are gathered to the leader first, so the
+        payload holds the GLOBAL slab (JAX's bytes, its CRC)."""
+        if not self.plan.broadcasting:
+            return plane.pack(self.pool, slot, length, meta)
+        with self.plan.lock:
+            self.publish(("pack", (int(slot), int(length))))
+            host = self._pack(slot, length)
+        return plane.pack_host(host, meta, self.pool.caches[0][0].dtype)
+
+    def _pack(self, slot, length):
+        """Every rank's columns of the rows, concatenated in rank order
+        (JAX's global cache layout: axis 2 over the model axis)."""
+        with torch.inference_mode():
+            own = _host_rows(torch.stack([c[slot, :length]
+                                          for kv in self.pool.caches
+                                          for c in kv]))
+        parts = [None] * self._axis.size
+        dist.all_gather_object(parts, own, group=self._axis.group)
+        return np.concatenate(parts, axis=-1)
+
+    def land_slab(self, plane: KvTransferPlane, payload: bytes,
+                  slot: int):
+        """The ``lanes`` transport's landing: check ``payload`` (schema,
+        shape, CRC32 over the global slab) and write it into ``slot``,
+        every model rank its own columns; ``ValueError`` before any rank
+        is touched when the payload is refused.  The leader books the
+        ledger row.  Returns the landing's stats."""
+        if not self.plan.broadcasting:
+            return plane.unpack_into(payload, self.pool, slot)
+        t0 = time.monotonic()
+        data = plane.open_payload(payload, self.pool.n_layers,
+                                  self.pool.kv_dim * self._axis.size,
+                                  self.pool.max_total)
+        host = np.stack([a for kv in data["rows"] for a in kv])
+        with self.plan.lock:
+            self.publish(("land", (int(slot), host, data["dtype"])))
+            self._land(slot, host, data["dtype"])
+        return plane.book_landing(data, payload, t0)
+
+    def _land(self, slot, host, dtype_name):
+        kv = self.pool.kv_dim
+        r = col.axis_index(self._axis)
+        own = host[..., r * kv:(r + 1) * kv]
+        rows = [(own[2 * i], own[2 * i + 1])
+                for i in range(self.pool.n_layers)]
+        self.kv_plane.inject_program(self.pool)(
+            self.pool.caches, rows, slot, getattr(torch, dtype_name))
+        self.pool.pos[slot] = host.shape[1]

@@ -220,9 +220,9 @@ class FleetRouter(RouterBase):
         self.start_grace_s = float(start_grace_s)
         self.max_failover_attempts = int(max_failover_attempts)
         self.bundle_dir = bundle_dir
-        #: the autoscaler's attachment point (JAX's FleetAutoscaler; not
-        #: ported yet, ROADMAP.md queue A, A11): step() then drives its
-        #: control loop and the fleet_health provider carries its view
+        #: attached by serving.autoscale.FleetAutoscaler: step() then
+        #: drives its control loop, metrics() carries its counters and the
+        #: fleet_health provider its view
         self.autoscaler = None
         self.lane_config = lane_config
         self.fence = EpochFence()

@@ -156,7 +156,10 @@ class ServingEngine:
     ``params``: ``init_tp_transformer_lm`` tensors (moved to ``device``);
     with ``mesh``, this rank's shards over ``axis_name``
     (``transformer_lm_specs``), and the pool holds this rank's KV heads.
-    ``max_total`` bounds each slot's sequence (prompt + generated); a
+    ``plan``: a fleet's shared
+    :class:`~chainermn_tpu_torch.serving.engine.ModelPlan` (the fleet
+    builders pass it at TP > 1).  ``max_total`` bounds each slot's
+    sequence (prompt + generated); a
     request that cannot fit is rejected at submit (``AdmissionError``,
     reason ``too_long``), as is any submit while the bounded queue is full
     (``queue_full``).  ``prefill_bucket``, ``prefix_cache``,
@@ -172,7 +175,7 @@ class ServingEngine:
                  slo: Optional[SLOTracker] = None,
                  recent_capacity: int = 64, prefix_cache: bool = True,
                  min_prefix_len: int = 2, spill_bytes: int = 32 << 20,
-                 device="cuda"):
+                 device="cuda", plan=None):
         dev = resolve_device(device)
         n_kv = _kv_heads(params, head_dim)
         params = tree_map(params, lambda t: t.to(dev))
@@ -180,7 +183,7 @@ class ServingEngine:
                               n_kv * head_dim, params["embed"].dtype, dev)
         self.engine = DecodeEngine(params, self.pool, mesh, axis_name,
                                    head_dim=head_dim,
-                                   prefill_bucket=prefill_bucket)
+                                   prefill_bucket=prefill_bucket, plan=plan)
         self.scheduler = Scheduler(
             queue_capacity, max_total,
             max_prefills_per_tick=max_prefills_per_tick,
@@ -817,9 +820,7 @@ class ServingEngine:
         try:
             return self.engine.follow()
         finally:
-            self._closed = True
-            self.pool.caches = []
-            self._unregister()
+            self.retire()
 
     def close(self) -> None:
         """Retire the engine: stop the driver thread, release the
@@ -830,6 +831,13 @@ class ServingEngine:
         self.stop()
         if not self._closed:
             self.engine.stop()
+        self.retire()
+
+    def retire(self) -> None:
+        """Mark the engine closed and drop the pool's device buffers and
+        the flight provider, releasing no follower: a follower's engine
+        after its plan stopped, or a fleet's engine, whose shared plan the
+        fleet releases once."""
         self._closed = True
         self.pool.caches = []
         self._unregister()

@@ -34,6 +34,14 @@ provider over every replica's ``introspect_state()``.
 
 On one card the replicas share the device: each owns its pool and
 launches its own kernels.
+
+**Tensor parallelism.**  ``build_fleet(..., mesh=)`` at a model axis > 1
+gives every replica's engine one shared
+:class:`~chainermn_tpu_torch.serving.engine.ModelPlan`: model rank 0
+hosts the router and every replica, each of its device calls names its
+engine, and the other ranks build the same fleet and call
+:meth:`RouterBase.follow`.  The leader's :meth:`ServingRouter.close`
+releases them once, also when a replica's close raises.
 """
 
 from __future__ import annotations
@@ -108,6 +116,38 @@ class RouterBase:
 
     def _mint_trace_id(self) -> str:
         return f"req-{os.getpid():x}-rt{next(self._ids):08x}"
+
+    # ---- tensor parallelism: one leader for the whole fleet ----
+    def _decode_engines(self) -> list:
+        """Every :class:`~chainermn_tpu_torch.serving.engine.DecodeEngine`
+        of the fleet, in construction (plan) order."""
+        return []
+
+    @property
+    def leader(self) -> bool:
+        """Whether this rank hosts the fleet (model rank 0, or no model
+        axis); the other ranks :meth:`follow`."""
+        return all(e.leader for e in self._decode_engines())
+
+    def follow(self) -> int:
+        """Model ranks other than 0: run the fleet's device calls, each on
+        this rank's mirror of the engine it names, until the leader's
+        :meth:`close`; returns how many ran.  The mirrors are retired
+        after it."""
+        engines = self._decode_engines()
+        try:
+            return engines[0].plan.follow()
+        finally:
+            self._retire()
+
+    def _retire(self) -> None:
+        """Drop the engines' device state, releasing no follower."""
+
+    def _release_followers(self) -> None:
+        """Leader: stop every plan of the fleet once (a no-op for a plan
+        an engine's own close stopped already)."""
+        for e in self._decode_engines():
+            e.plan.stop()
 
     def rejection_counters(self) -> Dict[str, int]:
         with self._lock:
@@ -450,8 +490,20 @@ class ServingRouter(RouterBase):
             rep.stop()
 
     def close(self) -> None:
+        try:
+            for rep in self.replicas:
+                rep.close()
+        finally:
+            self._release_followers()
+        if _flight._PROVIDERS.get("router") == self.introspect_state:
+            _flight.unregister_provider("router")
+
+    def _decode_engines(self) -> list:
+        return [rep.engine.engine for rep in self.replicas]
+
+    def _retire(self) -> None:
         for rep in self.replicas:
-            rep.close()
+            rep.engine.retire()
         if _flight._PROVIDERS.get("router") == self.introspect_state:
             _flight.unregister_provider("router")
 
@@ -559,7 +611,14 @@ def build_fleet(params, n_replicas: int, *,
     the ``serve --replicas N`` CLI face.  The fleet SLO tracker is
     shared into every engine so all observations burn one budget;
     ``tenancy`` threads the multi-tenant QoS plane through the shed
-    gate."""
+    gate.  With ``mesh=`` (``params`` this rank's shards), every rank of
+    the model axis calls this alike: the replicas share one plan, and the
+    ranks other than 0 then call ``follow()`` on the router."""
+    mesh = engine_kwargs.get("mesh")
+    if mesh is not None and "plan" not in engine_kwargs:
+        from .engine import ModelPlan
+        engine_kwargs["plan"] = ModelPlan(
+            mesh.axis(engine_kwargs.get("axis_name", "model")))
     replicas = [
         Replica.build(params, f"replica{i}", slo=slo, **engine_kwargs)
         for i in range(int(n_replicas))]

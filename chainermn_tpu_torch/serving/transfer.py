@@ -302,22 +302,28 @@ class KvTransferPlane:
             raise ValueError(f"pack length {length} out of range "
                              f"(0, {src_pool.max_total}]")
         length = int(length)
-        dtype = src_pool.caches[0][0].dtype
         with torch.inference_mode():
             slab = torch.stack([c[src_slot, :length]
                                 for kv in src_pool.caches for c in kv])
             host = _host_rows(slab)
+        return self.pack_host(host, meta, src_pool.caches[0][0].dtype)
+
+    @staticmethod
+    def pack_host(host: np.ndarray, meta: Dict[str, Any],
+                  dtype: torch.dtype) -> bytes:
+        """Serialise a slab already on the host: ``host (2 * layers,
+        length, kv_dim)``, K then V per layer, the raw bits of ``dtype``."""
         # read-only, as a device array's host copy is: the payload pickles
         # the rows as bytes (JAX's framing, byte for byte in fp32)
         host.flags.writeable = False
-        rows = [(host[2 * i], host[2 * i + 1])
-                for i in range(src_pool.n_layers)]
+        n_layers = host.shape[0] // 2
+        rows = [(host[2 * i], host[2 * i + 1]) for i in range(n_layers)]
         return pickle.dumps({
             "schema": WIRE_SCHEMA,
             "meta": dict(meta),
-            "pos": length,
-            "n_layers": src_pool.n_layers,
-            "kv_dim": src_pool.kv_dim,
+            "pos": int(host.shape[1]),
+            "n_layers": n_layers,
+            "kv_dim": int(host.shape[2]),
             "dtype": _dtype_name(dtype),
             # the receiver recomputes this over the decoded rows and
             # refuses a mismatch: a corrupt slab re-prefills, never serves
@@ -389,22 +395,36 @@ class KvTransferPlane:
         tier's restores book ``kv_spill_restore@host``).  Returns the wire
         dict's ``meta`` and the transfer's stats."""
         t0 = time.monotonic()
+        data = self.open_payload(payload, dst_pool.n_layers,
+                                 dst_pool.kv_dim, dst_pool.max_total)
+        self.inject_program(dst_pool)(dst_pool.caches, data["rows"],
+                                      dst_slot, getattr(torch, data["dtype"]))
+        dst_pool.pos[dst_slot] = int(data["pos"])
+        return self.book_landing(data, payload, t0, ledger_op=ledger_op,
+                                 ledger_axis=ledger_axis)
+
+    @staticmethod
+    def open_payload(payload: bytes, n_layers: int, kv_dim: int,
+                     max_total: int) -> Dict[str, Any]:
+        """Decode a packed slab and check it against a destination of
+        ``n_layers`` x ``kv_dim`` columns and ``max_total`` rows a slot:
+        the schema, the shape, the length and the CRC32; ``ValueError``
+        names the first that is wrong.  Returns the wire dict."""
         data = pickle.loads(payload)
         if data.get("schema") != WIRE_SCHEMA:
             raise ValueError(
                 f"refusing KV transfer with schema {data.get('schema')!r} "
                 f"(this receiver speaks {WIRE_SCHEMA})")
-        if data["n_layers"] != dst_pool.n_layers \
-                or data["kv_dim"] != dst_pool.kv_dim:
+        if data["n_layers"] != n_layers or data["kv_dim"] != kv_dim:
             raise ValueError(
                 f"slab shape mismatch: wire (layers={data['n_layers']}, "
                 f"kv_dim={data['kv_dim']}) vs pool "
-                f"(layers={dst_pool.n_layers}, kv_dim={dst_pool.kv_dim})")
+                f"(layers={n_layers}, kv_dim={kv_dim})")
         length = int(data["pos"])
-        if length > dst_pool.max_total:
+        if length > max_total:
             raise ValueError(
                 f"slab length {length} exceeds destination per-slot "
-                f"capacity {dst_pool.max_total}")
+                f"capacity {max_total}")
         want_crc = data.get("crc32")
         if want_crc is not None:
             got_crc = slab_crc32(data["rows"])
@@ -414,10 +434,15 @@ class KvTransferPlane:
                     f"{int(want_crc):#010x}, rows hash {got_crc:#010x}) "
                     f"— the slab was corrupted in transit/storage and "
                     f"must re-prefill, never serve")
-        self.inject_program(dst_pool)(dst_pool.caches, data["rows"],
-                                      dst_slot, getattr(torch, data["dtype"]))
-        dst_pool.pos[dst_slot] = length
+        return data
 
+    def book_landing(self, data: Dict[str, Any], payload: bytes, t0: float,
+                     *, ledger_op: str = LANE_OP,
+                     ledger_axis: str = LANE_AXIS) -> Dict[str, Any]:
+        """Count one landed slab (``data``, from :meth:`open_payload`,
+        landing since ``t0``) and, with the tracer on, book its RAW bytes
+        as a noted ``ledger_op@ledger_axis`` row; returns its stats."""
+        length = int(data["pos"])
         nbytes = slab_nbytes(data["n_layers"], length, data["kv_dim"],
                              data["dtype"])
         ms = (time.monotonic() - t0) * 1e3

@@ -48,7 +48,6 @@ import numpy as np
 
 from ..observability import flight as _flight
 from ..observability import journal as _journal
-from .disagg import _refuse_tp
 from .health import HeartbeatPublisher
 from .lanes import MailboxReceiver, MailboxSender
 from .scheduler import AdmissionError, Request, Scheduler
@@ -96,6 +95,23 @@ def request_from_wire(wire: Dict[str, Any], *, on_token=None) -> Request:
     return req
 
 
+def _refuse_tp(mesh, axis_name: str) -> None:
+    """A worker whose mesh has a model axis wider than one rank is not
+    ported: in the port each model rank is a process following its
+    leader's plan, so every worker process would have to be its own group
+    of model ranks with its own leader, a design of its own (JAX's worker
+    builds a mesh over whatever devices its one process sees)."""
+    if mesh is None:
+        return
+    size = (mesh.shape[axis_name] if hasattr(mesh, "shape")
+            else mesh.size)
+    if size > 1:
+        raise NotImplementedError(
+            f"a fleet worker process at TP = {size} is not ported: each "
+            f"worker would need its own group of model-rank processes "
+            f"with its own leader (ROADMAP.md, queue A, A11 step 3c)")
+
+
 class WorkerRuntime:
     """One fleet member's role loop (transport-agnostic).
 
@@ -105,7 +121,7 @@ class WorkerRuntime:
     ``kill()`` is the chaos face: the runtime stops doing any work,
     heartbeats included, so to the supervisor it looks like a SIGKILLed
     process.  A mesh whose model axis spans more than one rank is refused
-    (a fleet at TP > 1 is not ported).
+    (:func:`_refuse_tp`: ROADMAP.md, queue A, A11 step 3c).
     """
 
     def __init__(self, name: str, role: str, params, store, *,

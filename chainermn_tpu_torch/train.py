@@ -284,7 +284,6 @@ def make_demo_step(mesh=None, axis_name: str = DEFAULT_AXIS_NAME):
 # flags of the JAX CLI whose machinery the port has not yet: (queue item, what)
 _REFUSED = {
     "metrics_out": ("A12", "the metrics stream"),
-    "statusz_port": ("A12", "the live introspection server"),
 }
 
 
@@ -337,6 +336,10 @@ def _parse(argv):
     parser.add_argument("--self-heal-beat-s", type=float, default=0.05,
                         help="heartbeat interval; the detection window is "
                              "beat * (miss_beats + 1) with miss_beats=4")
+    parser.add_argument("--statusz-port", type=int, default=None,
+                        help="live introspection HTTP server (/statusz "
+                             "/metricsz /requestz /debugz) on this port; "
+                             "0 picks a free port (printed to stderr)")
     parser.add_argument("--flight-dump-dir", default=None,
                         help="crash-bundle directory of the flight recorder "
                              "(SIGTERM / SIGUSR1 / uncaught exception / "
@@ -369,7 +372,7 @@ def run(argv=None):
     from .convert import demo_params_from_numpy
     from .extensions import ObservationAggregator, Watchdog
     from .iterators import SerialIterator
-    from .observability import flight, trace
+    from .observability import flight, introspect, trace
     from .training.extensions import LogReport, PrintReport
     from .training.trainer import PRIORITY_EDITOR, Trainer
     from .training.updaters import StandardUpdater
@@ -433,6 +436,11 @@ def run(argv=None):
     flight.register_provider("train", lambda: {
         "iteration": trainer.iteration, "last_phase": trainer.last_phase,
         "elapsed_time": trainer.elapsed_time})
+    statusz = None
+    if args.statusz_port is not None:
+        statusz = introspect.start_status_server(
+            args.statusz_port, dump_dir=dump_dir, rank=rank)
+        statusz_port = statusz.port
     trainer.extend(Watchdog(timeout=args.watchdog_timeout, dump_dir=args.out,
                             rank=rank))
     # v2 manifest checkpoints resume across world-size changes; SIGTERM
@@ -484,6 +492,8 @@ def run(argv=None):
     finally:
         if gang is not None:
             gang.stop()
+        if statusz is not None:
+            statusz.stop()
         updater.close()
         flight.unregister_provider("train")
         if restore:
@@ -504,6 +514,8 @@ def run(argv=None):
             k: st[k] for k in (
                 "epoch", "world", "min_world", "detection_window_s",
                 "rank_lost_events", "reconfigs", "fenced_refusals")}
+    if statusz is not None:
+        result["statusz_port"] = statusz_port
     if args.trace_out:
         trace.export_chrome_trace(args.trace_out, rank=rank)
         result["trace_out"] = (args.trace_out if rank is None
@@ -521,9 +533,10 @@ def main(argv=None) -> int:
     preemption, the self-healing gang and the flight recorder's crash
     bundles.  Prints JAX's result keys that the port has (``steps``,
     ``world``, ``final_loss``, ``final_accuracy``, ``self_heal``,
-    ``trace_out``, ``trace_events``) as one JSON line.  ``--devices``
-    (JAX's virtual CPU devices) is ``--device`` and torchrun here; the
-    flags of the metrics stream and the statusz server (A12) are
+    ``trace_out``, ``trace_events``, ``statusz_port``) as one JSON line.
+    ``--statusz-port`` serves ``/statusz`` (with the ``train`` provider)
+    while it runs.  ``--devices`` (JAX's virtual CPU devices) is
+    ``--device`` and torchrun here; the metrics stream's flag (A12) is
     refused."""
     import json
 

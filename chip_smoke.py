@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet and the cross-process fleet), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet, the cross-process fleet and its autoscaler), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -185,6 +185,23 @@ and prints no result line:
    failover, the survivor exits 0.  (5) fp32 at 2 layers: the card's
    process fleet against the CPU's ``build_local_fleet``, tokens equal or
    a CPU near-tie < 1e-3.
+6e. ``serving-autoscale`` — the fleet autoscaler at the decode-bench
+   width: ``build_proc_fleet({"engine": 1})`` with
+   ``FleetAutoscaler(proc_spawn_factory, AutoscalePolicy(min_workers=1,
+   max_workers=2))`` (spawned workers through ``--fleet-worker`` too);
+   ``build_scenario("flash_crowd", prompt_len=512, crowd_prefix_len=448,
+   max_new_tokens=64, crowd_n=16, n_background=8)`` replayed by
+   ``run_scenario`` crowd after crowd until the spawned worker holds its
+   lease, one more crowd on two workers, then no load until the
+   autoscaler drains back to one; the status server on port 0, each of
+   ``/statusz``, ``/metricsz``, ``/requestz``, ``/debugz`` read once.
+   Decision to first lease seconds, TTFT p50 / p99 before and after the
+   scale-up, the decisions with their signals.  Fails without a scale-up,
+   with no flash / append / decode launch in the spawned worker, a
+   request not ended exactly once (done, or shed with its payload), a
+   flap, a drained worker's exit code other than 0, endpoints without
+   JAX's top-level keys, or tokens off the fused engine's (beyond a
+   near-tie < 1e-3; the first crowd and the one on two workers).
 7. ``train-parity`` — fp32, d 1024, 2 layers, 8 heads, vocab 32768, S 256,
    B 2, flash attention and the fused CE, TF32 off: the gradient of every
    parameter at the initial weights, card against CPU, to a relative norm
@@ -226,7 +243,15 @@ and prints no result line:
    position (a sampled row with TP = 2's noise: each shard's ``(1, V/2)``
    draw), or a near-tie under 1e-3, and the best beams equal or within
    1e-3 of log-probability; the decode, append, beam and flash launches of
-   each rank.  A worker that fails fails the phase.
+   each rank.  (d) The in-process fleets at TP = 2 (rank 0 hosts the
+   router and every engine, rank 1 follows the fleet's one plan):
+   ``build_disagg_fleet(1, 1)`` over the local and the lanes transport and
+   ``build_fleet(2)``, fp32 at 2 layers (8 requests, prompt 256, 16 new,
+   the odd half sampled; every token the TP = 1 model's choice on the card
+   or a near-tie < 1e-3), then bf16 at full width under ``start()`` (8
+   requests, prompt 512, 32 new: TTFT and tick gap p50 / p99 on the gloo
+   host wire of one shared card; flash, append and decode launches on
+   each rank).  A worker that fails fails the phase.
 10. ``sp`` — the sequence-sharded LM (``sp_transformer_lm_loss``) at the
    train phase's widths with RoPE (d 1024, 8 layers, 8 heads of 128,
    vocab 32,768; depth not cut), global S 8,192, B 2, SP = 2 as two
@@ -3195,6 +3220,232 @@ def phase_serving_fleet(smoke):
     emit({"check": "serving_fleet.legs_s", **legs_s})
 
 
+AUTOSCALE = dict(FLEET, scenario=dict(prompt_len=512, crowd_prefix_len=448,
+                                      max_new_tokens=64, crowd_n=16,
+                                      n_background=8), max_waves=10)
+#: the four endpoints' top-level keys (JAX's ``introspect.py`` over a
+#: FleetRouter's ``requests_table``)
+STATUSZ_KEYS = {"schema", "t", "uptime_s", "pid", "rank", "tracing_enabled",
+                "current_span", "last_phase", "flight_ring", "providers"}
+
+
+class _Recording:
+    """The router ``run_scenario`` drives, keeping each accepted request's
+    handle and its submit time."""
+
+    def __init__(self, router):
+        self._router = router
+        self.handles = []
+
+    def __getattr__(self, name):
+        return getattr(self._router, name)
+
+    def submit(self, *args, **kw):
+        h = self._router.submit(*args, **kw)
+        self.handles.append((time.monotonic(), h))
+        return h
+
+
+def _scrape_statusz(port):
+    """GET each of the four endpoints once: their payloads, parsed (the
+    Prometheus text of ``/metricsz`` by its parser)."""
+    import urllib.request
+
+    from chainermn_tpu_torch.observability.export import (
+        parse_prometheus_text)
+
+    out = {}
+    for path in ("/statusz", "/metricsz", "/requestz", "/debugz"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            body = r.read().decode()
+        out[path] = (parse_prometheus_text(body) if path == "/metricsz"
+                     else json.loads(body))
+    return out
+
+
+def phase_serving_autoscale(smoke):
+    """The autoscaler on the cross-process fleet at the decode-bench LM's
+    full width (bf16): ``build_proc_fleet({"engine": 1})`` with a
+    ``FleetAutoscaler(proc_spawn_factory, AutoscalePolicy(min_workers=1,
+    max_workers=2))``; flash crowds (``build_scenario("flash_crowd")`` at
+    the serving sizes) replayed by ``run_scenario`` back to back until the
+    worker the scale-up spawned holds its lease, one more crowd on the two
+    workers, then no load until the autoscaler drains back to one.  The
+    status server runs throughout and each endpoint is read once.  Every
+    worker process (the spawned one too) reports its launch counts."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.observability import start_status_server
+    from chainermn_tpu_torch.serving import (AutoscalePolicy,
+                                             FleetAutoscaler, ServingEngine,
+                                             build_scenario,
+                                             materialize_prompt,
+                                             run_scenario)
+    from chainermn_tpu_torch.serving.autoscale import proc_spawn_factory
+
+    cfg = AUTOSCALE
+    params = _init_full(torch, "cuda", torch.bfloat16, cfg["max_total"])
+    report_dir = Path(tempfile.mkdtemp(prefix="chainermn_autoscale_"))
+    router, info = _fleet_up(smoke, params, {"engine": 1},
+                             dict(n_slots=cfg["slots"],
+                                  max_total=cfg["max_total"],
+                                  queue_capacity=cfg["queue"]), report_dir)
+    auto = FleetAutoscaler(
+        router, proc_spawn_factory(
+            info["lane_dir"], str(Path(info["lane_dir"])
+                                  / "fleet_params.pkl"),
+            device="cuda",
+            worker_cmd=[sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--fleet-worker", str(report_dir)]),
+        policies=[AutoscalePolicy(min_workers=1, max_workers=2)])
+    policy = auto.policies["engine"]
+    # the first monotonic time each spawned worker is seen holding a lease
+    live_t, watching = {}, threading.Event()
+
+    def watch():
+        while not watching.is_set():
+            for name, w in list(router.workers.items()):
+                if name != "engine0" and w.state == "live":
+                    live_t.setdefault(name, time.monotonic())
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    srv = start_status_server(0, extra_gauges=router.metrics,
+                              requests_fn=router.requests_table)
+    rec, waves, rows = _Recording(router), [], []
+    endpoints, victim = None, None
+    router.start()
+    t0 = time.monotonic()
+    try:
+        for k in range(cfg["max_waves"]):
+            two = bool(live_t)      # the spawned worker is live already
+            events = build_scenario("flash_crowd", seed=k, **cfg["scenario"])
+            n0 = len(rec.handles)
+            rows.append(run_scenario(events, rec, vocab=FULL["vocab"],
+                                     max_attempts=3,
+                                     settle_timeout_s=FLEET_TIMEOUT_S))
+            waves.append((events, [h for _, h in rec.handles[n0:]], two))
+            if two:
+                break                # the crowd on two workers is in
+        if not waves[-1][2]:
+            raise AssertionError(f"no scaled-up worker live after "
+                                 f"{cfg['max_waves']} crowds: "
+                                 f"{list(policy.decisions)}")
+        endpoints = _scrape_statusz(srv.port)
+        t_calm = time.monotonic()
+        while not any(d["direction"] == "down" and d.get("drained")
+                      for d in list(policy.decisions)):
+            if time.monotonic() - t_calm > 60:
+                raise AssertionError("no scale-down in 60 s of calm")
+            time.sleep(0.05)
+        victim = next(d for d in list(policy.decisions)
+                      if d["direction"] == "down")["drained"][0]
+        if not router.wait_drained(victim, timeout_s=60):
+            raise AssertionError(f"autoscale victim {victim} not drained")
+        m = router.metrics()
+    finally:
+        auto.stop()
+        router.stop()
+        srv.stop()
+        watching.set()
+        watcher.join(timeout=5)
+        names = list(router.workers)
+        codes = _fleet_down(router, info, {n: 0 for n in names})
+    wall = time.monotonic() - t0
+    decisions = list(policy.decisions)
+    up = next(d for d in decisions if d["direction"] == "up")
+    spawned = up["spawned"][0]
+    reports = _fleet_reports(report_dir)
+    _fleet_check_launches("autoscale", reports, set(reports), set(reports))
+    for rep in reports.values():
+        smoke.add_launches(rep["launches"])
+    handles = [h for _, hs, _ in waves for h in hs]
+    ttft = {two: [h.ttft_ms for _, hs, t in waves if t == two for h in hs
+                  if h.ttft_ms is not None] for two in (False, True)}
+    ended = {"done": sum(h.status == "done" for h in handles),
+             "shed": sum(h.finish_reason == "shed" for h in handles)}
+    shed_at_submit = sum(r["offered_shed"] for r in rows)
+    row = {"check": "serving_autoscale.run", "dtype": "bfloat16", **FLEET,
+           "scenario": cfg["scenario"], "waves": len(waves),
+           "wall_s": wall, "spawned": spawned,
+           "decision_to_first_lease_s": live_t[spawned] - up["t"],
+           "drained": victim, "exit_codes": codes,
+           "ttft_ms_p50_before": _percentile(ttft[False], 0.5),
+           "ttft_ms_p99_before": _percentile(ttft[False], 0.99),
+           "ttft_ms_p50_after": _percentile(ttft[True], 0.5),
+           "ttft_ms_p99_after": _percentile(ttft[True], 0.99),
+           "requests": sum(r["n_requests"] for r in rows), "ended": ended,
+           "shed_at_submit": shed_at_submit,
+           "flap_count": policy.flap_count(),
+           "decisions": [{k: d.get(k) for k in (
+               "direction", "reason", "signal", "threshold", "before",
+               "target", "t", "spawned", "drained", "signals")}
+               for d in decisions],
+           "fleet_shed_rate": m["fleet/shed_rate"],
+           "launches": {n: r["launches"] for n, r in reports.items()},
+           "card": smoke.card}
+    emit(row)
+    bad = []
+    if spawned not in reports or not all(
+            reports[spawned]["launches"][k] for k in
+            ("flash_fwd", "cache_append", "decode_attend")):
+        bad.append(f"the spawned worker's launches: "
+                   f"{reports.get(spawned, {}).get('launches')}")
+    if len(handles) + shed_at_submit != row["requests"] or any(
+            h.status != "done" and h.finish_reason != "shed"
+            for h in handles) or any(
+            h.finish_reason == "shed" and not h.shed_payload
+            for h in handles):
+        bad.append(f"requests not ended exactly once: {ended}, "
+                   f"{shed_at_submit} shed at submit of {row['requests']}")
+    if policy.flap_count() or codes.get(victim) != 0:
+        bad.append(f"flaps {policy.flap_count()}, exit codes {codes}")
+    st = endpoints["/statusz"]
+    if set(st) != STATUSZ_KEYS or "fleet_health" not in st["providers"] \
+            or "autoscale" not in st["providers"]["fleet_health"] \
+            or set(endpoints["/requestz"]) != set(router.requests_table()) \
+            or set(endpoints["/debugz"]) != {"last_bundle"} \
+            or "chainermn_tpu_fleet_dispatched_total" not in \
+            endpoints["/metricsz"]["families"]:
+        bad.append(f"endpoints: statusz {sorted(st)}, requestz "
+                   f"{sorted(endpoints['/requestz'])}, debugz "
+                   f"{sorted(endpoints['/debugz'])}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    # greedy tokens against the fused engine: the first crowd and the
+    # crowd on two workers
+    fused = ServingEngine(params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                          max_total=cfg["max_total"], queue_capacity=64,
+                          prefix_cache=False, spill_bytes=0, device="cuda")
+    for label, (events, hs, _) in (("first", waves[0]),
+                                   ("two_workers", waves[-1])):
+        specs = [ev for ev in events if ev["kind"] == "request"]
+        done = [(ev, h) for ev, h in zip(specs, hs) if h.status == "done"]
+        prompts = [np.asarray(materialize_prompt(ev["prompt"],
+                                                 FULL["vocab"]), np.int32)
+                   for ev, _ in done]
+        want = [h.tokens for h in
+                _drive_all(fused, prompts, cfg["scenario"]["max_new_tokens"],
+                           False)[0]]
+        equal, near = _near_ties(
+            f"autoscale_{label}", [h.tokens for _, h in done], want,
+            lambda i, t: _card_choice_values(params, prompts[i], want[i], t))
+        emit({"check": "serving_autoscale.tokens", "crowd": label,
+              "rows": len(done), "equal_to_fused": equal,
+              "near_ties": len(near)})
+    fused.close()
+    emit({"check": "serving_autoscale.endpoints",
+          "statusz_keys": sorted(st), "requestz_keys": sorted(
+              endpoints["/requestz"]), "debugz": endpoints["/debugz"],
+          "metricsz_families": len(endpoints["/metricsz"]["families"])})
+
+
 def _tree_to(torch, params, device):
     from chainermn_tpu_torch.convert import tree_map
 
@@ -3357,6 +3608,10 @@ TP_ADAM_LR, TP_PARITY_STEPS = 1e-4, 3
 TP_BF16 = dict(warm=1, steps=3)
 TP_SERVE = dict(requests=8, prompt=512, new=16, max_total=1024, slots=8)
 TP_BEAM = dict(batch=2, prompt=128, new=16, beam_size=4)
+TP_FLEET = dict(requests=8, prompt=256, new=16, slots=4, max_total=512,
+                n_layers=2)
+TP_FLEET_BF16 = dict(requests=8, prompt=512, new=32, slots=8,
+                     max_total=1024)
 TP_WORKER_TIMEOUT_S = 600
 TP_WIRE = "gloo host wire, one shared card"
 TP_DEVICE = "cuda"          # the card the legs run on
@@ -3474,6 +3729,8 @@ def _tp_two_ranks(smoke):
     for r in range(2):
         for leg in ("train_bf16", "serve", "beam"):
             smoke.add_launches(res[r][leg]["launches"])
+        for name in TP_FLEETS:
+            smoke.add_launches(res[r]["fleets"][name + "_bf16"]["launches"])
     _tp_report(smoke, res, wall)
 
 
@@ -3529,6 +3786,21 @@ def _tp_report(smoke, res, wall):
           "wall_s": m["wall_s"],
           "launches_by_rank": [r["beam"]["launches"] for r in res],
           "shapes": m["shapes"]})
+    for name in TP_FLEETS:
+        f32, fref = r0["fleets"][name + "_fp32"], r0["fleets_ref"][name]
+        emit({"check": f"tp.fleet_{name}_fp32", "dtype": "float32",
+              "tp": 2, "wire": TP_WIRE, **TP_FLEET,
+              "done": f32["done"], "wall_s": f32["wall_s"],
+              "follower_calls": r1["fleets"][name + "_fp32"][
+                  "follower_calls"],
+              "equal_rows": fref["equal"], "near_ties": fref["near"]})
+        b16 = [r["fleets"][name + "_bf16"] for r in res]
+        emit({"check": f"tp.fleet_{name}_bf16", "dtype": "bfloat16",
+              "tp": 2, "wire": TP_WIRE, **TP_FLEET_BF16,
+              **{k: v for k, v in b16[0].items() if k != "launches"},
+              "follower_calls": b16[1]["follower_calls"],
+              "launches_by_rank": [x["launches"] for x in b16],
+              "card": smoke.card})
     emit({"check": "tp.workers", "wall_s": wall, "card": smoke.card})
     bad = []
     if rel > 1e-4 or ref["param_max_abs_err"] > 1e-4:
@@ -3568,6 +3840,18 @@ def _tp_report(smoke, res, wall):
                 and ls["flash_fwd"] and lb["beam_attend"]
                 and lb["cache_append"] and lb["flash_fwd"]):
             bad.append(f"TP=2 serving / beam launches: {ls} / {lb}")
+    for name in TP_FLEETS:
+        f32 = r0["fleets"][name + "_fp32"]
+        b16 = [r["fleets"][name + "_bf16"] for r in res]
+        if f32["done"] != TP_FLEET["requests"] \
+                or b16[0]["done"] != TP_FLEET_BF16["requests"]:
+            bad.append(f"TP=2 fleet {name}: {f32['done']} fp32 and "
+                       f"{b16[0]['done']} bf16 requests done")
+        for r, x in enumerate(b16):
+            ln = x["launches"]
+            if not (ln["flash_fwd"] and ln["cache_append"]
+                    and ln["decode_attend"]):
+                bad.append(f"TP=2 fleet {name} rank {r} launches: {ln}")
     if bad:
         raise AssertionError("; ".join(bad))
 
@@ -3600,12 +3884,17 @@ def tp_worker(rank, tmp):
     out["train_bf16"] = _tp_leg_train_bf16(torch, mesh)
     out["serve"], serve_keep = _tp_leg_serve(torch, serve_mesh)
     out["beam"], beam_keep = _tp_leg_beam(torch, serve_mesh)
+    out["fleets"], fleets_keep = _tp_leg_fleets(torch, serve_mesh)
     dist.destroy_process_group()
     if rank == 0:
         torch.cuda.empty_cache()
         out["train_ref"] = _tp_ref_train(torch, *train_keep)
         out["serve_ref"] = _tp_ref_serve(torch, *serve_keep)
         out["beam_ref"] = _tp_ref_beam(torch, *beam_keep)
+        params, prompts, sample, rows = fleets_keep
+        out["fleets_ref"] = {
+            name: _tp_ref_serve(torch, params, prompts, sample, r)
+            for name, r in rows.items()}
     with open(tmp / f"rank{rank}.pkl", "wb") as fh:
         pickle.dump(out, fh)
     return 0
@@ -3812,6 +4101,121 @@ def _tp_leg_serve(torch, mesh):
     del eng, local
     torch.cuda.empty_cache()
     return res, (params, prompts, sample, rows)
+
+
+#: the in-process fleets of the TP = 2 legs: name -> builder keywords
+TP_FLEETS = {"disagg_local": ("disagg", "local"),
+             "disagg_lanes": ("disagg", "lanes"),
+             "replicas": ("replicas", None)}
+
+
+def _tp_fleet(name, local, mesh, slots, max_total):
+    """One in-process fleet at TP = 2 over this rank's shards: rank 0
+    hosts the router and every engine, rank 1 mirrors them."""
+    from chainermn_tpu_torch.serving import build_disagg_fleet, build_fleet
+
+    kind, transport = TP_FLEETS[name]
+    if kind == "disagg":
+        return build_disagg_fleet(local, 1, 1, head_dim=HEAD_DIM,
+                                  max_total=max_total, n_slots=slots,
+                                  staging_slots=2, queue_capacity=32,
+                                  mesh=mesh, transport_mode=transport,
+                                  device=TP_DEVICE)
+    return build_fleet(local, 2, head_dim=HEAD_DIM, n_slots=slots,
+                       max_total=max_total, queue_capacity=32, mesh=mesh,
+                       device=TP_DEVICE)
+
+
+def _tp_fleet_gaps(fleet):
+    """The decode tick gaps (ms) of a fleet's ticking engines."""
+    engines = ([dw.engine for dw in fleet.decode_workers]
+               if hasattr(fleet, "decode_workers")
+               else [rep.engine for rep in fleet.replicas])
+    return [g for e in engines for g in e._tick_gap_ms.values()]
+
+
+def _tp_leg_fleets(torch, mesh):
+    """The in-process fleets at TP = 2: ``build_disagg_fleet(1, 1)`` with
+    the local and the lanes transport, and ``build_fleet(2)``, each with
+    rank 0 hosting the whole fleet and rank 1 following its one plan.
+    fp32 at 2 layers (the full width otherwise): 8 requests, the odd half
+    sampled, under ``run()`` (the caller holds the rows against TP = 1 on
+    the card).  Then bf16 at the full width under ``start()`` (the role
+    or replica threads announce their device calls concurrently), the
+    tick gap and TTFT timed; launch counts zeroed just before each bf16
+    drive and read after it."""
+    import numpy as np
+
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.convert import shard_from_jax
+    from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
+                                              transformer_lm_specs)
+
+    def shard(params):
+        return shard_from_jax(params, transformer_lm_specs(params, "model"),
+                              mesh, device=TP_DEVICE)
+
+    cfg = TP_FLEET
+    p32 = init_tp_transformer_lm(
+        torch.Generator().manual_seed(4), max_len=cfg["max_total"],
+        dtype=torch.float32, device="cpu",
+        **dict(FULL, n_layers=cfg["n_layers"]))
+    local = shard(p32)
+    prompts = np.random.RandomState(11).randint(
+        0, FULL["vocab"], (cfg["requests"], cfg["prompt"])).astype(np.int32)
+    sample = _half_sampled(cfg["requests"], 9)
+    res, rows = {}, {}
+    for name in TP_FLEETS:
+        t0 = time.perf_counter()
+        fleet = _tp_fleet(name, local, mesh, cfg["slots"], cfg["max_total"])
+        if fleet.leader:
+            try:     # the follower waits in follow() until the leader closes
+                hs = [fleet.submit(p, cfg["new"], **sample.get(i, {}))
+                      for i, p in enumerate(prompts)]
+                fleet.run()
+            finally:
+                fleet.close()
+            rows[name] = [h.tokens for h in hs]
+            res[name + "_fp32"] = {
+                "done": sum(h.status == "done" for h in hs),
+                "wall_s": time.perf_counter() - t0}
+        else:
+            res[name + "_fp32"] = {"follower_calls": fleet.follow(),
+                                   "wall_s": time.perf_counter() - t0}
+    del local
+    cfg = TP_FLEET_BF16
+    local = shard(_init_full(torch, "cpu", torch.bfloat16,
+                             cfg["max_total"]))
+    prompts16 = list(np.random.RandomState(12).randint(
+        0, FULL["vocab"], (cfg["requests"], cfg["prompt"])).astype(np.int32))
+    for name in TP_FLEETS:
+        fleet = _tp_fleet(name, local, mesh, cfg["slots"], cfg["max_total"])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        row = {}
+        if fleet.leader:
+            try:
+                hs, wall = _drive_all(fleet, prompts16, cfg["new"], True)
+                gaps = _tp_fleet_gaps(fleet)
+            finally:
+                fleet.close()
+            row = {"done": sum(h.status == "done"
+                               and len(h.tokens) == cfg["new"] for h in hs),
+                   "wall_s": wall,
+                   "ttft_ms_p50": _percentile([h.ttft_ms for h in hs], 0.5),
+                   "ttft_ms_p99": _percentile([h.ttft_ms for h in hs], 0.99),
+                   "tick_gap_ms_p50": _percentile(gaps, 0.5),
+                   "tick_gap_ms_p99": _percentile(gaps, 0.99)}
+        else:
+            row = {"follower_calls": fleet.follow(),
+                   "wall_s": time.perf_counter() - t0}
+        torch.cuda.synchronize()
+        row["launches"] = ops.launch_counts()
+        res[name + "_bf16"] = row
+    del local
+    torch.cuda.empty_cache()
+    return res, (p32, prompts, sample, rows)
 
 
 def _tp_choice_values(torch, params, prompt, row, sample_kw):
@@ -6262,6 +6666,7 @@ def main():
                          ("serving-prefix", phase_serving_prefix),
                          ("serving-disagg", phase_serving_disagg),
                          ("serving-fleet", phase_serving_fleet),
+                         ("serving-autoscale", phase_serving_autoscale),
                          ("train-parity", phase_train_parity),
                          ("train", phase_train), ("tp", phase_tp),
                          ("sp", phase_sp), ("zero-wire", phase_zero_wire),

@@ -787,11 +787,16 @@ def test_role_threads_serve_what_run_serves(tmp_path):
 
 
 def test_fleet_refuses_tp_and_bad_configuration():
+    """The in-process fleet runs at TP > 1 (tests/test_torch_fleet_tp.py);
+    a worker PROCESS at TP > 1 is still refused, naming A11 step 3c."""
+    from chainermn_tpu_torch.serving.transfer import InProcessLaneStore
+    from chainermn_tpu_torch.serving.worker import WorkerRuntime
+
     _, tp, _ = _model()
     mesh = types.SimpleNamespace(shape={"model": 2})
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_disagg_fleet(tp, 1, 1, head_dim=HEAD_DIM, mesh=mesh,
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="A11 step 3c"):
+        WorkerRuntime("engine0", "engine", tp, InProcessLaneStore(),
+                      head_dim=HEAD_DIM, mesh=mesh, device="cpu")
     fleet = build_disagg_fleet(tp, 1, 1, head_dim=HEAD_DIM, max_total=16,
                                device="cpu")
     with pytest.raises(ValueError, match="unique"):
@@ -989,8 +994,12 @@ def test_serve_cli_refusals_in_jax_words():
                 fn([*dev, *base, *extra])
             msgs.append(str(e.value))
         assert msgs[1] == msgs[0], extra
-    with pytest.raises(SystemExit, match="--tp > 1 is not ported.*A11"):
-        run(["--device", "cpu", *base, "--disagg", "1:1", "--tp", "2"])
+    # the in-process fleets take --tp > 1 now; a worker-process fleet at
+    # --tp > 1 is still refused, naming its queue item, before any spawn
+    for extra in (["--disagg", "1:1", "--procs"], ["--fleet-procs", "2"]):
+        with pytest.raises(SystemExit, match="--tp > 1 is not ported.*"
+                                             "A11 step 3c"):
+            run(["--device", "cpu", *base, *extra, "--tp", "2"])
 
 
 def test_disagg_names_resolve_and_step_three_still_raises():
@@ -1011,10 +1020,11 @@ def test_disagg_names_resolve_and_step_three_still_raises():
         assert name in tserving.__all__ and name not in tserving.NOT_PORTED
         assert getattr(tserving, name).__name__ == \
             getattr(jserving, name).__name__
-    # step 3b's still raise, naming A11
+    # step 3b's resolve too: nothing of A11 raises any more
+    assert tserving.NOT_PORTED == {}
     for name in ("FleetAutoscaler", "AutoscalePolicy", "SCENARIO_SCHEMA",
                  "build_scenario", "run_scenario", "stream_digest",
                  "materialize_prompt"):
-        assert name in tserving.NOT_PORTED
-        with pytest.raises(AttributeError, match="A11"):
-            getattr(tserving, name)
+        assert name in tserving.__all__
+        got, want = getattr(tserving, name), getattr(jserving, name)
+        assert getattr(got, "__name__", got) == getattr(want, "__name__", want)

@@ -36,7 +36,8 @@ PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "_torch_trainer_worker.py",
     ROOT / "tests" / "_torch_functions_worker.py",
     ROOT / "tests" / "_torch_example_worker.py",
-    ROOT / "tests" / "_torch_zero_worker.py"]
+    ROOT / "tests" / "_torch_zero_worker.py",
+    ROOT / "tests" / "_torch_fleet_tp_worker.py"]
 # the communicator and Trainer slice: each must be among PORT_FILES
 TRAINER_SLICE = ["communicators/base.py", "communicators/naive.py",
                  "communicators/torch_dist.py", "ops/collective.py",
@@ -82,7 +83,15 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("module", TRAINER_SLICE + MODEL_PARALLEL_SLICE)
+# the fleet autoscaler, scenario, introspection and TP-fleet slice: each
+# must be among PORT_FILES
+SERVING_3B_SLICE = ["serving/autoscale.py", "serving/scenarios.py",
+                    "observability/introspect.py", "serving/engine.py",
+                    "serving/disagg.py", "serving/router.py", "serve.py"]
+
+
+@pytest.mark.parametrize("module", TRAINER_SLICE + MODEL_PARALLEL_SLICE
+                         + SERVING_3B_SLICE)
 def test_trainer_slice_modules_are_checked(module):
     assert ROOT / "chainermn_tpu_torch" / module in PORT_FILES
 

@@ -108,7 +108,17 @@ def test_demo_cli_sigterm_saves_exits_0_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("flag,value", [("--metrics-out", "m.jsonl"),
                                         ("--statusz-port", "0")])
-def test_observability_flags_still_refused(flag, value, capsys):
+def test_observability_flags_still_refused(flag, value, capsys, tmp_path):
+    """``--metrics-out`` is still refused naming A12; ``--statusz-port``
+    is ported: the run serves /statusz and reports the bound port."""
+    if flag == "--statusz-port":
+        assert train.main(["--device", "cpu", "--steps", "2", "--out",
+                           str(tmp_path), flag, value]) == 0
+        result = json.loads(capsys.readouterr().out.strip()
+                            .splitlines()[-1])
+        assert isinstance(result["statusz_port"], int)
+        assert result["statusz_port"] > 0 and result["steps"] == 2
+        return
     with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", flag, value])
     assert exc.value.code == 2

@@ -878,7 +878,7 @@ def test_train_mnist_main_runs(comm1, tmp_path, capsys):
 
 
 # (flag, value, the queue item that still refuses it: None once ported)
-REFUSED = [("--metrics-out", "m.jsonl", "A12"), ("--statusz-port", "0", "A12"),
+REFUSED = [("--metrics-out", "m.jsonl", "A12"), ("--statusz-port", "0", None),
            ("--flight-dump-dir", "d", None), ("--checkpoint-dir", "c", None),
            ("--checkpoint-every", "3", None),
            ("--preemption-grace-s", "5", None), ("--self-heal", None, None),
