@@ -28,10 +28,12 @@ the health plane's ``gang_lease_store``.  The JAX package runs the lanes
 over the jax.distributed KV store; the process-group communicator here
 runs them over the ``torch.distributed`` store of its process group.
 
-Every backend's eager collectives (JAX's ``_ACCOUNTED_OPS``) are wrapped
-by ``__init_subclass__`` with the collective guard of
-:mod:`chainermn_tpu_torch.health` (outermost call only).  The JAX package
-also books them in its comm ledger; that ledger is ROADMAP.md's A12.
+Every backend's eager collectives (``_ACCOUNTED_OPS``) are wrapped by
+``__init_subclass__`` with
+:func:`~chainermn_tpu_torch.observability.comm.accounted_method`: one
+wrapper that books the call in the comm ledger and brackets it with the
+collective guard of :mod:`chainermn_tpu_torch.health`, both on the
+outermost call only.
 """
 
 from __future__ import annotations
@@ -237,9 +239,10 @@ def lane_call(lane: str, fn: Callable[[], Any],
             time.sleep(delay)
 
 
-#: The eager collectives every backend's class gets the collective guard
-#: on (JAX's accounted ops).  Object transport is absent: it is a setup
-#: path.
+#: The eager collectives every backend's class books in the comm ledger
+#: and brackets with the collective guard (JAX's accounted ops).  Object
+#: transport is absent: it is a setup path, and pickled sizes say nothing
+#: of wire collectives.
 _ACCOUNTED_OPS = (
     "allreduce", "bcast", "gather", "allgather", "alltoall", "scatter",
     "send", "recv", "broadcast_data", "multi_node_mean_grad",
@@ -257,15 +260,16 @@ class CommunicatorBase:
     """API contract shared by the port's communicator backends."""
 
     def __init_subclass__(cls, **kwargs):
-        # every backend gets the collective guard on its eager collectives
-        # without per-backend code; with no guard installed the wrapper
-        # costs one module-global read per call
+        # every backend gets comm accounting and the collective guard on
+        # its eager collectives without per-backend code; with tracing off
+        # and no guard the wrapper is an attribute read and a global read
         super().__init_subclass__(**kwargs)
-        from ..health import guarded
+        from ..observability.comm import accounted_method
         for name in _ACCOUNTED_OPS:
-            fn = cls.__dict__.get(name)
-            if callable(fn) and not getattr(fn, "_guard_wrapped", False):
-                setattr(cls, name, guarded(name)(fn))
+            # inherited too: the base's ``recv`` (a ``send``) books as recv
+            fn = getattr(cls, name, None)
+            if callable(fn) and not getattr(fn, "_obs_wrapped", False):
+                setattr(cls, name, accounted_method(name)(fn))
 
     @property
     def rank(self) -> int:

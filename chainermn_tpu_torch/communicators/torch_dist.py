@@ -133,6 +133,15 @@ class TorchDistCommunicator(CommunicatorBase):
     def _tensor(self, x):
         return torch.as_tensor(x, device=self.device).clone()
 
+    def _ledger_payload(self, op, x):
+        """What the comm ledger books for ``op``: the rank-major stack of
+        every rank's block, as JAX books its eager collectives, so this
+        rank's ``x`` counts ``size`` times; ``broadcast_data``'s module
+        and the root's ``(size, *s)`` scatter payload count once."""
+        if op in ("broadcast_data", "scatter"):
+            return x
+        return [x] * self.size
+
     # ---- array collectives ----
     def allreduce(self, x, op: str = "sum"):
         """This rank's tensor reduced over every rank (``"mean"`` is the

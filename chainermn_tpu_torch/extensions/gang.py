@@ -330,8 +330,9 @@ class SelfHealingGang:
     def install_collective_guard(self, timeout_s: Optional[float] = None,
                                  action=None) -> CollectiveGuard:
         """Extend the bounded-timeout watchdog to the communicator /
-        device hot path: every guarded eager collective
-        (:func:`~chainermn_tpu_torch.health.guarded`) is bounded; on
+        device hot path: every eager collective (the comm ledger's
+        wrappers, :mod:`chainermn_tpu_torch.observability.comm`) is
+        bounded; on
         expiry the guard names this gang's stale members and aborts loudly
         (exit 44)."""
         if self._guard is not None:

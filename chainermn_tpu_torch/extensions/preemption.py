@@ -19,7 +19,7 @@ and the exit code reads as a failure.
    checkpoint generation through the v2 manifest path (so a restart on a
    DIFFERENT world size reshards and resumes exactly), books the save
    overhead into the goodput ledger's ``checkpoint`` bucket when one is
-   given (the ``GoodputLedger`` is ROADMAP.md's A12), dumps a
+   given (``observability.slo.GoodputLedger``), dumps a
    ``preempt`` flight bundle recording the grace budget used and the
    generation saved, and exits 0 — a preempted job is a SUCCESS to the
    scheduler, which is what makes it reschedule instead of backoff.

@@ -36,7 +36,8 @@ fleet shares.  Everything here is fuzzable standalone:
   (:class:`GangFencedError` / :class:`GangConsensusError`) — never a
   silent hang, never a split brain.
 * **Collective watchdog** (:class:`CollectiveGuard`) — a bounded-timeout
-  guard on every eager collective (:func:`guarded` wraps the
+  guard on every eager collective (the comm ledger's wrappers,
+  ``observability.comm.collective`` and ``accounted_method``, bracket the
   communicator methods, the in-step collectives of ``ops.collective``
   and the gradient bucket's all-reduce): when a collective exceeds the
   window, the guard consults the lease table (``lost_ranks_fn``), dumps a
@@ -46,7 +47,7 @@ fleet shares.  Everything here is fuzzable standalone:
 
 NCCL returns from a collective call once the work is enqueued, so
 bracketing the Python call alone bounds nothing on the card.  While a
-guard is installed, :func:`guarded` therefore synchronises the current
+guard is installed, the wrapper therefore synchronises the current
 stream before it leaves the bracket whenever the call returned a CUDA
 tensor: the window bounds the collective's completion, at the price of
 one stream synchronisation per guarded call (nothing without a guard).
@@ -59,7 +60,6 @@ HLC stamp rides in its lease, so the reader's judgment orders after it.
 
 from __future__ import annotations
 
-import functools
 import os
 import pickle
 import threading
@@ -558,9 +558,9 @@ def _default_guard_action(op: str, gap_s: float, missing) -> None:
 class CollectiveGuard:
     """Bounded-timeout watchdog over eager collective calls.
 
-    :func:`guarded` brackets every eager collective (the communicator
-    methods wrapped by ``CommunicatorBase.__init_subclass__``, the
-    in-step collectives of ``ops.collective`` and the gradient bucket's
+    The comm ledger's wrappers bracket every eager collective (the
+    communicator methods wrapped by ``CommunicatorBase.__init_subclass__``,
+    the in-step collectives of ``ops.collective`` and the gradient bucket's
     all-reduce) with :meth:`enter`/:meth:`exit` when a guard is installed
     via :func:`set_collective_guard`.  A watcher thread fires when any
     active call outlives ``timeout_s``:
@@ -575,8 +575,8 @@ class CollectiveGuard:
        raise into a caller blocked inside a collective.
 
     The guard fires at most once per active call and disarms cleanly on
-    :meth:`stop`.  With no guard installed a guarded call pays one
-    module-global read.
+    :meth:`stop`.  With no guard installed a wrapped call pays one
+    module-global read for it.
     """
 
     def __init__(self, timeout_s: float,
@@ -602,7 +602,7 @@ class CollectiveGuard:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
-    # -- the hooks guarded() calls --
+    # -- the hooks the collective wrappers call --
     def enter(self, op: str) -> int:
         with self._lock:
             self._next_token += 1
@@ -710,31 +710,6 @@ def _sync_if_cuda(out) -> None:
         if isinstance(x, torch.Tensor) and x.is_cuda:
             torch.cuda.current_stream(x.device).synchronize()
             return
-
-
-def guarded(op: str):
-    """Decorator bracketing an eager collective with the installed
-    :class:`CollectiveGuard` (outermost call only).  On a CUDA result the
-    stream is synchronised inside the bracket, so the guard bounds the
-    collective's completion, not its launch."""
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            guard = _COLLECTIVE_GUARD
-            if guard is None or getattr(_EAGER_DEPTH, "d", 0):
-                return fn(*args, **kwargs)
-            tok = guard.enter(op)
-            _EAGER_DEPTH.d = 1
-            try:
-                out = fn(*args, **kwargs)
-                _sync_if_cuda(out)
-                return out
-            finally:
-                _EAGER_DEPTH.d = 0
-                guard.exit(tok)
-        wrapper._guard_wrapped = True
-        return wrapper
-    return deco
 
 
 # ---------------------------------------------------------------------------

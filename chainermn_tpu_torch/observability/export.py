@@ -9,13 +9,14 @@ Counterpart of ``chainermn_tpu/observability/export.py``:
   namespace, written atomically so a scrape never sees a torn file;
   :func:`parse_prometheus_text` is its strict reader.
 * **JSONL metrics stream** (:class:`MetricsWriter`,
-  :func:`read_metrics_jsonl`) — one JSON object per line, append-only,
-  each record stamped with the versioned schema id (:data:`SCHEMA`), a
-  kind, a wall-clock timestamp and optionally the writing rank.
+  :class:`MetricsReport`, :func:`read_metrics_jsonl`) — one JSON object
+  per line, append-only, each record stamped with the versioned schema id
+  (:data:`SCHEMA`), a kind, a wall-clock timestamp and optionally the
+  writing rank; a killed run keeps every record up to the kill.
 * :func:`health_snapshot` — the dict every debug bundle and watchdog
-  dump carries.  Its ``comm`` and ``last_step_comm`` keys stay ``null``
-  until the ledger's step capture (ROADMAP.md's A12, with
-  ``MetricsReport``).
+  dump carries, and the train CLI writes at a clean exit: counters,
+  gauges, span summary, the comm ledger and its last step report, anomaly
+  findings.
 """
 
 from __future__ import annotations
@@ -312,9 +313,11 @@ def health_snapshot(trainer=None, monitor=None,
                     extra: Optional[Dict[str, Any]] = None
                     ) -> Dict[str, Any]:
     """One dict answering "what was this process doing": tracer summary,
-    counters and gauges, the trainer's position, anomaly findings.
-    Everything host-side; safe to call from the Watchdog's abort path."""
+    counters and gauges, the comm ledger and its last per-step report, the
+    trainer's position, anomaly findings.  Everything host-side; safe to
+    call from the Watchdog's abort path."""
     tr = trace.get_tracer()
+    acct = get_accountant()
     snap: Dict[str, Any] = {
         "schema": SCHEMA,
         "kind": "health_snapshot",
@@ -323,8 +326,8 @@ def health_snapshot(trainer=None, monitor=None,
         "spans": tr.summary()["spans"],
         "counters": tr.counters(),
         "gauges": tr.gauges(),
-        "comm": None,
-        "last_step_comm": None,
+        "comm": acct.report(),
+        "last_step_comm": acct.last_step_report,
     }
     if trainer is not None:
         snap["iteration"] = getattr(trainer, "iteration", None)
@@ -335,3 +338,77 @@ def health_snapshot(trainer=None, monitor=None,
     if extra:
         snap.update(extra)
     return snap
+
+
+class MetricsReport:
+    """Trainer extension streaming per-iteration metrics to JSONL (and,
+    optionally, a Prometheus textfile refreshed every ``prom_every``
+    iterations).
+
+    Records carry every *host-side numeric* observation entry (tensors
+    are skipped, not synchronised — add a LogReport/PrintReport if you
+    want forced readbacks), the step-time phases, and the per-step comm
+    report.  ``finalize`` appends a ``summary`` record with the full
+    :func:`health_snapshot` and writes the final textfile, so a clean
+    run's last line is always the roll-up.
+
+    Priority 330: after StepBreakdownReport (350) and HealthMonitor (340)
+    have produced their keys/findings, before the ObservationAggregator
+    (300) replaces local values with rank means — the stream records what
+    THIS rank saw, which is the whole point of a per-rank export.
+    """
+
+    trigger = (1, "iteration")
+    priority = 330
+
+    def __init__(self, path: str, every: int = 1,
+                 prometheus_path: Optional[str] = None,
+                 prom_every: int = 10, monitor=None,
+                 rank: Optional[int] = None):
+        self.writer = MetricsWriter(path, rank=rank)
+        self.every = max(int(every), 1)
+        self.prometheus_path = prometheus_path
+        self.prom_every = max(int(prom_every), 1)
+        self.monitor = monitor
+        self._trainer = None
+
+    def observe(self, trainer) -> None:
+        self._trainer = trainer
+        it = trainer.iteration
+        if it % self.every:
+            return
+        rec: Dict[str, Any] = {"iteration": it}
+        for key, val in trainer.observation.items():
+            num = _numeric(val)
+            if num is not None:
+                rec[key] = num
+        phases = getattr(trainer.updater, "phase_times", None)
+        if phases:
+            for phase, dt in phases.items():
+                rec.setdefault(f"time/{phase}", float(dt))
+        step_rep = get_accountant().last_step_report
+        if step_rep is not None:
+            rec.setdefault("comm/bytes", step_rep["bytes"])
+            rec.setdefault("comm/calls", step_rep["calls"])
+        self.writer.write(rec, kind="step")
+        if self.prometheus_path and it % self.prom_every == 0:
+            write_prometheus_textfile(self.prometheus_path)
+
+    def __call__(self, trainer) -> None:
+        pass
+
+    def finalize(self) -> None:
+        try:
+            self.writer.write(
+                health_snapshot(self._trainer, self.monitor),
+                kind="summary")
+            if self.prometheus_path:
+                write_prometheus_textfile(self.prometheus_path)
+        finally:
+            self.writer.close()
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        pass

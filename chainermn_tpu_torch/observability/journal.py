@@ -578,9 +578,9 @@ def render_request_story(story: Dict[str, Any]) -> str:
 def export_perfetto(merged: Dict[str, Any], out_path: str
                     ) -> Dict[str, Any]:
     """Render a merged journal as a Perfetto/Chrome document with one
-    process lane per journaled process, through the JAX package's trace
-    shard merge (:func:`merge_trace_shards`: pid = lane, metadata names
-    the proc).  Timestamps
+    process lane per journaled process, through the SAME
+    :func:`~.aggregate.merge_trace_shards` the trainer's trace shards use
+    (pid = lane, metadata names the proc).  Timestamps
     are the HLC physical component (µs), so cross-process causality
     reads left-to-right on one shared timeline.
 
@@ -589,7 +589,7 @@ def export_perfetto(merged: Dict[str, Any], out_path: str
     with their measured wall as the duration — an executed collective
     schedule is visible in the same doc as the request flow that
     triggered it."""
-    from .trace import shard_path
+    from .aggregate import merge_trace_shards, shard_path
 
     procs = list(merged.get("procs") or [])
     base = os.path.splitext(out_path)[0] + ".shard.json"
@@ -625,50 +625,3 @@ def export_perfetto(merged: Dict[str, Any], out_path: str
                        "metadata": {"rank": rank, "proc": proc}}, f)
         paths.append(p)
     return merge_trace_shards(paths, out_path=out_path)
-
-
-#: Schema stamp of a merged trace document (the JAX package's
-#: ``aggregate.AGGREGATE_SCHEMA``).
-AGGREGATE_SCHEMA = "chainermn_tpu.trace_merge.v1"
-
-
-def merge_trace_shards(paths: Sequence[str],
-                       out_path: Optional[str] = None) -> Dict[str, Any]:
-    """Merge per-lane trace shards into one Perfetto/Chrome document (the
-    JAX package's ``aggregate.merge_trace_shards`` over explicit paths):
-    every event re-homed to ``pid = metadata.rank``, metadata events
-    first, the rest by timestamp; an unreadable shard is skipped with a
-    warning.  Written atomically to ``out_path`` when given."""
-    events: List[Dict[str, Any]] = []
-    merged_ranks: List[int] = []
-    for i, p in enumerate(paths):
-        try:
-            with open(p) as f:
-                doc = json.load(f)
-        except (OSError, ValueError) as e:
-            print(f"[chainermn_tpu aggregate] WARNING: trace shard {p!r} "
-                  f"unreadable ({e}) — merging without it",
-                  file=sys.stderr, flush=True)
-            continue
-        try:
-            rank = int((doc.get("metadata") or {})["rank"])
-        except (KeyError, TypeError, ValueError):
-            rank = i
-        merged_ranks.append(rank)
-        events.extend(dict(ev, pid=rank)
-                      for ev in doc.get("traceEvents", []))
-    meta = [e for e in events if e.get("ph") == "M"]
-    real = sorted((e for e in events if e.get("ph") != "M"),
-                  key=lambda e: (e.get("ts", 0), e["pid"]))
-    doc = {"traceEvents": meta + real, "displayTimeUnit": "ms",
-           "metadata": {"schema": AGGREGATE_SCHEMA,
-                        "merged_ranks": sorted(merged_ranks),
-                        "expected_ranks": None}}
-    if out_path:
-        os.makedirs(os.path.dirname(os.path.abspath(out_path)),
-                    exist_ok=True)
-        tmp = out_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(doc, f)
-        os.replace(tmp, out_path)
-    return doc

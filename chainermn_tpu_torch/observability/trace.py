@@ -9,9 +9,8 @@ stay in the hot path; each thread keeps its own span stack.
 
 ``export_chrome_trace(path, rank=r)`` writes rank ``r``'s shard
 (``trace.json`` → ``trace.rank00003.json``, every event's ``pid`` the
-rank).  Merging the shards into one trace (the JAX package's
-``observability.aggregate.merge_trace_shards``) is not ported yet
-(ROADMAP.md, A12).
+rank); ``observability.aggregate.merge_trace_shards`` merges the shards
+into one trace, one lane a rank.
 
 Usage::
 

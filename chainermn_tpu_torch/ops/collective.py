@@ -29,10 +29,14 @@ list or tuple of tensors, as JAX's take a pytree.  ``ppermute`` and
 pair from a rank to itself is a copy.  They are not differentiable: the
 ``torch.autograd.Function`` forms are in ``functions/``.
 
-Each collective carries the collective guard of
-:mod:`chainermn_tpu_torch.health` (:func:`~chainermn_tpu_torch.health.guarded`):
-with a guard installed, a call that does not complete within the guard's
-window aborts loudly naming the lost rank(s).
+Every public collective goes through the comm ledger
+(:func:`chainermn_tpu_torch.observability.comm.collective`): with tracing
+enabled it books op, axis, payload bytes, wire dtype and host latency per
+call (a composite such as ``shift`` or the int8 ring books once, under its
+own name), and with a collective guard of :mod:`chainermn_tpu_torch.health`
+installed, a call that does not complete within the guard's window aborts
+loudly naming the lost rank(s).  With tracing off and no guard the wrapper
+costs an attribute read and a global read.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..health import guarded
+from ..observability.comm import collective as _acc
 from ..topology import DEFAULT_AXIS_NAME, Mesh, bound_axis, make_mesh
 
 # torch 2.13 flags reduce_scatter_tensor as deprecated in favour of
@@ -130,29 +134,28 @@ def _all_reduce(x, op, mesh):
     return out.to(dev)
 
 
-@guarded("psum")
 def psum(x, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
-    return _tree_map(lambda v: _all_reduce(v, dist.ReduceOp.SUM, mesh), x)
+    return _acc("psum", mesh, x, lambda: _tree_map(
+        lambda v: _all_reduce(v, dist.ReduceOp.SUM, mesh), x))
 
 
-@guarded("pmean")
 def pmean(x, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
-    return _tree_map(
-        lambda v: _all_reduce(v, dist.ReduceOp.SUM, mesh) / mesh.size, x)
+    return _acc("pmean", mesh, x, lambda: _tree_map(
+        lambda v: _all_reduce(v, dist.ReduceOp.SUM, mesh) / mesh.size, x))
 
 
-@guarded("pmax")
 def pmax(x, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
-    return _tree_map(lambda v: _all_reduce(v, dist.ReduceOp.MAX, mesh), x)
+    return _acc("pmax", mesh, x, lambda: _tree_map(
+        lambda v: _all_reduce(v, dist.ReduceOp.MAX, mesh), x))
 
 
-@guarded("pmin")
 def pmin(x, axis_name=DEFAULT_AXIS_NAME):
     mesh = _mesh(axis_name)
-    return _tree_map(lambda v: _all_reduce(v, dist.ReduceOp.MIN, mesh), x)
+    return _acc("pmin", mesh, x, lambda: _tree_map(
+        lambda v: _all_reduce(v, dist.ReduceOp.MIN, mesh), x))
 
 
 def pmean_if_bound(x, axis_name: Optional[str] = DEFAULT_AXIS_NAME):
@@ -163,20 +166,23 @@ def pmean_if_bound(x, axis_name: Optional[str] = DEFAULT_AXIS_NAME):
     return pmean(x, axis_name)
 
 
-@guarded("all_gather")
 def all_gather(x, axis_name=DEFAULT_AXIS_NAME, axis: int = 0,
                tiled: bool = True):
     """Every rank's ``x`` along ``axis``: concatenated (``tiled``) or
     stacked on a new axis ``axis``."""
     mesh = _mesh(axis_name)
-    x, dev = _staged(mesh, x.detach().contiguous())
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x, group=mesh.group)
-    parts = [p.to(dev) for p in parts]     # join on the caller's device
-    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
+
+    def run():
+        v, dev = _staged(mesh, x.detach().contiguous())
+        parts = [torch.empty_like(v) for _ in range(mesh.size)]
+        dist.all_gather(parts, v, group=mesh.group)
+        parts = [p.to(dev) for p in parts]     # join on the caller's device
+        return (torch.cat(parts, dim=axis) if tiled
+                else torch.stack(parts, axis))
+
+    return _acc("all_gather", mesh, x, run)
 
 
-@guarded("all_to_all")
 def all_to_all(x, axis_name=DEFAULT_AXIS_NAME, split_axis: int = 0,
                concat_axis: int = 0, tiled: bool = True):
     """Chunk ``j`` of ``x`` along ``split_axis`` goes to rank ``j``; the
@@ -185,6 +191,11 @@ def all_to_all(x, axis_name=DEFAULT_AXIS_NAME, split_axis: int = 0,
     of it (the axis removed) and the chunks stack on a new axis
     ``concat_axis``."""
     mesh = _mesh(axis_name)
+    return _acc("all_to_all", mesh, x, lambda: _all_to_all(
+        x, mesh, split_axis, concat_axis, tiled))
+
+
+def _all_to_all(x, mesh, split_axis, concat_axis, tiled):
     if tiled:
         chunks = x.detach().chunk(mesh.size, dim=split_axis)
     else:
@@ -200,11 +211,15 @@ def all_to_all(x, axis_name=DEFAULT_AXIS_NAME, split_axis: int = 0,
         else torch.stack(parts, dim=concat_axis)
 
 
-@guarded("reduce_scatter")
 def reduce_scatter(x, axis_name=DEFAULT_AXIS_NAME, scatter_axis: int = 0):
     """The cross-rank sum of ``x``, of which this rank keeps block
     ``rank`` along ``scatter_axis``."""
     mesh = _mesh(axis_name)
+    return _acc("reduce_scatter", mesh, x,
+                lambda: _reduce_scatter_one(x, mesh, scatter_axis))
+
+
+def _reduce_scatter_one(x, mesh, scatter_axis):
     if x.shape[scatter_axis] % mesh.size:
         raise ValueError(f"axis {scatter_axis} of {tuple(x.shape)} does not "
                          f"divide by {mesh.size}")
@@ -215,11 +230,14 @@ def reduce_scatter(x, axis_name=DEFAULT_AXIS_NAME, scatter_axis: int = 0):
     return out.movedim(0, scatter_axis).to(dev)
 
 
-@guarded("ppermute")
 def ppermute(x, perm, axis_name=DEFAULT_AXIS_NAME):
     """``perm`` is a list of ``(source, dest)`` rank pairs: rank ``dest``
     gets ``source``'s ``x``; a rank no pair sends to gets zeros."""
     mesh = _mesh(axis_name)
+    return _acc("ppermute", mesh, x, lambda: _ppermute(x, perm, mesh))
+
+
+def _ppermute(x, perm, mesh):
     me = dist.get_rank(mesh.group)
     x, dev = _staged(mesh, x.detach().contiguous())
     out = torch.zeros_like(x)
@@ -247,10 +265,11 @@ def shift(x, offset: int, axis_name=DEFAULT_AXIS_NAME,
           size: Optional[int] = None):
     """Ring shift by ``offset``: rank ``i``'s ``x`` lands on rank
     ``(i + offset) % size``."""
+    mesh = _mesh(axis_name)
     if size is None:
-        size = _mesh(axis_name).size
-    return ppermute(x, [(i, (i + offset) % size) for i in range(size)],
-                    axis_name)
+        size = mesh.size
+    perm = [(i, (i + offset) % size) for i in range(size)]
+    return _acc("shift", mesh, x, lambda: _ppermute(x, perm, mesh))
 
 
 def axis_index(axis_name=DEFAULT_AXIS_NAME) -> int:
@@ -261,7 +280,6 @@ def axis_size(axis_name=DEFAULT_AXIS_NAME) -> int:
     return _mesh(axis_name).size
 
 
-@guarded("bcast")
 def bcast(x, root: int = 0, axis_name=DEFAULT_AXIS_NAME):
     """Every rank gets rank ``root``'s block."""
     mesh = _mesh(axis_name)
@@ -272,7 +290,7 @@ def bcast(x, root: int = 0, axis_name=DEFAULT_AXIS_NAME):
         dist.broadcast(out, src=_peer(mesh, root), group=mesh.group)
         return out.to(dev)
 
-    return _tree_map(one, x)
+    return _acc("bcast", mesh, x, lambda: _tree_map(one, x))
 
 
 #: One fp32 scale per this many elements: the per-block error is at most
@@ -486,7 +504,6 @@ def _ring_one(leaf, mesh, wire, qmax, block, pipeline):
     return out.reshape(leaf.shape).to(leaf.dtype)
 
 
-@guarded("quantized_ring_pmean")
 def quantized_ring_pmean(x, axis_name=DEFAULT_AXIS_NAME, wire_dtype="int8",
                          block: int = DEFAULT_QUANT_BLOCK,
                          pipeline: int = 1):
@@ -512,8 +529,11 @@ def quantized_ring_pmean(x, axis_name=DEFAULT_AXIS_NAME, wire_dtype="int8",
         return x
     wire = _int_wire(wire_dtype)
     qmax = float(torch.iinfo(wire).max)
-    return _tree_map(lambda v: _ring_one(v, mesh, wire, qmax, block,
-                                         pipeline), x)
+    # booked at the WIRE dtype: about one byte an element (the fp32 block
+    # scales are the cost model's scale_bytes), as JAX books it
+    return _acc("quantized_ring_pmean", mesh, x, lambda: _tree_map(
+        lambda v: _ring_one(v, mesh, wire, qmax, block, pipeline), x),
+        wire_dtype=wire)
 
 
 def _bound(axis_name):
@@ -528,7 +548,6 @@ def _bound(axis_name):
     return mesh
 
 
-@guarded("hierarchical_pmean")
 def hierarchical_pmean(x, chip_axis="chip", slice_axis="slice",
                        dcn_dtype=None):
     """The two-tier mean over a ``('slice', 'chip')`` mesh
@@ -544,7 +563,9 @@ def hierarchical_pmean(x, chip_axis="chip", slice_axis="slice",
             return pmean(local.to(_dtype(dcn_dtype)), slc).to(v.dtype)
         return pmean(local, slc)
 
-    return _tree_map(one, x)
+    return _acc("hierarchical_pmean", (chip, slc), x,
+                lambda: _tree_map(one, x),
+                wire_dtype=None if dcn_dtype is None else _dtype(dcn_dtype))
 
 
 __all__ = ["DEFAULT_QUANT_BLOCK", "LEDGER_TO_PRIMITIVE", "all_gather",

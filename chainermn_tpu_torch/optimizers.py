@@ -46,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from . import _tree
-from .health import guarded
+from .observability.comm import collective as _acc
 from .ops.collective import (DEFAULT_QUANT_BLOCK, _dequant_add, _dtype,
                              _ring_layout, block_quantize,
                              hierarchical_pmean, pmean, quantized_ring_pmean)
@@ -144,7 +144,6 @@ def _int_wire_mean(grads, mesh, wire, quant_block, quant_pipeline,
     return mean, new_res[None]
 
 
-@guarded("compressed_mean")
 def compressed_mean(grads: List[torch.Tensor], communicator,
                     allreduce_grad_dtype=None,
                     quant_block: int = DEFAULT_QUANT_BLOCK,
@@ -176,9 +175,15 @@ def compressed_mean(grads: List[torch.Tensor], communicator,
                               quant_pipeline, residuals)
     if not grads:
         return []
-    flat, unbucket = _bucket(grads, wire or torch.float32)
-    dist.all_reduce(flat, group=mesh.group)
-    return unbucket(flat.div_(mesh.size))
+
+    def run():
+        flat, unbucket = _bucket(grads, wire or torch.float32)
+        dist.all_reduce(flat, group=mesh.group)
+        return unbucket(flat.div_(mesh.size))
+
+    # one bucket on the wire, booked as one pmean of the whole list at the
+    # wire dtype (JAX books a pmean a leaf: the same bytes)
+    return _acc("pmean", mesh, grads, run, wire_dtype=wire)
 
 
 def _grads_of(params):
@@ -327,6 +332,13 @@ class MultiNodeOptimizer:
         return self.state.ef if self.double_buffering else self.state
 
     def step(self):
+        self.reduce_grads()
+        self.actual_optimizer.step()
+
+    def reduce_grads(self):
+        """The cross-rank mean of the gradients, set as each parameter's
+        ``grad`` (the previous step's mean when double-buffered): the
+        half of :meth:`step` before the wrapped optimizer's update."""
         grads = _grads_of(self.params)
         kw = dict(quant_block=self.quant_block,
                   quant_pipeline=self.quant_pipeline)
@@ -347,7 +359,6 @@ class MultiNodeOptimizer:
             apply, self.state = fresh, ef
         for p, g in zip(self.params, apply):
             p.grad = g
-        self.actual_optimizer.step()
 
     def zero_grad(self, set_to_none: bool = True):
         self.actual_optimizer.zero_grad(set_to_none=set_to_none)

@@ -26,13 +26,19 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..observability.comm import collective as _acc
 from ..ops import collective as col
 from ._factory import P, make_global_apply, model_axis, resolve_mesh_axis
 
 
 def _post_shift(x, axis, offset: int = 1):
     """Post one ring hop, this rank's ``x`` to rank ``i + offset``; returns
-    ``wait() -> the block from rank i - offset``."""
+    ``wait() -> the block from rank i - offset``.  The hop is booked in the
+    comm ledger as one ``ppermute`` as it is posted."""
+    return _acc("ppermute", axis, x, lambda: _post_shift_now(x, axis, offset))
+
+
+def _post_shift_now(x, axis, offset):
     staged = col.host_staged(axis, x)
     send = x.detach().contiguous()
     if staged:

@@ -29,30 +29,53 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .observability.comm import collective as _acc
 from .optimizers import (MultiNodeOptimizer, _grads_of, compressed_mean,
                          gradient_average)
 from .topology import DEFAULT_AXIS_NAME, make_mesh
 
 
 def _pmean(tensors, mesh):
-    return compressed_mean([t.detach().float() for t in tensors], mesh)
+    """The cross-rank mean of a list of tensors in fp32: one bucket on the
+    wire, booked as one ``pmean`` of the list as given (JAX's ``pmean`` of
+    a pytree)."""
+    return _acc("pmean", mesh, tensors, lambda: compressed_mean(
+        [t.detach().float() for t in tensors], mesh))
 
 
-def _mean_metrics(loss, metrics, mesh):
+def _mean_metrics(loss, metrics, mesh, aux=True):
+    """The cross-rank means of the loss and, with ``aux``, of the metrics
+    dict: two collectives, as JAX's steps ``pmean`` the loss and the aux
+    tree apart."""
+    loss = _pmean([loss], mesh)[0]
+    if not aux:
+        return loss, {}
     names = sorted(metrics or {})
-    values = _pmean([loss] + [torch.as_tensor(metrics[k], device=loss.device)
-                              for k in names], mesh)
-    return values[0], {k: v for k, v in zip(names, values[1:])}
+    values = _pmean([torch.as_tensor(metrics[k], device=loss.device)
+                     for k in names], mesh)
+    return loss, dict(zip(names, values))
 
 
-def _apply(optimizer, params, mesh, allreduce_grad_dtype, grad_reduce=None):
+def _apply(optimizer, params, mesh, allreduce_grad_dtype, grad_reduce=None,
+           autodiff_mean=False):
     """The one cross-rank gradient mean (``grad_reduce`` when given, else
     this step's own unless the optimizer wrapper owns it), then the
-    update."""
+    update.  ``autodiff_mean``: the step is JAX's default path, whose
+    gradient mean autodiff inserts and JAX notes in its comm ledger as
+    ``grad_allreduce_ad`` at the gradient tree's size; the mean run here
+    is booked so, with its bytes as ``noted_bytes``."""
+    owner = optimizer if isinstance(optimizer, MultiNodeOptimizer) else None
     if grad_reduce is not None:
         for p, g in zip(params, grad_reduce(_grads_of(params))):
             p.grad = g
-    elif not isinstance(optimizer, MultiNodeOptimizer):
+    elif autodiff_mean:
+        _acc("grad_allreduce_ad", mesh, params,
+             owner.reduce_grads if owner is not None
+             else lambda: gradient_average(params, mesh),
+             noted=True)
+        optimizer = owner.actual_optimizer if owner is not None \
+            else optimizer
+    elif owner is None:
         gradient_average(params, mesh, allreduce_grad_dtype)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
@@ -62,7 +85,8 @@ def _step_once(loss_of, optimizer, mesh, allreduce_grad_dtype):
     loss, metrics = loss_of()
     loss.backward()
     _apply(optimizer, [p for g in optimizer.param_groups for p in g["params"]],
-           mesh, allreduce_grad_dtype)
+           mesh, allreduce_grad_dtype,
+           autodiff_mean=allreduce_grad_dtype is None)
     return _mean_metrics(loss.detach(), metrics, mesh)
 
 
@@ -131,6 +155,9 @@ def make_train_step(loss_fn: Callable, optimizer, mesh=None,
                          "error_feedback=True): it owns the wire collective")
     mesh = mesh or make_mesh(axis_name)
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    # JAX's default path: the gradient mean is autodiff's (see _apply)
+    autodiff_mean = (allreduce_grad_dtype is None and grad_reduce is None
+                     and grad_accum_steps == 1 and not error_feedback)
 
     def step(module, batch):
         def local_loss(b):
@@ -144,8 +171,9 @@ def make_train_step(loss_fn: Callable, optimizer, mesh=None,
         else:
             loss, aux = _accumulated_local_grads(local_loss, params, batch,
                                                  grad_accum_steps)
-        _apply(optimizer, params, mesh, allreduce_grad_dtype, grad_reduce)
-        loss, aux = _mean_metrics(loss.detach(), aux, mesh)
+        _apply(optimizer, params, mesh, allreduce_grad_dtype, grad_reduce,
+               autodiff_mean=autodiff_mean)
+        loss, aux = _mean_metrics(loss.detach(), aux, mesh, aux=has_aux)
         return (loss, aux) if has_aux else loss
 
     return step
@@ -265,7 +293,7 @@ def make_demo_step(mesh=None, axis_name: str = DEFAULT_AXIS_NAME):
         logits = h @ params["w2"] + params["b2"]
         logp = torch.log_softmax(logits, -1)
         nll = -logp.gather(1, y.long()[:, None]).mean()
-        correct = (logits.argmax(-1) == y.long()).sum()
+        correct = (logits.argmax(-1) == y.long()).sum(dtype=torch.int32)
         names = list(params)
         grads = torch.autograd.grad(nll, [params[k] for k in names])
         for k, g in zip(names, grads):
@@ -281,10 +309,34 @@ def make_demo_step(mesh=None, axis_name: str = DEFAULT_AXIS_NAME):
     return step
 
 
-# flags of the JAX CLI whose machinery the port has not yet: (queue item, what)
-_REFUSED = {
-    "metrics_out": ("A12", "the metrics stream"),
-}
+class _GoodputFold:
+    """Folds the updater's phase stamps (data → host, compute → compute)
+    and the extension pass (host) into a goodput ledger each iteration;
+    priority 331, right after ``MetricsReport``'s 330 (JAX's CLI's
+    fold)."""
+
+    trigger = (1, "iteration")
+    priority = 331
+
+    def __init__(self, ledger):
+        self.ledger = ledger
+
+    def observe(self, trainer) -> None:
+        phases = getattr(trainer.updater, "phase_times", None) or {}
+        self.ledger.add("host", phases.get("data", 0.0))
+        self.ledger.add("compute", phases.get("compute", 0.0))
+        ext = getattr(trainer, "last_extension_time", None)
+        if ext:
+            self.ledger.add("host", ext)
+
+    def __call__(self, trainer) -> None:
+        pass
+
+    def state_dict(self):
+        return {}
+
+    def load_state_dict(self, state):
+        pass
 
 
 def _parse(argv):
@@ -310,7 +362,13 @@ def _parse(argv):
                         help="write a Chrome-trace / Perfetto JSON here "
                              "(also enables tracing); at world > 1 each "
                              "rank writes its own shard, <base>.rankNNNNN"
-                             ".json")
+                             ".json, and rank 0 merges them into this "
+                             "path (one Perfetto lane a rank)")
+    parser.add_argument("--metrics-out", default=None,
+                        help="append a versioned JSONL metrics stream here "
+                             "(also enables tracing); a Prometheus textfile "
+                             "lands next to it at <path>.prom and the "
+                             "cross-rank skew report is appended at exit")
     parser.add_argument("--watchdog-timeout", type=float, default=1800.0,
                         help="abort the gang (exit 43) when no step "
                              "completes for this many seconds")
@@ -344,16 +402,9 @@ def _parse(argv):
                         help="crash-bundle directory of the flight recorder "
                              "(SIGTERM / SIGUSR1 / uncaught exception / "
                              "watchdog dumps land here; --out when "
-                             "--trace-out is given)")
-    for flag in _REFUSED:
-        parser.add_argument("--" + flag.replace("_", "-"), default=None,
-                            help="not ported yet")
-    args = parser.parse_args(argv)
-    for flag, (item, what) in _REFUSED.items():
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag.replace('_', '-')}: {what} is not ported "
-                         f"yet: see ROADMAP.md, queue A, {item}")
-    return args
+                             "--trace-out, --metrics-out or "
+                             "--statusz-port is given)")
+    return parser.parse_args(argv)
 
 
 def run(argv=None):
@@ -362,30 +413,34 @@ def run(argv=None):
     (``RandomState(42)`` map, ``(0)`` inputs, ``(1)`` weights), SGD with
     momentum 0.9, through create_communicator → StandardUpdater (rank
     ``r``'s rows of each global batch) → Trainer with the
-    ObservationAggregator, LogReport, PrintReport and the Watchdog, and,
-    as the flags ask, the checkpointer (with resume), the preemption
-    handler and the self-healing gang, wired as JAX's ``main`` wires
-    them."""
+    ObservationAggregator, the step breakdown, LogReport, PrintReport, the
+    goodput fold and the Watchdog, and, as the flags ask, the health
+    monitor and the metrics stream, the checkpointer (with resume), the
+    preemption handler and the self-healing gang, wired as JAX's ``main``
+    wires them."""
     import sys
 
     from .communicators import create_communicator
     from .convert import demo_params_from_numpy
     from .extensions import ObservationAggregator, Watchdog
     from .iterators import SerialIterator
-    from .observability import flight, introspect, trace
+    from .observability import (aggregate, anomaly, comm as ledger, export,
+                                flight, introspect, metrics, slo, trace)
     from .training.extensions import LogReport, PrintReport
     from .training.trainer import PRIORITY_EDITOR, Trainer
     from .training.updaters import StandardUpdater
 
     args = _parse(argv)
-    if args.trace_out:
+    sink = bool(args.trace_out or args.metrics_out)
+    if sink:
         trace.reset()
+        ledger.get_accountant().reset()
         trace.enable()
     # the flight recorder: the ring always tees the tracer; crash bundles
-    # go to --flight-dump-dir, or to --out once a trace is written
+    # go to --flight-dump-dir, or to --out once a sink or /statusz is on
     flight.install_tracer_tee()
-    dump_dir = args.flight_dump_dir or (args.out if args.trace_out
-                                        else None)
+    dump_dir = args.flight_dump_dir or (
+        args.out if sink or args.statusz_port is not None else None)
     # run() is also called in-process (tests, the smoke): the handlers and
     # the hook it installs are put back as they were when it returns
     restore = {}
@@ -429,24 +484,43 @@ def run(argv=None):
     trainer = Trainer(updater, (args.steps, "iteration"), out=args.out)
     trainer.extend(ObservationAggregator(comm), trigger=(1, "iteration"),
                    priority=PRIORITY_EDITOR)
-    log = LogReport(trigger=(args.log_every, "iteration"))
-    trainer.extend(log)
-    trainer.extend(PrintReport(["iteration", "main/loss", "main/accuracy"],
-                               log, trigger=(args.log_every, "iteration")))
+    trainer.extend(metrics.StepBreakdownReport(
+        items_per_step=args.batchsize))
+    monitor = None
+    if sink:
+        monitor = anomaly.HealthMonitor()
+        trainer.extend(monitor)
+    metrics_path = None
+    if args.metrics_out:
+        metrics_path = (aggregate.shard_path(args.metrics_out, rank)
+                        if rank is not None else args.metrics_out)
+        trainer.extend(export.MetricsReport(
+            metrics_path, prometheus_path=metrics_path + ".prom",
+            monitor=monitor, rank=rank))
+    # goodput of the train loop: data → host, compute → compute, the
+    # extension pass → host; surfaced by /statusz and the result
+    goodput = slo.GoodputLedger()
+    trainer.extend(_GoodputFold(goodput), name="goodput_fold")
     flight.register_provider("train", lambda: {
         "iteration": trainer.iteration, "last_phase": trainer.last_phase,
-        "elapsed_time": trainer.elapsed_time})
+        "elapsed_time": trainer.elapsed_time, "goodput": goodput.report()})
     statusz = None
     if args.statusz_port is not None:
         statusz = introspect.start_status_server(
             args.statusz_port, dump_dir=dump_dir, rank=rank)
         statusz_port = statusz.port
+    log = LogReport(trigger=(args.log_every, "iteration"))
+    trainer.extend(log)
+    trainer.extend(PrintReport(
+        ["iteration", "main/loss", "main/accuracy", "time/data",
+         "time/compute", "comm/bytes", "throughput/items_per_sec"],
+        log, trigger=(args.log_every, "iteration")))
     trainer.extend(Watchdog(timeout=args.watchdog_timeout, dump_dir=args.out,
-                            rank=rank))
+                            monitor=monitor, rank=rank))
     # v2 manifest checkpoints resume across world-size changes; SIGTERM
-    # within the grace budget saves a final generation, dumps a `preempt`
-    # bundle and exits 0 (JAX also books the save into its goodput
-    # ledger, ROADMAP.md A12: the port passes no ledger)
+    # within the grace budget saves a final generation, books the save
+    # into the goodput ledger's `checkpoint` bucket, dumps a `preempt`
+    # bundle and exits 0
     checkpointer = None
     if args.checkpoint_dir:
         from .extensions import create_multi_node_checkpointer
@@ -467,7 +541,7 @@ def run(argv=None):
         # checkpoint-and-exit-0, SIGUSR1 stays dump-and-continue
         trainer.extend(PreemptionHandler(
             checkpointer, grace_s=args.preemption_grace_s,
-            dump_dir=dump_dir or args.out, ledger=None, rank=rank))
+            dump_dir=dump_dir or args.out, ledger=goodput, rank=rank))
     # the rank health plane: a heartbeat lease per rank over the process
     # group's store, and the collective guard on every eager collective:
     # a rank lost mid-collective aborts loudly naming it (exit 44, a
@@ -507,7 +581,8 @@ def run(argv=None):
     final = log.log[-1] if log.log else {}
     result = {"steps": trainer.iteration, "world": world,
               "final_loss": final.get("main/loss"),
-              "final_accuracy": final.get("main/accuracy")}
+              "final_accuracy": final.get("main/accuracy"),
+              "goodput": goodput.report()}
     if gang is not None:
         st = gang.stats()
         result["self_heal"] = {
@@ -521,6 +596,29 @@ def run(argv=None):
         result["trace_out"] = (args.trace_out if rank is None
                                else trace.shard_path(args.trace_out, rank))
         result["trace_events"] = len(trace.get_tracer().events())
+        result["comm_totals"] = {
+            k: {kk: vv for kk, vv in v.items() if kk != "host_time_s"}
+            for k, v in ledger.get_accountant().report()["per_op"].items()}
+        if rank is not None:
+            # every shard on disk before rank 0 merges them
+            comm.allgather_obj("trace-exported")
+            if rank == 0:
+                merged = aggregate.merge_trace_shards(
+                    args.trace_out, out_path=args.trace_out,
+                    expected_ranks=world)
+                result["merged_trace"] = args.trace_out
+                result["merged_ranks"] = merged["metadata"]["merged_ranks"]
+    if sink:
+        # the cross-rank skew report: a collective over the object lane
+        skew = aggregate.cross_rank_report(comm)
+        result["straggler_rank"] = skew["straggler_rank"]
+        result["step_time_skew"] = {
+            k: round(v, 6) for k, v in skew["step_time"].items()
+            if k != "per_rank"}
+        if metrics_path and (rank is None or rank == 0):
+            w = export.MetricsWriter(metrics_path, rank=rank)
+            w.write(skew, kind="skew_report")
+            w.close()
         trace.disable()
     return result, trainer
 
@@ -528,16 +626,15 @@ def run(argv=None):
 def main(argv=None) -> int:
     """``python -m chainermn_tpu_torch.train``: the JAX package's demo
     trainer (``python -m chainermn_tpu.train``) on the port, one process
-    per rank (``torchrun --nproc-per-node N`` for N > 1), with its
+    per rank (``torchrun --nproc-per-node N`` for N > 1), wired through
+    the observability stack (the step breakdown, the comm ledger, the
+    health monitor, ``--trace-out`` and ``--metrics-out``) and the
     robustness flags: the watchdog (always on), checkpoints with resume,
     preemption, the self-healing gang and the flight recorder's crash
-    bundles.  Prints JAX's result keys that the port has (``steps``,
-    ``world``, ``final_loss``, ``final_accuracy``, ``self_heal``,
-    ``trace_out``, ``trace_events``, ``statusz_port``) as one JSON line.
-    ``--statusz-port`` serves ``/statusz`` (with the ``train`` provider)
-    while it runs.  ``--devices`` (JAX's virtual CPU devices) is
-    ``--device`` and torchrun here; the metrics stream's flag (A12) is
-    refused."""
+    bundles.  Prints JAX's result as one JSON line.  ``--statusz-port``
+    serves ``/statusz`` (with the ``train`` provider) while it runs.
+    ``--devices`` (JAX's virtual CPU devices) is ``--device`` and
+    torchrun here."""
     import json
 
     result, _ = run(argv)

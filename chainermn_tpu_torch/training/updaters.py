@@ -29,6 +29,7 @@ import torch
 
 from .._device import resolve_device
 from ..observability import trace as _trace
+from ..observability.comm import get_accountant as _get_accountant
 from ..topology import DEFAULT_AXIS_NAME, make_mesh
 from ..train import local_rows
 
@@ -233,7 +234,9 @@ class StandardUpdater:
     def update(self) -> Dict[str, Any]:
         # the data phase (batch assembly + upload) vs the compute phase (the
         # step call: asynchronous on the card, so its device tail surfaces
-        # at the next host sync); both land on the trace timeline
+        # at the next host sync); both land on the trace timeline, and the
+        # comm ledger's step capture attributes the step's collectives to
+        # this iteration
         tracer = _trace.get_tracer()
         t0 = time.perf_counter()
         with tracer.span("step/data", cat="phase"):
@@ -246,8 +249,9 @@ class StandardUpdater:
                 staged = self._stage(self.converter(self.iterator.next()))
             arrays = self._upload(staged)
         t1 = time.perf_counter()
-        with tracer.span("step/compute", cat="phase"):
-            self.state, observation = self.step_fn(self.state, arrays)
+        with _get_accountant().step("updater/step_fn"):
+            with tracer.span("step/compute", cat="phase"):
+                self.state, observation = self.step_fn(self.state, arrays)
         t2 = time.perf_counter()
         self.phase_times = {"data": t1 - t0, "compute": t2 - t1}
         first = arrays[0] if isinstance(arrays, tuple) else arrays

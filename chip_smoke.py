@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet, the cross-process fleet and its autoscaler), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet, the cross-process fleet and its autoscaler), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, its metrics stream and comm ledger, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -378,7 +378,30 @@ and prints no result line:
    two spans' medians and the card line; the MNIST run also the device
    busy ms and idle share of a ``torch.profiler`` window over iterations
    10-19.  No hand-written kernel is on this path.
-18. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
+18. ``observability`` — the metrics stream and the comm ledger on the
+   card, each number beside the card line: (a) ``python -m
+   chainermn_tpu_torch.train``'s run with ``--metrics-out`` and
+   ``--trace-out`` (20 steps) on the card and on the CPU: the JSONL
+   validates (``read_metrics_jsonl(strict=True)``), every step record
+   carries ``time/data``, ``time/compute``,
+   ``throughput/items_per_sec``, ``comm/bytes`` and ``comm/calls``, the
+   ``.prom`` parses, the result's keys equal the CPU run's, no loss,
+   comm-bytes or MFU finding (step-time spikes of this ~8 ms host-bound
+   step are printed: the exporter's own write every 10 iterations can
+   make one);
+   (b) ResNet-50 at the headline size as the robustness phase builds it
+   (bf16, batch 128, pallas), through Trainer + StandardUpdater with
+   tracing, ``StepBreakdownReport(flops_per_item=3 * 4.1e9)``,
+   ``HealthMonitor`` and ``MetricsReport``: 3 warm-up and 10 timed
+   synchronised steps; 11 + 11 conv launches a step, ``perf/mfu``
+   within 10% of the MFU the smoke computes from the same iterations'
+   wall times, ``comm/bytes`` a step equal to the same step's on the CPU
+   (image 64, batch 2: the same tree), no finding; then 4 steps with
+   the loss of the third made NaN: ``loss_nonfinite`` in the metrics
+   file's summary; (c) the step and iteration ms p50/p99 with tracing
+   and the three extensions beside runs without them, in turns (off,
+   on, on, off; printed, no limit).
+19. ``seq2seq`` — BASELINE config #3 through ``train_seq2seq.run``
    (Trainer, the per-epoch evaluator, four greedy translations, BLEU):
    fp32 (TF32 off) at 512 units, 3 layers, vocabulary 4,096, 3 steps on
    the card and on the CPU, every loss rtol 1e-4 and the greedy tokens
@@ -388,13 +411,13 @@ and prints no result line:
    every step's span, step ms p50/p99, peak memory, and the device busy
    ms, ops and idle share of a
    ``torch.profiler`` window of 5 iterations.  No kernel launches.
-19. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
+20. ``model-parallel`` — at world 1 (NCCL cannot put two ranks on one
    card): a ``MultiNodeChainList`` of config #5's two stages on rank 0
    joined by a self-edge, every ``functions`` call forward and backward,
    and ``MultiNodeBatchNormalization``, each against the CPU in fp32
    (elementwise rtol 1e-5, atol 1e-5 of the tensor's largest entry).
    World 2 is held over gloo by the tests.
-20. ``robustness`` — ResNet-50 at the headline size (bf16, image 224,
+21. ``robustness`` — ResNet-50 at the headline size (bf16, image 224,
    batch 128, ``conv_impl="pallas"``, ``train_imagenet.build_step``)
    through Trainer + StandardUpdater with a ``MultiNodeCheckpointer``
    (asynchronous, keep 2, a save every 4 iterations, through
@@ -418,7 +441,7 @@ and prints no result line:
    loss; and two gloo processes on the CPU training MNIST with SGD 0.1 to
    a world-2 generation, resumed at world 1 on the card (batch 256, the
    same global batch) within rtol 1e-4 of the CPU's own continuation.
-21. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+22. One ``{"kernels": [...]}`` line (launches summed over the main paths'
    runs: the two serving runs, the serving-prefix cache-on run, the
    serving-disagg ``run()`` legs (local, lanes, GQA), the beam
    run, the timed LM training steps,
@@ -426,7 +449,8 @@ and prints no result line:
    and beam runs, phase ``sp``'s bf16 steps of both ranks (ring and
    Ulysses), phase ``zero-wire``'s ZeRO-1 bf16 steps, FSDP run and int8
    ResNet-50 run of both ranks, the timed pallas ResNet-50, ResNet-152 and NF-ResNet-50
-   steps, the timed ViT-B/16 steps and the robustness phase's ResNet-50 runs), the
+   steps, the timed ViT-B/16 steps, the observability phase's instrumented
+   ResNet-50 run and the robustness phase's ResNet-50 runs), the
    card line, then the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -439,8 +463,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the card's bf16 peak and HBM bandwidth come from the port's peak table
+# (observability/metrics.py) once the package imports (main); the fp32
+# CUDA-core peak is the smoke's own
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = {"bfloat16": None, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 FULL = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8)
 HEAD_DIM = FULL["d_model"] // FULL["n_heads"]
@@ -5927,6 +5954,280 @@ def phase_trainer(smoke):
         raise AssertionError(f"train_mnist: {bad}")
 
 
+OBS_STEPS = dict(warm=3, timed=10)     # the ResNet-50 leg's steps
+OBS_NAN_AT = 3                          # the NaN run's poisoned iteration
+OBS_STEP_KEYS = ("time/data", "time/compute", "throughput/items_per_sec",
+                 "comm/bytes", "comm/calls")
+
+
+def _obs_demo(smoke, out):
+    """Leg (a): the demo CLI's run with the metrics stream and a trace,
+    on the card and on the CPU."""
+    from chainermn_tpu_torch import train
+    from chainermn_tpu_torch.observability import export
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        metrics_path = out / f"demo_{dev}.jsonl"
+        result, _ = train.run(
+            ["--device", dev, "--steps", "20", "--log-every", "10",
+             "--out", str(out / f"demo_{dev}"), "--metrics-out",
+             str(metrics_path), "--trace-out", str(out / f"demo_{dev}.json")])
+        records = export.read_metrics_jsonl(str(metrics_path), strict=True)
+        prom = export.parse_prometheus_text(
+            open(f"{metrics_path}.prom").read())
+        runs[dev] = (result, records, prom)
+    (res, recs, prom), (res_h, recs_h, _) = runs["cuda"], runs["cpu"]
+    steps = [r for r in recs if r["kind"] == "step"]
+    summary = next(r for r in recs if r["kind"] == "summary")
+    # the loss, comm-bytes and MFU detectors must stay quiet; the
+    # step-time detector, at JAX's defaults (1.5x and 4 sigma over an
+    # EWMA), is reported: a few ms of host work (the .prom write and
+    # fsync every 10 iterations, a collection) is a real 1.5x spike of
+    # this host-bound step once the process is warm
+    found = {dev: next(r for r in runs[dev][1] if r["kind"] == "summary")[
+        "anomalies"] for dev in runs}
+    judged = {dev: {k: n for k, n in a["counts"].items()
+                    if k != "step_time_spike"} for dev, a in found.items()}
+    missing = sorted({k for r in steps for k in OBS_STEP_KEYS if k not in r})
+    row = {"check": "observability_demo", "card": smoke.card,
+           "steps": len(steps),
+           "kinds": [r["kind"] for r in recs],
+           "comm_bytes_per_step": [r["comm/bytes"] for r in steps],
+           "items_per_sec_p50": _percentile(
+               [r["throughput/items_per_sec"] for r in steps], 0.5),
+           "prom_samples": len(prom["samples"]),
+           "anomalies": summary["anomalies"]["counts"],
+           "cpu_anomalies": found["cpu"]["counts"],
+           "step_time_spikes": {dev: [
+               {k: f[k] for k in ("iteration", "value", "expected")}
+               for f in a["findings"] if f["kind"] == "step_time_spike"]
+               for dev, a in found.items()},
+           "iteration_ms": [1e3 * sum(r.get(k, 0.0) for k in (
+               "time/data", "time/compute", "time/extensions"))
+               for r in steps],
+           "result_keys": sorted(res), "cpu_result_keys": sorted(res_h),
+           "straggler_rank": res["straggler_rank"],
+           "step_time_skew": res["step_time_skew"]}
+    emit(row)
+    bad = []
+    if len(steps) != 20 or missing:
+        bad.append(f"{len(steps)} step records, keys missing {missing}")
+    if sorted(res) != sorted(res_h):
+        bad.append("the card's result keys are not the CPU's")
+    if judged["cuda"] or judged["cpu"]:
+        bad.append(f"loss / comm / MFU findings on a clean run: {judged}")
+    if [r["comm/bytes"] for r in steps] != \
+            [r["comm/bytes"] for r in recs_h if r["kind"] == "step"]:
+        bad.append("comm bytes a step differ from the CPU's")
+    if bad:
+        raise AssertionError(f"demo metrics stream: {bad}")
+
+
+def _obs_r50_run(smoke, step, model, comm, batch, steps, out, extensions,
+                 nan_at=None):
+    """``steps`` iterations of the ResNet-50 step through Trainer +
+    StandardUpdater (the robustness phase's wiring); with ``extensions``,
+    tracing on and the step breakdown, the health monitor and the metrics
+    stream.  Returns each step's loss and synchronised ms, the wall time
+    from each step call's start to the next (data, step and extensions),
+    the metrics records and the monitor."""
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.training import StandardUpdater, Trainer
+
+    run = {"losses": [], "ms": [], "starts": [], "records": [],
+           "monitor": None}
+
+    def step_fn(state, b):
+        run["starts"].append(time.perf_counter())
+        loss, _ = step(model, b)
+        run["losses"].append(float(loss))              # synchronises
+        run["ms"].append((time.perf_counter() - run["starts"][-1]) * 1e3)
+        if nan_at == len(run["ms"]):
+            loss = loss * float("nan")
+        return state, {"main/loss": loss}
+
+    updater = StandardUpdater(_OneBatch(batch), step_fn,
+                              (model, step.optimizer), converter=lambda b: b,
+                              mesh=comm.mesh, device=comm.device)
+    trainer = Trainer(updater, (steps, "iteration"), out=str(out))
+    path = out / "metrics.jsonl"
+    if extensions:
+        obs.reset_all()
+        obs.enable()
+        run["monitor"] = obs.HealthMonitor()
+        trainer.extend(obs.StepBreakdownReport(
+            flops_per_item=RESNET_FLOPS_PER_IMAGE))
+        trainer.extend(run["monitor"])
+        trainer.extend(obs.MetricsReport(str(path),
+                                         prometheus_path=f"{path}.prom",
+                                         monitor=run["monitor"]))
+    try:
+        trainer.run()
+    finally:
+        obs.disable()
+    starts = run["starts"]
+    run["walls"] = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    if extensions:
+        run["records"] = obs.read_metrics_jsonl(str(path), strict=True)
+        obs.parse_prometheus_text(open(f"{path}.prom").read())
+    return run
+
+
+def _obs_cpu_comm_bytes(out):
+    """``comm/bytes`` of a ResNet-50 step on the CPU: the same build (the
+    byte count depends on the parameter and statistics tree only), image
+    64, batch 2, two steps."""
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.train_imagenet import build_step, synthetic_batch
+    from chainermn_tpu_torch.training import StandardUpdater, Trainer
+
+    step, model, comm = build_step("resnet50", 64, conv_impl="pallas",
+                                   num_classes=RESNET["classes"],
+                                   device="cpu", seed=0)
+    batch = synthetic_batch(2, 64, RESNET["classes"])
+    updater = StandardUpdater(
+        _OneBatch(batch), lambda st, b: (st, {"main/loss": step(model, b)[0]}),
+        (model, step.optimizer), converter=lambda b: b, mesh=comm.mesh,
+        device="cpu")
+    trainer = Trainer(updater, (2, "iteration"), out=str(out / "cpu"))
+    path = out / "cpu.jsonl"
+    trainer.extend(obs.StepBreakdownReport())
+    trainer.extend(obs.MetricsReport(str(path)))
+    obs.reset_all()
+    obs.enable()
+    try:
+        trainer.run()
+    finally:
+        obs.disable()
+    recs = obs.read_metrics_jsonl(str(path))
+    return [(r["comm/bytes"], r["comm/calls"]) for r in recs
+            if r["kind"] == "step"]
+
+
+def phase_observability(smoke):
+    """The metrics stream, the comm ledger and the detectors on the card:
+    (a) the demo CLI with ``--metrics-out`` / ``--trace-out``, card and
+    CPU; (b) ResNet-50 at the headline size through the Trainer with the
+    step breakdown, the health monitor and the metrics stream (conv
+    launches, the MFU gauge against the smoke's own, comm bytes against
+    the CPU's, no finding), then a NaN loss that the monitor must find;
+    (c) the step ms with and without the instrumentation, in turns
+    (printed)."""
+    import math
+    import shutil
+
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.train_imagenet import build_step, synthetic_batch
+
+    out = ROOT / "build" / "chip_smoke" / "observability"
+    shutil.rmtree(out, ignore_errors=True)   # the streams append
+    out.mkdir(parents=True)
+    _obs_demo(smoke, out)
+
+    step, model, comm = build_step("resnet50", RESNET["image"],
+                                   conv_impl="pallas",
+                                   num_classes=RESNET["classes"], seed=0)
+    batch = synthetic_batch(RESNET["batch"] * comm.size, RESNET["image"],
+                            RESNET["classes"])
+    warm, n = OBS_STEPS["warm"], OBS_STEPS["warm"] + OBS_STEPS["timed"]
+    # (b) instrumented: tracing and the three extensions; the launch
+    # counts cover this run alone
+    ops.reset_launch_counts()
+    on = _obs_r50_run(smoke, step, model, comm, batch, n, out / "r50_on",
+                      True)
+    counts = ops.launch_counts()
+    steps = [r for r in on["records"] if r["kind"] == "step"]
+    summary = next(r for r in on["records"] if r["kind"] == "summary")
+    timed = steps[warm:]
+    # the smoke's own MFU over the same iterations: FLOPs over the wall
+    # time from one step call's start to the next, the same span
+    # (data, step, extensions) that the gauge divides by
+    flops = RESNET_FLOPS_PER_IMAGE * RESNET["batch"]
+    peak = PEAK_FLOPS["bfloat16"]
+    mfu_smoke = flops / (_percentile(on["walls"][warm:], 0.5) / 1e3) / peak
+    mfu_gauge = _percentile([r["perf/mfu"] for r in timed], 0.5)
+    cpu_comm = _obs_cpu_comm_bytes(out)
+    # (c) the same steps without tracing or the extensions, in turns with
+    # two more instrumented runs (off, on, on, off): the first run of a
+    # model also warms the pinned-memory allocator its uploads use
+    turns = {"off": [], "on": []}
+    for i, label in enumerate(("off", "on", "on", "off")):
+        turns[label].append(_obs_r50_run(
+            smoke, step, model, comm, batch, n, out / f"r50_turn{i}",
+            label == "on"))
+
+    def timed_of(label, key):
+        return [v for r in turns[label] for v in r[key][warm:]]
+    # a poisoned loss: the monitor must find it and the stream carry it
+    nan = _obs_r50_run(smoke, step, model, comm, batch, OBS_NAN_AT + 1,
+                       out / "r50_nan", True, nan_at=OBS_NAN_AT)
+    nan_summary = next(r for r in nan["records"] if r["kind"] == "summary")
+
+    def p50(xs):
+        return _percentile(xs, 0.5)
+
+    row = {"check": "observability_resnet50", "card": smoke.card,
+           **RESNET, "dtype": "bfloat16", "conv_impl": "pallas",
+           "warm": warm, "timed": OBS_STEPS["timed"],
+           "conv_launches_per_step": {k: counts[k] / n
+                                      for k in ("conv_wgrad", "conv_dgrad")},
+           "mfu_gauge_p50": mfu_gauge, "mfu_smoke_p50": mfu_smoke,
+           "mfu_gauge_over_smoke": mfu_gauge / mfu_smoke,
+           "mfu_step_call_p50": flops / (p50(on["ms"][warm:]) / 1e3) / peak,
+           "time_data_ms_p50": p50([r["time/data"] for r in timed]) * 1e3,
+           "time_compute_ms_p50": p50([r["time/compute"]
+                                       for r in timed]) * 1e3,
+           "time_extensions_ms_p50": p50([r["time/extensions"]
+                                          for r in timed]) * 1e3,
+           "time_comm_ms_p50": p50([r["time/comm"] for r in timed]) * 1e3,
+           "comm_bytes_per_step": [r["comm/bytes"] for r in steps],
+           "comm_calls_per_step": [r["comm/calls"] for r in steps],
+           "comm_per_op": summary["last_step_comm"]["per_op"],
+           "cpu_comm_bytes_calls": cpu_comm,
+           "anomalies": summary["anomalies"]["counts"],
+           "nan_findings": nan_summary["anomalies"]["findings"],
+           "losses": on["losses"],
+           "first_run_step_ms_p50": p50(on["ms"][warm:]),
+           "first_run_iteration_ms_p50": p50(on["walls"][warm:]),
+           "turn_iteration_ms_p50": [p50(r["walls"][warm:]) for r in
+                                     (turns["off"][0], *turns["on"],
+                                      turns["off"][1])]}
+    for label, key in (("with", "on"), ("without", "off")):
+        for what, k in (("step", "ms"), ("iteration", "walls")):
+            xs = timed_of(key, k)
+            row[f"{what}_ms_p50_{label}"] = p50(xs)
+            row[f"{what}_ms_p99_{label}"] = _percentile(xs, 0.99)
+    for what in ("step", "iteration"):
+        row[f"overhead_{what}_p50_frac"] = \
+            row[f"{what}_ms_p50_with"] / row[f"{what}_ms_p50_without"] - 1
+    emit(row)
+    bad = []
+    want = {k: RESNET_CONV_LAUNCHES for k in ("conv_wgrad", "conv_dgrad")}
+    if row["conv_launches_per_step"] != want:
+        bad.append(f"conv launches a step {row['conv_launches_per_step']}")
+    if len(steps) != n or not all(math.isfinite(v) for v in on["losses"]):
+        bad.append(f"{len(steps)} step records, losses {on['losses']}")
+    if abs(mfu_gauge / mfu_smoke - 1) > 0.10:
+        bad.append(f"perf/mfu {mfu_gauge} vs the smoke's {mfu_smoke}")
+    card_comm = {(r["comm/bytes"], r["comm/calls"]) for r in steps}
+    if card_comm != set(cpu_comm):
+        bad.append(f"comm bytes/calls a step {card_comm} vs the CPU's "
+                   f"{set(cpu_comm)}")
+    if summary["anomalies"]["counts"]:
+        bad.append(f"findings on a clean run {summary['anomalies']}")
+    kinds = [f["kind"] for f in nan_summary["anomalies"]["findings"]]
+    if "loss_nonfinite" not in kinds or \
+            nan["monitor"].counts.get("loss_nonfinite", 0) < 1:
+        bad.append(f"the NaN loss was not found: {kinds}")
+    if bad:
+        raise AssertionError(f"observability: {bad}")
+    smoke.add_launches(counts)
+    del step, model, batch
+    torch.cuda.empty_cache()
+
+
 def _seq2seq_argv(cfg, device, out, *extra):
     return ["--device", device, "--out", str(out)] + [
         f"--{k.replace('_', '-')}={v}" for k, v in cfg.items()] + list(extra)
@@ -6646,9 +6947,19 @@ def main():
         return 1
     try:
         import chainermn_tpu_torch  # noqa: F401
+        from chainermn_tpu_torch.observability import metrics
     except ImportError as e:
         print(f"FAIL phase device: the chainermn_tpu_torch package is not "
               f"importable from here: {e!r}", flush=True)
+        return 1
+    global HBM_BYTES_PER_S
+    kind = torch.cuda.get_device_name(0)
+    PEAK_FLOPS["bfloat16"] = metrics.peak_flops_for(kind)
+    HBM_BYTES_PER_S = metrics.hbm_bw_for(kind)
+    if PEAK_FLOPS["bfloat16"] is None or HBM_BYTES_PER_S is None:
+        print(f"FAIL phase device: {kind!r} has no row in the peak table "
+              f"(observability/metrics.py): no bound can be computed",
+              flush=True)
         return 1
 
     # fp32 comparisons (kernel checks, parity) must not run in TF32, which
@@ -6676,6 +6987,7 @@ def main():
                          ("imagenet-parity", phase_imagenet_parity),
                          ("imagenet-train", phase_imagenet_train),
                          ("comm", phase_comm), ("trainer", phase_trainer),
+                         ("observability", phase_observability),
                          ("seq2seq", phase_seq2seq),
                          ("model-parallel", phase_model_parallel),
                          ("robustness", phase_robustness)):

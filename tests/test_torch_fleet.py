@@ -815,7 +815,8 @@ def test_process_fleet_journal_passes_jax_conformance(tmp_path):
     """``build_proc_fleet`` on the CPU with the causal journal on: two
     worker processes serve four requests and drain; the merged journal
     (the router and both workers) passes the JAX package's conformance
-    monitor (done-xor-shed, the lease fence, the slot lifecycle) and has
+    monitor (done-xor-shed, the lease fence, the slot lifecycle), the
+    port's gives the same report, and the journal has
     the cross-process mailbox and lease edges."""
     from chainermn_tpu.observability.conform import check_dir, render_report
 
@@ -849,6 +850,9 @@ def test_process_fleet_journal_passes_jax_conformance(tmp_path):
         assert h.tokens == _oracle(p, 6)
     report = check_dir(jdir)
     assert report["ok"], render_report(report)
+    # the port's own monitor gives JAX's report on the same journals
+    from chainermn_tpu_torch.observability import conform as tconform
+    assert tconform.check_dir(jdir) == report
     assert report["checked"]["done_xor_shed"] == 4
     assert report["checked"]["slot_lifecycle"] >= 2
     assert report["checked"]["lease_fence"] >= 2

@@ -190,8 +190,9 @@ class TestCollectiveGuard:
 
 
 def test_guard_brackets_the_in_step_collectives_once():
-    """``ops.collective``, the gradient bucket and the process-group
-    communicator enter the guard once per outermost call."""
+    """``ops.collective``, the gradient bucket (booked and guarded as the
+    ``pmean`` it is) and the process-group communicator enter the guard
+    once per outermost call."""
     from chainermn_tpu_torch.communicators import create_communicator
     from chainermn_tpu_torch.ops import collective as col
     from chainermn_tpu_torch.optimizers import compressed_mean
@@ -208,7 +209,7 @@ def test_guard_brackets_the_in_step_collectives_once():
         compressed_mean([torch.ones(3)], comm)
         comm.allreduce(torch.ones(2))
         comm.multi_node_mean_grad([torch.ones(2)])
-        assert entered == ["psum", "all_gather", "compressed_mean",
+        assert entered == ["psum", "all_gather", "pmean",
                            "allreduce", "multi_node_mean_grad"]
         assert g.active_ops() == []
     finally:

@@ -37,7 +37,8 @@ PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "_torch_functions_worker.py",
     ROOT / "tests" / "_torch_example_worker.py",
     ROOT / "tests" / "_torch_zero_worker.py",
-    ROOT / "tests" / "_torch_fleet_tp_worker.py"]
+    ROOT / "tests" / "_torch_fleet_tp_worker.py",
+    ROOT / "tests" / "_torch_obs_worker.py"]
 # the communicator and Trainer slice: each must be among PORT_FILES
 TRAINER_SLICE = ["communicators/base.py", "communicators/naive.py",
                  "communicators/torch_dist.py", "ops/collective.py",
@@ -90,8 +91,15 @@ SERVING_3B_SLICE = ["serving/autoscale.py", "serving/scenarios.py",
                     "serving/disagg.py", "serving/router.py", "serve.py"]
 
 
+# the rest of observability (A12): each must be among PORT_FILES
+OBSERVABILITY_SLICE = ["observability/comm.py", "observability/metrics.py",
+                       "observability/anomaly.py",
+                       "observability/aggregate.py",
+                       "observability/conform.py", "analysis/protocol.py"]
+
+
 @pytest.mark.parametrize("module", TRAINER_SLICE + MODEL_PARALLEL_SLICE
-                         + SERVING_3B_SLICE)
+                         + SERVING_3B_SLICE + OBSERVABILITY_SLICE)
 def test_trainer_slice_modules_are_checked(module):
     assert ROOT / "chainermn_tpu_torch" / module in PORT_FILES
 

@@ -12,10 +12,9 @@ lanes against the JAX package's (CPU, no card).
 * preemption: JAX's ``TestPreemptionHandler`` cases, the signal install
   in a subprocess;
 * the flight bundle: for the same notes, the files and every field of
-  the manifest, the ring and the health snapshot equal JAX's, apart from
-  the environment snapshot (``env.json``: torch and CUDA where JAX
-  reports its backend) and ``health.json``'s comm ledger (``null`` here,
-  ROADMAP.md A12);
+  the manifest, the ring and the health snapshot (its comm ledger
+  included) equal JAX's, apart from the environment snapshot
+  (``env.json``: torch and CUDA where JAX reports its backend);
 * the lanes: classification, retries, backoff and the injected faults
   (``set_lane_fault_injector`` and ``CHAINERMN_TPU_LANE_FAULT``) give
   JAX's outcomes and flight notes for the same faults.
@@ -170,7 +169,10 @@ def test_watchdog_abort_dumps_evidence_and_exits_43(tmp_path):
     assert "last completed phase" in out.stderr
     health = json.loads((tmp_path / "watchdog_health.json").read_text())
     assert health["watchdog"]["timeout_s"] == 0.5
-    assert health["comm"] is None and health["iteration"] == 1
+    # the ledger's report (empty: tracing was off), as JAX's snapshot has
+    assert health["comm"] == {"per_op": {}, "bytes": 0, "calls": 0,
+                              "host_time_s": 0.0}
+    assert health["last_step_comm"] is None and health["iteration"] == 1
     (bundle,) = tflight.find_bundles(str(tmp_path))
     b = tflight.read_bundle(bundle)
     assert b["manifest"]["reason"] == "watchdog_abort"
@@ -393,8 +395,8 @@ def test_bundle_files_and_fields_equal_jax(tmp_path, ring):
     assert set(pb["health"]) == set(jb["health"])
     for key in ("schema", "kind", "tracing_enabled"):
         assert pb["health"][key] == jb["health"][key]
-    assert pb["health"]["comm"] is None and pb["health"]["last_step_comm"] \
-        is None
+    for key in ("comm", "last_step_comm"):     # the comm ledger's
+        assert pb["health"][key] == jb["health"][key], key
     env = pb["env"]
     assert env["pid"] == os.getpid() and "torch_version" in env
     assert not any(k.startswith(("JAX_", "XLA_")) for k in env["env"])

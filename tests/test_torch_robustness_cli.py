@@ -9,7 +9,8 @@
   every iteration's loss at rtol 1e-4; then SIGTERM mid-run: exit 0, a
   ``preempt`` bundle naming the saved generation, and a rerun that resumes
   to the uninterrupted run's final loss;
-* ``--metrics-out`` and ``--statusz-port`` are still refused, naming A12.
+* ``--metrics-out`` and ``--statusz-port``, both ported: the metrics
+  stream validates and the run serves /statusz.
 """
 
 import json
@@ -109,8 +110,11 @@ def test_demo_cli_sigterm_saves_exits_0_and_resumes(tmp_path):
 @pytest.mark.parametrize("flag,value", [("--metrics-out", "m.jsonl"),
                                         ("--statusz-port", "0")])
 def test_observability_flags_still_refused(flag, value, capsys, tmp_path):
-    """``--metrics-out`` is still refused naming A12; ``--statusz-port``
-    is ported: the run serves /statusz and reports the bound port."""
+    """Both flags are ported (the name is kept from when they were
+    refused): ``--metrics-out`` writes a stream that validates, with a
+    step record an iteration, the summary and the skew report, and a
+    ``.prom`` that parses; ``--statusz-port`` serves /statusz and
+    reports the bound port."""
     if flag == "--statusz-port":
         assert train.main(["--device", "cpu", "--steps", "2", "--out",
                            str(tmp_path), flag, value]) == 0
@@ -119,8 +123,13 @@ def test_observability_flags_still_refused(flag, value, capsys, tmp_path):
         assert isinstance(result["statusz_port"], int)
         assert result["statusz_port"] > 0 and result["steps"] == 2
         return
-    with pytest.raises(SystemExit) as exc:
-        train.main(["--device", "cpu", flag, value])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "queue A, A12" in err
+    from chainermn_tpu_torch.observability.export import (
+        parse_prometheus_text, read_metrics_jsonl)
+    path = tmp_path / value
+    assert train.main(["--device", "cpu", "--steps", "2", "--out",
+                       str(tmp_path), flag, str(path)]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["steps"] == 2 and result["straggler_rank"] == 0
+    kinds = [r["kind"] for r in read_metrics_jsonl(str(path), strict=True)]
+    assert kinds == ["step", "step", "summary", "skew_report"]
+    assert parse_prometheus_text(open(f"{path}.prom").read())["samples"]

@@ -862,7 +862,8 @@ def test_demo_cli_main_prints_the_jax_keys(comm1, tmp_path, capsys):
                        str(trace)]) == 0
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(result) == {"steps", "world", "final_loss", "final_accuracy",
-                           "trace_out", "trace_events"}
+                           "goodput", "trace_out", "trace_events",
+                           "comm_totals", "straggler_rank", "step_time_skew"}
     names = {e["name"] for e in json.load(open(trace))["traceEvents"]}
     assert {"step", "step/data", "step/compute", "step/extensions"} <= names
 
@@ -878,7 +879,7 @@ def test_train_mnist_main_runs(comm1, tmp_path, capsys):
 
 
 # (flag, value, the queue item that still refuses it: None once ported)
-REFUSED = [("--metrics-out", "m.jsonl", "A12"), ("--statusz-port", "0", None),
+REFUSED = [("--metrics-out", "m.jsonl", None), ("--statusz-port", "0", None),
            ("--flight-dump-dir", "d", None), ("--checkpoint-dir", "c", None),
            ("--checkpoint-every", "3", None),
            ("--preemption-grace-s", "5", None), ("--self-heal", None, None),
