@@ -18,9 +18,11 @@ sampled tokens, a pmax / psum log-sum-exp and an all-gather of each
 shard's top K for the beam.  ``axis_name=None`` is the one-card path.
 
 Sampling draws JAX's threefry Gumbel noise bit for bit (``prng.py``), so a
-sampled generation is held token-exact against JAX like a greedy one.  Not
-in this slice: the chunked fill (``s_q > 1`` at a nonzero write position
-raises).
+sampled generation is held token-exact against JAX like a greedy one.  The
+chunked fill (``s_q > 1`` at a nonzero write position or valid length,
+scalar or one per row) is JAX's grouped einsum fallback in plain torch:
+JAX computes it outside any Pallas kernel; its K/V rows still go through
+the append kernel.
 """
 
 from __future__ import annotations
@@ -66,13 +68,18 @@ def _decoder_core(params, head_dim: int, axis_name=None):
 
     def attn_block(x, blk, k_cache, v_cache, positions, write_at, q_valid):
         """x (N, S, D) → block output; the caches are written IN PLACE at
-        ``write_at`` (a Python int, or an int32 ``(N,)`` tensor for the
-        serving tick).  ``s_q > 1`` is the prefill (``write_at == q_valid
-        == 0``, causal flash attention over the prompt); ``s_q == 1`` is
-        the decode tick, each row writing its token's K/V at ``write_at``
-        and attending its own prefix ``[0, write_at]``, as JAX's tick
-        does."""
+        ``write_at + i`` for the i-th input position (``write_at`` a Python
+        int, or an int32 ``(N,)`` tensor: one start per row).  ``s_q == 1``
+        is the decode tick, each row writing its token's K/V at
+        ``write_at`` and attending its own prefix ``[0, write_at]``, as
+        JAX's tick does.  ``s_q > 1`` at ``write_at == q_valid == 0`` (two
+        Python ints) is the prefill: causal flash attention over the
+        prompt.  Any other ``s_q > 1`` is the chunked fill: query i
+        attends the cache ``[0, q_valid + i + 1)`` (``q_valid`` an int, or
+        an ``(N,)`` tensor when ``write_at`` is one), JAX's einsum
+        fallback."""
         n = x.shape[0]
+        per_row = isinstance(write_at, torch.Tensor) and write_at.dim() == 1
 
         def attend(q, k, v):
             s_q, hl, hkv = q.shape[1], q.shape[2], k.shape[2]
@@ -86,13 +93,13 @@ def _decoder_core(params, head_dim: int, axis_name=None):
             cache_append(k_cache, v_cache, k.reshape(n, s_q, hkv * head_dim),
                          v.reshape(n, s_q, hkv * head_dim), write_at, axis=1)
             if s_q > 1:
-                if not (isinstance(write_at, int) and write_at == 0
+                if (isinstance(write_at, int) and write_at == 0
                         and isinstance(q_valid, int) and q_valid == 0):
-                    raise NotImplementedError(
-                        "chunked fill (s_q > 1 at a nonzero write position) "
-                        "is not ported yet")
-                ctx = flash_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=True)
+                    ctx = flash_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), causal=True)
+                    return ctx.to(x.dtype), (k_cache, v_cache)
+                ctx = _chunk_attend(q, k_cache, v_cache, q_valid, per_row,
+                                    head_dim)
                 return ctx.to(x.dtype), (k_cache, v_cache)
             # the GQA tick: the g query heads of a KV head are the beam
             # kernel's rows of the cache row
@@ -106,6 +113,37 @@ def _decoder_core(params, head_dim: int, axis_name=None):
             axis_name), axis_name)
 
     return embed, attn_block, block_with, rope
+
+
+def _chunk_attend(q, k_cache, v_cache, q_valid, per_row: bool,
+                  head_dim: int):
+    """The chunked fill's attention (JAX ``_decoder_core``'s grouped einsum
+    fallback): ``q (N, s_q, H, hd)`` against the UN-expanded flat caches
+    ``(N, total, H_kv·hd)``, query i seeing ``q_valid + i + 1`` entries
+    (``q_valid[n] + i + 1`` per row when ``per_row``).  Scores and softmax
+    in fp32, ``-1e30`` outside the valid prefix, ``p`` rounded to the
+    cache's dtype before the context product (JAX's rounding), the context
+    summed in fp32.  Returns ``(N, s_q, H, hd)`` in fp32."""
+    n, s_q, hl, _ = q.shape
+    total = k_cache.shape[1]
+    hkv = k_cache.shape[2] // head_dim
+    kc4 = k_cache.reshape(n, total, hkv, head_dim)
+    vc4 = v_cache.reshape(n, total, hkv, head_dim)
+    steps = torch.arange(s_q, device=q.device)
+    qv = torch.as_tensor(q_valid, device=q.device).to(torch.int64)
+    if per_row:
+        valid = (qv[:, None] + steps[None] + 1)[:, None, None, :, None]
+    else:
+        valid = (qv + steps + 1)[None, None, None, :, None]
+    q5 = q.reshape(n, s_q, hkv, hl // hkv, head_dim)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q5.float(), kc4.float()) \
+        / (head_dim ** 0.5)
+    mask = torch.arange(total, device=q.device)[None, None, None, None, :] \
+        < valid
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    ctx = torch.einsum("bhgqk,bkhd->bqhgd", p.to(vc4.dtype).float(),
+                       vc4.float())
+    return ctx.reshape(n, s_q, hl, head_dim)
 
 
 def _check_length(params, total: int, rope: bool) -> None:

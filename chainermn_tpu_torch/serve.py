@@ -43,8 +43,14 @@ and the summary's ``fleet_exit_codes`` holds every worker's exit code.
 ``--autoscale MIN:MAX`` (with ``--fleet-procs``) attaches the load-driven
 autoscaler: a scale-up spawns worker processes on the run's device, a
 scale-down always drains; its decisions land as ``autoscale_decision``
-flight events and under ``autoscale`` in the summary.  A worker-process
-fleet at ``--tp > 1`` is refused (ROADMAP.md, queue A, A11 step 3c).
+flight events and under ``autoscale`` in the summary.  A worker process
+serves at the width JAX's worker gets under the same flags, the number
+of devices the CLI runs on (its ranks: ``--devices N`` or torchrun's
+world): at a width T > 1 each worker is a group of T processes (its
+leader holds the lease; NCCL when each rank has its own card, gloo on the
+CPU or one shared card), the ranks gather the trained params to rank 0,
+which spawns the fleet, and the summary's ``fleet_group`` names the width
+and the backend.
 ``--tenants`` bills even requests to the paid tenant ``gold`` and odd ones
 to the budgeted best-effort ``free`` (a router topology only).
 ``--metrics-out`` streams the JSONL metrics (``serving_step`` records and
@@ -70,6 +76,7 @@ the same noise).
 Run:  python -m chainermn_tpu_torch.serve --device cuda
       torchrun --nproc-per-node 2 -m chainermn_tpu_torch.serve --tp 2
       python -m chainermn_tpu_torch.serve --devices 2 --tp 2 --disagg 1:1
+      python -m chainermn_tpu_torch.serve --devices 2 --tp 2 --fleet-procs 2
       python -m chainermn_tpu_torch.serve --device cuda --fleet-procs 1 \
           --autoscale 1:2 --statusz-port 0
       python -m chainermn_tpu_torch.serve --device cuda --replicas 2 \\
@@ -308,11 +315,6 @@ def run(argv=None, params=None):
         if args.fleet_procs and (args.replicas > 1 or args.disagg):
             raise SystemExit("--fleet-procs is mutually exclusive with "
                              "--replicas > 1 / --disagg")
-        if args.tp > 1:
-            raise SystemExit("a worker-process fleet with --tp > 1 is not "
-                             "ported: every worker would need its own "
-                             "group of model ranks with its own leader "
-                             "(ROADMAP.md, queue A, A11 step 3c)")
 
     import numpy as np
     import torch
@@ -321,7 +323,8 @@ def run(argv=None, params=None):
     from chainermn_tpu_torch import observability as obs
     from chainermn_tpu_torch import prng
     from chainermn_tpu_torch._device import resolve_device
-    from chainermn_tpu_torch.convert import load_npz, shard_from_jax
+    from chainermn_tpu_torch.convert import (gather_to_numpy, load_npz,
+                                             shard_from_jax, tree_map)
     from chainermn_tpu_torch.parallel import (init_tp_transformer_lm,
                                               transformer_lm_specs)
     from chainermn_tpu_torch.serving import (AdmissionError, ServingEngine,
@@ -361,13 +364,27 @@ def run(argv=None, params=None):
                             train_mesh, device=device, dtype=dtype)
     if args.train_steps > 0:
         params = train(params, args, head_dim, vocab, train_mesh)
-    # serving on the first tp ranks: their model coordinates on the
-    # training mesh are the serving mesh's, so their shards carry over
-    serve_mesh = make_nd_mesh(("model",), (args.tp,), range(args.tp))
-    if serve_mesh.coords is None:
-        return None
+    serve_mesh = width = None
+    if procs:
+        # a worker serves at the width of this launch (JAX's worker
+        # meshes every device its process sees); rank 0 spawns the fleet
+        # from the global params
+        width = dist.get_world_size()
+        if width > 1:
+            host = gather_to_numpy(params,
+                                   transformer_lm_specs(params, "model"),
+                                   train_mesh)
+            if dist.get_rank() != 0:
+                return None
+            params = tree_map(host, lambda a: torch.as_tensor(a).to(dtype))
+    else:
+        # serving on the first tp ranks: their model coordinates on the
+        # training mesh are the serving mesh's, so their shards carry over
+        serve_mesh = make_nd_mesh(("model",), (args.tp,), range(args.tp))
+        if serve_mesh.coords is None:
+            return None
     writer = None
-    if args.metrics_out and serve_mesh.coords[0] == 0:
+    if args.metrics_out and dist.get_rank() == 0:
         from chainermn_tpu_torch.observability.export import MetricsWriter
         writer = MetricsWriter(args.metrics_out)
     slo = None
@@ -402,9 +419,11 @@ def run(argv=None, params=None):
             bundle_dir=args.flight_dump_dir, device=device.type,
             worker_kwargs=dict(n_slots=args.n_slots, max_total=max_total,
                                queue_capacity=args.queue_capacity),
-            slo=slo, metrics_writer=writer, tenancy=tenancy)
-        print(f"fleet: spawned {topology} worker process(es), lanes at "
-              f"{lane_dir}", file=sys.stderr)
+            tp=width, slo=slo, metrics_writer=writer, tenancy=tenancy)
+        group = ("" if width == 1 else
+                 f" of {width} ranks each over {fleet.group['backend']}")
+        print(f"fleet: spawned {topology} worker process(es){group}, "
+              f"lanes at {lane_dir}", file=sys.stderr)
         if autoscale_range is not None:
             from chainermn_tpu_torch.serving.autoscale import (
                 AutoscalePolicy, FleetAutoscaler, proc_spawn_factory)
@@ -414,7 +433,8 @@ def run(argv=None, params=None):
                 proc_spawn_factory(
                     lane_dir, os.path.join(lane_dir, "fleet_params.pkl"),
                     beat_interval_s=args.beat_interval_s,
-                    bundle_dir=args.flight_dump_dir, device=device.type),
+                    bundle_dir=args.flight_dump_dir, device=device.type,
+                    tp=width),
                 policies=[AutoscalePolicy(
                     role=role, min_workers=lo, max_workers=hi)
                     for role in topology],
@@ -597,6 +617,8 @@ def run(argv=None, params=None):
         "metrics": {k: round(float(v), 3) for k, v in metrics.items()},
         "goodput": goodput,
     }
+    if fleet is not None and width > 1:
+        summary["fleet_group"] = dict(fleet.group)
     if slo is not None:
         summary["slo"] = slo.status()
     if tenancy is not None:

@@ -629,12 +629,16 @@ def proc_spawn_factory(lane_dir: str, params_file: str, *,
                        journal_dir: Optional[str] = None,
                        env: Optional[Dict[str, str]] = None,
                        device: str = "cuda",
-                       worker_cmd: Optional[List[str]] = None):
+                       worker_cmd: Optional[List[str]] = None,
+                       tp: int = 1):
     """``spawn(name, role)`` for cross-process fleets: execs a real
     worker process over the file lanes (the ``build_proc_fleet``
     spawner) on ``device`` and returns its :class:`WorkerClient`.
-    ``worker_cmd``: the worker entry's argv prefix (see
-    :func:`~chainermn_tpu_torch.serving.fleet.spawn_worker`)."""
+    ``worker_cmd``: the worker entry's argv prefix; ``tp > 1``: the
+    worker is a group of ``tp`` processes, its leader the spawned one
+    (see
+    :func:`~chainermn_tpu_torch.serving.fleet.spawn_worker`).  A
+    scale-down drains the group through its leader."""
     from .fleet import WorkerClient, spawn_worker
     from .lanes import FileLaneStore
 
@@ -645,7 +649,7 @@ def proc_spawn_factory(lane_dir: str, params_file: str, *,
                             beat_interval_s=beat_interval_s,
                             bundle_dir=bundle_dir,
                             journal_dir=journal_dir, device=device,
-                            env=env, worker_cmd=worker_cmd)
+                            env=env, worker_cmd=worker_cmd, tp=tp)
         return WorkerClient(name, role, store, epoch=1, proc=proc)
 
     return spawn

@@ -64,13 +64,16 @@ transfers are plan ops too: a row copy between two engines' pools
 lanes' pack (:meth:`DecodeEngine.pack_slab`: the ranks' columns gathered
 to one global slab, so its bytes and CRC are those of JAX's global pool)
 and landing (:meth:`DecodeEngine.land_slab`: the leader checks the global
-slab, then every rank writes its own columns).  The followers mirror only
+slab, then every rank writes its own columns), and a spilled prefix served
+to another worker (:meth:`DecodeEngine.pack_spilled`: every rank's spilled
+columns gathered into the global slab).  The followers mirror only
 device state (caches and positions); the allocators, queues and
 reservations live on the leader.
 """
 
 from __future__ import annotations
 
+import pickle
 import threading
 import time
 
@@ -173,7 +176,8 @@ class DecodeEngine:
                      "tick": self._tick, "copy": self._copy,
                      "spill": self._spill, "unspill": self._unspill,
                      "restore": self._restore, "xfer": self._xfer,
-                     "pack": self._pack, "land": self._land}
+                     "pack": self._pack, "land": self._land,
+                     "pack_spilled": self._pack_spilled}
         self.prefill_calls = 0
         self._padded_lens = set()
         self.tick_calls = 0
@@ -442,6 +446,43 @@ class DecodeEngine:
                                           for c in kv]))
         parts = [None] * self._axis.size
         dist.all_gather_object(parts, own, group=self._axis.group)
+        return np.concatenate(parts, axis=-1)
+
+    def pack_spilled(self, plane: KvTransferPlane, payload: bytes):
+        """A spilled prefix served to another worker: ``payload`` is the
+        leader's spill-tier slab; at TP > 1 it holds only the leader's
+        columns, so every rank's spilled columns of the same sequence are
+        gathered into the GLOBAL slab (JAX's bytes, its CRC).  Returns
+        None when any rank's payload is missing or refused."""
+        if not self.plan.broadcasting:
+            return payload
+        meta = pickle.loads(payload)["meta"]
+        seq = tuple(int(t) for t in meta["seq"])
+        with self.plan.lock:
+            self.publish(("pack_spilled", (seq,)))
+            host = self._pack_spilled(seq, payload)
+        if host is None:
+            return None
+        return plane.pack_host(host, meta, self.pool.caches[0][0].dtype)
+
+    def _pack_spilled(self, seq, payload=None):
+        """This rank's spilled columns of ``seq``, gathered in rank order
+        (None on every rank when any rank has no good payload)."""
+        if payload is None:
+            payload = self._spilled.get(tuple(seq))
+        own = None
+        if payload is not None:
+            try:
+                data = self.kv_plane.open_payload(
+                    payload, self.pool.n_layers, self.pool.kv_dim,
+                    self.pool.max_total)
+                own = np.stack([a for kv in data["rows"] for a in kv])
+            except ValueError:
+                own = None
+        parts = [None] * self._axis.size
+        dist.all_gather_object(parts, own, group=self._axis.group)
+        if any(p is None for p in parts):
+            return None
         return np.concatenate(parts, axis=-1)
 
     def land_slab(self, plane: KvTransferPlane, payload: bytes,

@@ -42,11 +42,17 @@ slab through the decode worker's own loop.
 unless the caller passes ``device="cpu"``; the kernels are built once in
 the parent before any worker starts), :func:`build_local_fleet` runs them
 in this process over the loopback store, and :func:`rolling_upgrade`
-installs a new weight generation worker by worker.
+installs a new weight generation worker by worker.  At ``tp > 1`` each
+worker of a process fleet is a group of ``tp`` processes (see
+``worker.py``): the spawned process is its leader, which starts the
+followers; a :class:`WorkerClient`'s process and exit code are the
+leader's, nonzero when any rank's was, and the lease, the mailboxes, the
+epoch and its fence are the leader's alone.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import random
@@ -71,7 +77,7 @@ from .lanes import MailboxReceiver, MailboxSender
 from .router import RouterBase
 from .scheduler import AdmissionError, Request
 from .transfer import slab_nbytes, transfer_cost
-from .worker import SERVING_SOURCES, ctl_mailbox, out_mailbox
+from .worker import SERVING_SOURCES, ctl_mailbox, group_backend, out_mailbox
 
 
 def submit_with_retry(submit: Callable[..., Any], *args,
@@ -224,6 +230,12 @@ class FleetRouter(RouterBase):
         #: drives its control loop, metrics() carries its counters and the
         #: fleet_health provider its view
         self.autoscaler = None
+        #: the workers' model groups: width and process-group backend
+        #: (``build_proc_fleet`` sets them; one rank a worker otherwise)
+        self.group: Dict[str, Any] = {"tp": 1, "backend": None}
+        #: a process fleet's spawn settings (``build_proc_fleet``), which
+        #: :func:`rolling_upgrade` spawns its replacements with
+        self.spawn: Optional[Dict[str, Any]] = None
         self.lane_config = lane_config
         self.fence = EpochFence()
         # the health.py read face: schema-checks every lease payload
@@ -1702,19 +1714,25 @@ def spawn_worker(lane_dir: str, params_file: str, name: str, role: str,
                  device: str = "cuda",
                  env: Optional[Dict[str, str]] = None,
                  stdout=None,
-                 worker_cmd: Optional[Sequence[str]] = None
-                 ) -> subprocess.Popen:
+                 worker_cmd: Optional[Sequence[str]] = None,
+                 tp: int = 1) -> subprocess.Popen:
     """Exec one worker process (a detached role loop over the file lanes)
     on ``device``.  ``worker_cmd`` is the argv prefix that runs the
     worker's entry (default ``python -m chainermn_tpu_torch.serving
     .worker``); a wrapper must pass the remaining arguments to
-    :func:`~chainermn_tpu_torch.serving.worker.main`."""
-    cmd = list(worker_cmd or [sys.executable, "-m",
-                              "chainermn_tpu_torch.serving.worker"])
-    cmd += ["--name", name, "--role", role, "--lane-dir", lane_dir,
-            "--params", params_file, "--epoch", str(epoch),
-            "--beat-interval-s", str(beat_interval_s),
-            "--device", str(device)]
+    :func:`~chainermn_tpu_torch.serving.worker.main`.  At ``tp > 1`` the
+    process leads a group of ``tp`` ranks (over
+    :func:`~chainermn_tpu_torch.serving.worker.group_backend`'s backend)
+    and starts its followers through the same ``worker_cmd``; the
+    returned ``Popen`` is the leader's."""
+    prefix = list(worker_cmd or [sys.executable, "-m",
+                                 "chainermn_tpu_torch.serving.worker"])
+    cmd = prefix + [
+        "--name", name, "--role", role, "--lane-dir", lane_dir,
+        "--params", params_file, "--epoch", str(epoch),
+        "--beat-interval-s", str(beat_interval_s), "--device", str(device)]
+    if int(tp) > 1:
+        cmd += ["--tp", str(int(tp)), "--rank-cmd", json.dumps(prefix)]
     if bundle_dir:
         cmd += ["--bundle-dir", bundle_dir]
     if journal_dir:
@@ -1762,6 +1780,7 @@ def build_proc_fleet(params, topology: Dict[str, Any], lane_dir: str, *,
                      env: Optional[Dict[str, str]] = None,
                      device: str = "cuda",
                      worker_cmd: Optional[Sequence[str]] = None,
+                     tp: int = 1,
                      **router_kwargs) -> FleetRouter:
     """Spawn and wire a cross-process gang: ``topology`` maps role →
     count (``{"engine": N}`` for ``serve --fleet-procs N``,
@@ -1776,13 +1795,18 @@ def build_proc_fleet(params, topology: Dict[str, Any], lane_dir: str, *,
     with :meth:`FleetRouter.shutdown`.  ``journal_dir`` turns on the
     causal HLC journal in this process and every spawned worker (merge
     with :func:`~chainermn_tpu_torch.observability.journal
-    .merge_journals`).  ``worker_cmd``: see :func:`spawn_worker`."""
+    .merge_journals`).  ``worker_cmd``: see :func:`spawn_worker`.
+    ``tp > 1``: every worker is a group of ``tp`` processes over
+    :func:`~chainermn_tpu_torch.serving.worker.group_backend`'s backend
+    (the router's ``group`` names it), the params sharded by each rank at
+    load; the workers' leaders hold the leases."""
     from .._device import resolve_device
     from .lanes import FileLaneStore
 
     if resolve_device(device).type == "cuda":
         from ..ops import _build
         _build.build(SERVING_SOURCES)
+    backend = group_backend(device, tp) if int(tp) > 1 else None
     os.makedirs(lane_dir, exist_ok=True)
     if journal_dir:
         _journal.configure(journal_dir, "router")
@@ -1815,14 +1839,20 @@ def build_proc_fleet(params, topology: Dict[str, Any], lane_dir: str, *,
                                 epoch=1, beat_interval_s=beat_interval_s,
                                 bundle_dir=bundle_dir,
                                 journal_dir=journal_dir, device=device,
-                                env=env, worker_cmd=worker_cmd)
+                                env=env, worker_cmd=worker_cmd, tp=tp)
             clients.append(WorkerClient(name, role, store, epoch=1,
                                         proc=proc,
                                         model_id=mid or "default"))
-        return FleetRouter(clients, store,
-                           beat_interval_s=beat_interval_s,
-                           miss_beats=miss_beats, bundle_dir=bundle_dir,
-                           **router_kwargs)
+        router = FleetRouter(clients, store,
+                             beat_interval_s=beat_interval_s,
+                             miss_beats=miss_beats, bundle_dir=bundle_dir,
+                             **router_kwargs)
+        router.group = {"tp": int(tp), "backend": backend}
+        router.spawn = dict(lane_dir=lane_dir, device=device, env=env,
+                            worker_cmd=worker_cmd, bundle_dir=bundle_dir,
+                            journal_dir=journal_dir, tp=int(tp),
+                            worker_kwargs=dict(worker_kwargs or {}))
+        return router
     except BaseException:
         for wc in clients:       # no orphaned worker on a failed build
             wc.proc.kill()
@@ -1883,7 +1913,7 @@ def build_local_fleet(params, topology: Dict[str, Any], *,
     return router, runtimes
 
 
-def rolling_upgrade(router: FleetRouter, runtimes: List[Any],
+def rolling_upgrade(router: FleetRouter, runtimes: Optional[List[Any]],
                     checkpoint_shards, src_layout, *,
                     generation: int, head_dim: int,
                     model_id: Optional[str] = None,
@@ -1912,14 +1942,19 @@ def rolling_upgrade(router: FleetRouter, runtimes: List[Any],
        (in-flight work finishes on the old weights; nothing is shed —
        the drain discipline).
 
-    In-process fleets only (``runtimes`` of
+    In-process fleets (``runtimes`` of
     :class:`~chainermn_tpu_torch.serving.worker.WorkerRuntime`;
     ``worker_kwargs`` carry their ``device=``): each
     replacement runs on a daemon thread and is appended to
-    ``runtimes``.  Safe with a started router thread (the same
-    concurrent-``step`` contract as :meth:`FleetRouter.wait_drained`).
-    Returns ``{generation, upgraded: [{old, new}...], drain_shed,
-    rejected_delta}`` — the acceptance gates ``drain_shed == 0``.
+    ``runtimes``.  A process fleet (``runtimes=None``, the router of
+    :func:`build_proc_fleet`): each replacement is spawned as the
+    originals were (its device, its command and, at TP > 1, a whole
+    group of processes) from a params file of the new generation in the
+    lane directory, and the old group drains and exits.  Safe with a
+    started router thread (the same concurrent-``step`` contract as
+    :meth:`FleetRouter.wait_drained`).  Returns ``{generation, upgraded:
+    [{old, new}...], drain_shed, rejected_delta}`` — the acceptance gates
+    ``drain_shed == 0``.
     """
     import threading as _threading
 
@@ -1938,25 +1973,45 @@ def rolling_upgrade(router: FleetRouter, runtimes: List[Any],
             f"{generation}"
             + (f" for model {model_id!r}" if model_id else ""))
     targets.sort(key=lambda w: (w.weights_generation, w.name))
+    beat = (router.beat_interval_s if beat_interval_s is None
+            else float(beat_interval_s))
+    sp = router.spawn
+    if runtimes is None and sp is None:
+        raise ValueError("rolling_upgrade without runtimes upgrades a "
+                         "process fleet (build_proc_fleet's router)")
+    files: Dict[str, str] = {}
     m0 = router.metrics()
     upgraded = []
     for old in targets:
         new_name = f"{old.name}.g{int(generation)}"
-        rt = WorkerRuntime(
-            new_name, old.role, new_params, router.store,
-            head_dim=int(head_dim), epoch=1,
-            beat_interval_s=(router.beat_interval_s
-                             if beat_interval_s is None
-                             else float(beat_interval_s)),
-            model_id=old.model_id,
-            weights_generation=int(generation),
-            **(worker_kwargs or {}))
-        _threading.Thread(target=rt.run, daemon=True,
-                          name=f"upgrade-{new_name}").start()
-        runtimes.append(rt)
+        if runtimes is None:
+            if old.model_id not in files:
+                files[old.model_id] = write_params_file(
+                    os.path.join(sp["lane_dir"], f"fleet_params."
+                                 f"{old.model_id}.g{int(generation)}.pkl"),
+                    new_params, head_dim=int(head_dim),
+                    model_id=old.model_id,
+                    weights_generation=int(generation),
+                    **dict(sp["worker_kwargs"], **(worker_kwargs or {})))
+            proc = spawn_worker(
+                sp["lane_dir"], files[old.model_id], new_name, old.role,
+                epoch=1, beat_interval_s=beat, bundle_dir=sp["bundle_dir"],
+                journal_dir=sp["journal_dir"], device=sp["device"],
+                env=sp["env"], worker_cmd=sp["worker_cmd"], tp=sp["tp"])
+        else:
+            proc = None
+            rt = WorkerRuntime(
+                new_name, old.role, new_params, router.store,
+                head_dim=int(head_dim), epoch=1, beat_interval_s=beat,
+                model_id=old.model_id,
+                weights_generation=int(generation),
+                **(worker_kwargs or {}))
+            _threading.Thread(target=rt.run, daemon=True,
+                              name=f"upgrade-{new_name}").start()
+            runtimes.append(rt)
         router.add_worker(WorkerClient(new_name, old.role, router.store,
                                        epoch=1, lane_config=router.lane_config,
-                                       model_id=old.model_id))
+                                       proc=proc, model_id=old.model_id))
         deadline = time.monotonic() + float(timeout_s)
         while router.workers[new_name].state != "live":
             router.step()

@@ -37,12 +37,36 @@ uint32 words, the threefry key itself.
 execs; it initialises the card and loads the serving kernels before its
 first lease.  :class:`WorkerRuntime` is transport-agnostic, so tests drive
 the same loop in one process over the loopback store.
+
+**A worker at TP > 1 is a group of processes** (``--tp T``).  JAX's
+worker builds its mesh over every device its one process sees; here a
+model rank is a process, so the spawned process is the group's leader
+(model rank 0): it starts T - 1 followers (the same entry with
+``--group-rank r``), they all join the group's own ``torch.distributed``
+process group (a ``FileStore`` rendezvous in the lane directory, keyed by
+the worker's name and epoch, so a restarted group never meets a stale
+store), and each rank shards the full CPU params to its own columns at
+load.  The leader runs :class:`WorkerRuntime` (lease, lanes, journal) on
+one :class:`~chainermn_tpu_torch.serving.engine.ModelPlan` over the
+group's model axis; a follower builds the same engines with its columns
+and runs the leader's device calls (:func:`follow_worker`), holding no
+lease and writing no lane message and no journal entry.  The backend is
+:func:`group_backend`'s: NCCL when each rank has its own card, gloo on the
+CPU and for ranks that share a card.  Fate is shared both ways: the
+leader's heartbeat thread polls its followers before every beat and, once
+one is gone, stops beating and exits :data:`GROUP_LOST_RC` (so its lease
+expires and its requests fail over); a follower dies with its leader
+(``PR_SET_PDEATHSIG``, and a watch on its parent's pid every
+:data:`LEADER_WATCH_S` seconds as a second line).  A drain ends with the
+plan's stop, so every rank exits 0, and the leader's exit code is nonzero
+when any follower's is.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -60,6 +84,33 @@ SERVING_SOURCES = ("flash_fwd", "kv_cache", "decode_attention",
                    "beam_attention")
 
 ROLES = ("engine", "prefill", "decode")
+
+#: the leader's exit code once a follower of its group is gone
+GROUP_LOST_RC = 3
+#: a follower's poll of its leader's pid (the second line after
+#: ``PR_SET_PDEATHSIG``): it exits within this long of the leader's death
+LEADER_WATCH_S = 0.1
+#: the group's collective timeout: a follower idles in the plan's
+#: broadcast while its leader has no work, so liveness rides the pid
+#: checks, not this
+GROUP_TIMEOUT_S = 24 * 3600.0
+#: how long a drained leader waits for its released followers to exit
+FOLLOWER_EXIT_S = 30.0
+
+
+def group_backend(device, width: int) -> str:
+    """The process-group backend of a worker group of ``width`` ranks on
+    ``device``: NCCL when each rank has its own card, gloo on the CPU and
+    when the ranks share cards (NCCL refuses two ranks of one communicator
+    on one device)."""
+    import torch
+
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= int(width):
+        return "nccl"
+    return "gloo"
 
 
 def ctl_mailbox(worker: str) -> str:
@@ -95,21 +146,49 @@ def request_from_wire(wire: Dict[str, Any], *, on_token=None) -> Request:
     return req
 
 
-def _refuse_tp(mesh, axis_name: str) -> None:
-    """A worker whose mesh has a model axis wider than one rank is not
-    ported: in the port each model rank is a process following its
-    leader's plan, so every worker process would have to be its own group
-    of model ranks with its own leader, a design of its own (JAX's worker
-    builds a mesh over whatever devices its one process sees)."""
-    if mesh is None:
-        return
-    size = (mesh.shape[axis_name] if hasattr(mesh, "shape")
-            else mesh.size)
-    if size > 1:
-        raise NotImplementedError(
-            f"a fleet worker process at TP = {size} is not ported: each "
-            f"worker would need its own group of model-rank processes "
-            f"with its own leader (ROADMAP.md, queue A, A11 step 3c)")
+def build_role(role: str, params, *, head_dim: int, n_slots: int = 4,
+               max_total: int = 128, queue_capacity: int = 16,
+               staging_slots: int = 2, max_prefills_per_tick: int = 1,
+               prefill_bucket: int = 1, mesh=None,
+               axis_name: str = "model", prefix_cache: bool = True,
+               spill_bytes: int = 32 << 20, device="cuda", plan=None):
+    """A role's engines: ``(engine, dec_engine, pool, scheduler)``, where
+    ``engine`` is the :class:`~chainermn_tpu_torch.serving.frontend
+    .ServingEngine` of an ``engine`` or ``decode`` worker (None for
+    ``prefill``) and ``dec_engine`` its device half, or the staging pool's
+    :class:`~chainermn_tpu_torch.serving.engine.DecodeEngine` of a
+    ``prefill`` worker.  Every rank of a worker group builds the same
+    ones, with its own columns (``params`` this rank's shards under
+    ``mesh``) on the group's one ``plan``."""
+    if role in ("engine", "decode"):
+        from .frontend import ServingEngine
+        engine = ServingEngine(
+            params, head_dim=head_dim, n_slots=n_slots,
+            max_total=max_total, mesh=mesh, axis_name=axis_name,
+            queue_capacity=(queue_capacity if role == "engine" else 1),
+            max_prefills_per_tick=max_prefills_per_tick,
+            prefill_bucket=prefill_bucket,
+            prefix_cache=(prefix_cache and role == "engine"),
+            spill_bytes=(spill_bytes if role == "engine" else 0),
+            device=device, plan=plan)
+        return engine, engine.engine, engine.pool, engine.scheduler
+    from .._device import resolve_device
+    from ..convert import tree_map
+    from ..parallel.decode import _kv_heads
+    from .cache_pool import CachePool
+    from .engine import DecodeEngine
+    dev = resolve_device(device)
+    params = tree_map(params, lambda t: t.to(dev))
+    n_kv = _kv_heads(params, head_dim)
+    pool = CachePool(staging_slots, max_total, len(params["blocks"]),
+                     n_kv * head_dim, params["embed"].dtype, dev)
+    dec_engine = DecodeEngine(params, pool, mesh, axis_name,
+                              head_dim=head_dim,
+                              prefill_bucket=prefill_bucket, plan=plan)
+    scheduler = Scheduler(queue_capacity, max_total,
+                          max_prefills_per_tick=max_prefills_per_tick,
+                          max_positions=dec_engine.max_positions)
+    return None, dec_engine, pool, scheduler
 
 
 class WorkerRuntime:
@@ -120,8 +199,13 @@ class WorkerRuntime:
     discipline).  ``params`` are the model's tensors, moved to ``device``.
     ``kill()`` is the chaos face: the runtime stops doing any work,
     heartbeats included, so to the supervisor it looks like a SIGKILLed
-    process.  A mesh whose model axis spans more than one rank is refused
-    (:func:`_refuse_tp`: ROADMAP.md, queue A, A11 step 3c).
+    process.  With ``mesh`` (a model axis of T ranks; ``params`` this
+    rank's shards) the runtime is its group's leader: every device call
+    goes out on ``plan`` (default: one of its own over the model axis),
+    which the followers run (:func:`follow_worker`); the lanes' slabs are
+    the GLOBAL ones (the ranks' columns gathered on a pack, each rank's
+    columns written on a landing).  ``followers``: the follower processes
+    (``Popen``) whose death ends this worker (see the module's notes).
     """
 
     def __init__(self, name: str, role: str, params, store, *,
@@ -137,10 +221,10 @@ class WorkerRuntime:
                  spill_bytes: int = 32 << 20,
                  model_id: str = "default",
                  weights_generation: int = 1,
-                 device="cuda"):
+                 device="cuda", plan=None,
+                 followers: Optional[List[Any]] = None):
         if role not in ROLES:
             raise ValueError(f"role must be one of {ROLES}, got {role!r}")
-        _refuse_tp(mesh, axis_name)
         self.name = str(name)
         self.role = str(role)
         # heterogeneous-fleet identity: which model variant
@@ -174,45 +258,30 @@ class WorkerRuntime:
             "pull_serves": 0, "pull_stale": 0, "pull_installs": 0,
             "crc_refusals": 0}
 
-        if role in ("engine", "decode"):
-            from .frontend import ServingEngine
-            self.engine = ServingEngine(
-                params, head_dim=head_dim, n_slots=n_slots,
-                max_total=max_total, axis_name=axis_name,
-                queue_capacity=(queue_capacity if role == "engine" else 1),
-                max_prefills_per_tick=max_prefills_per_tick,
-                prefill_bucket=prefill_bucket,
-                prefix_cache=(prefix_cache and role == "engine"),
-                spill_bytes=(spill_bytes if role == "engine" else 0),
-                device=device)
-            self.pool = self.engine.pool
-            self.scheduler = self.engine.scheduler
-            if self.engine.prefix_cache is not None:
-                # announce every cache lifecycle event over the wire:
-                # the router's global index mirrors this worker's trie
-                self.engine.on_cache_insert = self._announce_insert
-                self.engine.on_cache_evict = self._announce_evict
-                self.engine.on_spill_evict = self._announce_spill_evict
-        else:  # prefill: a staging pool and the prefill path only
-            from .._device import resolve_device
-            from ..convert import tree_map
-            from ..parallel.decode import _kv_heads
-            from .cache_pool import CachePool
-            from .engine import DecodeEngine
-            dev = resolve_device(device)
-            params = tree_map(params, lambda t: t.to(dev))
-            n_kv = _kv_heads(params, head_dim)
-            self.pool = CachePool(
-                staging_slots, max_total, len(params["blocks"]),
-                n_kv * head_dim, params["embed"].dtype, dev)
-            self.dec_engine = DecodeEngine(
-                params, self.pool, None, axis_name, head_dim=head_dim,
-                prefill_bucket=prefill_bucket)
-            self.scheduler = Scheduler(
-                queue_capacity, max_total,
-                max_prefills_per_tick=max_prefills_per_tick,
-                max_positions=self.dec_engine.max_positions)
-            self.engine = None
+        # the model group: one plan over its model axis (T = 1: none)
+        self.tp = 1 if mesh is None else int(mesh.shape[axis_name])
+        if plan is None and mesh is not None:
+            from .engine import ModelPlan
+            plan = ModelPlan(mesh.axis(axis_name))
+        self.plan = plan
+        self.followers = list(followers or [])
+        #: the group's width, backend and pids (the leader's first), on
+        #: every lease of a worker at TP > 1
+        self.group: Optional[Dict[str, Any]] = None
+        self.engine, self.dec_engine, self.pool, self.scheduler = \
+            build_role(role, params, head_dim=head_dim, n_slots=n_slots,
+                       max_total=max_total, queue_capacity=queue_capacity,
+                       staging_slots=staging_slots,
+                       max_prefills_per_tick=max_prefills_per_tick,
+                       prefill_bucket=prefill_bucket, mesh=mesh,
+                       axis_name=axis_name, prefix_cache=prefix_cache,
+                       spill_bytes=spill_bytes, device=device, plan=plan)
+        if self.engine is not None and self.engine.prefix_cache is not None:
+            # announce every cache lifecycle event over the wire: the
+            # router's global index mirrors this worker's trie
+            self.engine.on_cache_insert = self._announce_insert
+            self.engine.on_cache_evict = self._announce_evict
+            self.engine.on_spill_evict = self._announce_spill_evict
 
     # ---- outbound (every message stamped worker + epoch) ----
     def _send(self, kind: str, **fields) -> None:
@@ -229,7 +298,8 @@ class WorkerRuntime:
         """Slab geometry the router needs to price a pull of this
         worker's prefixes in token units (transfer_cost statics)."""
         pool = self.engine.pool
-        return {"n_layers": pool.n_layers, "kv_dim": pool.kv_dim,
+        # the GLOBAL slab's width: every rank holds kv_dim / T columns
+        return {"n_layers": pool.n_layers, "kv_dim": pool.kv_dim * self.tp,
                 "dtype": _dtype_name(pool.caches[0][0].dtype),
                 "model_id": self.model_id}
 
@@ -392,7 +462,7 @@ class WorkerRuntime:
             return
         try:
             payload = self.plane.lane_get(tag, self.lane_timeout_s)
-            stats = self.plane.unpack_into(payload, self.engine.pool, slot)
+            stats = self.dec_engine.land_slab(self.plane, payload, slot)
         except DcnLaneError as e:
             self.engine.pool.cancel_reservation(slot)
             _flight.note("worker", event="install_fault", worker=self.name,
@@ -429,15 +499,19 @@ class WorkerRuntime:
             entry = eng.prefix_cache.pin_covering(seq)
             if entry is not None:
                 try:
-                    payload = self.plane.pack(
-                        eng.pool, entry.slot, len(seq),
-                        meta={"seq": seq, "length": len(seq)})
+                    payload = self.dec_engine.pack_slab(
+                        self.plane, entry.slot, len(seq),
+                        {"seq": seq, "length": len(seq)})
                 finally:
                     eng.prefix_cache.release(entry)
             elif eng.spill is not None:
                 # demoted to the host tier: the spilled payload is
-                # already packed and CRC-stamped — serve it directly
+                # already packed and CRC-stamped — serve it directly (at
+                # TP > 1 with every rank's columns gathered to it)
                 payload = eng.spill.covering(seq)
+                if payload is not None:
+                    payload = self.dec_engine.pack_spilled(self.plane,
+                                                           payload)
         if payload is None:
             self.cache_counters["pull_stale"] += 1
             _flight.note("worker", event="pull_stale", worker=self.name,
@@ -497,7 +571,7 @@ class WorkerRuntime:
                        reason="lane_fault", lane=e.lane)
             return
         try:
-            stats = self.plane.unpack_into(payload, pool, slot)
+            stats = self.dec_engine.land_slab(self.plane, payload, slot)
         except ValueError as e:
             # corrupt/foreign slab REFUSED (CRC/schema/shape): count,
             # free the reservation, let the router fall back to a
@@ -573,8 +647,8 @@ class WorkerRuntime:
             }
             tag = f"slab/{req.trace_id}"
             try:
-                payload = self.plane.pack(self.pool, slot, length,
-                                          meta=meta)
+                payload = self.dec_engine.pack_slab(self.plane, slot,
+                                                    length, meta)
                 self.plane.lane_put(tag, payload)
             except DcnLaneError as e:
                 self.pool.release(slot)
@@ -606,6 +680,12 @@ class WorkerRuntime:
                        ttft_ms=h.ttft_ms)
 
     def _lease_state(self) -> Dict[str, Any]:
+        state = self._role_state()
+        if self.group is not None:
+            state["group"] = self.group
+        return state
+
+    def _role_state(self) -> Dict[str, Any]:
         step_age = time.monotonic() - self._t_last_step
         if self.role == "prefill":
             queued = self.scheduler.queued_requests()
@@ -682,6 +762,10 @@ class WorkerRuntime:
 
         def loop():
             while not self.finished:
+                if self.followers:
+                    # the group's liveness gates the beat: no lease for
+                    # a leader whose follower is gone
+                    self._check_followers()
                 if not self.killed:
                     try:
                         self.heart.maybe_beat(**self._lease_state())
@@ -692,6 +776,28 @@ class WorkerRuntime:
         self._beat_thread = threading.Thread(
             target=loop, daemon=True, name=f"heartbeat-{self.name}")
         self._beat_thread.start()
+
+    def _check_followers(self) -> None:
+        """Leader: once any follower has exited, stop beating and end the
+        process with :data:`GROUP_LOST_RC` (its main thread may be blocked
+        in a collective with the dead rank), taking the other followers
+        down first.  The lease then expires and the router fails the
+        group's requests over."""
+        lost = [(p.pid, p.poll()) for p in self.followers
+                if p.poll() is not None]
+        if not lost:
+            return
+        self.killed = True
+        _flight.note("worker", event="group_lost", worker=self.name,
+                     followers=lost)
+        import sys
+        print(f"[chainermn_tpu_torch worker] {self.name}: follower(s) "
+              f"{lost} (pid, exit) gone; the group exits "
+              f"{GROUP_LOST_RC}", file=sys.stderr, flush=True)
+        for p in self.followers:
+            if p.poll() is None:
+                p.kill()
+        os._exit(GROUP_LOST_RC)
 
     @property
     def idle(self) -> bool:
@@ -739,19 +845,26 @@ class WorkerRuntime:
 
     def run(self, poll_s: float = 0.002) -> int:
         """Drive :meth:`step` until drained/stopped; returns exit code
-        0 (the graceful-drain acceptance: a drained worker EXITS 0)."""
+        0 (the graceful-drain acceptance: a drained worker EXITS 0).  A
+        group's followers are released at the end, also when the loop
+        raises."""
         self.start_heartbeat()
-        while not self.finished:
-            if self.step() == 0:
-                time.sleep(poll_s)
-        if self._beat_thread is not None:
-            # join before interpreter teardown: a daemon thread dying
-            # mid-shutdown inside a lane write can abort the process
-            self._beat_thread.join(timeout=2 * self.heart.beat_interval_s
-                                   + 1.0)
-            self._beat_thread = None
-        if self.engine is not None:
-            self.engine.close()
+        try:
+            while not self.finished:
+                if self.step() == 0:
+                    time.sleep(poll_s)
+        finally:
+            self.finished = True
+            if self._beat_thread is not None:
+                # join before interpreter teardown: a daemon thread dying
+                # mid-shutdown inside a lane write can abort the process
+                self._beat_thread.join(
+                    timeout=2 * self.heart.beat_interval_s + 1.0)
+                self._beat_thread = None
+            if self.engine is not None:
+                self.engine.close()
+            if self.plan is not None:
+                self.plan.stop()
         return 0
 
     def kill(self) -> None:
@@ -810,15 +923,108 @@ def warm_device(device, dtype) -> "object":
     return dev
 
 
+def _die_with_parent(leader_pid: int) -> None:
+    """Follower: be killed when the leader that spawned it dies
+    (``PR_SET_PDEATHSIG`` on Linux), and, as a second line, exit once the
+    parent's pid is no longer ``leader_pid`` (polled every
+    :data:`LEADER_WATCH_S` seconds on a daemon thread)."""
+    import signal
+    import sys
+    import threading
+
+    if sys.platform.startswith("linux"):
+        import ctypes
+        prctl = ctypes.CDLL(None, use_errno=True).prctl
+        prctl.argtypes = [ctypes.c_int] + [ctypes.c_ulong] * 4
+        prctl.restype = ctypes.c_int
+        # PR_SET_PDEATHSIG (1); should it fail, the watch below still holds
+        prctl(1, int(signal.SIGKILL), 0, 0, 0)
+
+    def watch():
+        while True:
+            if os.getppid() != leader_pid:
+                os._exit(GROUP_LOST_RC)
+            time.sleep(LEADER_WATCH_S)
+
+    if os.getppid() != leader_pid:      # the leader died before prctl
+        os._exit(GROUP_LOST_RC)
+    threading.Thread(target=watch, daemon=True, name="leader-watch").start()
+
+
+def _group_store(lane_dir: str, name: str, epoch: int) -> str:
+    """The worker group's rendezvous file: under the lane directory, keyed
+    by worker name and epoch."""
+    return os.path.join(lane_dir, f"group.{name}.e{epoch}.store")
+
+
+def _join_group(path: str, rank: int, width: int, backend: str):
+    """Join the worker group's own process group (the ``FileStore`` at
+    ``path``) and return its ``('model',)`` mesh.  ``backend`` is used as
+    given: a group that cannot come up on it fails the worker."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ..topology import make_nd_mesh
+
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl" if backend == "nccl" else backend,
+        init_method=f"file://{path}", rank=rank, world_size=width,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    return make_nd_mesh(("model",), (width,))
+
+
+def _spawn_followers(rank_cmd, argv, width: int) -> List[Any]:
+    """Leader: start ranks 1 .. width - 1 of its group (the same entry
+    and arguments, ``--group-rank r`` and the leader's pid appended)."""
+    import subprocess
+
+    return [subprocess.Popen(
+        [*rank_cmd, *argv, "--group-rank", str(r),
+         "--leader-pid", str(os.getpid())], stdout=subprocess.DEVNULL)
+        for r in range(1, width)]
+
+
+def follow_worker(role: str, params, mesh, *, head_dim: int,
+                  axis_name: str = "model", device="cuda",
+                  **kwargs) -> int:
+    """A follower rank of a worker group: build the role's engines with
+    this rank's columns (``params`` its shards of ``mesh``) on one plan
+    over the model axis, run the leader's device calls until its stop,
+    and return the number of calls run.  It holds no lease and sends no
+    lane message."""
+    from .engine import ModelPlan
+
+    keep = ("n_slots", "max_total", "queue_capacity", "staging_slots",
+            "max_prefills_per_tick", "prefill_bucket", "prefix_cache",
+            "spill_bytes")
+    plan = ModelPlan(mesh.axis(axis_name))
+    engine, _, _, _ = build_role(
+        role, params, head_dim=head_dim, mesh=mesh, axis_name=axis_name,
+        device=device, plan=plan,
+        **{k: v for k, v in kwargs.items() if k in keep})
+    try:
+        return plan.follow()
+    finally:
+        if engine is not None:
+            engine.retire()
+
+
 def main(argv=None) -> int:
     """Process entry: build the role loop from a pickled params file and
     run it over a :class:`~chainermn_tpu_torch.serving.lanes.FileLaneStore`
     on ``--device``.  The fleet spawner (``serving/fleet.py ::
     spawn_worker``) execs this; the ready line on stderr names the
-    device."""
+    device (and, at ``--tp`` > 1, the rank and the group's backend).
+    With ``--tp T`` > 1 this process leads a group of T ranks: it starts
+    the followers with ``--rank-cmd`` (the argv prefix that runs this
+    entry) and its own arguments; a follower (``--group-rank r``) runs
+    :func:`follow_worker`.  The leader exits nonzero when any follower
+    did."""
     import argparse
-    import os
+    import json
     import pickle
+    import subprocess
     import sys
 
     parser = argparse.ArgumentParser(
@@ -839,32 +1045,122 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
-    args = parser.parse_args(argv)
+    parser.add_argument("--tp", type=int, default=1,
+                        help="model-axis width: this worker is a group of "
+                             "TP processes, this one its leader")
+    parser.add_argument("--rank-cmd", default=None,
+                        help="JSON argv prefix that runs this entry, for "
+                             "the followers (default: python -m "
+                             "chainermn_tpu_torch.serving.worker)")
+    parser.add_argument("--group-rank", type=int, default=0,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--leader-pid", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    raw = list(sys.argv[1:] if argv is None else argv)
+    args = parser.parse_args(raw)
+    rank, width = args.group_rank, max(args.tp, 1)
+    if rank > 0:
+        _die_with_parent(args.leader_pid)
 
-    if args.journal_dir:
+    if args.journal_dir and rank == 0:
         from ..observability import journal
         journal.configure(args.journal_dir, args.name)
 
     from .lanes import FileLaneStore
 
-    with open(args.params, "rb") as f:
-        spec = pickle.load(f)
-    params = spec.pop("params")
-    dev = warm_device(args.device, params["embed"].dtype)
-    if args.bundle_dir:
-        from .. import global_except_hook
-        from ..observability import flight
-        flight.install_signal_handlers(args.bundle_dir)
-        global_except_hook.add_hook()
-    store = FileLaneStore(args.lane_dir)
-    runtime = WorkerRuntime(
-        args.name, args.role, params, store, epoch=args.epoch,
-        beat_interval_s=args.beat_interval_s,
-        bundle_dir=args.bundle_dir, device=dev, **spec)
-    print(f"[chainermn_tpu_torch worker] {args.name} role={args.role} "
-          f"epoch={args.epoch} device={dev} pid={os.getpid()} ready",
-          file=sys.stderr, flush=True)
-    return runtime.run()
+    followers, mesh, backend = [], None, None
+    store = _group_store(args.lane_dir, args.name, args.epoch)
+    if width > 1:
+        backend = group_backend(args.device, width)
+        if rank == 0:
+            if os.path.exists(store):       # a stale incarnation's
+                os.remove(store)
+            rank_cmd = (json.loads(args.rank_cmd) if args.rank_cmd else
+                        [sys.executable, "-m",
+                         "chainermn_tpu_torch.serving.worker"])
+            followers = _spawn_followers(rank_cmd, raw, width)
+    device = args.device
+    if backend == "nccl":
+        device = f"cuda:{rank}"      # a card a rank
+    try:
+        with open(args.params, "rb") as f:
+            spec = pickle.load(f)
+        params = spec.pop("params")
+        dev = warm_device(device, params["embed"].dtype)
+        if width > 1:
+            mesh = _join_group(store, rank, width, backend)
+            from ..convert import shard_from_jax
+            from ..parallel import transformer_lm_specs
+            params = shard_from_jax(params,
+                                    transformer_lm_specs(params, "model"),
+                                    mesh, device=dev)
+        group = ("" if width == 1 else
+                 f" rank={rank}/{width} backend={backend}")
+        if rank > 0:
+            print(f"[chainermn_tpu_torch worker] {args.name} role="
+                  f"{args.role} epoch={args.epoch} device={dev} "
+                  f"pid={os.getpid()}{group} ready", file=sys.stderr,
+                  flush=True)
+            try:
+                follow_worker(args.role, params, mesh, device=dev, **spec)
+            except Exception:
+                # the group is broken: leave at once (tearing down a group
+                # with a collective in flight can block), so the leader
+                # sees the loss
+                import traceback
+                traceback.print_exc()
+                sys.stderr.flush()
+                os._exit(GROUP_LOST_RC)
+            return 0
+        if args.bundle_dir:
+            from .. import global_except_hook
+            from ..observability import flight
+            flight.install_signal_handlers(args.bundle_dir)
+            global_except_hook.add_hook()
+        runtime = WorkerRuntime(
+            args.name, args.role, params, FileLaneStore(args.lane_dir),
+            epoch=args.epoch,
+            beat_interval_s=args.beat_interval_s,
+            bundle_dir=args.bundle_dir, device=dev, mesh=mesh,
+            followers=followers, **spec)
+        if width > 1:
+            runtime.group = {"tp": width, "backend": backend,
+                             "pids": [os.getpid()]
+                             + [p.pid for p in followers]}
+        print(f"[chainermn_tpu_torch worker] {args.name} role={args.role} "
+              f"epoch={args.epoch} device={dev} pid={os.getpid()}{group} "
+              f"ready", file=sys.stderr, flush=True)
+        rc = runtime.run()
+    except BaseException as e:
+        lost = [(p.pid, p.poll()) for p in followers if p.poll() is not None]
+        for p in followers:
+            if p.poll() is None:
+                p.kill()
+        if not (lost and isinstance(e, Exception)):
+            raise
+        # a collective with a dead rank failed before the heartbeat
+        # thread saw it: the same end, a lost group, without the
+        # interpreter's teardown
+        print(f"[chainermn_tpu_torch worker] {args.name}: follower(s) "
+              f"{lost} (pid, exit) gone ({type(e).__name__}); the group "
+              f"exits {GROUP_LOST_RC}", file=sys.stderr, flush=True)
+        os._exit(GROUP_LOST_RC)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    codes = []
+    for p in followers:       # released by the plan's stop: a short wait
+        try:
+            codes.append(p.wait(timeout=FOLLOWER_EXIT_S))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes.append(p.wait())
+    if any(codes):
+        print(f"[chainermn_tpu_torch worker] {args.name}: follower exit "
+              f"codes {codes}", file=sys.stderr, flush=True)
+        return GROUP_LOST_RC
+    return rc
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet, the cross-process fleet and its autoscaler), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, its metrics stream and comm ledger, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet, the cross-process fleet, its autoscaler and its worker groups at TP = 2), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, its metrics stream and comm ledger, seq2seq, model parallelism and training robustness on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -97,7 +97,12 @@ and prints no result line:
    CPU's ``logits / T + gumbel``), and beam 4, lazy and physical, at
    prompt 128 and 16 new tokens (the best beams equal, or their CPU
    log-probabilities within 1e-3).  TF32 is off for the whole run
-   (matmul and cuDNN).
+   (matmul and cuDNN).  Then the chunked fill (``_decoder_core``'s
+   ``attn_block`` at ``s_q`` 64 and a nonzero write position: one scalar
+   start, and four per-row starts) on one full-width fp32 block, MHA and
+   GQA: the card's output and the chunk's K / V rows against the CPU's
+   within the fp32 tolerance (also against the largest |ref|), every other
+   cache row untouched, the append kernel launched once a call.
 4. ``serving`` — bf16, full width: 16 staggered requests (prompt 512, 64
    new tokens) through an 8-slot, max_total 1024 ServingEngine; every
    request must finish ``done``.  The launch counts, zeroed just before
@@ -202,6 +207,27 @@ and prints no result line:
    flap, a drained worker's exit code other than 0, endpoints without
    JAX's top-level keys, or tokens off the fused engine's (beyond a
    near-tie < 1e-3; the first crowd and the one on two workers).
+6f. ``serving-fleet-tp`` — the worker-process fleet at TP = 2: every
+   worker a group of two processes (its leader holds the lease and speaks
+   on the lanes, its follower runs the leader's plan) over gloo on this
+   one card.  bf16 at the decode-bench width: ``build_proc_fleet({"engine":
+   2}, tp=2)`` (four processes) and the 1:1 split ``{"prefill": 1,
+   "decode": 1}`` at TP = 2, each serving 16 requests at once (prompt 512,
+   64 new tokens) through ``--fleet-worker``: launch counts gathered from
+   every rank's report (8 flash forward + 8 append launches a prefill on
+   each rank of a prefilling group, 8 decode launches a tick on each rank
+   of a ticking one, the follower's calls equal to its leader's), tokens/s,
+   TTFT p50 / p99, each group's tick gap p50 / p99, spawn to first lease,
+   every request done, every rank's exit 0 after the drain (a 1 s lease
+   window: beat 0.1 s, 9 missed beats).  Then fp32 at
+   2 layers (the full width otherwise): two groups serve 8 requests (prompt
+   256, 32 new) while engine0's follower is SIGKILLed (its leader stops
+   beating and exits 3, the lease expires, its requests fail over), then
+   engine1's leader is SIGKILLed (its follower must exit within
+   ``FLEET_TP_FOLLOWER_BOUND_S``); detection ms for each kill; every
+   request done once with tokens equal to the CPU's TP = 1 engine's (or a
+   CPU near-tie < 1e-3).  No process of any group may be alive after a
+   leg.
 7. ``train-parity`` — fp32, d 1024, 2 layers, 8 heads, vocab 32768, S 256,
    B 2, flash attention and the fused CE, TF32 off: the gradient of every
    parameter at the initial weights, card against CPU, to a relative norm
@@ -455,6 +481,8 @@ and prints no result line:
 """
 
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -1719,6 +1747,77 @@ def phase_parity(smoke):
                      n_kv_heads=GQA_KV_HEADS)
     _parity_case(smoke, "full_width_gqa_sampled", gqa, HEAD_DIM, s_p,
                  max_new, sample=_half_sampled(4, 7))
+    del gqa
+    _chunked_fill_parity(smoke)
+
+
+CHUNK = dict(rows=4, total=1024, s_q=64, scalar=300,
+             per_row=(0, 37, 512, 900))
+
+
+def _chunked_fill_parity(smoke):
+    """The chunked fill (``attn_block`` at ``s_q > 1`` and a nonzero write
+    position): one full-width fp32 block, MHA and GQA (4 KV heads), a
+    64-token chunk into a 1024-row cache of stale values at one scalar
+    start and at four per-row starts, on the card against the CPU with
+    the same inputs: the block's output and the chunk's cache rows within
+    the fp32 tolerance, every other row untouched (the append kernel
+    writes the slab at any position; one launch a call)."""
+    torch = smoke.torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.parallel import decode as tdec
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+
+    cfg = CHUNK
+    d, n, total, s_q = FULL["d_model"], cfg["rows"], cfg["total"], cfg["s_q"]
+    for kv_heads in (None, GQA_KV_HEADS):
+        params = init_tp_transformer_lm(
+            torch.Generator().manual_seed(5), max_len=total,
+            dtype=torch.float32, device="cpu", n_kv_heads=kv_heads,
+            **dict(FULL, n_layers=1))
+        card = _tree_to(torch, params, "cuda")
+        kv = (kv_heads or FULL["n_heads"]) * HEAD_DIM
+        g = torch.Generator().manual_seed(8)
+        x = torch.randn(n, s_q, d, generator=g)
+        kc = torch.randn(n, total, kv, generator=g)
+        vc = torch.randn(n, total, kv, generator=g)
+        steps = torch.arange(s_q)
+        for form in ("scalar", "per_row"):
+            start = (torch.tensor(cfg["per_row"], dtype=torch.int32)
+                     if form == "per_row" else cfg[form])
+            pos = (start[:, None].long() + steps if form == "per_row"
+                   else start + steps)
+            outs = {}
+            for dev, p in (("cpu", params), ("cuda", card)):
+                _, attn_block, _, _ = tdec._decoder_core(p, HEAD_DIM)
+                w = start.to(dev) if form == "per_row" else start
+                ops.reset_launch_counts()
+                got = attn_block(x.to(dev), p["blocks"][0],
+                                 kc.clone().to(dev), vc.clone().to(dev),
+                                 pos.to(dev), w, w)
+                torch.cuda.synchronize()
+                outs[dev] = [t.cpu() for t in got]
+                launches = ops.launch_counts()["cache_append"]
+            label = f"chunked_fill.{'gqa' if kv_heads else 'mha'}.{form}"
+            info = dict(rows=n, s_q=s_q, total=total, start=str(cfg[form]))
+            err = smoke.compare(label, outs["cuda"][0], outs["cpu"][0],
+                                "float32", scaled=True, **info)
+            # the chunk's rows hold K / V projected on each device (within
+            # the tolerance); every other row is untouched (equal)
+            rows = torch.zeros(n, total, dtype=torch.bool)
+            rows[torch.arange(n)[:, None], pos] = True
+            for i, kind in ((1, "k"), (2, "v")):
+                err = max(err, smoke.compare(
+                    f"{label}.{kind}_chunk", outs["cuda"][i][rows],
+                    outs["cpu"][i][rows], "float32", scaled=True, **info))
+            same = all(torch.equal(outs["cuda"][i][~rows],
+                                   outs["cpu"][i][~rows]) for i in (1, 2))
+            emit({"check": f"{label}.caches", "untouched_rows_equal": same,
+                  "append_launches": launches, "max_abs_err": err})
+            if not same or launches != 1:
+                raise AssertionError(f"{label}: untouched rows equal {same}, "
+                                     f"append launches {launches} (want 1)")
+        del card
 
 
 def _cpu_choice_values(params_cpu, head_dim, prompt, tokens, t, kw):
@@ -2813,11 +2912,14 @@ def fleet_worker(out_dir, argv):
     (``serving.worker.main(ARGS)``) that also writes, at exit, its
     kernel launch counts, its engine's metrics and the host ms of the
     transfer plane's calls, of each outbound mailbox message and of each
-    engine step to ``DIR/<name>.json``."""
+    engine step to ``DIR/<name>.json`` (a follower rank r of a worker
+    group: ``DIR/<name>.r<r>.json``, its launches and device calls)."""
     from chainermn_tpu_torch import ops
-    from chainermn_tpu_torch.serving import frontend, lanes, transfer, worker
+    from chainermn_tpu_torch import health
+    from chainermn_tpu_torch.serving import (engine, frontend, lanes,
+                                             transfer, worker)
 
-    op_ms, runtimes, metrics = {}, [], []
+    op_ms, metrics = {}, []
 
     def timed(cls, name, key):
         fn = getattr(cls, name)
@@ -2833,36 +2935,60 @@ def fleet_worker(out_dir, argv):
 
     for name in ("pack", "lane_put", "lane_get", "unpack_into"):
         timed(transfer.KvTransferPlane, name, name)
+    for name in ("pack_slab", "land_slab"):     # the group's global slabs
+        timed(engine.DecodeEngine, name, name)
     timed(lanes.MailboxSender, "send", "mailbox_send")
     timed(frontend.ServingEngine, "step", "engine_step")
-    run, close = worker.WorkerRuntime.run, frontend.ServingEngine.close
+    timed(health.HeartbeatPublisher, "beat", "beat")
+    beat, beat_at = health.HeartbeatPublisher.beat, []
 
-    def keep(self, *a, **k):
-        runtimes.append(self)
-        return run(self, *a, **k)
+    def gap(self, *a, **k):
+        # the lease's own cadence: ms between two published beats
+        now = time.perf_counter()
+        if beat_at:
+            op_ms.setdefault("beat_gap", []).append((now - beat_at[0]) * 1e3)
+        beat_at[:] = [now]
+        return beat(self, *a, **k)
+
+    health.HeartbeatPublisher.beat = gap
+    close = frontend.ServingEngine.close
 
     def snapshot(self):
         metrics.append(self.metrics())
         close(self)
 
-    worker.WorkerRuntime.run = keep
+    built, build_role = [], worker.build_role
+
+    def keep_role(*a, **k):
+        built.append(build_role(*a, **k))
+        return built[-1]
+
+    worker.build_role = keep_role
     frontend.ServingEngine.close = snapshot
     rc = worker.main(argv)
-    rt = runtimes[0]
-    eng = rt.engine.engine if rt.engine is not None else rt.dec_engine
-    with open(Path(out_dir) / f"{rt.name}.json", "w") as f:
-        json.dump({"name": rt.name, "role": rt.role, "rc": rc,
-                   "launches": ops.launch_counts(),
+
+    def arg(flag, default=None):
+        return argv[argv.index(flag) + 1] if flag in argv else default
+
+    rank = int(arg("--group-rank", 0))
+    name = arg("--name") + (f".r{rank}" if rank else "")
+    eng = built[0][1]
+    with open(Path(out_dir) / f"{name}.json", "w") as f:
+        json.dump({"name": name, "role": arg("--role"), "rank": rank,
+                   "rc": rc, "launches": ops.launch_counts(),
                    "prefills": eng.prefill_calls, "ticks": eng.tick_calls,
                    "metrics": metrics[0] if metrics else {},
                    "op_ms": op_ms}, f)
     return rc
 
 
-def _fleet_up(smoke, params, topology, worker_kwargs, report_dir=None):
+def _fleet_up(smoke, params, topology, worker_kwargs, report_dir=None,
+              tp=1, **lease):
     """``build_proc_fleet`` on the card (the smoke's worker entry when
-    ``report_dir`` is given); waits until every worker is live and
-    returns the router and the spawn-to-live seconds of each worker."""
+    ``report_dir`` is given; ``tp`` ranks a worker; ``lease``: its
+    ``beat_interval_s`` / ``miss_beats``); waits until every worker is
+    live and returns the router and the spawn-to-live seconds of each
+    worker (a group's: spawn to its leader's first lease)."""
     import tempfile
 
     from chainermn_tpu_torch.serving import build_proc_fleet
@@ -2874,7 +3000,7 @@ def _fleet_up(smoke, params, topology, worker_kwargs, report_dir=None):
     t0 = time.monotonic()
     router = build_proc_fleet(params, topology, lane_dir, head_dim=HEAD_DIM,
                               device="cuda", worker_kwargs=worker_kwargs,
-                              worker_cmd=cmd)
+                              worker_cmd=cmd, tp=tp, **lease)
     built = time.monotonic() - t0
     live = {}
     try:
@@ -2937,7 +3063,7 @@ def _fleet_serve(router, prompts, new):
 def _fleet_op_stats(report):
     """Count, p50, p99 and sum (ms) of each timed call of a worker."""
     return {op: {"n": len(v), "p50": _percentile(v, 0.5),
-                 "p99": _percentile(v, 0.99), "sum": sum(v)}
+                 "p99": _percentile(v, 0.99), "max": max(v), "sum": sum(v)}
             for op, v in report["op_ms"].items()}
 
 
@@ -3245,6 +3371,236 @@ def phase_serving_fleet(smoke):
     _fleet_leg_parity(smoke)
     legs_s["parity"] = time.monotonic() - t0
     emit({"check": "serving_fleet.legs_s", **legs_s})
+
+
+FLEET_TP = dict(FLEET, tp=2)
+#: the bf16 group legs' lease: four ranks and the router share the host's
+#: cores, and at the default 0.05 s x 4 missed beats (250 ms) a leader's
+#: beat gaps reached 148 ms, its lease writes 65 ms and the router's
+#: steps 89 ms; one whole-smoke run lost both groups to it.  The chaos
+#: leg keeps the default window, the one PR 19's detections were read at.
+FLEET_TP_LEASE = dict(beat_interval_s=0.1, miss_beats=9)
+FLEET_TP_CHAOS = dict(n_layers=2, requests=8, prompt=256, new=32, slots=4,
+                      tp=2, kill_after_tokens=16)
+#: a follower's exit after its leader's SIGKILL: PR_SET_PDEATHSIG at
+#: once, the parent-pid watch within worker.LEADER_WATCH_S (0.1 s)
+FLEET_TP_FOLLOWER_BOUND_S = 1.0
+
+
+def _proc_alive(pid):
+    """A process that runs (a zombie holds no card: it counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, ProcessLookupError):
+        return False
+
+
+def _group_pids(router):
+    """Each worker group's pids, leader first, from its leases."""
+    return {n: list(w.last_lease["group"]["pids"])
+            for n, w in router.workers.items()
+            if w.last_lease and "group" in w.last_lease}
+
+
+def _check_no_rank_left(label, pids):
+    left = [p for ps in pids.values() for p in ps if _proc_alive(p)]
+    for p in left:
+        os.kill(p, signal.SIGKILL)
+    if left:
+        raise AssertionError(f"{label}: ranks {left} outlived their fleet")
+
+
+def _fleet_tp_leg(smoke, params, prompts, topology, kw, label):
+    """A bf16 fleet of TP = 2 groups through ``--fleet-worker``: 16
+    requests at once; every rank's launches, its leader's tick gap, spawn
+    to first lease, exit 0 after the drain, no rank left."""
+    import tempfile
+
+    cfg = FLEET_TP
+    report_dir = Path(tempfile.mkdtemp(prefix="chainermn_fleet_tp_"))
+    router, info = _fleet_up(smoke, params, topology, kw, report_dir,
+                             tp=cfg["tp"], **FLEET_TP_LEASE)
+    pids = _group_pids(router)
+    step, step_at, step_gaps = router.step, [], []
+
+    def timed_step():
+        # the supervisor's cadence: a stalled router thread ages every
+        # lease at once
+        now = time.perf_counter()
+        if step_at:
+            step_gaps.append((now - step_at[0]) * 1e3)
+        step_at[:] = [now]
+        return step()
+
+    router.step = timed_step
+    try:
+        handles, wall = _fleet_serve(router, prompts, cfg["new"])
+        if any(h.status != "done" for h in handles):
+            raise AssertionError(
+                f"{label}: requests {[(h.status, h.finish_reason) for h in handles]}"
+                f", states {[(n, w.state) for n, w in router.workers.items()]}"
+                f", detection {router.last_detection}, metrics "
+                f"{router.metrics()}")
+        row = _fleet_row(smoke, label, handles, wall, router)
+        row.update(group=dict(router.group),
+                   lease_window_ms=router.lease_window_s * 1e3,
+                   router_step_gap_ms={"p99": _percentile(step_gaps, 0.99),
+                                       "max": max(step_gaps)})
+    finally:
+        _fleet_down(router, info, dict.fromkeys(router.workers, 0))
+    _check_no_rank_left(label, pids)
+    reports = _fleet_reports(report_dir)
+    want = {n + sfx for n in router.workers for sfx in ("", ".r1")}
+    if set(reports) != want:
+        raise AssertionError(f"{label}: rank reports {sorted(reports)}")
+    prefill = {n for n in reports if not n.startswith("decode")}
+    tick = {n for n in reports if not n.startswith("prefill")}
+    _fleet_check_launches(label, reports, prefill, tick)
+    for n in router.workers:           # the follower mirrors its leader
+        lead, fol = reports[n], reports[n + ".r1"]
+        if (lead["prefills"], lead["ticks"]) != (fol["prefills"],
+                                                  fol["ticks"]):
+            raise AssertionError(f"{label}: {n}'s follower ran "
+                                 f"{fol['prefills']} / {fol['ticks']} "
+                                 f"prefills / ticks, its leader "
+                                 f"{lead['prefills']} / {lead['ticks']}")
+    for rep in reports.values():
+        smoke.add_launches(rep["launches"])
+    row.update(build_s=info["build_s"], pids=pids,
+               spawn_to_first_lease_s=info["spawn_to_live_s"], ranks={
+        n: {"prefills": r["prefills"], "ticks": r["ticks"],
+            "tick_gap_ms_p50": r["metrics"].get("serving/tick_gap_p50_ms"),
+            "tick_gap_ms_p99": r["metrics"].get("serving/tick_gap_p99_ms"),
+            "host_ms": _fleet_op_stats(r), "launches": r["launches"]}
+        for n, r in reports.items()})
+    emit(row)
+    _fleet_check_clean(row)
+    done = sum(h.status == "done" and len(h.tokens) == cfg["new"]
+               for h in handles)
+    leaders = [r for n, r in reports.items() if r["rank"] == 0]
+    if done != cfg["requests"] or sum(
+            r["prefills"] for r in leaders) != cfg["requests"]:
+        raise AssertionError(f"{label}: {done} requests done, prefills "
+                             f"{[r['prefills'] for r in leaders]}")
+    return row
+
+
+def _fleet_tp_leg_chaos(smoke):
+    """fp32 at 2 layers: two TP = 2 groups; engine0's follower SIGKILLed
+    with requests in flight, then engine1's leader; every request done
+    once, tokens the CPU's TP = 1 engine's (or a CPU near-tie)."""
+    import numpy as np
+
+    torch = smoke.torch
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+    from chainermn_tpu_torch.serving import ServingEngine, worker
+
+    cfg = FLEET_TP_CHAOS
+    max_total = cfg["prompt"] + cfg["new"]
+    params = init_tp_transformer_lm(
+        torch.Generator().manual_seed(6), max_len=max_total,
+        dtype=torch.float32, device="cpu",
+        **dict(FULL, n_layers=cfg["n_layers"]))
+    prompts = _disagg_prompts(73, cfg["requests"], cfg["prompt"])
+    kw = dict(n_slots=cfg["slots"], max_total=max_total, queue_capacity=16)
+    router, info = _fleet_up(smoke, params, {"engine": 2}, kw, tp=cfg["tp"])
+    pids = _group_pids(router)
+    row = {"check": "serving_fleet_tp.chaos", "dtype": "float32", **cfg,
+           "pids": pids, "spawn_to_first_lease_s": info["spawn_to_live_s"],
+           "lease_window_ms": router.lease_window_s * 1e3,
+           "card": smoke.card}
+
+    def until(preds):
+        """ms from now until each predicate first holds (all must)."""
+        t0, got = time.monotonic(), {}
+        while len(got) < len(preds):
+            for k, pred in preds.items():
+                if k not in got and pred():
+                    got[k] = (time.monotonic() - t0) * 1e3
+            if time.monotonic() - t0 > FLEET_TIMEOUT_S:
+                raise AssertionError(f"chaos leg: {sorted(set(preds) - set(got))}"
+                                     f" never held")
+            time.sleep(0.001)
+        return got
+
+    try:
+        router.start()
+        handles = [router.submit(p, cfg["new"]) for p in prompts]
+        until({"progress": lambda: router.metrics()["fleet/tokens_total"]
+               >= cfg["kill_after_tokens"]})
+        os.kill(pids["engine0"][1], signal.SIGKILL)
+        row["follower_kill"] = until({
+            "leader_exit_ms": lambda: not _proc_alive(pids["engine0"][0]),
+            "detection_ms": lambda: router.workers["engine0"].state
+            == "dead"})
+        for h in handles:
+            if not h.wait(timeout=FLEET_TIMEOUT_S):
+                raise AssertionError(f"chaos leg: request {h.id} never "
+                                     f"ended: {h.status}")
+        m = router.metrics()
+        os.kill(pids["engine1"][0], signal.SIGKILL)
+        row["leader_kill"] = until({
+            "follower_exit_ms": lambda: not _proc_alive(pids["engine1"][1]),
+            "detection_ms": lambda: router.workers["engine1"].state
+            == "dead"})
+        follower_ms = row["leader_kill"]["follower_exit_ms"]
+        router.stop()
+        row.update(redispatched=m["fleet/redispatched_total"],
+                   shed_inflight=m["fleet/shed_inflight_total"],
+                   results=router._results,
+                   router_detection_ms=m.get("fleet/detection_ms"))
+    finally:
+        _fleet_down(router, info, {"engine0": worker.GROUP_LOST_RC,
+                                   "engine1": -signal.SIGKILL})
+        _check_no_rank_left("chaos leg", pids)
+    card = [h.tokens for h in handles]
+    eng = ServingEngine(params, head_dim=HEAD_DIM, n_slots=cfg["slots"],
+                        max_total=max_total, queue_capacity=16,
+                        device="cpu")
+    cpu = [h.tokens for h in _drive_all(eng, prompts, cfg["new"],
+                                        False)[0]]
+    eng.close()
+    equal, near = _near_ties(
+        "fleet_tp_chaos", card, cpu,
+        lambda i, t: _cpu_choice_values(params, HEAD_DIM,
+                                        np.asarray(prompts[i]), cpu[i], t,
+                                        None))
+    row.update(done=sum(h.status == "done" for h in handles), equal=equal,
+               near_ties=len(near))
+    emit(row)
+    if (row["done"] != cfg["requests"] or row["results"] != cfg["requests"]
+            or row["shed_inflight"] or row["redispatched"] < 1
+            or follower_ms > FLEET_TP_FOLLOWER_BOUND_S * 1e3):
+        raise AssertionError(f"chaos leg: {row}")
+    return row
+
+
+def phase_serving_fleet_tp(smoke):
+    """The worker-process fleet at TP = 2 on this card over gloo: the
+    engine groups and the 1:1 split at the decode-bench width (bf16),
+    then the chaos leg (fp32 at 2 layers) against the CPU."""
+    torch = smoke.torch
+
+    legs_s, t0 = {}, time.monotonic()
+    cfg = FLEET_TP
+    params = _init_full(torch, "cpu", torch.bfloat16, cfg["max_total"])
+    prompts = _disagg_prompts(71, cfg["requests"], cfg["prompt"])
+    kw = dict(n_slots=cfg["slots"], max_total=cfg["max_total"],
+              queue_capacity=cfg["queue"])
+    _fleet_tp_leg(smoke, params, prompts, {"engine": 2}, kw,
+                  "serving_fleet_tp.engines")
+    legs_s["engines"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    _fleet_tp_leg(smoke, params, prompts, {"prefill": 1, "decode": 1},
+                  dict(kw, staging_slots=cfg["staging"]),
+                  "serving_fleet_tp.disagg")
+    legs_s["disagg"] = time.monotonic() - t0
+    del params
+    t0 = time.monotonic()
+    _fleet_tp_leg_chaos(smoke)
+    legs_s["chaos"] = time.monotonic() - t0
+    emit({"check": "serving_fleet_tp.legs_s", **legs_s})
 
 
 AUTOSCALE = dict(FLEET, scenario=dict(prompt_len=512, crowd_prefix_len=448,
@@ -6978,6 +7334,7 @@ def main():
                          ("serving-disagg", phase_serving_disagg),
                          ("serving-fleet", phase_serving_fleet),
                          ("serving-autoscale", phase_serving_autoscale),
+                         ("serving-fleet-tp", phase_serving_fleet_tp),
                          ("train-parity", phase_train_parity),
                          ("train", phase_train), ("tp", phase_tp),
                          ("sp", phase_sp), ("zero-wire", phase_zero_wire),

@@ -201,6 +201,36 @@ def leader_raises_case(mesh, case):
     return res + (float(col.psum(torch.ones(()), mesh.axis(AX))),)
 
 
+def spill_pull_case(mesh, case):
+    """A worker group's spilled prefix served to a pull: the leader's
+    engine (prefix cache and spill tier on) serves a prompt, evicts the
+    donated prefix into the spill tier (every rank its own columns) and
+    packs it with ``pack_spilled``: the rows of the global slab it returns
+    (the ranks' columns gathered)."""
+    from chainermn_tpu_torch.serving import ServingEngine
+    from chainermn_tpu_torch.serving.transfer import KvTransferPlane
+
+    eng = ServingEngine(_local(mesh, case["params"]), mesh=mesh,
+                        device="cpu", spill_bytes=1 << 20,
+                        **case["replica_kw"])
+    if not eng.engine.leader:
+        return ("followed", eng.follow())
+    try:
+        h = eng.submit(case["prompts"][0], case["max_new"])
+        eng.run()
+        seq = list(eng.prefix_cache.entries()[0].seq)
+        eng.prefix_cache.evict_lru()
+        payload = eng.engine.pack_spilled(KvTransferPlane(),
+                                          eng.spill.covering(seq))
+        data = KvTransferPlane.open_payload(
+            payload, eng.pool.n_layers, eng.pool.kv_dim * mesh.shape[AX],
+            eng.pool.max_total)
+    finally:
+        eng.close()
+    return {"tokens": h.tokens, "seq": seq, "length": int(data["pos"]),
+            "rows": [[a.copy() for a in kv] for kv in data["rows"]]}
+
+
 def fleet_results(world, inputs, out_dir):
     mesh = make_nd_mesh((AX,), (world,))
     out = {}
@@ -210,6 +240,7 @@ def fleet_results(world, inputs, out_dir):
         out[name] = replicas_case(mesh, case)
     out["threads"] = threads_case(mesh, inputs["threads"])
     out["leader_raises"] = leader_raises_case(mesh, inputs["threads"])
+    out["spill_pull"] = spill_pull_case(mesh, inputs["threads"])
     return out
 
 

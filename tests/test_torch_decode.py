@@ -247,12 +247,28 @@ def test_greedy_ties_go_to_lowest_index():
 
 
 def test_unported_paths_raise():
-    _, tp = _params()
+    """The chunked fill (``s_q > 1`` at a nonzero write position) is
+    ported: it computes JAX's block (tests/test_torch_chunked_fill.py
+    holds every form).  An append along another axis than the cache's
+    positions is still refused."""
+    from chainermn_tpu_torch.ops.kv_cache import cache_append
+
+    jp, tp = _params()
     embed, attn_block, _, _ = tdec._decoder_core(tp, HEAD_DIM)
-    x = embed(torch.zeros(1, 3, dtype=torch.long), torch.arange(3))
+    x = embed(torch.zeros(1, 3, dtype=torch.long), torch.arange(4, 7))
     kc = torch.zeros(1, 16, D)
-    with pytest.raises(NotImplementedError, match="chunked fill"):
-        attn_block(x, tp["blocks"][0], kc, kc.clone(), torch.arange(3), 4, 4)
+    got, _, _ = attn_block(x, tp["blocks"][0], kc, kc.clone(),
+                           torch.arange(4, 7), 4, 4)
+
+    def fn(p, x, kc):
+        _, block, _, _ = jdec._decoder_core(p, HEAD_DIM, "model")
+        return block(x, p["blocks"][0], kc, kc, jnp.arange(4, 7), 4, 4)[0]
+
+    want = _smap(fn, jp, (P(), P()), P())(jp, jnp.asarray(x.numpy()),
+                                          jnp.zeros((1, 16, D)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    with pytest.raises(NotImplementedError, match="axis 1"):
+        cache_append(kc, kc.clone(), kc[:, :2], kc[:, :2], 0, axis=2)
 
 
 def test_learned_positions_past_the_table_are_clamped():

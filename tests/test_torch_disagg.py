@@ -787,16 +787,28 @@ def test_role_threads_serve_what_run_serves(tmp_path):
 
 
 def test_fleet_refuses_tp_and_bad_configuration():
-    """The in-process fleet runs at TP > 1 (tests/test_torch_fleet_tp.py);
-    a worker PROCESS at TP > 1 is still refused, naming A11 step 3c."""
+    """The in-process fleet runs at TP > 1 (tests/test_torch_fleet_tp.py)
+    and so does a worker process, as a group of processes
+    (tests/test_torch_fleet_procs_tp.py): a ``WorkerRuntime`` takes a mesh
+    and leads its group's plan over the mesh's model axis.  A bad fleet
+    configuration is still refused."""
+    from chainermn_tpu_torch.serving import worker as tworker
+    from chainermn_tpu_torch.serving.engine import ModelPlan
     from chainermn_tpu_torch.serving.transfer import InProcessLaneStore
-    from chainermn_tpu_torch.serving.worker import WorkerRuntime
 
     _, tp, _ = _model()
-    mesh = types.SimpleNamespace(shape={"model": 2})
-    with pytest.raises(NotImplementedError, match="A11 step 3c"):
-        WorkerRuntime("engine0", "engine", tp, InProcessLaneStore(),
-                      head_dim=HEAD_DIM, mesh=mesh, device="cpu")
+    assert not hasattr(tworker, "_refuse_tp")
+    axis = types.SimpleNamespace(size=1)
+    mesh = types.SimpleNamespace(shape={"model": 1},
+                                 axis=lambda name: axis)
+    rt = tworker.WorkerRuntime("engine0", "engine", tp,
+                               InProcessLaneStore(), head_dim=HEAD_DIM,
+                               mesh=mesh, device="cpu",
+                               plan=ModelPlan(None))
+    assert rt.tp == 1 and rt.plan is rt.dec_engine.plan
+    assert rt._geom()["kv_dim"] == rt.pool.kv_dim
+    rt.finished = True
+    rt.engine.close()
     fleet = build_disagg_fleet(tp, 1, 1, head_dim=HEAD_DIM, max_total=16,
                                device="cpu")
     with pytest.raises(ValueError, match="unique"):
@@ -994,12 +1006,13 @@ def test_serve_cli_refusals_in_jax_words():
                 fn([*dev, *base, *extra])
             msgs.append(str(e.value))
         assert msgs[1] == msgs[0], extra
-    # the in-process fleets take --tp > 1 now; a worker-process fleet at
-    # --tp > 1 is still refused, naming its queue item, before any spawn
+    # every topology takes --tp > 1 now (tests/test_torch_fleet_procs_tp
+    # .py); a --tp that does not divide the devices is refused before any
+    # rank or worker starts, as for the in-process fleets
     for extra in (["--disagg", "1:1", "--procs"], ["--fleet-procs", "2"]):
-        with pytest.raises(SystemExit, match="--tp > 1 is not ported.*"
-                                             "A11 step 3c"):
-            run(["--device", "cpu", *base, *extra, "--tp", "2"])
+        with pytest.raises(SystemExit, match="--tp 2 does not divide 3 "
+                                             "devices"):
+            run([*base, *extra, "--tp", "2", "--devices", "3"])
 
 
 def test_disagg_names_resolve_and_step_three_still_raises():

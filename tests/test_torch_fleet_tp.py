@@ -20,6 +20,8 @@ one plan.  The same JAX-initialised weights (sharded by
 * ``build_fleet(2)`` (prefix cache on): every token equal;
 * both fleets under ``start()`` (threads announcing device calls at
   once), and a leader whose loop raises: its follower still returns;
+* a spilled prefix packed for a pull (``pack_spilled``): the global slab
+  of the ranks' spilled columns, the TP = 1 engine's rows;
 * ``serve --devices 2 --tp 2`` with ``--disagg 1:1`` and ``--replicas 2``
   against JAX's CLI at the same flags: JAX's summary keys, equal tokens.
 """
@@ -334,6 +336,37 @@ def test_tp2_followers_follow_and_leader_releases_them(run):
     assert lead[:2] == ("raised", "on_token failed"), lead
     assert follow[0] == "followed" and follow[1] > 0
     assert lead[-1] == follow[-1] == float(WORLD)
+
+
+def test_tp2_spilled_prefix_pull_packs_the_global_slab(run):
+    """A spilled prefix served to a pull at TP = 2: ``pack_spilled``
+    gathers every rank's spilled columns into the global slab, whose rows
+    are the TP = 1 engine's spill payload's (the same prompt and
+    weights) and whose length is the prefix's."""
+    from chainermn_tpu_torch.convert import from_jax
+    from chainermn_tpu_torch.serving import ServingEngine
+    from chainermn_tpu_torch.serving.transfer import KvTransferPlane
+
+    inp, out = run
+    case, got = inp["threads"], out[0]["spill_pull"]
+    eng = ServingEngine(from_jax(case["params"], device="cpu"),
+                        device="cpu", spill_bytes=1 << 20,
+                        **case["replica_kw"])
+    try:
+        h = eng.submit(case["prompts"][0], case["max_new"])
+        eng.run()
+        seq = list(eng.prefix_cache.entries()[0].seq)
+        eng.prefix_cache.evict_lru()
+        data = KvTransferPlane.open_payload(
+            eng.spill.covering(seq), eng.pool.n_layers, eng.pool.kv_dim,
+            eng.pool.max_total)
+    finally:
+        eng.close()
+    assert got["tokens"] == h.tokens and got["seq"] == seq
+    assert got["length"] == int(data["pos"]) == len(seq)
+    for g_kv, w_kv in zip(got["rows"], data["rows"]):
+        for g, w in zip(g_kv, w_kv):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
 
 
 _PROMPT_LINE = re.compile(r"^prompt \[.*\] -> (\[.*\]) \(true", re.M)

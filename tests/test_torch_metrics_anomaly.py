@@ -114,12 +114,14 @@ def _drive_monitor(mod, acct, streams, loss_as):
 @pytest.mark.parametrize("seed", [0, 3])
 def test_health_monitor_equals_jax(seed):
     streams = _streams(seed)
-    port = _drive_monitor(anomaly, obs.get_accountant(), streams,
-                          lambda v: torch.tensor(v))
-    jax = _drive_monitor(janomaly, janomaly.get_accountant(), streams,
-                         float)
-    obs.get_accountant().reset()
-    janomaly.get_accountant().reset()
+    try:
+        port = _drive_monitor(anomaly, obs.get_accountant(), streams,
+                              lambda v: torch.tensor(v))
+        jax = _drive_monitor(janomaly, janomaly.get_accountant(), streams,
+                             float)
+    finally:
+        obs.get_accountant().reset()
+        janomaly.get_accountant().reset()
     (pm, pesc, plines), (jm, jesc, jlines) = port, jax
     assert _js(pm.findings) == _js(jm.findings) and len(pm.findings) == 5
     assert pm.counts == jm.counts

@@ -100,6 +100,16 @@ def _threads():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _ledgers_left_clean():
+    """Every test leaves both packages' process-global comm ledgers empty:
+    a later test in this process (another file on the same worker) reads
+    them as it finds them."""
+    yield
+    obs.get_accountant().reset()
+    jobs.get_accountant().reset()
+
+
 @pytest.fixture(scope="module")
 def comm1():
     """A one-rank gloo group in this process, torn down after the module."""
@@ -497,9 +507,12 @@ def test_hierarchical_pmean_books_as_jax(comm1, tracing):
                    jcol.hierarchical_pmean(v, dcn_dtype="bfloat16")),
         mesh=mesh, in_specs=P(("slice", "chip")),
         out_specs=P(("slice", "chip")), check_vma=False))
-    fn(x.numpy())
-    want = W.rows(jobs.comm_report())
-    jobs.disable()
+    try:
+        fn(x.numpy())
+        want = W.rows(jobs.comm_report())
+    finally:
+        jobs.disable()
+        jobs.get_accountant().reset()
     assert got == want == {"hierarchical_pmean@chip+slice": {
         "calls": 2, "bytes": 32 + 16, "dtypes": ["float32", "bfloat16"]}}
 

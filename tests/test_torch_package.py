@@ -62,6 +62,22 @@ MODEL_PARALLEL_SLICE = ["__init__.py", "functions/__init__.py",
                         "communicators/__init__.py"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch in one thread here and in the CLIs this file starts: the
+    suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    old = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    torch.set_num_threads(n)
+    if old is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = old
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

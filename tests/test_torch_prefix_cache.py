@@ -353,21 +353,23 @@ def test_restore_books_the_ledger_when_tracing():
     plane = ttransfer.KvTransferPlane()
     payload = plane.pack(tp, 0, 4, {"seq": [1, 2, 3, 4]})
     comm.get_accountant().reset()
-    plane.unpack_into(payload, tp, 1, ledger_op=ttransfer.SPILL_OP,
-                      ledger_axis=ttransfer.SPILL_AXIS)
-    assert comm.get_accountant().report()["calls"] == 0   # tracer off
-    trace.enable()
     try:
         plane.unpack_into(payload, tp, 1, ledger_op=ttransfer.SPILL_OP,
                           ledger_axis=ttransfer.SPILL_AXIS)
+        assert comm.get_accountant().report()["calls"] == 0   # tracer off
+        trace.enable()
+        try:
+            plane.unpack_into(payload, tp, 1, ledger_op=ttransfer.SPILL_OP,
+                              ledger_axis=ttransfer.SPILL_AXIS)
+        finally:
+            trace.disable()
+        row = comm.get_accountant().report()["per_op"][
+            "kv_spill_restore@host"]
     finally:
-        trace.disable()
-    row = comm.get_accountant().report()["per_op"][
-        "kv_spill_restore@host"]
+        comm.get_accountant().reset()
     nbytes = ttransfer.slab_nbytes(2, 4, 8, "float32")
     assert row["calls"] == 1 and row["bytes"] == row["noted_bytes"] == nbytes
     assert row["dtypes"] == ["float32"]
-    comm.get_accountant().reset()
 
 
 # ---------------------------------------------------------------------------

@@ -363,8 +363,23 @@ def _strip(ev):
     return {k: v for k, v in ev.items() if k != "t"}
 
 
+@pytest.fixture
+def clean_ledgers():
+    """Both packages' comm ledgers empty before the test and after it: the
+    bundle's ``health`` carries them, and another test in this process
+    may have booked either."""
+    from chainermn_tpu.observability import comm as jcomm
+    from chainermn_tpu_torch.observability import comm as tcomm
+
+    for acct in (jcomm.get_accountant(), tcomm.get_accountant()):
+        acct.reset()
+    yield
+    for acct in (jcomm.get_accountant(), tcomm.get_accountant()):
+        acct.reset()
+
+
 @pytest.mark.parametrize("ring", [3, 4096])
-def test_bundle_files_and_fields_equal_jax(tmp_path, ring):
+def test_bundle_files_and_fields_equal_jax(tmp_path, ring, clean_ledgers):
     bundles = {}
     for name, mod in (("jax", jflight), ("port", tflight)):
         rec = mod.get_flight_recorder()
