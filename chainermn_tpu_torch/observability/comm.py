@@ -22,9 +22,15 @@ call carries its host latency and a ``comm/<op>`` span.
 ``last_step_report`` then holds that step's rows.  The wrappers
 (:func:`collective`, :func:`accounted_method`) and :func:`note` book only
 while the tracer is enabled; with tracing off a wrapper costs one
-attribute read (and one global read for the collective guard).
-Calibration and the schedule-execution counters of the JAX module are
-not here (ROADMAP.md, A13).
+attribute read (and global reads for the collective guard and the
+recording bracket).
+
+:func:`record_collectives` brackets a call and collects the ordered
+``(op, axis)`` of every outermost collective it runs, tracing on or off:
+the trace engine's collective sequence (``analysis/trace_engine.py``).
+The schedule-execution counters (:func:`record_schedule_exec`, the
+``schedule_exec/*`` gauges of ``/metricsz``) and the active calibration
+(the ``/statusz`` ``calibration`` provider) are copies of JAX's.
 """
 
 from __future__ import annotations
@@ -43,12 +49,11 @@ from . import trace
 from ..health import _EAGER_DEPTH, _sync_if_cuda
 from ..health import collective_guard as _collective_guard
 
-#: Names of JAX's comm module that the port has not (ROADMAP.md, A13).
-NOT_PORTED = {
-    "record_schedule_exec": "A13", "schedule_exec_gauges": "A13",
-    "set_active_calibration": "A13", "calibration_snapshot": "A13",
-    "reset_schedule_exec": "A13",
-}
+#: Names of JAX's comm module that the port has not: none.
+NOT_PORTED: Dict[str, str] = {}
+
+#: The open :func:`record_collectives` bracket's list, or None.
+_RECORDING: Optional[list] = None
 
 def _dtype_name(dt) -> str:
     """``torch.bfloat16`` / ``np.dtype('float32')`` / ``"int8"`` →
@@ -260,6 +265,16 @@ def collective(op: str, axis, x, thunk, wire_dtype=None, noted=False):
     (``shift`` → ``ppermute``, the int8 ring's gather,
     ``multi_node_mean_grad`` → ``allreduce``) is one call under its own
     name, as in JAX."""
+    rec = _RECORDING
+    if rec is not None and not getattr(_EAGER_DEPTH, "r", 0):
+        # the outermost call of a recording bracket: record it, then run
+        # it as usual with the nested calls unrecorded
+        rec.append((op, _axis_key(axis)))
+        _EAGER_DEPTH.r = 1
+        try:
+            return collective(op, axis, x, thunk, wire_dtype, noted)
+        finally:
+            _EAGER_DEPTH.r = 0
     tr = trace.get_tracer()
     if not tr.enabled:
         return _guarded_call(op, thunk)
@@ -317,3 +332,112 @@ def accounted_method(op: str):
 
 #: Back-compat alias (the helper predates its public face).
 _payload_info = payload_info
+
+
+@contextmanager
+def record_collectives():
+    """Collect the ordered ``(op, axis)`` of every outermost collective
+    run inside the bracket (a list, filled as the calls run), tracing on
+    or off: the collectives the ledger books when tracing is on, in
+    order.  Brackets do not nest; the recording is process-global (the
+    trace engine runs one entry at a time)."""
+    global _RECORDING
+    if _RECORDING is not None:
+        raise RuntimeError("record_collectives brackets do not nest")
+    seq: list = []
+    _RECORDING = seq
+    try:
+        yield seq
+    finally:
+        _RECORDING = None
+
+
+# --------------------------------------------------------------------------
+# schedule-execution counters + the /statusz calibration provider
+# --------------------------------------------------------------------------
+
+_SCHED_LOCK = threading.Lock()
+_SCHED_EXEC: Dict[str, float] = {}
+_ACTIVE_CALIBRATION: Optional[Dict[str, Any]] = None
+_CAL_PROVIDER_REGISTERED = False
+
+
+def _register_calibration_provider() -> None:
+    global _CAL_PROVIDER_REGISTERED
+    if _CAL_PROVIDER_REGISTERED:
+        return
+    from . import flight as _flight
+    _flight.register_provider("calibration", calibration_snapshot)
+    _CAL_PROVIDER_REGISTERED = True
+
+
+def record_schedule_exec(records) -> None:
+    """Book one profiled schedule execution's records into the
+    ``schedule_exec/*`` counters (/metricsz face) and tracer counters
+    (Chrome trace face).  Called by ``reshard._emit_schedule_exec``;
+    first booking registers the /statusz ``calibration`` provider."""
+    if not records:
+        return
+    with _SCHED_LOCK:
+        for r in records:
+            link = r.get("link", "?")
+            _SCHED_EXEC[f"schedule_exec/{link}/ops"] = \
+                _SCHED_EXEC.get(f"schedule_exec/{link}/ops", 0.0) + 1
+            _SCHED_EXEC[f"schedule_exec/{link}/bytes"] = \
+                _SCHED_EXEC.get(f"schedule_exec/{link}/bytes", 0.0) \
+                + float(r.get("bytes", 0))
+            _SCHED_EXEC[f"schedule_exec/{link}/wall_us"] = \
+                _SCHED_EXEC.get(f"schedule_exec/{link}/wall_us", 0.0) \
+                + float(r.get("wall_us", 0.0))
+        _SCHED_EXEC["schedule_exec/records"] = \
+            _SCHED_EXEC.get("schedule_exec/records", 0.0) + len(records)
+        _SCHED_EXEC["schedule_exec/executions"] = \
+            _SCHED_EXEC.get("schedule_exec/executions", 0.0) + 1
+    tr = trace.get_tracer()
+    if tr.enabled:
+        tr.add_counter("schedule_exec/records", float(len(records)))
+    _register_calibration_provider()
+
+
+def schedule_exec_gauges() -> Dict[str, float]:
+    """Snapshot of the ``schedule_exec/*`` counters (merged into
+    /metricsz the same way the flight drop counts are)."""
+    with _SCHED_LOCK:
+        return dict(_SCHED_EXEC)
+
+
+def set_active_calibration(cal: Optional[Dict[str, Any]]) -> None:
+    """Install (or clear) the calibration artifact the process is
+    currently pricing schedules with; surfaces via the /statusz
+    ``calibration`` provider."""
+    global _ACTIVE_CALIBRATION
+    with _SCHED_LOCK:
+        _ACTIVE_CALIBRATION = cal
+    if cal is not None:
+        _register_calibration_provider()
+
+
+def calibration_snapshot() -> Dict[str, Any]:
+    """The /statusz ``calibration`` provider: live counters plus the
+    active artifact's fitted constants (if one is installed)."""
+    with _SCHED_LOCK:
+        counters = dict(_SCHED_EXEC)
+        cal = _ACTIVE_CALIBRATION
+    out: Dict[str, Any] = {"counters": counters}
+    if cal is None:
+        out["calibration"] = None
+    else:
+        out["calibration"] = {
+            "schema": cal.get("schema"),
+            "n_records": cal.get("n_records"),
+            "links": cal.get("links"),
+        }
+    return out
+
+
+def reset_schedule_exec() -> None:
+    """Test hook: clear counters and the active calibration."""
+    global _ACTIVE_CALIBRATION
+    with _SCHED_LOCK:
+        _SCHED_EXEC.clear()
+        _ACTIVE_CALIBRATION = None

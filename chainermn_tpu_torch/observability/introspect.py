@@ -19,9 +19,9 @@ from ``curl``:
 
 Wired behind ``--statusz-port`` in ``chainermn_tpu_torch.train`` and
 ``chainermn_tpu_torch.serve``; binds 127.0.0.1 by default.  Port 0 picks a
-free port; the chosen port is on ``StatusServer.port``.  The port has no
-reshard schedule profiler yet (ROADMAP.md, queue A, A13), so ``/metricsz``
-carries no ``schedule_exec/*`` counters.
+free port; the chosen port is on ``StatusServer.port``.  ``/metricsz``
+also carries the reshard schedule profiler's ``schedule_exec/*`` counters
+(``comm.schedule_exec_gauges``) once a scheduled reshard has run.
 """
 
 from __future__ import annotations
@@ -101,6 +101,13 @@ class StatusServer:
             extra = dict(extra or {})
             for kind, n in sorted(dropped.items()):
                 extra[f"flight/dropped/{kind}"] = float(n)
+        # schedule-execution truth counters: per-link ops/bytes/wall
+        # measured by the reshard profiler
+        from .comm import schedule_exec_gauges
+        sched = schedule_exec_gauges()
+        if sched:
+            extra = dict(extra or {})
+            extra.update(sched)
         return prometheus_text(extra)
 
     def requestz(self) -> Any:

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._dispatch import dispatch
 
 _BK = 32                # pixels per reduction step (fp32 wgrad)
 _TARGET_BLOCKS = 528    # ~4 resident blocks on each of the H100's 132 SMs
@@ -245,6 +246,7 @@ def _dgrad_cuda(dy, w, xshape):
     return out
 
 
+@dispatch("conv3x3_wgrad")
 def conv3x3_wgrad(x, dy, stride: int = 1, ksize: int = 3):
     """``dW (k, k, Ci, Co)`` in x's dtype for a k x k (k in {1, 3}) SAME
     stride-1 conv: the ``conv_wgrad`` kernel on CUDA, the plain version on
@@ -260,6 +262,7 @@ def conv3x3_wgrad(x, dy, stride: int = 1, ksize: int = 3):
     return out
 
 
+@dispatch("conv3x3_dgrad")
 def conv3x3_dgrad(dy, w, xshape, stride: int = 1):
     """``dX`` of shape ``xshape`` in dy's dtype for a k x k (k in {1, 3})
     SAME stride-1 conv: the ``conv_dgrad`` kernel on CUDA, the plain

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._dispatch import dispatch
 from .kv_cache import cache_append_plain
 
 NEG_INF = -1e30
@@ -234,6 +235,7 @@ def _decode_attend_cuda(q, kc, vc, pos, n_heads: int, head_dim: int,
     return out
 
 
+@dispatch("decode_attend")
 def decode_attend(q, kc, vc, pos, n_heads: int, head_dim: int):
     """One decode tick's attention: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor.  Returns ``ctx (B, H·hd)``."""
@@ -270,6 +272,7 @@ def decode_append_attend_plain(q, k_new, v_new, kc, vc, pos, n_heads: int,
                                head_dim)
 
 
+@dispatch("decode_append_attend")
 def decode_append_attend(q, k_new, v_new, kc, vc, pos, n_heads: int,
                          head_dim: int):
     """The decode tick's append and attention in one call: ``k_new/v_new``
@@ -433,6 +436,7 @@ def _beam_attend_cuda(q, kc, vc, amask, pos, beams: int, n_heads: int,
     return acc, m, l
 
 
+@dispatch("beam_attend_parts")
 def beam_attend_parts(q, kc, vc, amask=None, pos=None, *, beams: int,
                       n_heads: int, head_dim: int):
     """One cache SEGMENT of beam attention, unnormalised.
@@ -496,6 +500,7 @@ def gqa_unrows(ctx, n_kv_heads: int, g: int, head_dim: int):
         n, n_kv_heads * g * head_dim)
 
 
+@dispatch("decode_attend_gqa")
 def decode_attend_gqa(q, kc, vc, pos, *, n_q_heads: int, n_kv_heads: int,
                       head_dim: int):
     """GQA decode tick: ``q (B, Hq·hd)`` head-major against the

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._dispatch import dispatch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
@@ -167,6 +168,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, group: int):
     return out, lse
 
 
+@dispatch("flash_attention_bwd")
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
                         dlse=None):
     """``(dq, dk, dv)``: the CUDA kernel (``csrc/flash_bwd.cu``) for CUDA
@@ -237,6 +239,7 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+@dispatch("flash_attention")
 def flash_attention(q, k, v, causal: bool = False, return_lse: bool = False):
     """Attention over ``(B, S, H, D)``, differentiable: the CUDA kernels for
     CUDA tensors, the plain versions for CPU tensors.  Returns ``out`` in

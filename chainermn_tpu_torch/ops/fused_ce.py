@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._dispatch import dispatch
 
 _TILE = 64              # the CUDA-core kernels' logits tile, both axes
 _TARGET_BLOCKS = 528    # ~4 resident blocks on each of the H100's 132 SMs
@@ -256,6 +257,7 @@ def _is_cuda(h, what):
     return h.device.type == "cuda"
 
 
+@dispatch("ce_dh")
 def ce_dh(h, table, targets, lse, dnll):
     """``dh (T, D)`` in h's dtype: the bf16 GEMMs or the fp32 ``ce_dh``
     kernel on CUDA, the plain version on the CPU."""
@@ -266,6 +268,7 @@ def ce_dh(h, table, targets, lse, dnll):
     return out
 
 
+@dispatch("ce_dtable")
 def ce_dtable(h, table, targets, lse, dnll):
     """``dtable (V, D)`` in the table's dtype: the bf16 GEMMs or the fp32
     ``ce_dtable`` kernel on CUDA, the plain version on the CPU."""
@@ -276,6 +279,7 @@ def ce_dtable(h, table, targets, lse, dnll):
     return out
 
 
+@dispatch("ce_stats")
 def ce_stats(h, table, targets):
     """``(m, l, picked)``, each ``(T,)`` fp32, without materialising the
     logits on CUDA.  Not differentiable: use :func:`fused_cross_entropy`."""
@@ -284,6 +288,7 @@ def ce_stats(h, table, targets):
     return ce_stats_plain(h, table, targets)
 
 
+@dispatch("ce_grads")
 def ce_grads(h, table, targets, lse, dnll):
     """``(dh, dtable)`` for the per-row NLL cotangent ``dnll (T,)`` given
     the (possibly globally combined) ``lse (T,)``.  On CUDA one pass: in

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._dispatch import dispatch
 
 
 def _check(kc, vc, k_new, v_new, axis: int):
@@ -74,6 +75,7 @@ def _cache_append_cuda(kc, vc, k_new, v_new, pos, rows: int):
     return kc, vc
 
 
+@dispatch("cache_append")
 def cache_append(kc, vc, k_new, v_new, pos, axis: int = 1,
                  pos_aligned: bool = False):
     """Write the new rows at ``pos`` (clamped) in place; returns

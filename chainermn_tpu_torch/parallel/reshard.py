@@ -38,10 +38,13 @@ Spec language (``ShardSpec``): ``None`` = replicated; an ``int`` = that
 logical axis is evenly partitioned across the ranks.  A spec is a single
 value (applied to every leaf) or a tree matching ``tree``.
 
-``lower_schedule`` and ``reshard_host(schedule=...)`` route through the
-JAX package's verified collective schedules (``analysis/schedule_check``),
-which are ROADMAP.md's A13: ``lower_schedule`` is listed in
-:data:`NOT_PORTED` and ``schedule=`` raises naming A13.
+:func:`lower_schedule` lowers a spec pair to a VERIFIED collective
+schedule (``analysis/schedule_check``, a copy of JAX's), and
+``reshard_host(schedule=...)`` routes sharded leaves through that
+schedule's interpreter, bit-identical to the direct path.  A bf16 torch
+leaf moves as its ``int16`` bytes (numpy has no bf16) under the dtype
+name JAX gives it (``"bfloat16"``), so the schedule and its fingerprint
+are JAX's.
 """
 
 from __future__ import annotations
@@ -54,21 +57,14 @@ from .. import _tree
 
 ShardSpec = Union[None, int]
 
-#: JAX names of this module that wait for another queue item.
-NOT_PORTED = {"lower_schedule": "A13"}
+#: JAX names of this module that wait for another queue item: none.
+NOT_PORTED: dict = {}
 
 __all__ = [
     "ShardSpec", "reshard", "make_reshard", "reshard_host", "reshard_cost",
     "reshard_tree_cost", "partition_spec_of", "validate_spec",
+    "lower_schedule",
 ]
-
-
-def __getattr__(name):
-    if name in NOT_PORTED:
-        raise AttributeError(
-            f"chainermn_tpu_torch.parallel.reshard.{name} is not ported "
-            f"yet: see ROADMAP.md, queue A, {NOT_PORTED[name]}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def validate_spec(spec: ShardSpec, ndim: Optional[int] = None,
@@ -269,6 +265,135 @@ def _concat(vals, axis):
     return np.concatenate([np.asarray(v) for v in vals], axis=axis)
 
 
+def lower_schedule(shape, dtype, src_spec, dst_spec, src_world: int,
+                   dst_world: int, kind: str = "auto", topology=None,
+                   n_chunks: int = 2, depth: int = 2):
+    """Lower one (src, dst) spec pair to a VERIFIED collective schedule.
+
+    ``kind`` names a generator (``single`` — the monolithic lowering
+    :func:`reshard` performs — ``chunked``, ``pipelined``,
+    ``hierarchical``) or ``"auto"`` to pick the cheapest verified
+    candidate under the r04 cost model.  Every returned schedule has
+    passed the full :mod:`~chainermn_tpu_torch.analysis.schedule_check`
+    verifier (coverage vs the array_split statics, exhaustive BFS of the
+    start/done machine, interpreter byte-exactness); an unverifiable
+    schedule raises instead of escaping.  ``dtype`` is a name
+    (``"float32"``, ``"bfloat16"``), a numpy dtype or a torch dtype.
+    """
+    from ..analysis.schedule_check import verified_schedule
+    from ..observability.comm import _dtype_name
+
+    return verified_schedule(kind, shape, _dtype_name(dtype), src_spec,
+                             dst_spec, src_world, dst_world, topology,
+                             n_chunks=n_chunks, depth=depth)
+
+
+def _emit_schedule_exec(prof) -> None:
+    """Fan one profiled execution's records out to the observability
+    plane: every op becomes an HLC-stamped journal line
+    (``kind="schedule_exec"``, fingerprint-keyed), a tracer complete
+    event on the live trace, and a ``schedule_exec/*`` counter bump in
+    the comm ledger."""
+    from ..observability import comm as _comm
+    from ..observability import journal as _journal
+    from ..observability import trace as _trace
+
+    recs = prof.run_records()
+    if not recs:
+        return
+    if _journal.enabled():
+        for rec in recs:
+            _journal.emit("schedule_exec",
+                          **{k: v for k, v in rec.items()
+                             if k != "schema"})
+    _comm.record_schedule_exec(recs)
+    if _trace.enabled():
+        # the run just finished: back-date each op from "now" so the
+        # lane lines up with the surrounding spans.
+        base = _trace.now_us() - prof.wall_us()
+        for rec in recs:
+            _trace.complete_event(
+                f"sched/{rec['op']}({rec['arg']})",
+                int(base + rec["t_us"]), max(1, int(rec["wall_us"])),
+                cat="schedule_exec", link=rec["link"],
+                rank=rec["rank"], bytes=rec["bytes"],
+                fingerprint=rec["fingerprint"])
+
+
+def _host_bytes(v):
+    """``(numpy array, dtype name, back)``: a leaf's host array (a bf16
+    leaf as its int16 bytes), JAX's name for its dtype, and the function
+    that turns a block of the array back into a leaf of ``v``'s kind."""
+    from ..observability.comm import _dtype_name
+
+    if _is_torch(v):
+        import torch
+
+        t = v.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            return (t.view(torch.int16).numpy(), "bfloat16",
+                    lambda a: torch.from_numpy(a).view(torch.bfloat16))
+        return t.numpy(), _dtype_name(t.dtype), torch.from_numpy
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":     # a numpy bf16 (ml_dtypes) array
+        dt = a.dtype
+        return a.view(np.int16), "bfloat16", lambda b: b.view(dt)
+    return a, str(a.dtype), lambda b: b
+
+
+def _scheduled_leaf(vals, src_axis: int, dst_spec, dst_count: int,
+                    kind: str, topology):
+    """Route one sharded leaf through a verified schedule's interpreter.
+
+    Returns the per-destination blocks, or ``None`` when the leaf falls
+    outside the schedule geometry (unequal source blocks, uneven
+    destination split, mixed dtypes or kinds) — the caller then takes the
+    direct concatenate/slice path, which is byte-identical by the
+    verifier's own oracle.
+
+    When the journal or tracer is live the execution runs under a
+    :class:`~chainermn_tpu_torch.analysis.schedule_check.ScheduleExecProfile`
+    and every op lands in the observability plane (see
+    :func:`_emit_schedule_exec`); with both off, not a single record is
+    built.
+    """
+    from ..analysis.schedule import block_shape
+    from ..analysis.schedule_check import run_schedule
+
+    if len({_is_torch(v) for v in vals}) != 1:
+        return None
+    host = [_host_bytes(v) for v in vals]
+    arrs = [h[0] for h in host]
+    first, name, back = arrs[0], host[0][1], host[0][2]
+    if any(a.shape != first.shape or h[1] != name
+           for a, h in zip(arrs[1:], host[1:])):
+        return None
+    if not 0 <= src_axis < first.ndim:
+        return None
+    shape = list(first.shape)
+    shape[src_axis] = shape[src_axis] * len(arrs)
+    shape = tuple(shape)
+    if isinstance(dst_spec, int):
+        if not 0 <= dst_spec < first.ndim:
+            return None
+        if shape[dst_spec] % dst_count:
+            return None                  # direct path raises the error
+    sched = lower_schedule(shape, name, src_axis, dst_spec, len(arrs),
+                           dst_count, kind=kind, topology=topology)
+    profiler = None
+    from ..observability import journal as _journal
+    from ..observability import trace as _trace
+    if _journal.enabled() or _trace.enabled():
+        from ..analysis.schedule_check import ScheduleExecProfile
+        profiler = ScheduleExecProfile(sched)
+    outs = run_schedule(sched, [np.ascontiguousarray(a).reshape(-1)
+                                for a in arrs], profiler=profiler)
+    if profiler is not None:
+        _emit_schedule_exec(profiler)
+    return [back(outs[r].reshape(block_shape(shape, dst_spec, r, dst_count)))
+            for r in range(dst_count)]
+
+
 def reshard_host(shards: Sequence[Any], src_layout, dst_layout,
                  dst_count: int, *, schedule: Optional[str] = None,
                  topology=None) -> List[Any]:
@@ -289,15 +414,18 @@ def reshard_host(shards: Sequence[Any], src_layout, dst_layout,
     concatenation of destination blocks equals the concatenation of
     source blocks.  Nothing touches a device.
 
-    ``schedule`` (the JAX package's verified collective schedules) is
-    ROADMAP.md's A13 and raises here.
+    ``schedule`` routes sharded-source array leaves through a VERIFIED
+    collective schedule instead of the direct concatenate/slice:
+    ``"auto"`` picks the cheapest candidate under the r04 cost model, or
+    name a generator (``"single"``, ``"chunked"``, ``"pipelined"``,
+    ``"hierarchical"`` — the latter staging cross-slice bytes over a
+    gateway when ``topology`` has a DCN tier).  Every schedule has passed
+    :func:`~chainermn_tpu_torch.analysis.schedule_check.verify_schedule`,
+    so the result is bit-identical to the direct path; leaves outside the
+    schedule geometry (replicated/``per_rank`` sources, unequal blocks)
+    keep the direct path.  A torch leaf comes back as a torch tensor of
+    its dtype, bf16 included.
     """
-    if schedule is not None:
-        raise NotImplementedError(
-            "reshard_host(schedule=...) routes through the verified "
-            "collective schedules (analysis/schedule_check), which are not "
-            "ported yet: see ROADMAP.md, queue A, A13")
-    del topology
     if not shards:
         raise ValueError("reshard_host: empty shard list")
     if dst_count < 1:
@@ -339,6 +467,13 @@ def reshard_host(shards: Sequence[Any], src_layout, dst_layout,
             full = vals[0]
         else:
             src = validate_spec(src, _ndim(vals[0]), "src_layout")
+            if schedule is not None:
+                blocks = _scheduled_leaf(vals, src, dst, dst_count,
+                                         schedule, topology)
+                if blocks is not None:
+                    for r in range(dst_count):
+                        out_leaves[r].append(blocks[r])
+                    continue
             full = _concat(vals, src)
         if dst is None:
             for r in range(dst_count):

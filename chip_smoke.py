@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet, the cross-process fleet, its autoscaler and its worker groups at TP = 2), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, its metrics stream and comm ledger, seq2seq, model parallelism and training robustness on one card.
+"""GPU smoke of chainermn_tpu_torch: build, kernel checks, serving (with the prefix cache, the spill tier, the router, the disaggregated prefill / decode fleet, the cross-process fleet, its autoscaler and its worker groups at TP = 2), beam search, LM training (also at TP = 2 and SP = 2), MoE and pipelines, ZeRO-1, FSDP and the int8 gradient wire, ImageNet training, the communicator, the Trainer, its metrics stream and comm ledger, seq2seq, model parallelism, training robustness, and the analysis package's trace engine and lock-order recorder on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -467,8 +467,25 @@ and prints no result line:
    loss; and two gloo processes on the CPU training MNIST with SGD 0.1 to
    a world-2 generation, resumed at world 1 on the card (batch 256, the
    same global batch) within rtol 1e-4 of the CPU's own continuation.
-22. One ``{"kernels": [...]}`` line (launches summed over the main paths'
-   runs: the two serving runs, the serving-prefix cache-on run, the
+22. ``analysis`` — the trace engine (``analysis/trace_engine.py``) over
+   its two kernel-bearing entry points at ``size="full"`` (the
+   decode-bench LM width, 2 layers, fp32) on the card:
+   ``parallel.decode.lm_decode_tick`` (a prefill through the flash forward
+   and the append kernel, then three ticks through the decode kernel with
+   the K/V append folded in) and ``serving.prefill_family`` (three
+   prefills at two prompt lengths).  Held: no finding beyond the port's
+   baseline; the collective sequences and program counts equal the CPU's
+   at ``size="tiny"``; the flash, decode and append launches equal what
+   the calls imply (a layer each per prefill or tick); each entry's
+   outputs (hidden states and caches) equal the same entry's on the CPU's
+   plain path within fp32's 1e-4.  Then the port's lock-order recorder
+   (``CHAINERMN_TPU_TORCH_LOCK_ASSERT``) in a child process
+   (``chip_smoke.py --lock-worker``) over 16 requests served on the card,
+   8 through a ``ServingEngine``'s driver thread and 8 through a
+   two-replica router: ``assert_consistent`` must pass; the dynamic edges
+   are printed.
+23. One ``{"kernels": [...]}`` line (launches summed over the main paths'
+   runs: the analysis phase's two entry points, the two serving runs, the serving-prefix cache-on run, the
    serving-disagg ``run()`` legs (local, lanes, GQA), the beam
    run, the timed LM training steps,
    the ``tp`` phase's ``(1, 1)`` steps and both ranks' bf16 steps, serving
@@ -600,6 +617,7 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.failed = []
+        self.errors = {}           # failed phase -> its exception's repr
         self.kernel_rows = {}      # name -> timing/err row of the main shape
         self.launches = {}         # name -> launches summed over main paths
 
@@ -613,6 +631,7 @@ class Smoke:
             fn()
         except Exception as e:  # noqa: BLE001 — report every phase
             self.failed.append(name)
+            self.errors[name] = repr(e)[:2000]
             print(f"FAIL phase {name}: {e!r}", flush=True)
             traceback.print_exc()
             return
@@ -3436,9 +3455,12 @@ def _fleet_tp_leg(smoke, params, prompts, topology, kw, label):
     router.step = timed_step
     try:
         handles, wall = _fleet_serve(router, prompts, cfg["new"])
-        if any(h.status != "done" for h in handles):
+        # a request that ended without a first token fails here, with the
+        # fleet's state, not later in the row's percentiles
+        if any(h.status != "done" or h.ttft_ms is None for h in handles):
             raise AssertionError(
-                f"{label}: requests {[(h.status, h.finish_reason) for h in handles]}"
+                f"{label}: requests "
+                f"{[(h.status, h.finish_reason, len(h.tokens)) for h in handles]}"
                 f", states {[(n, w.state) for n, w in router.workers.items()]}"
                 f", detection {router.last_detection}, metrics "
                 f"{router.metrics()}")
@@ -7294,6 +7316,150 @@ def phase_robustness(smoke):
     emit({"check": "robustness.legs_s", **legs_s})
 
 
+# the analysis phase: the trace engine's two kernel-bearing entry points
+ANALYSIS_ENTRIES = ("parallel.decode.lm_decode_tick", "serving.prefill_family")
+LOCK_SERVE = dict(requests=16, prompt=64, new=8, slots=4, n_layers=2)
+
+
+def _analysis_outputs(smoke, name, got, want):
+    """Hold an entry's card outputs (tensors, nested in tuples and lists)
+    against its plain path's at fp32's tolerance; returns how many."""
+    torch = smoke.torch
+    if isinstance(got, torch.Tensor):
+        smoke.compare(f"analysis.{name}", got.cpu(), want.cpu(), "float32")
+        return 1
+    return sum(_analysis_outputs(smoke, name, g, w)
+               for g, w in zip(got, want))
+
+
+def phase_analysis(smoke):
+    from chainermn_tpu_torch.analysis.entrypoints import (SIZES,
+                                                          select_entrypoints)
+    from chainermn_tpu_torch.analysis.findings import load_baseline
+    from chainermn_tpu_torch.analysis.trace_engine import check_entrypoint
+
+    baseline = load_baseline(str(ROOT / "chainermn_tpu_torch"
+                                 / ".spmd-lint-baseline.json"))
+    n_layers = SIZES["full"]["n_layers"]
+    eps, err = select_entrypoints(list(ANALYSIS_ENTRIES))
+    if err:
+        raise AssertionError(err)
+    for ep in eps:
+        _, tiny = check_entrypoint(ep, device="cpu", size="tiny")
+        t0 = time.monotonic()
+        findings, card = check_entrypoint(ep, device="cuda", size="full",
+                                          keep_outputs=True)
+        smoke.torch.cuda.synchronize()
+        card_s = time.monotonic() - t0
+        new, _ = baseline.filter(findings)
+        if new or card.error:
+            raise AssertionError(f"{ep.name}: findings "
+                                 f"{[f.render() for f in new]} {card.error}")
+        if (card.collectives, card.n_compiles) != (tiny.collectives,
+                                                   tiny.n_compiles):
+            raise AssertionError(
+                f"{ep.name}: card (sequence, programs) "
+                f"{card.collectives, card.n_compiles} != CPU tiny's "
+                f"{tiny.collectives, tiny.n_compiles}")
+        # a layer each per call: the tick entry prefills once in its
+        # build, then ticks (the trace call and the variants); the family
+        # only prefills
+        if ep.name == "serving.prefill_family":
+            prefills, ticks = card.calls, 0
+        else:
+            prefills, ticks = 1, card.calls
+        want = {"flash_fwd": n_layers * prefills,
+                "cache_append": n_layers * prefills,
+                "decode_attend": n_layers * ticks}
+        got = {k: card.launches.get(k, 0) for k in want}
+        if got != want or set(card.launches) - set(want):
+            raise AssertionError(f"{ep.name} launches (got, want): "
+                                 f"{card.launches}, {want}")
+        _, plain = check_entrypoint(ep, device="cpu", size="full",
+                                    keep_outputs=True)
+        n_out = _analysis_outputs(smoke, ep.name, card.outputs,
+                                  plain.outputs)
+        smoke.add_launches(card.launches)
+        emit({"check": "analysis.trace", "entry": ep.name, "size": "full",
+              "collectives": card.collectives,
+              "n_compiles": card.n_compiles, "calls": card.calls,
+              "launches": card.launches, "outputs_compared": n_out,
+              "card_s": round(card_s, 3), "card": smoke.card})
+    # the lock-order recorder over the card's serving, in a child process
+    # that installs it before the package's modules are imported
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="chainermn_lock_")) / "locks.json"
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--lock-worker", str(out)], capture_output=True,
+                          text=True, timeout=300)
+    res = json.loads(out.read_text()) if out.exists() else {}
+    if proc.returncode or "cycle" in res or not res:
+        raise AssertionError(f"lock recorder: rc {proc.returncode}, "
+                             f"{res.get('cycle')}: {proc.stderr[-3000:]}")
+    if res["status"] != ["done"] * LOCK_SERVE["requests"]:
+        raise AssertionError(f"lock recorder: requests {res['status']}")
+    emit({"check": "analysis.lock_order", "n_tracked": res["n_tracked"],
+          "requests": len(res["status"]), "dynamic_edges": res["dynamic"],
+          "wall_s": round(time.monotonic() - t0, 1), "card": smoke.card})
+
+
+def lock_worker(out_path):
+    """Child of phase ``analysis``: the port's lock-order recorder, live
+    before the package's modules are imported, over 16 requests on the
+    card (8 through a ``ServingEngine``'s driver thread, 8 through a
+    two-replica router), then ``assert_consistent``.  Writes the result
+    to ``out_path``; exits 1 on a cycle."""
+    os.environ["CHAINERMN_TPU_TORCH_LOCK_ASSERT"] = "1"
+    from chainermn_tpu_torch.analysis import lockassert
+
+    rec = lockassert.install_from_env()
+    import numpy as np
+    import torch
+
+    from chainermn_tpu_torch.parallel import init_tp_transformer_lm
+    from chainermn_tpu_torch.serving import ServingEngine, build_fleet
+
+    cfg = LOCK_SERVE
+    full = dict(FULL, n_layers=cfg["n_layers"])
+    params = init_tp_transformer_lm(torch.Generator().manual_seed(0),
+                                    max_len=cfg["prompt"] + cfg["new"],
+                                    dtype=torch.bfloat16, device="cuda",
+                                    **full)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, FULL["vocab"], cfg["prompt"]).tolist()
+               for _ in range(cfg["requests"])]
+    half = cfg["requests"] // 2
+    kw = dict(head_dim=HEAD_DIM, max_total=cfg["prompt"] + cfg["new"],
+              device="cuda")
+    eng = ServingEngine(params, n_slots=cfg["slots"], **kw)
+    eng.start()
+    try:
+        handles = [eng.submit(p, cfg["new"]) for p in prompts[:half]]
+        ok = all(h.wait(timeout=120) for h in handles)
+    finally:
+        eng.close()
+    router = build_fleet(params, 2, n_slots=cfg["slots"] // 2,
+                         queue_capacity=half, **kw)
+    router.start()
+    try:
+        routed = [router.submit(p, cfg["new"]) for p in prompts[half:]]
+        ok = all(h.wait(timeout=120) for h in routed) and ok
+    finally:
+        router.stop()
+    rec.uninstall()
+    result = {"n_tracked": rec.n_tracked, "waited": ok,
+              "status": [h.status for h in handles + routed]}
+    try:
+        result["dynamic"] = sorted(
+            list(e) for e in lockassert.assert_consistent(rec))
+    except AssertionError as e:
+        result["cycle"] = str(e)
+    Path(out_path).write_text(json.dumps(result))
+    return 1 if "cycle" in result else 0
+
+
 def main():
     import torch
 
@@ -7347,7 +7513,8 @@ def main():
                          ("observability", phase_observability),
                          ("seq2seq", phase_seq2seq),
                          ("model-parallel", phase_model_parallel),
-                         ("robustness", phase_robustness)):
+                         ("robustness", phase_robustness),
+                         ("analysis", phase_analysis)):
             smoke.phase(name, lambda fn=fn: fn(smoke))
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -7363,6 +7530,11 @@ def main():
         torch.distributed.destroy_process_group()
     if smoke.failed:
         print(f"FAILED phases: {smoke.failed}", flush=True)
+        # the tail of stderr is what a caller sees first: name each
+        # failure there too, after the phases' own output
+        for name in smoke.failed:
+            print(f"FAIL phase {name}: {smoke.errors[name]}",
+                  file=sys.stderr, flush=True)
         return 1
     emit({"kernels": kernels})
     print(smoke.card, flush=True)
@@ -7381,4 +7553,6 @@ if __name__ == "__main__":
         sys.exit(zero_worker(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--fleet-worker"]:
         sys.exit(fleet_worker(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--lock-worker"]:
+        sys.exit(lock_worker(sys.argv[2]))
     sys.exit(main())

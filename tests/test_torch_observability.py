@@ -557,7 +557,7 @@ def test_ledger_fills_the_health_snapshot(comm1, tracing):
 @pytest.mark.parametrize("name", jobs.__all__)
 def test_every_jax_observability_name_resolves(name):
     """JAX's ``observability.__all__`` resolves from the port's, and the
-    port's ``__all__`` lists it (the calibration half of ``comm`` is the
-    one part left to A13)."""
+    port's ``__all__`` lists it, and ``comm`` leaves none of JAX's names
+    out (its calibration half is ported)."""
     assert hasattr(obs, name) and name in obs.__all__
-    assert set(tcomm.NOT_PORTED.values()) == {"A13"}
+    assert tcomm.NOT_PORTED == {}

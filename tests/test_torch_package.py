@@ -114,8 +114,19 @@ OBSERVABILITY_SLICE = ["observability/comm.py", "observability/metrics.py",
                        "observability/conform.py", "analysis/protocol.py"]
 
 
+# the analysis slice (A13a/b): each must be among PORT_FILES
+ANALYSIS_SLICE = ["analysis/findings.py", "analysis/baseline.py",
+                  "analysis/registry.py", "analysis/ast_engine.py",
+                  "analysis/concurrency.py", "analysis/lockassert.py",
+                  "analysis/cli.py", "analysis/__main__.py",
+                  "analysis/schedule.py", "analysis/schedule_check.py",
+                  "analysis/calibrate.py", "analysis/trace_engine.py",
+                  "analysis/entrypoints.py", "ops/_dispatch.py"]
+
+
 @pytest.mark.parametrize("module", TRAINER_SLICE + MODEL_PARALLEL_SLICE
-                         + SERVING_3B_SLICE + OBSERVABILITY_SLICE)
+                         + SERVING_3B_SLICE + OBSERVABILITY_SLICE
+                         + ANALYSIS_SLICE)
 def test_trainer_slice_modules_are_checked(module):
     assert ROOT / "chainermn_tpu_torch" / module in PORT_FILES
 

@@ -365,17 +365,28 @@ def _strip(ev):
 
 @pytest.fixture
 def clean_ledgers():
-    """Both packages' comm ledgers empty before the test and after it: the
-    bundle's ``health`` carries them, and another test in this process
-    may have booked either."""
+    """Both packages' comm ledgers empty and their flight providers set
+    aside for the test: the bundle's ``health`` carries the ledgers and
+    its ``providers`` every registered provider, and another test in this
+    process may have booked either ledger or left a provider (a schedule
+    execution registers ``calibration`` in its own package only).  The
+    providers are put back afterwards."""
     from chainermn_tpu.observability import comm as jcomm
     from chainermn_tpu_torch.observability import comm as tcomm
 
+    saved = [(mod, dict(mod._PROVIDERS)) for mod in (jflight, tflight)]
+    for mod, _ in saved:
+        mod._PROVIDERS.clear()
     for acct in (jcomm.get_accountant(), tcomm.get_accountant()):
         acct.reset()
-    yield
-    for acct in (jcomm.get_accountant(), tcomm.get_accountant()):
-        acct.reset()
+    try:
+        yield
+    finally:
+        for acct in (jcomm.get_accountant(), tcomm.get_accountant()):
+            acct.reset()
+        for mod, providers in saved:
+            mod._PROVIDERS.clear()
+            mod._PROVIDERS.update(providers)
 
 
 @pytest.mark.parametrize("ring", [3, 4096])
