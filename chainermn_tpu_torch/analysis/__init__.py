@@ -24,13 +24,16 @@ Two complementary engines, as in JAX:
   accounted collective face and the programs off the kernel-dispatch
   layer: ``unbound-axis``, ``recompile-hazard``, ``entrypoint-error``.
 
-Beside them: the lock-discipline lint (``concurrency``) and its runtime
-recorder (``lockassert``, under ``CHAINERMN_TPU_TORCH_LOCK_ASSERT``), the
-protocol model checker (``protocol``), the collective schedule IR and its
-verifier (``schedule``, ``schedule_check``) with the cost-model
-calibration (``calibrate``), all copies.  The shard-flow analyzer
-(JAX's ``shardflow``) needs a static sharding and memory model over torch
-and is ROADMAP.md's A13c (``entrypoints.NOT_PORTED``).
+Beside them: the shard-flow analyzer (``shardflow``: the replication
+report, the static collective cost and the peak-live memory of each
+registered entry point's call, recorded as a dispatch graph by
+``dispatch_graph`` and reconciled against the comm ledger, with the
+port's own ``.shardflow-baseline.json``), the lock-discipline lint
+(``concurrency``) and its runtime recorder (``lockassert``, under
+``CHAINERMN_TPU_TORCH_LOCK_ASSERT``), the protocol model checker
+(``protocol``), the collective schedule IR and its verifier
+(``schedule``, ``schedule_check``) with the cost-model calibration
+(``calibrate``), all copies but the first.
 
 Runner: ``python -m chainermn_tpu_torch.analysis [paths]`` (exit 0 clean
 / 1 findings / 2 unusable; ``--gate`` runs every plane the port has).
@@ -75,9 +78,13 @@ from .calibrate import (  # noqa: F401  (stdlib+numpy only)
     schedule_critical_path,
 )
 from .trace_engine import TRACE_RULES  # noqa: F401  (stdlib at import)
+from .shardflow import (  # noqa: F401  (stdlib-only at import time)
+    SHARDFLOW_RULES,
+    ShardflowReport,
+)
 
-#: JAX names of this package the port has not (ROADMAP.md, A13c).
-NOT_PORTED = {"SHARDFLOW_RULES": "A13c", "ShardflowReport": "A13c"}
+#: JAX names of this package the port has not: none.
+NOT_PORTED: dict = {}
 
 __all__ = [
     "AST_RULES",
@@ -92,8 +99,10 @@ __all__ = [
     "SCHEDULE_GENERATORS",
     "SEEDED_FAULTS",
     "SEVERITIES",
+    "SHARDFLOW_RULES",
     "Schedule",
     "ScheduleExecProfile",
+    "ShardflowReport",
     "TRACE_RULES",
     "Topology",
     "analyze_file",

@@ -9,8 +9,7 @@ all speak the same baseline dialect — findings accepted by fingerprint,
 ``--fix-baseline`` regeneration that preserves human comments and
 carries over entries outside the invocation's scope, unreadable
 baselines = exit 2.  This module is the one implementation the
-port's CLIs share.  (The port has no shard-flow analyzer yet:
-ROADMAP.md, A13c.)
+port's CLIs share.
 
 Pure stdlib — imports neither torch nor jax, like the rest of the
 findings machinery.

@@ -60,9 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="SPMD-aware static analyzer: collective-deadlock, "
                     "PRNG, host-aliasing, and recompilation lint for "
                     "the PyTorch port (docs/ANALYSIS.md).  With --gate, "
-                    "runs every analysis plane the port has (lint + "
-                    "protocol models + schedule verifier + calibration) "
-                    "as one CI check (see --gate --help)")
+                    "runs every analysis plane (lint + protocol "
+                    "models + shardflow + schedule verifier + "
+                    "calibration) as one CI check (see --gate --help)")
     p.add_argument("paths", nargs="*", default=None,
                    help="files/directories to scan (default: the "
                         "chainermn_tpu_torch package directory)")
@@ -102,20 +102,25 @@ def _package_dir() -> str:
     return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-#: the ``--gate`` stages, in run order: each is (name, thunk returning
-#: an exit code under the same 0/1/2 contract).  ``calibration``
-#: drift-checks the measured cost-model fit against fresh schedule_exec
-#: records and exits 0 ("skipped") until any exist.  JAX's ``shardflow``
-#: stage waits for the port's shard-flow analyzer (ROADMAP.md, A13c).
-GATE_STAGES = ("lint", "protocol", "schedules", "calibration")
+#: the ``--gate`` stages, in run order (JAX's): each is (name, thunk
+#: returning an exit code under the same 0/1/2 contract).  ``shardflow``
+#: runs the entry points on ``--device`` (default: the card, and the
+#: stage is skipped with a note, exit 0, where there is none, as the
+#: lint's trace engine is).  ``calibration`` drift-checks the measured
+#: cost-model fit against fresh schedule_exec records and exits 0
+#: ("skipped") until any exist.
+GATE_STAGES = ("lint", "protocol", "shardflow", "schedules",
+               "calibration")
 
 
 def gate_main(argv: Optional[List[str]] = None) -> int:
     """``python -m chainermn_tpu_torch.analysis --gate`` — ONE CI-callable
-    check running every analysis plane the port has: the
-    SPMD+concurrency lint, the protocol model checker, the collective
-    schedule verifier, and the cost-model calibration drift check.  Exit is the worst stage under the shared contract: 0
-    clean, 1 findings/violations, 2 unusable.
+    check running every analysis plane: the SPMD+concurrency lint, the
+    protocol model checker, the shard-flow reconciliation, the collective
+    schedule verifier, and the cost-model calibration drift check.
+    ``--device`` names where the lint's trace engine and the shard-flow
+    stage run the entry points.  Exit is the worst stage under the
+    shared contract: 0 clean, 1 findings/violations, 2 unusable.
     """
     p = argparse.ArgumentParser(
         prog="python -m chainermn_tpu_torch.analysis --gate",
@@ -126,6 +131,11 @@ def gate_main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--json", action="store_true",
                    help="one machine-readable summary document on "
                         "stdout (stage output goes to stderr)")
+    p.add_argument("--device", default=None,
+                   help="where the entry points run (default: the card; "
+                        "without one the trace engine and the shardflow "
+                        "stage are skipped with a note — pass 'cpu' to "
+                        "run them on the host)")
     args = p.parse_args(argv)
     stages = [s.strip() for s in args.stages.split(",") if s.strip()]
     unknown = set(stages) - set(GATE_STAGES)
@@ -134,12 +144,24 @@ def gate_main(argv: Optional[List[str]] = None) -> int:
               f"(have {', '.join(GATE_STAGES)})", file=sys.stderr)
         return 2
 
+    dev = ["--device", args.device] if args.device else []
+
     def run_stage(name: str) -> int:
         if name == "lint":
-            return main([])
+            return main(dev)
         if name == "protocol":
             from .protocol import main as protocol_main
             return protocol_main([])
+        if name == "shardflow":
+            if not dev:
+                import torch
+                if not torch.cuda.is_available():
+                    print("note: shardflow stage skipped (no CUDA device; "
+                          "pass --device cpu to run the entry points on "
+                          "the host)", file=sys.stderr)
+                    return 0
+            from .shardflow import main as shardflow_main
+            return shardflow_main(dev)
         if name == "calibration":
             from .calibrate import main as calibrate_main
             return calibrate_main(["--gate"])

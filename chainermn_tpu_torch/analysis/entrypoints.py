@@ -24,22 +24,27 @@ world 1.  A builder joins a one-rank process group when none exists and
 leaves it again in its ``teardown``; one that finds a group needs it to
 have one rank.
 
-Every build dict keeps JAX's shard-flow keys (``data_axis``,
-``arg_labels``, ``expected_replication``, ``noted``) for the port's
-shard-flow analyzer, which is ROADMAP.md's A13c (:data:`NOT_PORTED`).
+Every build dict of a shard-flow entry keeps JAX's shard-flow keys
+(``data_axis``, ``arg_labels``, ``expected_replication``, ``noted``) and
+adds the bindings JAX reads off its ``shard_map`` equations: ``in_specs``,
+one spec tree (or prefix) per ``arg_labels`` root, copied from JAX's
+registrations, over ``shardflow_args`` where the trace arguments are not
+the labelled leaves (the train steps take a module; their optimizer state
+exists before the call, as JAX's ``optimizer.init(params)`` does).  The
+shard-flow analyzer (``shardflow.py``) reads them.  Token ids are int32,
+as JAX's are.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 from .trace_engine import EntryPoint
 
 _SEED = 0  # analysis must run the same program every run
 
-#: JAX names of the analysis package the port has not: the shard-flow
-#: analyzer (every entry point is registered).
-NOT_PORTED = {"analysis.shardflow": "A13c"}
+#: JAX names of the analysis package the port has not: none.
+NOT_PORTED: Dict[str, str] = {}
 
 #: the LM widths: JAX's tiny fixture, and the decode-bench LM (depth cut)
 SIZES = {
@@ -122,13 +127,31 @@ def _tiny_lm(device, size: str = "tiny"):
 
 
 def _tokens(cfg, shape, device, salt: int = 0):
-    """Seeded token ids of ``shape`` on ``device``."""
+    """Seeded int32 token ids of ``shape`` on ``device``."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(_SEED + salt)
     return torch.as_tensor(rng.randint(0, cfg["vocab"], shape),
-                           dtype=torch.int64, device=device)
+                           dtype=torch.int32, device=device)
+
+
+def _P(*axes):
+    """A spec leaf (``parallel._factory.PartitionSpec``, JAX's ``P``)."""
+    from ..parallel._factory import P
+
+    return P(*axes)
+
+
+def _lm_specs(params):
+    from ..parallel.transformer import transformer_lm_specs
+
+    return transformer_lm_specs(params, "model")
+
+
+#: JAX's CachePool binding of the pool buffers: K/V columns over 'model'
+def _pool_spec():
+    return _P(None, None, "model")
 
 
 def _build_collective_ring(device="cuda", size="tiny") -> Dict[str, Any]:
@@ -153,7 +176,7 @@ def _build_collective_ring(device="cuda", size="tiny") -> Dict[str, Any]:
             "teardown": teardown,
             # shard-flow: the ring's input is replicated by the P() feed
             # — deliberately NOT annotated (JAX's baseline keeper)
-            "data_axis": "mn", "arg_labels": ("x",)}
+            "data_axis": "mn", "arg_labels": ("x",), "in_specs": (_P(),)}
 
 
 def _prefilled(device, size):
@@ -201,8 +224,15 @@ def _build_decode_tick(device="cuda", size="tiny") -> Dict[str, Any]:
             "teardown": teardown,
             "data_axis": "model",
             "arg_labels": ("params", "tokens", "caches", "pos"),
+            "in_specs": _tick_specs(params, caches),
             "expected_replication": {"params": _MEGATRON,
                                      "caches": _KV_ROWS}}
+
+
+def _tick_specs(params, caches):
+    """JAX's tick binding: ``(specs, P(), cache_specs, P())``, the cache
+    rows whole per replica."""
+    return (_lm_specs(params), _P(), [(_P(), _P()) for _ in caches], _P())
 
 
 def _build_prefill_family(device="cuda", size="tiny") -> Dict[str, Any]:
@@ -230,6 +260,7 @@ def _build_prefill_family(device="cuda", size="tiny") -> Dict[str, Any]:
             "teardown": teardown,
             "data_axis": "model",
             "arg_labels": ("params", "prompt"),
+            "in_specs": (_lm_specs(params), _P()),
             "expected_replication": {
                 "params": _MEGATRON,
                 "prompt": "every TP rank consumes the full prompt "
@@ -336,6 +367,7 @@ def _build_router_tick(device="cuda", size="tiny") -> Dict[str, Any]:
             "teardown": base["teardown"],
             "data_axis": "model",
             "arg_labels": ("params", "tokens", "caches", "pos"),
+            "in_specs": base["in_specs"],
             "expected_replication": {
                 "params": _MEGATRON,
                 "caches": _KV_ROWS,
@@ -378,6 +410,9 @@ def _build_prefix_copy(device="cuda", size="tiny") -> Dict[str, Any]:
             "variants": (run, [(0, 1), (1, 0)]),
             "data_axis": "model",
             "arg_labels": ("caches", "src", "dst"),
+            # the REAL pool buffers thread in sharded, as JAX's do
+            "shardflow_args": (pool.caches, 0, 1),
+            "in_specs": (_pool_spec(), _P(), _P()),
             "expected_replication": {
                 "src": "source slot index: one host-fed int32 scalar "
                        "per copy, replicated to every TP rank by "
@@ -413,6 +448,7 @@ def _build_kv_transfer(device="cuda", size="tiny") -> Dict[str, Any]:
             ]),
             "data_axis": "model",
             "arg_labels": ("src_caches", "dst_caches", "src", "dst"),
+            "in_specs": (_pool_spec(), _pool_spec(), _P(), _P()),
             "expected_replication": {
                 "src": "source staging-slot index: one host-fed int32 "
                        "scalar per transfer, replicated to every TP "
@@ -449,7 +485,8 @@ def _build_reshard(device="cuda", size="tiny") -> Dict[str, Any]:
             "teardown": teardown,
             # the input rides in SHARDED (that is the primitive's whole
             # point) — the replication report must stay empty here
-            "data_axis": "mn", "arg_labels": ("tree",)}
+            "data_axis": "mn", "arg_labels": ("tree",),
+            "in_specs": (_P("mn", None),)}
 
 
 def _build_flight_ring_program(device="cuda", size="tiny"
@@ -511,6 +548,57 @@ def _tiny_mlp(device):
     return TinyMLP(), tb
 
 
+def _init_optimizer_state(optimizer):
+    """Create the state ``optimizer`` (Adam, or SGD with momentum) makes
+    at its first step, now: JAX's ``optimizer.init(params)``.  The
+    tensors are torch's own first ones (Adam: a step count and two zero
+    moments; SGD: a zero momentum buffer, which the first step fills with
+    the gradient as a missing one would be), so the updates are
+    unchanged."""
+    import torch
+
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if state:
+                continue
+            if isinstance(optimizer, torch.optim.Adam):
+                state["step"] = torch.tensor(0.0, dtype=torch.float32)
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            elif group.get("momentum", 0):
+                state["momentum_buffer"] = torch.zeros_like(p)
+
+
+def _module_params(module):
+    """The tiny MLP's parameters by JAX's names (``w1, b1, w2, b2``)."""
+    return {k: getattr(module, k) for k, _ in module.named_parameters()}
+
+
+def _state_tree(optimizer, params):
+    """``{param name: {state name: tensor}}``: the state
+    ``hybrid.state_specs_like`` names."""
+    return {k: dict(optimizer.state[p]) for k, p in params.items()}
+
+
+def _state_specs(optimizer, params):
+    from ..parallel.hybrid import state_specs_like
+
+    return state_specs_like(optimizer, params, {k: _P() for k in params})
+
+
+class _QuantOptState(NamedTuple):
+    """The quantized step's optimizer state under JAX's root names: the
+    inner optimizer's, the double buffer's stale mean gradients and this
+    rank's error-feedback residual row."""
+
+    inner: Any
+    stale_grads: Any
+    ef: Any
+
+
 def _mlp_loss(m, b):
     import torch
 
@@ -534,17 +622,21 @@ def _build_train_step(device="cuda", size="tiny") -> Dict[str, Any]:
 
     teardown = _one_rank_group(device)
     module, batch = _tiny_mlp(device)
-    step = make_train_step(_mlp_loss,
-                           torch.optim.Adam(module.parameters(), 1e-3),
-                           mesh=make_mesh("mn"))
+    optimizer = torch.optim.Adam(module.parameters(), 1e-3)
+    _init_optimizer_state(optimizer)
+    step = make_train_step(_mlp_loss, optimizer, mesh=make_mesh("mn"))
     params, _ = _tiny_mlp_fixture()
     params_bytes = int(sum(np.prod(v.shape) * v.dtype.itemsize
                            for v in params.values()))
+    tparams = _module_params(module)
     return {"trace": (step, (module, batch)),
             "bound_axes": {"mn"},
             "teardown": teardown,
             "data_axis": "mn",
             "arg_labels": ("params", "opt_state", "batch"),
+            "shardflow_args": (tparams, _state_tree(optimizer, tparams),
+                               batch),
+            "in_specs": (_P(), _state_specs(optimizer, tparams), _P("mn")),
             "expected_replication": {
                 "params": "data parallelism replicates parameters on "
                           "every replica by definition",
@@ -573,20 +665,30 @@ def _build_quantized_train_step(device="cuda", size="tiny"
     teardown = _one_rank_group(device)
     mesh = make_mesh("mn")
     module, batch = _tiny_mlp(device)
+    inner = torch.optim.SGD(module.parameters(), 1e-2, momentum=0.9)
+    _init_optimizer_state(inner)
     optimizer = create_multi_node_optimizer(
-        torch.optim.SGD(module.parameters(), 1e-2, momentum=0.9), mesh,
-        allreduce_grad_dtype="int8", error_feedback=True,
+        inner, mesh, allreduce_grad_dtype="int8", error_feedback=True,
         double_buffering=True, quant_block=8, quant_pipeline=2, world=1)
     step = make_train_step(_mlp_loss, optimizer, mesh,
                            allreduce_grad_dtype="int8", error_feedback=True)
     shifted = tuple(b + 0.01 if b.is_floating_point() else b
                     for b in batch)
+    tparams = _module_params(module)
+    opt_state = _QuantOptState(_state_tree(inner, tparams),
+                               optimizer.state.stale_grads,
+                               optimizer.state.ef.residuals)
+    # the EF residual rows shard over the data axis (one row a rank)
+    opt_specs = _QuantOptState(_state_specs(inner, tparams), _P(),
+                               _P("mn", None))
     return {"trace": (step, (module, batch)),
             "bound_axes": {"mn"},
             "variants": (step, [(module, batch), (module, shifted)]),
             "teardown": teardown,
             "data_axis": "mn",
             "arg_labels": ("params", "opt_state", "batch"),
+            "shardflow_args": (tparams, opt_state, batch),
+            "in_specs": (_P(), opt_specs, _P("mn")),
             "expected_replication": {
                 "opt_state.inner": "inner momentum replicates per replica "
                                    "— the ZeRO-1 debt, tracked on "
@@ -612,6 +714,7 @@ def _build_demo_train_step(device="cuda", size="tiny") -> Dict[str, Any]:
     tparams = {k: torch.as_tensor(v, device=device).requires_grad_()
                for k, v in params.items()}
     optimizer = torch.optim.SGD(tparams.values(), 1e-2, momentum=0.9)
+    _init_optimizer_state(optimizer)
     step = make_demo_step(mesh=make_mesh("mn"))
     tb = tuple(torch.as_tensor(a, device=device) for a in batch)
 
@@ -623,6 +726,9 @@ def _build_demo_train_step(device="cuda", size="tiny") -> Dict[str, Any]:
             "teardown": teardown,
             "data_axis": "mn",
             "arg_labels": ("state", "batch"),
+            "shardflow_args": ((tparams, _state_tree(optimizer, tparams)),
+                               tb),
+            "in_specs": (_P(), _P("mn")),
             "expected_replication": {
                 "state": "the demo step replicates (params, momentum) "
                          "per replica — same ZeRO-1 debt as train.step, "
@@ -807,6 +913,9 @@ def _build_worker_lane(device="cuda", size="tiny") -> Dict[str, Any]:
                                  (pool.caches, slab, 1, torch.float32)]),
             "data_axis": "model",
             "arg_labels": ("dst_caches", "slabs", "dst"),
+            # the caches and the slab's columns thread in sharded
+            "shardflow_args": (pool.caches, slab, 0),
+            "in_specs": (_pool_spec(), _P(None, "model"), _P()),
             "expected_replication": {
                 "dst": "destination (reserved) slot index: one host-fed "
                        "int32 scalar per landing, replicated to every "

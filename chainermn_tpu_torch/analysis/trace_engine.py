@@ -92,10 +92,10 @@ class EntryPoint:
     * ``teardown`` (optional): called once the checks are done (a
       one-rank process group the build created is destroyed there).
 
-    The shard-flow keys of JAX's registrations (``data_axis``,
-    ``arg_labels``, ``expected_replication``, ``noted``) are kept in
-    every build dict for the port's shard-flow analyzer (ROADMAP.md,
-    A13c); this engine does not read them.
+    The shard-flow keys (JAX's ``data_axis``, ``arg_labels``,
+    ``expected_replication``, ``noted``, ``composite``, and the port's
+    ``in_specs`` and ``shardflow_args``) are read by the shard-flow
+    analyzer (``shardflow.py``); this engine does not read them.
     """
 
     name: str

@@ -28,6 +28,10 @@ recording bracket).
 :func:`record_collectives` brackets a call and collects the ordered
 ``(op, axis)`` of every outermost collective it runs, tracing on or off:
 the trace engine's collective sequence (``analysis/trace_engine.py``).
+The shard-flow analyzer's dispatch-graph recorder
+(``analysis/dispatch_graph.py``) opens a bracket of its own
+(:func:`collective_bracket`) that makes each accounted call one node of
+its graph.
 The schedule-execution counters (:func:`record_schedule_exec`, the
 ``schedule_exec/*`` gauges of ``/metricsz``) and the active calibration
 (the ``/statusz`` ``calibration`` provider) are copies of JAX's.
@@ -39,7 +43,7 @@ import functools
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
@@ -52,8 +56,9 @@ from ..health import collective_guard as _collective_guard
 #: Names of JAX's comm module that the port has not: none.
 NOT_PORTED: Dict[str, str] = {}
 
-#: The open :func:`record_collectives` bracket's list, or None.
-_RECORDING: Optional[list] = None
+#: The open recording bracket's hook, ``hook(op, axis, x, run,
+#: wire_dtype, noted)``, or None (:func:`collective_bracket`).
+_RECORDING: Optional[Callable] = None
 
 def _dtype_name(dt) -> str:
     """``torch.bfloat16`` / ``np.dtype('float32')`` / ``"int8"`` →
@@ -265,16 +270,16 @@ def collective(op: str, axis, x, thunk, wire_dtype=None, noted=False):
     (``shift`` → ``ppermute``, the int8 ring's gather,
     ``multi_node_mean_grad`` → ``allreduce``) is one call under its own
     name, as in JAX."""
-    rec = _RECORDING
-    if rec is not None and not getattr(_EAGER_DEPTH, "r", 0):
-        # the outermost call of a recording bracket: record it, then run
-        # it as usual with the nested calls unrecorded
-        rec.append((op, _axis_key(axis)))
-        _EAGER_DEPTH.r = 1
-        try:
-            return collective(op, axis, x, thunk, wire_dtype, noted)
-        finally:
-            _EAGER_DEPTH.r = 0
+    hook = _RECORDING
+    if hook is not None:
+        # an open recording bracket sees every call, nested ones too, and
+        # runs it as usual through ``run``
+        return hook(op, axis, x, lambda: _collective(
+            op, axis, x, thunk, wire_dtype, noted), wire_dtype, noted)
+    return _collective(op, axis, x, thunk, wire_dtype, noted)
+
+
+def _collective(op, axis, x, thunk, wire_dtype, noted):
     tr = trace.get_tracer()
     if not tr.enabled:
         return _guarded_call(op, thunk)
@@ -335,21 +340,41 @@ _payload_info = payload_info
 
 
 @contextmanager
+def collective_bracket(hook: Callable, what: str = "collective"):
+    """Route every call of :func:`collective` made inside the bracket,
+    nested ones too, through ``hook(op, axis, x, run, wire_dtype,
+    noted)``, which runs the call with ``run()``.  Brackets do not nest;
+    the hook is process-global (the analyzers run one entry at a time)."""
+    global _RECORDING
+    if _RECORDING is not None:
+        raise RuntimeError(f"{what} brackets do not nest")
+    _RECORDING = hook
+    try:
+        yield
+    finally:
+        _RECORDING = None
+
+
+@contextmanager
 def record_collectives():
     """Collect the ordered ``(op, axis)`` of every outermost collective
     run inside the bracket (a list, filled as the calls run), tracing on
     or off: the collectives the ledger books when tracing is on, in
-    order.  Brackets do not nest; the recording is process-global (the
-    trace engine runs one entry at a time)."""
-    global _RECORDING
-    if _RECORDING is not None:
-        raise RuntimeError("record_collectives brackets do not nest")
+    order.  Brackets do not nest."""
     seq: list = []
-    _RECORDING = seq
-    try:
+
+    def hook(op, axis, x, run, wire_dtype, noted):
+        if getattr(_EAGER_DEPTH, "r", 0):
+            return run()
+        seq.append((op, _axis_key(axis)))
+        _EAGER_DEPTH.r = 1
+        try:
+            return run()
+        finally:
+            _EAGER_DEPTH.r = 0
+
+    with collective_bracket(hook, "record_collectives"):
         yield seq
-    finally:
-        _RECORDING = None
 
 
 # --------------------------------------------------------------------------

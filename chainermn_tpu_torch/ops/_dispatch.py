@@ -14,18 +14,21 @@ on the CPU.
 
 :func:`record_signatures` brackets a call and collects the signatures of
 the wrappers it runs, in order (the trace engine's program count,
-``analysis/trace_engine.py``).  With no bracket open a wrapper pays one
-global read.
+``analysis/trace_engine.py``); the shard-flow analyzer's dispatch-graph
+recorder (``analysis/dispatch_graph.py``) opens a bracket of its own that
+makes each wrapper call one node of its graph.  A bracket is a hook,
+``hook(name, fn, args, kwargs)``, that runs the call; with none open a
+wrapper pays one global read.
 """
 
 from __future__ import annotations
 
 import functools
 from contextlib import contextmanager
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
-#: The open :func:`record_signatures` bracket's list, or None.
-_RECORDING: Optional[list] = None
+#: The open bracket's hook, ``hook(name, fn, args, kwargs)``, or None.
+_RECORDING: Optional[Callable] = None
 
 
 def _arg_signature(x) -> Any:
@@ -49,29 +52,42 @@ def signature(name: str, args, kwargs) -> tuple:
 
 
 def dispatch(name: str):
-    """Decorator of a kernel wrapper: records its call signature while a
-    :func:`record_signatures` bracket is open."""
+    """Decorator of a kernel wrapper: while a bracket is open, the call
+    runs through the bracket's hook."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            rec = _RECORDING
-            if rec is not None:
-                rec.append(signature(name, args, kwargs))
+            hook = _RECORDING
+            if hook is not None:
+                return hook(name, fn, args, kwargs)
             return fn(*args, **kwargs)
         return wrapper
     return deco
 
 
 @contextmanager
+def dispatch_bracket(hook: Callable, what: str = "dispatch"):
+    """Route every kernel-wrapper call made inside the bracket through
+    ``hook(name, fn, args, kwargs)``.  Brackets do not nest."""
+    global _RECORDING
+    if _RECORDING is not None:
+        raise RuntimeError(f"{what} brackets do not nest")
+    _RECORDING = hook
+    try:
+        yield
+    finally:
+        _RECORDING = None
+
+
+@contextmanager
 def record_signatures():
     """Collect the signature of every kernel-wrapper call made inside
     the bracket, in order.  Brackets do not nest."""
-    global _RECORDING
-    if _RECORDING is not None:
-        raise RuntimeError("record_signatures brackets do not nest")
     seq: list = []
-    _RECORDING = seq
-    try:
+
+    def hook(name, fn, args, kwargs):
+        seq.append(signature(name, args, kwargs))
+        return fn(*args, **kwargs)
+
+    with dispatch_bracket(hook, "record_signatures"):
         yield seq
-    finally:
-        _RECORDING = None

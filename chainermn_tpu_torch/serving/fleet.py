@@ -1946,7 +1946,12 @@ def rolling_upgrade(router: FleetRouter, runtimes: Optional[List[Any]],
     :class:`~chainermn_tpu_torch.serving.worker.WorkerRuntime`;
     ``worker_kwargs`` carry their ``device=``): each
     replacement runs on a daemon thread and is appended to
-    ``runtimes``.  A process fleet (``runtimes=None``, the router of
+    ``runtimes``.  At TP > 1 (a runtime, or ``worker_kwargs``' ``mesh``,
+    over a model axis of more than one rank) this raises
+    ``NotImplementedError`` before it touches the fleet: the replacement
+    would be built on the calling rank only, and no plan op builds it on
+    the followers, which would go on running the old worker's calls
+    (ROADMAP.md, queue A, A11 step 3d).  A process fleet (``runtimes=None``, the router of
     :func:`build_proc_fleet`): each replacement is spawned as the
     originals were (its device, its command and, at TP > 1, a whole
     group of processes) from a params file of the new generation in the
@@ -1961,6 +1966,20 @@ def rolling_upgrade(router: FleetRouter, runtimes: Optional[List[Any]],
     from ..parallel.reshard import reshard_host
     from .worker import WorkerRuntime
 
+    if runtimes is not None:
+        kw = worker_kwargs or {}
+        mesh = kw.get("mesh")
+        wide = [rt.name for rt in runtimes if getattr(rt, "tp", 1) > 1]
+        if mesh is not None and int(mesh.shape[kw.get("axis_name",
+                                                       "model")]) > 1:
+            wide.append("worker_kwargs['mesh']")
+        if wide:
+            raise NotImplementedError(
+                "rolling_upgrade over in-process runtimes at TP > 1 is not "
+                f"ported ({', '.join(wide)}): the replacement would be "
+                "built on this rank only and no plan op builds it on the "
+                "followers (ROADMAP.md, queue A, A11 step 3d); upgrade a "
+                "process fleet (runtimes=None, build_proc_fleet) instead")
     new_params = reshard_host(list(checkpoint_shards), src_layout,
                               None, 1)[0]
     targets = [w for w in router.workers.values()

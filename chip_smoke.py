@@ -478,7 +478,17 @@ and prints no result line:
    at ``size="tiny"``; the flash, decode and append launches equal what
    the calls imply (a layer each per prefill or tick); each entry's
    outputs (hidden states and caches) equal the same entry's on the CPU's
-   plain path within fp32's 1e-4.  Then the port's lock-order recorder
+   plain path within fp32's 1e-4.  Then the shard-flow analyzer
+   (``analysis/shardflow.py``) over the same two entries at ``size="full"``
+   on the card: each ``reconciled`` with no finding beyond the port's
+   ``.shardflow-baseline.json``; its kernel-wrapper nodes equal the kernel
+   launches of the same call (flash forward and append for the family,
+   decode for the tick); its static groups, replication report and
+   peak-live estimate equal the CPU's at the same size byte for byte; and
+   the estimate less the card storages resident before the call is at
+   most the caching allocator's peak delta over one plain call (after a
+   warm one), and so is the peak of the storages the call creates on the
+   card (``peak_defined_bytes``), all printed with their ratios.  Then the port's lock-order recorder
    (``CHAINERMN_TPU_TORCH_LOCK_ASSERT``) in a child process
    (``chip_smoke.py --lock-worker``) over 16 requests served on the card,
    8 through a ``ServingEngine``'s driver thread and 8 through a
@@ -7332,6 +7342,95 @@ def _analysis_outputs(smoke, name, got, want):
                for g, w in zip(got, want))
 
 
+#: kernel wrapper (a dispatch-graph node) -> the launch counter its
+#: kernel counts under (ops.KERNEL_WRAPPERS)
+WRAPPER_LAUNCHES = {"decode_append_attend": "decode_attend",
+                    "flash_attention": "flash_fwd",
+                    "cache_append": "cache_append"}
+
+
+def _allocator_delta(smoke, ep):
+    """Bytes the caching allocator holds at its peak over one plain call
+    of ``ep``'s trace at ``size="full"`` on the card, above what it held
+    before the call (after one warm call)."""
+    torch = smoke.torch
+    spec = ep.build(device="cuda", size="full")
+    try:
+        fn, args = spec["trace"]
+        fn(*args)                                   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        delta = torch.cuda.max_memory_allocated() - m0
+        del out
+    finally:
+        teardown = spec.get("teardown")
+        if teardown is not None:
+            teardown()
+    return int(delta)
+
+
+def _analysis_shardflow(smoke, ep):
+    """The shard-flow analyzer over ``ep`` at ``size="full"``, fp32: on the
+    card, reconciled and clean modulo the port's baseline; its wrapper
+    nodes equal the kernel launches of the same call; its static groups,
+    replication report and peak-live estimate equal the CPU's at the same
+    size byte for byte; the estimate less the card storages resident
+    before the call is at most the allocator's measured peak delta."""
+    from chainermn_tpu_torch.analysis import shardflow
+    from chainermn_tpu_torch.analysis.findings import load_baseline
+
+    baseline = load_baseline(str(ROOT / "chainermn_tpu_torch"
+                                 / shardflow.SHARDFLOW_BASELINE_FILENAME))
+    t0 = time.monotonic()
+    findings, card = shardflow.analyze_entrypoint(ep, device="cuda",
+                                                  size="full")
+    card_s = time.monotonic() - t0
+    new, _ = baseline.filter(findings)
+    if new or card.error or card.reconciled is not True:
+        raise AssertionError(f"shardflow {ep.name}: reconciled "
+                             f"{card.reconciled}, {card.error}, findings "
+                             f"{[f.render() for f in new]}")
+    nodes = {}
+    for name, n in card.kernels.items():
+        key = WRAPPER_LAUNCHES[name]
+        nodes[key] = nodes.get(key, 0) + n
+    if nodes != card.launches or not nodes:
+        raise AssertionError(f"shardflow {ep.name}: wrapper nodes {nodes} "
+                             f"!= kernel launches {card.launches}")
+    smoke.add_launches(card.launches)
+    _, cpu = shardflow.analyze_entrypoint(ep, device="cpu", size="full")
+    for key in ("static_groups", "replication", "peak_live_bytes",
+                "kernels"):
+        if getattr(card, key) != getattr(cpu, key):
+            raise AssertionError(f"shardflow {ep.name}: card {key} "
+                                 f"{getattr(card, key)} != CPU's "
+                                 f"{getattr(cpu, key)}")
+    # the estimate frees inputs at their last use (JAX's liveness), so
+    # its peak less the resident inputs is what it holds above them at
+    # that peak; the created peak counts only storages the call makes
+    estimate = card.peak_live_bytes - card.input_bytes
+    created = card.peak_defined_bytes
+    delta = _allocator_delta(smoke, ep)
+    if not (0 <= estimate <= delta and 0 < created <= delta):
+        raise AssertionError(f"shardflow {ep.name}: intermediates estimate "
+                             f"{estimate} B or created peak {created} B not "
+                             f"within the allocator delta {delta} B")
+    emit({"check": "analysis.shardflow", "entry": ep.name, "size": "full",
+          "reconciled": card.reconciled, "static_groups": card.static_groups,
+          "wrapper_nodes": card.kernels, "launches": card.launches,
+          "peak_live_bytes": card.peak_live_bytes,
+          "resident_bytes": card.input_bytes,
+          "intermediates_bytes": estimate, "created_peak_bytes": created,
+          "allocator_delta_bytes": delta,
+          "estimate_over_delta": round(estimate / delta, 4),
+          "created_over_delta": round(created / delta, 4),
+          "card_s": round(card_s, 3),
+          "phase_s": round(time.monotonic() - t0, 3), "card": smoke.card})
+
+
 def phase_analysis(smoke):
     from chainermn_tpu_torch.analysis.entrypoints import (SIZES,
                                                           select_entrypoints)
@@ -7385,6 +7484,8 @@ def phase_analysis(smoke):
               "n_compiles": card.n_compiles, "calls": card.calls,
               "launches": card.launches, "outputs_compared": n_out,
               "card_s": round(card_s, 3), "card": smoke.card})
+    for ep in eps:
+        _analysis_shardflow(smoke, ep)
     # the lock-order recorder over the card's serving, in a child process
     # that installs it before the package's modules are imported
     import tempfile

@@ -38,7 +38,9 @@ PORT_FILES = sorted((ROOT / "chainermn_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "_torch_example_worker.py",
     ROOT / "tests" / "_torch_zero_worker.py",
     ROOT / "tests" / "_torch_fleet_tp_worker.py",
-    ROOT / "tests" / "_torch_obs_worker.py"]
+    ROOT / "tests" / "_torch_obs_worker.py",
+    ROOT / "tests" / "_torch_shardflow_worker.py",
+    ROOT / "tests" / "_torch_upgrade_tp_worker.py"]
 # the communicator and Trainer slice: each must be among PORT_FILES
 TRAINER_SLICE = ["communicators/base.py", "communicators/naive.py",
                  "communicators/torch_dist.py", "ops/collective.py",
@@ -121,7 +123,8 @@ ANALYSIS_SLICE = ["analysis/findings.py", "analysis/baseline.py",
                   "analysis/cli.py", "analysis/__main__.py",
                   "analysis/schedule.py", "analysis/schedule_check.py",
                   "analysis/calibrate.py", "analysis/trace_engine.py",
-                  "analysis/entrypoints.py", "ops/_dispatch.py"]
+                  "analysis/entrypoints.py", "ops/_dispatch.py",
+                  "analysis/shardflow.py", "analysis/dispatch_graph.py"]
 
 
 @pytest.mark.parametrize("module", TRAINER_SLICE + MODEL_PARALLEL_SLICE
@@ -427,6 +430,16 @@ def test_every_jax_top_level_name_resolves_or_is_listed(name):
             getattr(mn, name)
     else:
         assert getattr(mn, name) is not None
+
+
+def test_analysis_not_ported_maps_are_empty():
+    """The shard-flow analyzer was the last module of queue A: nothing of
+    the analysis package is left in either table."""
+    from chainermn_tpu_torch import analysis
+    from chainermn_tpu_torch.analysis import entrypoints
+
+    assert analysis.NOT_PORTED == {} and entrypoints.NOT_PORTED == {}
+    assert analysis.ShardflowReport.__name__ == "ShardflowReport"
 
 
 def test_not_ported_table_holds_only_jax_names():

@@ -126,7 +126,7 @@ def test_registry_is_jax_s():
             (j.allow_recompile, j.shardflow), t.name
     assert set(JAX_RUNS) | set(JAX_DOCSTRING) == \
         {ep.name for ep in TE.ENTRYPOINTS}
-    assert TE.NOT_PORTED == {"analysis.shardflow": "A13c"}
+    assert TE.NOT_PORTED == {}
     eps, err = TE.select_entrypoints(["nope"])
     assert eps is None and "unknown entry point" in err
 
@@ -334,10 +334,14 @@ def test_cli_runs_one_entry_on_the_cpu(capsys):
 
 
 def test_shardflow_names_wait_for_a13c():
+    """A13c is ported: the shard-flow names resolve (their own tests are
+    ``tests/test_torch_shardflow.py``)."""
     import chainermn_tpu_torch.analysis as ta
 
-    with pytest.raises(AttributeError, match="A13c"):
-        ta.SHARDFLOW_RULES
+    assert set(ta.SHARDFLOW_RULES) == {
+        "unexpected-replication", "stale-replication-annotation",
+        "comm-ledger-gap", "shardflow-error"}
+    assert ta.NOT_PORTED == {}
     assert ta.TRACE_RULES == TT.JAXPR_RULES
     assert set(ta.TRACE_RULES) == {"unbound-axis", "recompile-hazard",
                                    "entrypoint-error"}
